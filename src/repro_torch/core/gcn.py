@@ -1,0 +1,163 @@
+"""ChemGCN — the paper's target application (§IV-D, §V-B), forward pass.
+
+A stack of graph-convolution layers, masked batch-norm after each, ReLU, a
+masked sum readout over nodes and a dense head: Tox21 has 12 binary tasks,
+Reaction100 100 classes. Parameters are a pytree of tensors with the
+reference's names (``convs[i].w/b``, ``bns[i].scale/bias``, ``head.w/b``);
+:class:`GCN` holds them as an ``nn.Module``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.core.formats import BatchedCOO
+from repro_torch.core.graph_conv import (
+    graph_conv_batched,
+    graph_conv_nonbatched,
+    init_graph_conv,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class GCNConfig:
+    """The reference's ``GCNConfig`` without ``interpret`` (the port picks
+    plain or kernel execution from the tensors' device). ``impl`` must be
+    pinned: ``"auto"`` raises in this port."""
+
+    n_features: int = 62
+    channels: int = 4
+    conv_widths: tuple[int, ...] = (64, 64)
+    n_tasks: int = 12
+    task: str = "multitask_binary"   # or "multiclass"
+    layer: str = "gcn"               # only "gcn" is ported
+    impl: str = "auto"
+    k_pad: int = 8
+    batched: bool = True             # Fig. 7 (True) vs Fig. 6 (False)
+    precision: str = "f32"           # only "f32" is ported
+    bn_mode: str = "batch"           # "batch" or per-graph "sample"
+
+    @staticmethod
+    def tox21(**kw) -> "GCNConfig":
+        return GCNConfig(conv_widths=(64, 64), n_tasks=12,
+                         task="multitask_binary", **kw)
+
+    @staticmethod
+    def reaction100(**kw) -> "GCNConfig":
+        return GCNConfig(conv_widths=(512, 512, 512), n_tasks=100,
+                         task="multiclass", **kw)
+
+
+def check_config(cfg: GCNConfig) -> None:
+    """Raise for the parts of the reference's config this port leaves out."""
+    if cfg.layer != "gcn":
+        raise NotImplementedError(
+            f"layer={cfg.layer!r} (GAT/R-GCN over g-SpMM) is not ported; "
+            "see ROADMAP.md")
+    if cfg.precision != "f32":
+        raise NotImplementedError(
+            f"precision={cfg.precision!r}: the reduced-precision variants "
+            "are not ported; see ROADMAP.md")
+
+
+def init_gcn(cfg: GCNConfig, *, generator: torch.Generator | None = None,
+             device=None) -> dict:
+    """Random parameters drawn from ``generator`` (the reference's shapes and
+    distributions; the numbers differ from ``jax.random``'s)."""
+    check_config(cfg)
+    device = resolve_device(device)
+    params = {"convs": [], "bns": []}
+    n_in = cfg.n_features
+    for w in cfg.conv_widths:
+        params["convs"].append(init_graph_conv(
+            n_in, w, cfg.channels, generator=generator, device=device))
+        params["bns"].append({
+            "scale": torch.ones((w,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((w,), dtype=torch.float32, device=device),
+        })
+        n_in = w
+    scale = 1.0 / math.sqrt(n_in)
+    head_w = torch.rand((n_in, cfg.n_tasks), generator=generator,
+                        dtype=torch.float32) * (2 * scale) - scale
+    params["head"] = {
+        "w": head_w.to(device),
+        "b": torch.zeros((cfg.n_tasks,), dtype=torch.float32, device=device),
+    }
+    return params
+
+
+def _batch_norm(p, x, mask, mode: str = "batch"):
+    """Masked batch-norm over real nodes only. ``mode="batch"`` reduces over
+    (batch, nodes); ``mode="sample"`` over each graph's own nodes, so a
+    request's logits do not depend on which graphs share its wave."""
+    if mode not in ("batch", "sample"):
+        raise ValueError(f"unknown bn_mode {mode!r}: expected 'batch' or "
+                         "'sample'")
+    if mode == "sample":
+        denom = torch.clamp(mask.sum(dim=(1, 2), keepdim=True), min=1.0)
+        mean = (x * mask).sum(dim=1, keepdim=True) / denom
+        var = (((x - mean) * mask) ** 2).sum(dim=1, keepdim=True) / denom
+    else:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        mean = (x * mask).sum(dim=(0, 1)) / denom
+        var = (((x - mean) * mask) ** 2).sum(dim=(0, 1)) / denom
+    xn = (x - mean) * torch.rsqrt(var + 1e-5)
+    return xn * p["scale"] + p["bias"]
+
+
+def apply_gcn(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
+              x: torch.Tensor, n_nodes: torch.Tensor) -> torch.Tensor:
+    """Logits (batch, n_tasks) for x (batch, m_pad, n_features) and per-channel
+    adjacencies; runs on the device the tensors lie on."""
+    check_config(cfg)
+    mask = (torch.arange(x.shape[1], device=x.device)[None, :, None]
+            < n_nodes[:, None, None]).to(x.dtype)
+    h = x
+    for conv_p, bn_p in zip(params["convs"], params["bns"]):
+        if cfg.batched:
+            h = graph_conv_batched(conv_p, adj, h, impl=cfg.impl,
+                                   k_pad=cfg.k_pad)
+        else:
+            h = graph_conv_nonbatched(conv_p, adj, h)
+        h = _batch_norm(bn_p, h * mask, mask, cfg.bn_mode)
+        h = torch.relu(h) * mask
+    readout = h.sum(dim=1)
+    return readout @ params["head"]["w"] + params["head"]["b"]
+
+
+class GCN(nn.Module):
+    """ChemGCN as a module: parameters named as the reference's pytree
+    (``convs.0.w``, ``bns.0.scale``, ``head.w`` …); ``forward`` is
+    :func:`apply_gcn`. The parameters are held without gradients: the
+    kernels are forward-only until the training slice."""
+
+    def __init__(self, cfg: GCNConfig, params: dict | None = None, *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        if params is None:
+            params = init_gcn(cfg, generator=generator, device=device)
+        self.cfg = cfg
+
+        def bag(d):
+            return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                     for k, v in d.items()})
+
+        self.convs = nn.ModuleList(bag(p) for p in params["convs"])
+        self.bns = nn.ModuleList(bag(p) for p in params["bns"])
+        self.head = bag(params["head"])
+
+    @property
+    def params(self) -> dict:
+        """The parameters as the reference's pytree of tensors."""
+        return {"convs": [dict(p) for p in self.convs],
+                "bns": [dict(p) for p in self.bns],
+                "head": dict(self.head)}
+
+    def forward(self, adj: Sequence[BatchedCOO], x: torch.Tensor,
+                n_nodes: torch.Tensor) -> torch.Tensor:
+        return apply_gcn(self.params, self.cfg, adj, x, n_nodes)

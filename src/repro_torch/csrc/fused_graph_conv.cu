@@ -1,0 +1,155 @@
+// Fused graph-conv layer — Y = epi(sum_ch A_ch (X W_ch + b_ch) [+ res]) in
+// ONE kernel, the whole ChemGCN layer of paper Fig. 7 per launch.
+//
+// Replaces the TPU kernel src/repro/kernels/fused_graph_conv.py
+// (fused_forward / _kernel without its rank/slab hybrid branch; the fused
+// registry entry).
+//
+// What bounds it on an H100: operations at wide layers, launches at narrow
+// ones. The feature transform is 2 * m_pad * n_in * n_out FLOP per sample
+// and channel (15 GFLOP per Reaction100 layer at 128 samples: 0.23 ms at
+// the 67 TFLOP/s f32 peak) against a few MB of X, W and Y; at Tox21 widths
+// (62 -> 64) it is 0.23 GFLOP, ~3.4 us, the size of one launch.
+//
+// Design: one block per (sample x output-column panel), grid (batch, p).
+// Shared memory holds the sample's X tile (m_pad x n_in), one channel's
+// U_ch panel (m_pad x n_block) and the accumulator (m_pad x n_block): 42 KB
+// at Tox21, 172 KB at Reaction100 layers 2-3 (n_in 512, n_block 128), which
+// is why the launch opts into more than 48 KB of dynamic shared memory. For
+// each channel the block computes U_ch = X W_ch[:, panel] + b_ch with f32
+// FMAs (no TF32): a warp spans 32 columns, each thread keeps a 8-row x
+// 4-column tile in registers, reads X from shared memory (one broadcast per
+// row) and W from global memory (L2; W is 4 MB at Reaction100 and is not
+// staged). After a barrier, sub-warps scatter val * U_ch[cid] into the
+// accumulator with shared-memory atomicAdd. Each (sample x channel) visits
+// only its real chunks[s, ch] * chunk slots (the reference's skew-aware
+// bound; a channel with no chunk skips its transform too), and a slot whose
+// value is 0.0 — padding, which the reference lets sit anywhere inside the
+// visited chunks — costs a load and no atomic. The epilogue adds the
+// residual, applies ReLU and stores the panel once. The atomics make the
+// last bits of a sum vary from run to run; the result is held to the f32
+// tolerance.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kLanes = 32;                     // threads along the columns
+constexpr int kRowGroups = kThreads / kLanes;  // threads along the rows
+constexpr int kCols = 4;                       // columns per thread
+constexpr int kRows = 8;                       // rows per thread and pass
+
+__global__ void __launch_bounds__(kThreads)
+fused_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
+             const float* __restrict__ val, const int* __restrict__ chunks,
+             const float* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ bias, const float* __restrict__ res,
+             float* __restrict__ y, int channels, int nnz_pad, int chunk,
+             int m_pad, int n_in, int n_out, int n_block, int relu, int sub) {
+  extern __shared__ float smem[];
+  float* xs = smem;                    // (m_pad, n_in) X tile
+  float* us = xs + m_pad * n_in;       // (m_pad, nbw) U_ch panel
+  float* acc = us + m_pad * n_block;   // (m_pad, nbw) accumulator
+  const int s = blockIdx.x;
+  const int col0 = blockIdx.y * n_block;
+  const int nbw = min(n_block, n_out - col0);
+  const int tid = threadIdx.x;
+
+  const float* xsrc = x + static_cast<size_t>(s) * m_pad * n_in;
+  for (int i = tid; i < m_pad * n_in; i += kThreads) xs[i] = xsrc[i];
+  for (int i = tid; i < m_pad * nbw; i += kThreads) acc[i] = 0.f;
+  __syncthreads();
+
+  const int tx = tid % kLanes, ty = tid / kLanes;
+  const int lane = tid % sub, groups = kThreads / sub;
+  for (int ch = 0; ch < channels; ++ch) {
+    const int sc = s * channels + ch;
+    const int n = min(max(chunks[sc], 0) * chunk, nnz_pad);
+    if (n == 0) continue;  // the same for every thread of the block
+
+    const float* wch = w + static_cast<size_t>(ch) * n_in * n_out + col0;
+    const float* bch = bias + static_cast<size_t>(ch) * n_out + col0;
+    for (int r0 = 0; r0 < m_pad; r0 += kRowGroups * kRows) {
+      float a[kRows][kCols];
+      const float* xr[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        xr[i] = xs + min(r0 + ty + kRowGroups * i, m_pad - 1) * n_in;
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) a[i][q] = 0.f;
+      }
+      for (int k = 0; k < n_in; ++k) {
+        float wv[kCols];
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) {
+          const int cc = tx + kLanes * q;
+          wv[q] = cc < nbw ? __ldg(wch + static_cast<size_t>(k) * n_out + cc)
+                           : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float xv = xr[i][k];
+#pragma unroll
+          for (int q = 0; q < kCols; ++q) a[i][q] = fmaf(xv, wv[q], a[i][q]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int r = r0 + ty + kRowGroups * i;
+        if (r >= m_pad) continue;
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) {
+          const int cc = tx + kLanes * q;
+          if (cc < nbw) us[r * nbw + cc] = a[i][q] + __ldg(bch + cc);
+        }
+      }
+    }
+    __syncthreads();
+
+    const size_t off = static_cast<size_t>(sc) * nnz_pad;
+    for (int i = tid / sub; i < n; i += groups) {
+      const float v = __ldg(val + off + i);
+      const int r = __ldg(rid + off + i), j = __ldg(cid + off + i);
+      if (v == 0.f || static_cast<unsigned>(r) >= static_cast<unsigned>(m_pad) ||
+          static_cast<unsigned>(j) >= static_cast<unsigned>(m_pad))
+        continue;
+      const float* urow = us + j * nbw;
+      float* arow = acc + r * nbw;
+      for (int cc = lane; cc < nbw; cc += sub)
+        atomicAdd(arow + cc, v * urow[cc]);
+    }
+    __syncthreads();  // U_ch is overwritten by the next channel
+  }
+
+  for (int i = tid; i < m_pad * nbw; i += kThreads) {
+    const int r = i / nbw, cc = i - r * nbw;
+    const size_t g = (static_cast<size_t>(s) * m_pad + r) * n_out + col0 + cc;
+    float o = acc[i];
+    if (res) o += res[g];
+    if (relu) o = fmaxf(o, 0.f);
+    y[g] = o;
+  }
+}
+
+}  // namespace
+
+extern "C" int fused_graph_conv_f32(const int* rid, const int* cid,
+                                    const float* val, const int* chunks,
+                                    const float* x, const float* w,
+                                    const float* bias, const float* res,
+                                    float* y, int batch, int channels,
+                                    int nnz_pad, int chunk, int m_pad,
+                                    int n_in, int n_out, int n_block,
+                                    int relu, void* stream) {
+  if (n_block < 1 || n_block > kLanes * kCols) return cudaErrorInvalidValue;
+  const size_t smem = (static_cast<size_t>(m_pad) * n_in +
+                       2 * static_cast<size_t>(m_pad) * n_block) *
+                      sizeof(float);
+  cudaError_t e = repro::allow_smem(fused_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(batch, (n_out + n_block - 1) / n_block);
+  fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      rid, cid, val, chunks, x, w, bias, res, y, channels, nnz_pad, chunk,
+      m_pad, n_in, n_out, n_block, relu, repro::sub_warp(n_block));
+  return cudaGetLastError();
+}

@@ -1,0 +1,59 @@
+"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package ``repro``, and ``chip_smoke.py``
+refuses to report a result without a GPU or outside a checkout."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                       re.M)
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_port_modules_import_without_jax_or_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "assert len(mods) >= 15, mods\n"
+        "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_no_jax_or_reference_import_in_port_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 16
+    for f in files:
+        hits = FORBIDDEN.findall(f.read_text())
+        assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+def test_chip_smoke_fails_without_gpu_or_checkout(tmp_path):
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd is tmp_path:
+            shutil.copy(ROOT / "chip_smoke.py", script)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
