@@ -9,15 +9,28 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
 2. build: the CUDA kernels from ``src/repro_torch/csrc`` (``build/kernels``);
 3. kernels: each kernel against its plain PyTorch version, at the main
-   path's shapes (taken from a real Tox21 / Reaction100 wave) and on the
-   uniform / skewed / zero-nnz regimes, with kernel, plain, library-call
-   and bound times;
+   paths' shapes (taken from a real Tox21 / Reaction100 wave and training
+   batch) and on the uniform / skewed / zero-nnz regimes, with kernel,
+   plain, library-call and bound times (device times by CUDA-graph
+   replay; the kernel's back-to-back call time beside it); the CSR kernel
+   also twice for identical bits, and the COO and CSR kernels in their
+   backward roles
+   (dU of the fused layer, dB of ``pallas_csr`` on the transposed CSR);
 4. serve Tox21 (62 -> 64 -> 64, 12 tasks): 512 requests through
    ``GraphServeEngine(batch=128, m_pad=56, nnz_pad=256)`` with
    ``impl`` = fused, pallas_ell, pallas_coo and ref; launch counts, logits
    against ``ref``, wave-composition invariance, host/device wave times;
 5. serve Reaction100 (62 -> 512 x 3, 100 classes) with ``impl="fused"``
-   against ``ref``.
+   against ``ref``;
+6. train Tox21: ``GCNTrainer.fit``, 20 Adam steps (lr 3e-3) over 1,000
+   ``tox21_like`` molecules in batches of 50, with ``impl`` = fused,
+   pallas_coo, pallas_ell, pallas_csr and ref from one set of seed-0
+   parameters; first-step gradients and the loss curve against ``ref``,
+   kernel launches per step, ms per step split into batch placement,
+   forward, backward and optimizer, and a resume from the step-10
+   checkpoint;
+7. train Reaction100: 5 steps in batches of 100, ``impl="fused"`` against
+   ``ref``.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -38,13 +51,30 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12         # H100 SXM f32, outside the tensor cores
 F32_TOL = (1e-4, 1e-5)         # (atol, rtol): tests/oracle.py TOLS["f32"]
 DEVICE = "cuda"
+GRAD_TOL = (3e-4, 3e-5)        # layer gradients: 3x F32_TOL (tests/oracle.py)
+CURVE_RTOL = 1e-3              # loss curves against impl="ref"
 TOX21 = dict(batch=128, m_pad=56, nnz_pad=256)
 N_REQUESTS = 512
+TRAIN_TOX21 = dict(n_samples=1000, batch=50, steps=20, lr=3e-3)
+TRAIN_R100 = dict(batch=100, steps=5, lr=3e-3)
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 TPU_SITE = {
     "batched_spmm_ell": "src/repro/kernels/batched_spmm_ell.py:142",
     "batched_spmm_coo": "src/repro/kernels/batched_spmm_coo.py:168",
+    "batched_spmm_csr": "src/repro/kernels/batched_spmm_csr.py:163",
     "fused_forward": "src/repro/kernels/fused_graph_conv.py:197",
 }
+SOURCE = {"batched_spmm_ell": "batched_spmm_ell",
+          "batched_spmm_coo": "batched_spmm_coo",
+          "batched_spmm_csr": "batched_spmm_csr",
+          "fused_forward": "fused_graph_conv"}
+# the row of each kernel that its {"kernels": ...} entry reports: the shape
+# its first main path gives it (serving for ELL, COO and fused, training
+# for CSR); the other rows are printed as [kernels] lines
+ENTRY_ROW = {"batched_spmm_ell": "batched_spmm_ell",
+             "batched_spmm_coo": "batched_spmm_coo",
+             "batched_spmm_csr": "batched_spmm_csr",
+             "fused_forward": "fused_forward[tox21]"}
 
 
 class SmokeFailure(RuntimeError):
@@ -61,8 +91,10 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events over ``iters``
-    back-to-back calls (inputs stay L2-warm, as on the serving path)."""
+    """Mean time of ``fn`` in ms, by CUDA events over ``iters`` back-to-back
+    calls (inputs stay L2-warm, as on the serving path). Where one call's
+    device work is shorter than the host's time to issue the next, this is
+    the host's pace, not the device time: see :func:`graph_ms`."""
     import torch
 
     for _ in range(warmup):
@@ -76,6 +108,39 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 30, replays: int = 5) -> float:
+    """Mean device time of ``fn`` in ms: ``iters`` calls captured in one
+    CUDA graph and replayed ``replays`` times between CUDA events, so that
+    the host's cost of issuing each call drops out (inputs L2-warm)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: a kernel's first launch above 48 KB of shared memory sets
+    # its function attribute, which the default capture mode refuses
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -176,16 +241,54 @@ def _regimes(device):
             ("zero_nnz", zero.to(device), 16)]
 
 
-def phase_kernels(device):
-    """Each kernel against its plain version; times at the main-path shapes."""
+def _on(batch, device):
+    """A training batch's tensors on ``device``."""
+    return {"adj": [a.to(device) for a in batch["adj"]],
+            "x": batch["x"].to(device), "n_nodes": batch["n_nodes"].to(device),
+            "labels": batch["labels"].to(device)}
+
+
+def _train_batches(spec, batch: int):
+    from repro_torch.data.graphs import batches, generate
+
+    return list(batches(generate(spec), spec, batch))
+
+
+def _measure(rows, key, kernel, kern, plain, nbytes, flops, shape,
+             library=None, bitwise=False):
+    """Hold ``kern()`` against ``plain()`` (and ``library()`` when given,
+    and two calls for identical bits when ``bitwise``), then time all
+    three by CUDA-graph replay, and the kernel by back-to-back calls too;
+    adds the row ``key`` of kernel ``kernel``."""
     import torch
-    from repro_torch.core.formats import coo_to_dense, coo_to_ell, \
-        max_row_degree
+
+    got = kern()
+    err = max_err(got, plain(), key)
+    if bitwise:
+        check(torch.equal(got, kern()), f"{key}: two calls differ")
+    if library is not None:
+        max_err(library(), plain(), f"{key} library call")
+    b_ms, b_by = bound(nbytes, flops)
+    rows[key] = dict(
+        name=key, kernel=kernel, max_abs_err=err, ms=graph_ms(kern),
+        stream_ms=cuda_ms(kern), plain_ms=graph_ms(plain), bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=None if library is None else graph_ms(library),
+        shape=shape)
+
+
+def phase_kernels(device):
+    """Each kernel against its plain version; times at the main-path shapes.
+    Returns (rows, the largest error of each kernel over every check)."""
+    import torch
+    from repro_torch.core.formats import BatchedCOO, coo_to_csr, \
+        coo_to_dense, coo_to_ell, csr_transpose, max_row_degree
     from repro_torch.core.gcn import GCNConfig
     from repro_torch.core.graph_conv import flatten_channels, stack_channels
     from repro_torch.data.graphs import GraphDatasetSpec
     from repro_torch.kernels import ref
     from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
     from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
     from repro_torch.kernels.fused_graph_conv import fused_forward, \
         runtime_chunks
@@ -194,7 +297,7 @@ def phase_kernels(device):
     rows = {}
     gen = torch.Generator(device="cpu").manual_seed(1)
 
-    # -- the Tox21 main path: the first wave of the serving phase ----------
+    # -- the Tox21 serving path: the first wave of the serving phase -------
     cfg = GCNConfig.tox21(impl="fused", bn_mode="sample")
     params = _params(cfg, 0, device)
     wave = GraphServeEngine(params, cfg, device=device, **TOX21).assemble(
@@ -211,28 +314,18 @@ def phase_kernels(device):
     a_dense = coo_to_dense(a_flat, m_pad)
     io = 2 * u.numel() * 4                       # B read once, C written once
     flops = 2 * nnz * u.shape[-1]
-    spmm = {
-        "batched_spmm_ell": (
-            lambda: batched_spmm_ell(ell.col_ids, ell.values, u),
-            lambda: ref.batched_spmm_ell_plain(ell.col_ids, ell.values, u),
-            bound(io + nnz * 8, flops)),
-        "batched_spmm_coo": (
-            lambda: batched_spmm_coo(a_flat.row_ids, a_flat.col_ids,
-                                     a_flat.values, u),
-            lambda: ref.batched_spmm_coo_plain(a_flat.row_ids, a_flat.col_ids,
-                                               a_flat.values, u),
-            bound(io + nnz * 12, flops)),
-    }
-    for name, (kern, plain, (b_ms, b_by)) in spmm.items():
-        err = max_err(kern(), plain(), f"{name} main path")
-        max_err(torch.bmm(a_dense, u), plain(), f"{name} library call")
-        rows[name] = dict(
-            name=name, max_abs_err=err, ms=cuda_ms(kern),
-            plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
-            library_ms=cuda_ms(lambda: torch.bmm(a_dense, u)),
-            shape=f"{u.shape[0]} matrices x {m_pad} rows, k_pad "
-                  f"{cfg.k_pad}, nnz_pad {a_flat.nnz_pad}, n_b 64, "
-                  f"{nnz} real nnz")
+    shape = (f"{u.shape[0]} matrices x {m_pad} rows, k_pad {cfg.k_pad}, "
+             f"nnz_pad {a_flat.nnz_pad}, n_b 64, {nnz} real nnz")
+    _measure(rows, "batched_spmm_ell", "batched_spmm_ell",
+             lambda: batched_spmm_ell(ell.col_ids, ell.values, u),
+             lambda: ref.batched_spmm_ell_plain(ell.col_ids, ell.values, u),
+             io + nnz * 8, flops, shape, lambda: torch.bmm(a_dense, u))
+    _measure(rows, "batched_spmm_coo", "batched_spmm_coo",
+             lambda: batched_spmm_coo(a_flat.row_ids, a_flat.col_ids,
+                                      a_flat.values, u),
+             lambda: ref.batched_spmm_coo_plain(a_flat.row_ids, a_flat.col_ids,
+                                                a_flat.values, u),
+             io + nnz * 12, flops, shape, lambda: torch.bmm(a_dense, u))
 
     # fused layers: Tox21 layer 1 and Reaction100 layer 2 (n_in 512)
     def fused_case(tag, adj, x, w, bias, n_nodes):
@@ -243,34 +336,23 @@ def phase_kernels(device):
         live_rows = int(((chunks > 0) * n_nodes[:, None]).sum().item())
         real = int(nnz_sc.sum().item())
         n_in, n_out = x.shape[-1], w.shape[-1]
-        ch = w.shape[0]
         dense = torch.stack([coo_to_dense(a, m_pad) for a in adj])  # ch,b,m,m
-
-        def kern():
-            return fused_forward(rid, cid, val, chunks, x, w, bias)
-
-        def plain():
-            return ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w,
-                                              bias)
 
         def library():
             uu = torch.einsum("bmn,cnf->cbmf", x, w) + bias[:, None, None, :]
             return torch.matmul(dense, uu).sum(dim=0)
 
-        err = max_err(kern(), plain(), f"fused_forward {tag}")
-        max_err(library(), plain(), f"fused library call {tag}")
         nbytes = (real * 12 + chunks.numel() * 4 + x.numel() * 4
                   + w.numel() * 4 + bias.numel() * 4 + x.shape[0] * m_pad
                   * n_out * 4)
-        b_ms, b_by = bound(nbytes, 2 * real * n_out
-                           + 2 * live_rows * n_in * n_out)
-        rows[f"fused_forward[{tag}]"] = dict(
-            name=f"fused_forward[{tag}]", max_abs_err=err, ms=cuda_ms(kern),
-            plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
-            library_ms=cuda_ms(library),
-            shape=f"{x.shape[0]} samples x {ch} channels, m_pad {m_pad}, "
-                  f"n_in {n_in} -> n_out {n_out}, {real} real nnz, "
-                  f"{live} live (sample, channel) pairs")
+        _measure(rows, f"fused_forward[{tag}]", "fused_forward",
+                 lambda: fused_forward(rid, cid, val, chunks, x, w, bias),
+                 lambda: ref.fused_graph_conv_plain(rid, cid, val, chunks, x,
+                                                    w, bias),
+                 nbytes, 2 * real * n_out + 2 * live_rows * n_in * n_out,
+                 f"{x.shape[0]} samples x {w.shape[0]} channels, m_pad "
+                 f"{m_pad}, n_in {n_in} -> n_out {n_out}, {real} real nnz, "
+                 f"{live} live (sample, channel) pairs", library)
 
     fused_case("tox21", wave.adj, wave.x, conv["w"], conv["b"], wave.n_nodes)
     # Reaction100 layer 2 (512 -> 512): a real wave's adjacency and layer
@@ -285,20 +367,95 @@ def phase_kernels(device):
     conv2 = r_params["convs"][1]
     fused_case("reaction100", rw.adj, x2, conv2["w"], conv2["b"], rw.n_nodes)
 
+    # -- the training path: the first Tox21 batch of phase 6, layer 1 ------
+    tb = _on(_train_batches(GraphDatasetSpec.tox21_like(
+        TRAIN_TOX21["n_samples"], seed=0), TRAIN_TOX21["batch"])[0], device)
+    t_flat = flatten_channels(tb["adj"])
+    t_m = tb["x"].shape[1]
+    t_u = (torch.einsum("bmn,cnf->cbmf", tb["x"], conv["w"])
+           + conv["b"][:, None, None, :]).reshape(-1, t_m, 64).contiguous()
+    t_nnz = int(t_flat.nnz.sum().item())
+    n_mat = t_u.shape[0]
+    t_shape = (f"{n_mat} matrices x {t_m} rows, nnz_pad {t_flat.nnz_pad}, "
+               f"n_b 64, {t_nnz} real nnz")
+
+    def swapped(a):
+        return BatchedCOO(a.col_ids, a.row_ids, a.values, a.nnz, a.n_rows)
+
+    def csr_rows(key, a, b, shape):
+        csr = coo_to_csr(a, t_m)
+        dense = coo_to_dense(a, t_m)
+        _measure(rows, key, "batched_spmm_csr",
+                 lambda: batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, b),
+                 lambda: ref.batched_spmm_csr_plain(csr.rpt, csr.col_ids,
+                                                    csr.values, b),
+                 csr.rpt.numel() * 4 + t_nnz * 8 + 2 * b.numel() * 4,
+                 2 * t_nnz * b.shape[-1], shape,
+                 lambda: torch.bmm(dense, b), bitwise=True)
+
+    # forward of pallas_csr, then its dB: the same kernel on the transposed
+    # CSR (the swapped COO re-sorted, as ops.backward_db does)
+    csr_rows("batched_spmm_csr", t_flat, t_u, t_shape)
+    dc = torch.randn(tuple(t_u.shape), generator=gen).to(device)
+    csr_rows("batched_spmm_csr[dB, transposed CSR]", swapped(t_flat), dc,
+             t_shape)
+
+    # the COO kernel as dU = Aᵀ·dZ of the fused backward: every slot, ids
+    # swapped, at Tox21 (n_b 64) and Reaction100 (batch 100, n_b 512) width
+    def coo_du(key, a, n_b, m):
+        dz = torch.randn((a.batch, m, n_b), generator=gen).to(device)
+        at = swapped(a)
+        real = int(a.nnz.sum().item())
+        dense = coo_to_dense(at, m)
+        _measure(rows, key, "batched_spmm_coo",
+                 lambda: batched_spmm_coo(at.row_ids, at.col_ids, at.values,
+                                          dz),
+                 lambda: ref.batched_spmm_coo_plain(at.row_ids, at.col_ids,
+                                                    at.values, dz),
+                 2 * dz.numel() * 4 + real * 12, 2 * real * n_b,
+                 f"{a.batch} matrices x {m} rows, nnz_pad {a.nnz_pad}, n_b "
+                 f"{n_b}, {real} real nnz", lambda: torch.bmm(dense, dz))
+
+    coo_du("batched_spmm_coo[dU, tox21 training]", t_flat, 64, t_m)
+    rb = _on(_train_batches(GraphDatasetSpec.reaction100_like(
+        TRAIN_R100["batch"] * TRAIN_R100["steps"], seed=0),
+        TRAIN_R100["batch"])[0], device)
+    coo_du("batched_spmm_coo[dU, reaction100 training]",
+           flatten_channels(rb["adj"]), 512, rb["x"].shape[1])
+
+    errs = {}
+    for r in rows.values():
+        errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0), r["max_abs_err"])
+
     # -- the three regimes, small sizes -----------------------------------
     for rname, coo, mp in _regimes(device):
         k_pad = max(1, int(max_row_degree(coo, mp).max().item()))
         b = torch.randn((coo.batch, mp, 48), generator=gen).to(device)
         e = coo_to_ell(coo, mp, k_pad)
-        for kname, got, want in (
-                ("batched_spmm_ell", batched_spmm_ell(e.col_ids, e.values, b),
-                 ref.batched_spmm_ell_plain(e.col_ids, e.values, b)),
-                ("batched_spmm_coo",
-                 batched_spmm_coo(coo.row_ids, coo.col_ids, coo.values, b),
-                 ref.batched_spmm_coo_plain(coo.row_ids, coo.col_ids,
-                                            coo.values, b))):
-            err = max_err(got, want, f"{kname} {rname}")
-            rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
+        csr = coo_to_csr(coo, mp)
+        csr_t = csr_transpose(csr)
+        checks = [
+            ("batched_spmm_ell", lambda: batched_spmm_ell(e.col_ids, e.values,
+                                                          b),
+             lambda: ref.batched_spmm_ell_plain(e.col_ids, e.values, b)),
+            ("batched_spmm_coo",
+             lambda: batched_spmm_coo(coo.row_ids, coo.col_ids, coo.values,
+                                      b),
+             lambda: ref.batched_spmm_coo_plain(coo.row_ids, coo.col_ids,
+                                                coo.values, b))]
+        for c in (csr, csr_t):
+            checks.append((
+                "batched_spmm_csr",
+                lambda c=c: batched_spmm_csr(c.rpt, c.col_ids, c.values, b),
+                lambda c=c: ref.batched_spmm_csr_plain(c.rpt, c.col_ids,
+                                                       c.values, b)))
+        for kname, kern, plain in checks:
+            got = kern()
+            errs[kname] = max(errs[kname], max_err(got, plain(),
+                                                   f"{kname} {rname}"))
+            if kname == "batched_spmm_csr":
+                check(torch.equal(got, kern()),
+                      f"{kname} {rname}: two calls differ")
         perm = torch.randperm(coo.nnz_pad, generator=gen).to(device)
         adj2 = [coo, coo.__class__(coo.row_ids[:, perm], coo.col_ids[:, perm],
                                    coo.values[:, perm], coo.nnz, coo.n_rows)]
@@ -313,26 +470,31 @@ def phase_kernels(device):
             want = ref.fused_graph_conv_plain(rid, cid, val,
                                               runtime_chunks(nnz_sc), x, w,
                                               bias, r, epi)
-            err = max_err(got, want, f"fused_forward {rname} {epi}")
-            rows["fused_forward[tox21]"]["max_abs_err"] = max(
-                rows["fused_forward[tox21]"]["max_abs_err"], err)
-        log(f"[kernels] regime {rname}: ELL, COO and fused (none, relu + "
-            f"residual) match their plain versions")
+            errs["fused_forward"] = max(errs["fused_forward"], max_err(
+                got, want, f"fused_forward {rname} {epi}"))
+        log(f"[kernels] regime {rname}: ELL, COO, CSR (A and its transpose, "
+            f"identical bits twice) and fused (none, relu + residual) match "
+            f"their plain versions")
     for r in rows.values():
-        log(f"[kernels] {r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms,"
-            f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"[kernels] {r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms "
+            f"(back-to-back calls {r['stream_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
             f"{r['max_abs_err']:.3e}")
-    return rows
+    return rows, errs
 
 
 def _reset_counters():
     from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
     from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
     from repro_torch.kernels.fused_graph_conv import fused_forward
 
     wrappers = {"batched_spmm_ell": batched_spmm_ell,
                 "batched_spmm_coo": batched_spmm_coo,
+                "batched_spmm_csr": batched_spmm_csr,
                 "fused_forward": fused_forward}
     for fn in wrappers.values():
         fn.launches = 0
@@ -420,6 +582,123 @@ def phase_serve(tag, cfg_fn, spec, impls, expect_per_wave, device, tol):
     return launches
 
 
+def _first_grads(cfg, params, batch):
+    """gcn_loss's gradients at ``params`` on a placed batch (the first
+    step's, computed apart from the counted run)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core.gcn import gcn_loss
+
+    live = [p.detach().clone().requires_grad_() for p in tree.leaves(params)]
+    loss, _ = gcn_loss(tree.unflatten(params, live), cfg, batch["adj"],
+                       batch["x"], batch["n_nodes"], batch["labels"])
+    return torch.autograd.grad(loss, live)
+
+
+def _fit(trainer, data, on_phase=None):
+    """``trainer.fit`` over ``data``, one batch per epoch so that
+    ``on_metrics`` hands over every step's loss; returns the losses of the
+    steps it trained."""
+    losses = []
+    trainer.fit(lambda e: [data[e]], epochs=len(data),
+                on_metrics=lambda _, rec: losses.append(rec["loss"]),
+                on_phase=on_phase)
+    return losses
+
+
+def phase_train(tag, cfg_fn, spec, run, impls, expect_per_step, device,
+                resume_impl=None):
+    """Train ``run["steps"]`` Adam steps per impl from one set of seed-0
+    parameters through ``GCNTrainer.fit``; returns launches per kernel."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.training.trainer import GCNTrainer, TrainerConfig
+
+    steps = run["steps"]
+    data = _train_batches(spec, run["batch"])[:steps]
+    check(len(data) == steps, f"{tag}: {len(data)} batches for {steps} steps")
+    first = _on(data[0], device)
+    grads, curves, launches = {}, {}, {}
+
+    def trainer(impl, ck):
+        return GCNTrainer(cfg_fn(impl=impl), AdamConfig(lr=run["lr"]),
+                          TrainerConfig(str(ck), checkpoint_every=10),
+                          device=device)
+
+    for impl in impls:
+        ck = CKPT_DIR / tag / impl
+        shutil.rmtree(ck, ignore_errors=True)
+        tr = trainer(impl, ck)
+        grads[impl] = _first_grads(tr.cfg, tr.init_state()[0], first)
+        marks = []
+
+        def mark(phase):
+            torch.cuda.synchronize()
+            marks.append((phase, time.perf_counter()))
+
+        wrappers = _reset_counters()
+        mark("start")
+        curves[impl] = np.asarray(_fit(tr, data, on_phase=mark))
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        want = {k: expect_per_step.get(impl, {}).get(k, 0) * steps
+                for k in counts}
+        check(counts == want, f"train {tag} {impl}: launches {counts}, "
+                              f"expected {want}")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        check(len(curves[impl]) == steps
+              and bool(np.isfinite(curves[impl]).all()),
+              f"train {tag} {impl}: loss curve {curves[impl]}")
+        split = {p: [] for p in ("batch", "forward", "backward",
+                                 "optimizer")}
+        for (_, t0), (phase, t1) in zip(marks, marks[1:]):
+            split[phase].append((t1 - t0) * 1e3)
+        total = [sum(x) for x in zip(*split.values())]
+        per_step = {k: n // steps for k, n in counts.items() if n}
+        log(f"[train {tag}] impl={impl}: {steps} steps of {run['batch']}; "
+            f"median ms per step: batch placement "
+            f"{statistics.median(split['batch']):.3f}, forward "
+            f"{statistics.median(split['forward']):.3f}, backward "
+            f"{statistics.median(split['backward']):.3f}, optimizer "
+            f"{statistics.median(split['optimizer']):.3f}, total "
+            f"{statistics.median(total):.3f} (first step {total[0]:.3f}); "
+            f"launches per step {per_step}; loss {curves[impl][0]:.5f} -> "
+            f"{curves[impl][-1]:.5f}")
+    for impl in impls:
+        if impl == "ref":
+            continue
+        g_err = max(max_err(g, r, f"train {tag} {impl} first-step grad",
+                            GRAD_TOL)
+                    for g, r in zip(grads[impl], grads["ref"]))
+        gap = float(np.max(np.abs(curves[impl] - curves["ref"])
+                           / np.abs(curves["ref"])))
+        check(gap <= CURVE_RTOL, f"train {tag} {impl}: loss curve differs "
+                                 f"from ref by {gap:.3e} relative")
+        log(f"[train {tag}] impl={impl} vs ref: first-step gradients max abs"
+            f" error {g_err:.3e} (tolerance {GRAD_TOL}); loss curve max "
+            f"relative gap {gap:.3e}")
+    if resume_impl is not None:
+        # a fresh trainer over a directory that holds only the step-10
+        # checkpoint resumes there and continues the same curve
+        src = CKPT_DIR / tag / resume_impl
+        dst = CKPT_DIR / tag / f"{resume_impl}-resume"
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(src / "step_0000000010", dst / "step_0000000010")
+        tail = np.asarray(_fit(trainer(resume_impl, dst), data))
+        check(len(tail) == steps - 10, f"resume trained {len(tail)} steps")
+        gap = float(np.max(np.abs(tail - curves[resume_impl][10:])
+                           / np.abs(curves[resume_impl][10:])))
+        check(gap <= CURVE_RTOL, f"train {tag} {resume_impl}: the resumed "
+                                 f"curve differs by {gap:.3e} relative")
+        log(f"[train {tag}] impl={resume_impl}: resumed from the step-10 "
+            f"checkpoint, steps 11-{steps} max relative gap {gap:.3e}")
+    shutil.rmtree(CKPT_DIR / tag, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -439,7 +718,7 @@ def main() -> int:
     name, card = phase_device()
     device = torch.device(DEVICE)
     phase_build()
-    rows = phase_kernels(device)
+    rows, errs = phase_kernels(device)
 
     tox_launches = phase_serve(
         "tox21", GCNConfig.tox21, GraphDatasetSpec.tox21_like(N_REQUESTS,
@@ -452,21 +731,37 @@ def main() -> int:
         "reaction100", GCNConfig.reaction100,
         GraphDatasetSpec.reaction100_like(N_REQUESTS, seed=0),
         ("ref", "fused"), {"fused": {"fused_forward": 3}}, device, F32_TOL)
+    t_launches = phase_train(
+        "tox21", GCNConfig.tox21,
+        GraphDatasetSpec.tox21_like(TRAIN_TOX21["n_samples"], seed=0),
+        TRAIN_TOX21, ("ref", "fused", "pallas_coo", "pallas_ell",
+                      "pallas_csr"),
+        {"fused": {"fused_forward": 2, "batched_spmm_coo": 2},
+         "pallas_coo": {"batched_spmm_coo": 4},
+         "pallas_ell": {"batched_spmm_ell": 2, "batched_spmm_coo": 2},
+         "pallas_csr": {"batched_spmm_csr": 4}}, device,
+        resume_impl="pallas_csr")
+    tr_launches = phase_train(
+        "reaction100", GCNConfig.reaction100,
+        GraphDatasetSpec.reaction100_like(
+            TRAIN_R100["batch"] * TRAIN_R100["steps"], seed=0),
+        TRAIN_R100, ("ref", "fused"),
+        {"fused": {"fused_forward": 3, "batched_spmm_coo": 3}}, device)
 
-    launches = {"batched_spmm_ell": tox_launches["batched_spmm_ell"],
-                "batched_spmm_coo": tox_launches["batched_spmm_coo"],
-                "fused_forward[tox21]": tox_launches["fused_forward"],
-                "fused_forward[reaction100]": r_launches["fused_forward"]}
+    paths = {"serve tox21": tox_launches, "serve reaction100": r_launches,
+             "train tox21": t_launches, "train reaction100": tr_launches}
     kernels = []
-    for key, r in rows.items():
-        check(launches[key] > 0, f"{key} was never launched on the path")
-        base = key.split("[")[0]
+    for kname, key in ENTRY_ROW.items():
+        per_path = {p: c.get(kname, 0) for p, c in paths.items()}
+        launches = sum(per_path.values())
+        check(launches > 0, f"{kname} was never launched on the main paths")
+        log(f"[launches] {kname}: {launches} on the main paths {per_path}")
+        r = rows[key]
         kernels.append({
-            "name": key, "route": "cuda",
-            "source": f"src/repro_torch/csrc/"
-                      f"{'fused_graph_conv' if base == 'fused_forward' else base}.cu",
-            "replaces": TPU_SITE[base], "launches": launches[key],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{SOURCE[kname]}.cu",
+            "replaces": TPU_SITE[kname], "launches": launches,
+            "max_abs_err": errs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,9 @@
-"""Parameters of the reference's ``init_gcn`` → the port's parameters.
+"""The reference's ChemGCN parameters and Adam state → the port's.
 
 The caller hands over the reference's pytree with its leaves as numpy
 arrays (``jax.tree.map(np.asarray, params)``); nothing here imports JAX. The
-result is the same pytree of float32 tensors, so both packages compute the
-same function.
+result is the same pytree of tensors, so both packages compute the same
+function and take the same optimizer steps.
 """
 from __future__ import annotations
 
@@ -43,3 +43,17 @@ def params_from_jax(np_params, cfg: GCNConfig, *, device=None) -> dict:
         "w": leaf(np_params["head"]["w"], (n_in, cfg.n_tasks), "head.w"),
         "b": leaf(np_params["head"]["b"], (cfg.n_tasks,), "head.b")}
     return out
+
+
+def opt_state_from_jax(np_state, cfg: GCNConfig, *, device=None) -> dict:
+    """Copy a reference Adam state (``adam_init``/``adam_update``'s dict,
+    numpy leaves) onto ``device``: ``m`` and ``v`` shaped like the ChemGCN
+    parameters of ``cfg``, ``step`` a 0-d int32 tensor."""
+    device = resolve_device(device)
+    step = np.asarray(np_state["step"])
+    if step.shape != ():
+        raise ValueError(f"step: shape {step.shape}, expected ()")
+    return {"m": params_from_jax(np_state["m"], cfg, device=device),
+            "v": params_from_jax(np_state["v"], cfg, device=device),
+            "step": torch.tensor(int(step), dtype=torch.int32,
+                                 device=device)}

@@ -65,6 +65,40 @@ class BatchedELL:
     n_rows: torch.Tensor
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchedCSR:
+    """CSR over padded rows (paper Fig. 1/4), the layout of the row-split
+    CSR kernel.
+
+    rpt     : (batch, m_pad + 1) int32 — row r owns slots rpt[r]..rpt[r+1]
+    col_ids : (batch, nnz_pad) int32   — row-sorted; padding at the tail
+    values  : (batch, nnz_pad) float
+    n_rows  : (batch,) int32
+    """
+
+    rpt: torch.Tensor
+    col_ids: torch.Tensor
+    values: torch.Tensor
+    n_rows: torch.Tensor
+
+    @property
+    def batch(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def m_pad(self) -> int:
+        return self.rpt.shape[1] - 1
+
+    @property
+    def nnz_pad(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def nnz(self) -> torch.Tensor:
+        """(batch,) int32 — true nnz per matrix: ``rpt``'s last entry counts
+        exactly the valid slots."""
+        return self.rpt[:, -1]
+
 
 def coo_from_lists(
     triples: Sequence[tuple[np.ndarray, np.ndarray, np.ndarray]],
@@ -163,6 +197,50 @@ def coo_to_ell(coo: BatchedCOO, m_pad: int, k_pad: int) -> BatchedELL:
     return BatchedELL(col_ids=col[:, :-1].contiguous().view(shape),
                       values=val[:, :-1].contiguous().view(shape),
                       n_rows=coo.n_rows)
+
+
+def coo_to_csr(coo: BatchedCOO, m_pad: int) -> BatchedCSR:
+    """COO → CSR on the tensors' device: slots at or past ``nnz`` go to row
+    ``m_pad``, a stable sort by row id sends them to the tail, and ``rpt`` is
+    rebuilt from the counts of valid slots."""
+    valid = _valid_slots(coo)
+    rid_eff = torch.where(valid, coo.row_ids, m_pad)
+    rid_s, order = torch.sort(rid_eff, dim=1, stable=True)
+    # the reference's scatter indexes numpy-style: a negative row id wraps,
+    # and one still out of range is dropped
+    idx = torch.minimum(rid_s, torch.tensor(m_pad, dtype=rid_s.dtype,
+                                            device=rid_s.device))
+    idx = torch.where(idx < 0, idx + m_pad + 1, idx)
+    keep = torch.gather(valid, 1, order) & (idx >= 0)
+    counts = torch.zeros((coo.batch, m_pad + 1), dtype=torch.int32,
+                         device=rid_s.device)
+    counts.scatter_add_(1, idx.clamp(min=0).long(), keep.to(torch.int32))
+    rpt = torch.zeros((coo.batch, m_pad + 1), dtype=torch.int32,
+                      device=rid_s.device)
+    rpt[:, 1:] = torch.cumsum(counts[:, :m_pad], dim=1)
+    return BatchedCSR(rpt=rpt, col_ids=torch.gather(coo.col_ids, 1, order),
+                      values=torch.gather(coo.values, 1, order),
+                      n_rows=coo.n_rows)
+
+
+def csr_slot_rows(rpt: torch.Tensor, nnz_pad: int) -> torch.Tensor:
+    """(batch, nnz_pad) int32 — the row that owns each slot, from a search of
+    ``rpt``; slots past the last row clip to row ``m_pad - 1`` (callers mask
+    them with ``slot < rpt[:, -1]``)."""
+    slot = torch.arange(nnz_pad, dtype=torch.int32, device=rpt.device)
+    rows = torch.searchsorted(rpt, slot.expand(rpt.shape[0], nnz_pad)
+                              .contiguous(), right=True, out_int32=True) - 1
+    return rows.clamp(0, rpt.shape[1] - 2)
+
+
+def csr_transpose(csr: BatchedCSR, n_cols: int | None = None) -> BatchedCSR:
+    """Aᵀ in CSR for the backward pass: expand ``rpt`` back to per-slot row
+    ids, swap them with the column ids, and re-sort through
+    :func:`coo_to_csr` over ``n_cols`` rows (square by default)."""
+    coo_t = BatchedCOO(row_ids=csr.col_ids,
+                       col_ids=csr_slot_rows(csr.rpt, csr.nnz_pad),
+                       values=csr.values, nnz=csr.nnz, n_rows=csr.n_rows)
+    return coo_to_csr(coo_t, n_cols or csr.m_pad)
 
 
 def coo_to_dense(coo: BatchedCOO, m_pad: int,

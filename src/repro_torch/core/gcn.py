@@ -1,8 +1,9 @@
-"""ChemGCN — the paper's target application (§IV-D, §V-B), forward pass.
+"""ChemGCN — the paper's target application (§IV-D, §V-B).
 
 A stack of graph-convolution layers, masked batch-norm after each, ReLU, a
-masked sum readout over nodes and a dense head: Tox21 has 12 binary tasks,
-Reaction100 100 classes. Parameters are a pytree of tensors with the
+masked sum readout over nodes and a dense head: Tox21 has 12 binary tasks
+(sigmoid cross-entropy), Reaction100 100 classes (softmax cross-entropy,
+:func:`gcn_loss`). Parameters are a pytree of tensors with the
 reference's names (``convs[i].w/b``, ``bns[i].scale/bias``, ``head.w/b``);
 :class:`GCN` holds them as an ``nn.Module``.
 """
@@ -130,11 +131,31 @@ def apply_gcn(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
     return readout @ params["head"]["w"] + params["head"]["b"]
 
 
+def gcn_loss(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
+             x: torch.Tensor, n_nodes: torch.Tensor,
+             labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss, accuracy) as 0-d tensors, with the reference's expressions:
+    the stable sigmoid cross-entropy over 12 binary tasks (labels
+    (batch, n_tasks) in {0, 1}), or softmax cross-entropy over classes
+    (labels (batch,) class ids)."""
+    logits = apply_gcn(params, cfg, adj, x, n_nodes)
+    if cfg.task == "multitask_binary":
+        z = logits
+        loss = (torch.clamp(z, min=0) - z * labels
+                + torch.log1p(torch.exp(-torch.abs(z)))).mean()
+        acc = ((z > 0).to(torch.float32) == labels).to(torch.float32).mean()
+    else:
+        ids = labels.long()
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -torch.gather(logp, 1, ids[:, None]).mean()
+        acc = (logits.argmax(dim=-1) == ids).to(torch.float32).mean()
+    return loss, acc
+
+
 class GCN(nn.Module):
     """ChemGCN as a module: parameters named as the reference's pytree
-    (``convs.0.w``, ``bns.0.scale``, ``head.w`` …); ``forward`` is
-    :func:`apply_gcn`. The parameters are held without gradients: the
-    kernels are forward-only until the training slice."""
+    (``convs.0.w``, ``bns.0.scale``, ``head.w`` …), trainable; ``forward``
+    is :func:`apply_gcn`."""
 
     def __init__(self, cfg: GCNConfig, params: dict | None = None, *,
                  generator: torch.Generator | None = None, device=None):
@@ -144,8 +165,7 @@ class GCN(nn.Module):
         self.cfg = cfg
 
         def bag(d):
-            return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                                     for k, v in d.items()})
+            return nn.ParameterDict({k: nn.Parameter(v) for k, v in d.items()})
 
         self.convs = nn.ModuleList(bag(p) for p in params["convs"])
         self.bns = nn.ModuleList(bag(p) for p in params["bns"])

@@ -4,8 +4,9 @@ non-zero, shared-memory atomics): ``C[s, rid] += val · B[s, cid, :]``.
 The kernel is ``csrc/batched_spmm_coo.cu`` (one block per matrix × column
 panel, the output panel in shared memory, a sub-warp per non-zero with
 ``atomicAdd``); the plain version is
-:func:`repro_torch.kernels.ref.batched_spmm_coo_plain`. Forward only, f32,
-(mul, sum). Every slot is visited, as in the reference: padded slots carry
+:func:`repro_torch.kernels.ref.batched_spmm_coo_plain`. f32, (mul, sum).
+It also runs dB = Aᵀ·dC (ids swapped) for the ``pallas_coo``,
+``pallas_ell`` and ``fused`` backwards. Every slot is visited, as in the reference: padded slots carry
 0.0 and cost the kernel no atomic. Row ids outside ``[0, m_pad)`` — the
 ``m_pad`` sentinel — add nothing.
 """

@@ -4,7 +4,8 @@ atomics): ``C[s, r, :] = Σ_k val[s, r, k] · B[s, cid[s, r, k], :]``.
 The kernel is ``csrc/batched_spmm_ell.cu`` (one block per matrix × column
 panel, the B panel staged in shared memory, a sub-warp per output row); the
 plain version is :func:`repro_torch.kernels.ref.batched_spmm_ell_plain`.
-Forward only, f32, (mul, sum).
+f32, (mul, sum). It runs forwards only: Aᵀ has no per-row bound, so the
+backward of ``pallas_ell`` runs the COO kernel.
 """
 from __future__ import annotations
 

@@ -6,8 +6,10 @@ output-column panel) keeps the X tile, one channel's ``U_ch`` panel and the
 accumulator in shared memory; ``U_ch`` never reaches device memory, and each
 (sample × channel) scatter visits only its real ``ceil(nnz / CHUNK)`` chunks
 (the reference's skew-aware bound). The plain version is
-:func:`repro_torch.kernels.ref.fused_graph_conv_plain`. Forward only, f32;
-the reference's hybrid ``rank``/``slab`` branch is not ported.
+:func:`repro_torch.kernels.ref.fused_graph_conv_plain`. The backward
+(:func:`fused_bwd`) is the reference's: dU = Aᵀ·dZ through the COO kernel,
+then dense contractions. f32; the reference's hybrid ``rank``/``slab``
+branch is not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.kernels import (
     ref,
     stream_handle,
 )
+from repro_torch.kernels.ops import _forward, bwd_impl_for, dvalues
 
 EPILOGUES = ("none", "relu")
 
@@ -93,6 +96,77 @@ def runtime_chunks(nnz: torch.Tensor) -> torch.Tensor:
     return ((nnz + CHUNK - 1) // CHUNK).to(torch.int32)
 
 
+def fused_bwd(rids, cids, values, x, w, bias, y, dy, *, epilogue: str,
+              bwd_impl: str, needs: tuple[bool, ...]):
+    """Backward through the fused layer: (dvalues, dx, dw, dbias,
+    dresidual), each None unless ``needs`` (values, x, w, bias, residual)
+    asks for it.
+
+    dZ = dY masked by the epilogue; dU_ch = A_chᵀ·dZ runs as ONE
+    channel-stacked batched SpMM of ``bwd_impl`` with the ids swapped, over
+    every slot (``nnz = nnz_pad``: padded slots carry 0.0); dValues is the
+    gather-dot of dZ against the recomputed U_ch; dX, dW and dbias are dense
+    contractions of dU."""
+    need_val, need_x, need_w, need_b, need_res = needs
+    batch, channels, nnz_pad = rids.shape
+    m_pad, n_out = x.shape[1], w.shape[-1]
+    dz = dy.float()
+    if epilogue == "relu":
+        dz = dz * (y > 0)
+
+    def flat(t):
+        return t.transpose(0, 1).reshape(channels * batch, nnz_pad)
+
+    rids_f, cids_f, vals_f = flat(rids), flat(cids), flat(values)
+    # channel-major stacking, materialised: the kernels take contiguous
+    # operands
+    dz_f = dz[None].expand(channels, batch, m_pad, n_out).reshape(
+        channels * batch, m_pad, n_out).contiguous()
+    dvals = dx = dw = db = None
+    if need_val:
+        u = (torch.einsum("bmn,cnf->cbmf", x.float(), w.float())
+             + bias.float()[:, None, None, :])
+        dvals = dvalues(rids_f, cids_f, dz_f,
+                        u.reshape(channels * batch, m_pad, n_out))
+        dvals = dvals.reshape(channels, batch, nnz_pad).transpose(0, 1)
+        dvals = dvals.to(values.dtype)
+    if need_x or need_w or need_b:
+        nnz_f = torch.full((channels * batch,), nnz_pad, dtype=torch.int32,
+                           device=dz.device)
+        du = _forward(cids_f, rids_f, nnz_f, vals_f, dz_f, impl=bwd_impl,
+                      k_pad=None).float().reshape(channels, batch, m_pad,
+                                                  n_out)
+        if need_x:
+            dx = torch.einsum("cbmf,cnf->bmn", du, w.float()).to(x.dtype)
+        if need_w:
+            dw = torch.einsum("bmn,cbmf->cnf", x.float(), du).to(w.dtype)
+        if need_b:
+            db = du.sum(dim=(1, 2)).to(bias.dtype)
+    return dvals, dx, dw, db, (dz if need_res else None)
+
+
+class _FusedGraphConv(torch.autograd.Function):
+    """The fused layer with the reference's VJP (:func:`fused_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, values, x, w, bias, residual, rids, cids, chunks, plan,
+                epilogue):
+        y = fused_forward(rids, cids, values, chunks, x, w, bias, residual,
+                          plan=plan, epilogue=epilogue)
+        ctx.save_for_backward(rids, cids, values, x, w, bias, y)
+        ctx.epilogue = epilogue
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        rids, cids, values, x, w, bias, y = ctx.saved_tensors
+        grads = fused_bwd(rids, cids, values, x, w, bias, y, dy,
+                          epilogue=ctx.epilogue,
+                          bwd_impl=bwd_impl_for("fused"),
+                          needs=ctx.needs_input_grad[:5])
+        return grads + (None,) * 5
+
+
 def fused_graph_conv(row_ids: torch.Tensor, col_ids: torch.Tensor,
                      values: torch.Tensor, nnz: torch.Tensor,
                      x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
@@ -100,14 +174,8 @@ def fused_graph_conv(row_ids: torch.Tensor, col_ids: torch.Tensor,
                      residual: torch.Tensor | None = None) -> torch.Tensor:
     """``Y = epilogue(Σ_ch A_ch·(X·W_ch + b_ch) [+ residual])`` in one device
     op, ``nnz`` (batch, channels) being each channel's true non-zero count.
-    Forward only in this port: inputs that require grad raise."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (values, x, w, bias, residual)):
-        raise NotImplementedError(
-            "the fused layer kernel is forward-only in this port; its "
-            "backward (fused_bwd) comes with the training slice in "
-            "ROADMAP.md")
+    Differentiable in ``values``, ``x``, ``w``, ``bias`` and ``residual``;
+    on CUDA tensors the backward's dU runs the COO kernel."""
     plan = plan_fused_graph_conv(batch=x.shape[0], m_pad=x.shape[1],
                                  n_in=x.shape[2], n_out=w.shape[-1])
     if plan.case == 3:
@@ -115,5 +183,6 @@ def fused_graph_conv(row_ids: torch.Tensor, col_ids: torch.Tensor,
             f"m_pad={plan.m_pad} is planner case 3: the fused kernel does "
             "not batch matrices this large — use the stacked "
             "graph_conv_batched fallback")
-    return fused_forward(row_ids, col_ids, values, runtime_chunks(nnz), x, w,
-                         bias, residual, plan=plan, epilogue=epilogue)
+    return _FusedGraphConv.apply(values, x, w, bias, residual, row_ids,
+                                 col_ids, runtime_chunks(nnz), plan,
+                                 epilogue)

@@ -15,7 +15,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.batching import CHUNK
-from repro_torch.core.formats import BatchedCOO, BatchedELL
+from repro_torch.core.formats import (
+    BatchedCOO,
+    BatchedCSR,
+    BatchedELL,
+    csr_slot_rows,
+)
 
 
 def _in_range(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -86,6 +91,18 @@ def batched_spmm_ell_plain(col_ids, values, b):
     rows = rows.view(batch, m_pad, k_pad, -1)
     w = torch.where(_in_range(col_ids, b.shape[1]), values.float(), 0.0)
     return torch.einsum("bmk,bmkn->bmn", w, rows).to(b.dtype)
+
+
+def batched_spmm_csr_ref(a: BatchedCSR, b: torch.Tensor) -> torch.Tensor:
+    """CSR row split: each slot's row comes from a search of ``rpt``, and
+    slots at or past ``rpt[-1]`` are masked."""
+    return batched_spmm_csr_plain(a.rpt, a.col_ids, a.values, b)
+
+
+def batched_spmm_csr_plain(rpt, col_ids, values, b):
+    """Plain version of the CSR kernel, on its raw operands."""
+    rows = csr_slot_rows(rpt, col_ids.shape[1])
+    return _coo_product(rows, col_ids, values, rpt[:, -1], b, b.shape[1])
 
 
 def batched_gemm_ref(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

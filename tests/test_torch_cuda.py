@@ -9,13 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.formats import coo_from_lists, coo_to_ell, \
-    max_row_degree, random_batch
+from repro_torch.core.formats import coo_from_lists, coo_to_csr, \
+    coo_to_ell, csr_transpose, max_row_degree, random_batch
 from repro_torch.core.gcn import GCNConfig, init_gcn
 from repro_torch.core.graph_conv import stack_channels
 from repro_torch.data.graphs import GraphDatasetSpec, generate
 from repro_torch.kernels import ref
 from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
+from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
 from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
 from repro_torch.kernels.fused_graph_conv import fused_forward, \
     runtime_chunks
@@ -87,6 +88,70 @@ def test_fused_kernel_matches_plain(dev, name, n_in, n_out):
                                        epi), **TOL)
 
 
+@pytest.mark.parametrize("name", REGIMES)
+def test_csr_kernel_matches_plain_and_is_bitwise_repeatable(dev, name):
+    coo, m_pad = _regime(name)
+    coo = coo.to(dev)
+    b = torch.randn((coo.batch, m_pad, 48), device=dev)
+    for csr in (coo_to_csr(coo, m_pad), csr_transpose(coo_to_csr(coo, m_pad))):
+        got = batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, b)
+        torch.testing.assert_close(
+            got, ref.batched_spmm_csr_plain(csr.rpt, csr.col_ids, csr.values,
+                                            b), **TOL)
+        again = batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, b)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("name", REGIMES)
+@pytest.mark.parametrize("impl", ("pallas_ell", "pallas_csr", "pallas_coo"))
+def test_spmm_backward_kernels_match_ref(dev, name, impl):
+    """dValues and dB of each kernel impl on the card (dB runs the COO or
+    CSR kernel on the swapped ids) against impl="ref"."""
+    from repro_torch.kernels import ops
+
+    coo, m_pad = _regime(name)
+    coo = coo.to(dev)
+    k_pad = max(1, int(max_row_degree(coo, m_pad).max()))
+    b0 = torch.randn((coo.batch, m_pad, 48), device=dev)
+    grads = {}
+    for i in (impl, "ref"):
+        v = coo.values.clone().requires_grad_()
+        b = b0.clone().requires_grad_()
+        c = ops.batched_spmm(coo.with_values(v), b, impl=i, k_pad=k_pad)
+        torch.tanh(c).sum().backward()
+        grads[i] = (c.detach(), v.grad, b.grad)
+    for got, want in zip(grads[impl], grads["ref"]):
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("name", REGIMES)
+def test_fused_backward_on_the_card_matches_plain(dev, name):
+    """The fused layer's gradients on the card (dU through the COO kernel)
+    against the same layer on the CPU, at 3x the f32 tolerance."""
+    from repro_torch.kernels.fused_graph_conv import fused_graph_conv
+
+    coo, m_pad = _regime(name)
+    perm = torch.randperm(coo.nnz_pad)
+    adj = [coo, coo.__class__(coo.row_ids[:, perm], coo.col_ids[:, perm],
+                              coo.values[:, perm], coo.nnz, coo.n_rows)]
+    rid, cid, val, nnz = stack_channels(adj)
+    x = torch.randn((coo.batch, m_pad, 12))
+    w = torch.randn((2, 12, 40)) / 4
+    bias = torch.randn((2, 40))
+    res = torch.randn((coo.batch, m_pad, 40))
+    grads = {}
+    for where in ("cpu", dev):
+        leaves = [t.detach().to(where, copy=True).requires_grad_()
+                  for t in (val, x, w, bias, res)]
+        y = fused_graph_conv(rid.to(where), cid.to(where), leaves[0],
+                             nnz.to(where), *leaves[1:4], epilogue="relu",
+                             residual=leaves[4])
+        torch.tanh(y).sum().backward()
+        grads[str(where)] = [t.grad.cpu() for t in leaves]
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        torch.testing.assert_close(got, want, atol=3e-4, rtol=3e-5)
+
+
 def test_engine_kernels_match_ref_on_gpu(dev):
     spec = GraphDatasetSpec.tox21_like(n_samples=40, seed=4)
     params = init_gcn(GCNConfig.tox21(), generator=torch.Generator()
@@ -114,6 +179,28 @@ def test_case3_kernel_impls_raise_on_the_card(dev):
     coo = coo_from_lists([(rows, rows[::-1].copy(),
                            np.ones(3, np.float32))], [m_pad]).to(dev)
     b = torch.randn((1, m_pad, 32), device=dev)
-    for impl in ("pallas_coo", "pallas_ell"):
+    for impl in ("pallas_coo", "pallas_ell", "pallas_csr"):
         with pytest.raises(ValueError, match="case 3"):
             ops.batched_spmm(coo, b, impl=impl, k_pad=1)
+
+
+def test_trainer_steps_on_the_card_match_ref(dev, tmp_path):
+    """Three GCNTrainer steps per kernel impl on the card, from one set of
+    parameters: the loss curve within 1e-4 relative of impl="ref"."""
+    from repro_torch.data.graphs import batches
+    from repro_torch.training.trainer import GCNTrainer, TrainerConfig
+
+    spec = GraphDatasetSpec.tox21_like(n_samples=48, seed=2)
+    data = list(batches(generate(spec), spec, 16))
+    curves = {}
+    for impl in ("ref", "fused", "pallas_ell", "pallas_csr", "pallas_coo"):
+        tr = GCNTrainer(GCNConfig.tox21(impl=impl), tcfg=TrainerConfig(
+            checkpoint_dir=str(tmp_path / impl), checkpoint_every=1000),
+            device=dev)
+        losses = []
+        tr.fit(lambda e: [data[e]], epochs=3,
+               on_metrics=lambda _, rec: losses.append(rec["loss"]))
+        curves[impl] = np.asarray(losses)
+    for impl, curve in curves.items():
+        np.testing.assert_allclose(curve, curves["ref"], rtol=1e-4,
+                                   err_msg=impl)

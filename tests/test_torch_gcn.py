@@ -24,8 +24,8 @@ from repro_torch.data import graphs as tgraphs
 from test_torch_formats import to_np, torch_coo
 
 ATOL = 1e-4
-PORT_IMPLS = ("ref", "ell", "dense", "loop", "pallas_ell", "pallas_coo",
-              "fused")
+PORT_IMPLS = ("ref", "ell", "csr", "dense", "loop", "pallas_ell",
+              "pallas_csr", "pallas_coo", "fused")
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,11 +168,15 @@ def test_unported_config_and_device_paths_raise(monkeypatch):
         with pytest.raises(err):
             tgcn.apply_gcn(params, _port_cfg(cfg, **kw), bt["adj"], bt["x"],
                            bt["n_nodes"])
-    # the kernels are forward-only: a grad-requiring input raises
-    x = bt["x"].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tgcn.apply_gcn(params, _port_cfg(cfg, impl="fused"), bt["adj"], x,
-                       bt["n_nodes"])
+    # a grad-requiring input takes finite gradients that match impl="ref"
+    dx = {}
+    for impl in ("fused", "ref"):
+        x = bt["x"].clone().requires_grad_()
+        tgcn.apply_gcn(params, _port_cfg(cfg, impl=impl), bt["adj"], x,
+                       bt["n_nodes"]).sum().backward()
+        assert torch.isfinite(x.grad).all()
+        dx[impl] = x.grad
+    torch.testing.assert_close(dx["fused"], dx["ref"], atol=3e-4, rtol=3e-5)
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(np_params, _port_cfg(cfg, conv_widths=(32, 64)),
                         device="cpu")

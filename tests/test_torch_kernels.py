@@ -21,6 +21,7 @@ from repro_torch.core.graph_conv import stack_channels
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
+from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
 from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
 from repro_torch.kernels.fused_graph_conv import (
     fused_forward,
@@ -30,7 +31,8 @@ from repro_torch.kernels.fused_graph_conv import (
 from test_torch_formats import CASE_NAMES, case, to_np, torch_coo
 
 ATOL, RTOL = TOLS["f32"]
-PORT_SPMM_IMPLS = ("ref", "ell", "pallas_ell", "pallas_coo", "dense", "loop")
+PORT_SPMM_IMPLS = ("ref", "ell", "pallas_ell", "csr", "pallas_csr",
+                   "pallas_coo", "dense", "loop")
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,7 +53,7 @@ def test_batched_spmm_matches_reference_oracle(impl, name):
 
 
 @pytest.mark.parametrize("name", CASE_NAMES)
-@pytest.mark.parametrize("impl", ("pallas_ell", "pallas_coo"))
+@pytest.mark.parametrize("impl", ("pallas_ell", "pallas_csr", "pallas_coo"))
 def test_spmm_plain_versions_match_pallas_interpret(impl, name):
     """The CPU leg of each kernel wrapper vs the TPU kernel it replaces."""
     _, coo, _, b, k_pad = case(name)
@@ -196,8 +198,10 @@ def test_failed_kernel_build_raises_with_compiler_output(monkeypatch,
 
 
 def test_launch_counters_and_sources_present():
-    for fn in (batched_spmm_ell, batched_spmm_coo, fused_forward):
+    for fn in (batched_spmm_ell, batched_spmm_coo, batched_spmm_csr,
+               fused_forward):
         assert isinstance(fn.launches, int)
+    assert len(_build.SOURCES) == 4
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces the TPU kernel src/repro/kernels/" in src
@@ -229,7 +233,7 @@ def test_dispatch_raises_for_unported_paths():
     bt = torch.from_numpy(b)
     with pytest.raises(ValueError, match="Autotune"):
         ops.batched_spmm(coo, bt, impl="auto")
-    for impl in ("pallas_csr", "pallas_ell_bf16", "hybrid"):
+    for impl in ("pallas_gemm", "pallas_ell_bf16", "hybrid"):
         with pytest.raises(ValueError, match="ROADMAP"):
             ops.batched_spmm(coo, bt, impl=impl, k_pad=k_pad)
     with pytest.raises(ValueError, match="graph_conv_batched"):
@@ -240,13 +244,15 @@ def test_dispatch_raises_for_unported_paths():
         ops.batched_spmm(coo, bt, impl="pallas_ell", k_pad=k_pad - 1)
     with pytest.raises(NotImplementedError, match="g-SpMM"):
         ops.batched_gspmm(coo, bt, op="add", reduce="sum", impl="ref")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.batched_spmm(coo, bt.clone().requires_grad_(),
-                         impl="pallas_coo")
-    # the plain impls keep PyTorch's autograd
-    g = bt.clone().requires_grad_()
-    ops.batched_spmm(coo, g, impl="ref").sum().backward()
-    assert g.grad is not None and torch.isfinite(g.grad).all()
+    # every impl takes gradients: a kernel impl's match impl="ref"'s
+    grads = {}
+    for impl in ("pallas_coo", "ref"):
+        g = bt.clone().requires_grad_()
+        ops.batched_spmm(coo, g, impl=impl).sum().backward()
+        assert g.grad is not None and torch.isfinite(g.grad).all()
+        grads[impl] = g.grad
+    torch.testing.assert_close(grads["pallas_coo"], grads["ref"], atol=ATOL,
+                               rtol=RTOL)
 
 
 def test_jax_stays_on_cpu():
