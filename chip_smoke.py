@@ -10,27 +10,35 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
 2. build: the CUDA kernels from ``src/repro_torch/csrc`` (``build/kernels``);
 3. kernels: each kernel against its plain PyTorch version, at the main
    paths' shapes (taken from a real Tox21 / Reaction100 wave and training
-   batch) and on the uniform / skewed / zero-nnz regimes, with kernel,
-   plain, library-call and bound times (device times by CUDA-graph
-   replay; the kernel's back-to-back call time beside it); the CSR kernel
-   also twice for identical bits, and the COO and CSR kernels in their
-   backward roles
-   (dU of the fused layer, dB of ``pallas_csr`` on the transposed CSR);
-4. serve Tox21 (62 -> 64 -> 64, 12 tasks): 512 requests through
+   batch, and the degree-skewed powerlaw batch) and on the uniform /
+   skewed / zero-nnz regimes, with kernel, plain, library-call and bound
+   times (device times by CUDA-graph replay; the kernel's back-to-back
+   call time beside it, and the PyTorch prep of the hybrid kernels); the
+   CSR, hybrid and GEMM kernels also twice for identical bits, the hybrid
+   kernel also without a slab, and the COO and CSR kernels in their
+   backward roles (dU of the fused layer, dB of ``pallas_csr`` on the
+   transposed CSR);
+4. powerlaw model: ChemGCN at Tox21 widths on four channels of 40
+   degree-skewed 256-row graphs, ``apply_gcn`` and first-step gradients
+   of ``gcn_loss`` with ``impl`` = pallas_hybrid and fused_hybrid against
+   ``ref``, hub rows per matrix, launch counts;
+5. serve Tox21 (62 -> 64 -> 64, 12 tasks): 512 requests through
    ``GraphServeEngine(batch=128, m_pad=56, nnz_pad=256)`` with
-   ``impl`` = fused, pallas_ell, pallas_coo and ref; launch counts, logits
-   against ``ref``, wave-composition invariance, host/device wave times;
-5. serve Reaction100 (62 -> 512 x 3, 100 classes) with ``impl="fused"``
-   against ``ref``;
-6. train Tox21: ``GCNTrainer.fit``, 20 Adam steps (lr 3e-3) over 1,000
+   ``impl`` = fused, pallas_ell, pallas_coo, pallas_hybrid, fused_hybrid,
+   pallas_gemm and ref; launch counts, logits against ``ref``,
+   wave-composition invariance, host/device wave times;
+6. serve Reaction100 (62 -> 512 x 3, 100 classes) with ``impl`` = fused,
+   fused_hybrid and pallas_hybrid against ``ref``;
+7. train Tox21: ``GCNTrainer.fit``, 20 Adam steps (lr 3e-3) over 1,000
    ``tox21_like`` molecules in batches of 50, with ``impl`` = fused,
-   pallas_coo, pallas_ell, pallas_csr and ref from one set of seed-0
-   parameters; first-step gradients and the loss curve against ``ref``,
-   kernel launches per step, ms per step split into batch placement,
-   forward, backward and optimizer, and a resume from the step-10
-   checkpoint;
-7. train Reaction100: 5 steps in batches of 100, ``impl="fused"`` against
-   ``ref``.
+   pallas_coo, pallas_ell, pallas_csr, pallas_hybrid, fused_hybrid,
+   pallas_gemm and ref from one set of seed-0 parameters; first-step
+   gradients against ``ref``, the loss curve against the mean of three
+   ``ref`` runs, kernel launches per step,
+   ms per step split into batch placement, forward, backward and
+   optimizer, and a resume from the step-10 checkpoint;
+8. train Reaction100: 5 steps in batches of 100, ``impl`` = fused,
+   fused_hybrid and pallas_hybrid against ``ref``.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -53,28 +61,49 @@ F32_TOL = (1e-4, 1e-5)         # (atol, rtol): tests/oracle.py TOLS["f32"]
 DEVICE = "cuda"
 GRAD_TOL = (3e-4, 3e-5)        # layer gradients: 3x F32_TOL (tests/oracle.py)
 CURVE_RTOL = 1e-3              # loss curves against impl="ref"
+# ref adds with atomics, so its curve varies from run to run; the impls are
+# held against the mean curve of this many ref runs
+REF_RUNS = 3
+# a ReLU input whose sign differs between an impl and ref must be this
+# close to 0 (f32 noise of the unit-scale batch-norm outputs is ~1e-6),
+# and at most MAX_FLIPS of them may differ in one comparison
+FLIP_ATOL = 1e-5
+MAX_FLIPS = 4
 TOX21 = dict(batch=128, m_pad=56, nnz_pad=256)
 N_REQUESTS = 512
 TRAIN_TOX21 = dict(n_samples=1000, batch=50, steps=20, lr=3e-3)
 TRAIN_R100 = dict(batch=100, steps=5, lr=3e-3)
+# the degree-skewed geometry the reference benchmarks the hybrid split on
+# (benchmarks/bench_formats.py "powerlaw"), seed 0
+POWERLAW = dict(batch=40, dim=256, avg_deg=8)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 TPU_SITE = {
     "batched_spmm_ell": "src/repro/kernels/batched_spmm_ell.py:142",
     "batched_spmm_coo": "src/repro/kernels/batched_spmm_coo.py:168",
     "batched_spmm_csr": "src/repro/kernels/batched_spmm_csr.py:163",
     "fused_forward": "src/repro/kernels/fused_graph_conv.py:197",
+    "batched_spmm_hybrid": "src/repro/kernels/batched_spmm_hybrid.py:223",
+    "batched_gemm": "src/repro/kernels/batched_gemm.py:44",
+    "fused_hybrid_forward": "src/repro/kernels/fused_graph_conv.py:197",
 }
 SOURCE = {"batched_spmm_ell": "batched_spmm_ell",
           "batched_spmm_coo": "batched_spmm_coo",
           "batched_spmm_csr": "batched_spmm_csr",
-          "fused_forward": "fused_graph_conv"}
+          "fused_forward": "fused_graph_conv",
+          "batched_spmm_hybrid": "batched_spmm_hybrid",
+          "batched_gemm": "batched_gemm",
+          "fused_hybrid_forward": "fused_graph_conv"}
 # the row of each kernel that its {"kernels": ...} entry reports: the shape
-# its first main path gives it (serving for ELL, COO and fused, training
-# for CSR); the other rows are printed as [kernels] lines
+# its first main path gives it (serving for ELL, COO, fused, hybrid, GEMM
+# and fused hybrid, training for CSR); the other rows are printed as
+# [kernels] lines
 ENTRY_ROW = {"batched_spmm_ell": "batched_spmm_ell",
              "batched_spmm_coo": "batched_spmm_coo",
              "batched_spmm_csr": "batched_spmm_csr",
-             "fused_forward": "fused_forward[tox21]"}
+             "fused_forward": "fused_forward[tox21]",
+             "batched_spmm_hybrid": "batched_spmm_hybrid[tox21]",
+             "batched_gemm": "batched_gemm[tox21]",
+             "fused_hybrid_forward": "fused_hybrid_forward[tox21]"}
 
 
 class SmokeFailure(RuntimeError):
@@ -241,6 +270,21 @@ def _regimes(device):
             ("zero_nnz", zero.to(device), 16)]
 
 
+def _powerlaw_channels(device, channels: int = 4):
+    """``channels`` degree-skewed batches drawn one after the other from one
+    seed-0 generator (the first is the reference's powerlaw geometry), on
+    ``device``, and their m_pad."""
+    import numpy as np
+    from repro_torch.core.formats import random_powerlaw_batch
+
+    rng = np.random.default_rng(0)
+    adj = []
+    for _ in range(channels):
+        coo, m_pad = random_powerlaw_batch(rng, **POWERLAW)
+        adj.append(coo.to(device))
+    return adj, m_pad
+
+
 def _on(batch, device):
     """A training batch's tensors on ``device``."""
     return {"adj": [a.to(device) for a in batch["adj"]],
@@ -280,6 +324,7 @@ def _measure(rows, key, kernel, kern, plain, nbytes, flops, shape,
 def phase_kernels(device):
     """Each kernel against its plain version; times at the main-path shapes.
     Returns (rows, the largest error of each kernel over every check)."""
+    import numpy as np
     import torch
     from repro_torch.core.formats import BatchedCOO, coo_to_csr, \
         coo_to_dense, coo_to_ell, csr_transpose, max_row_degree
@@ -290,8 +335,13 @@ def phase_kernels(device):
     from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
     from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
     from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
+    from repro_torch.core.batching import plan_hybrid
+    from repro_torch.core.formats import coo_from_lists, row_degrees
+    from repro_torch.kernels.batched_gemm import batched_gemm
+    from repro_torch.kernels.batched_spmm_hybrid import \
+        batched_spmm_hybrid, hybrid_launch, hybrid_operands
     from repro_torch.kernels.fused_graph_conv import fused_forward, \
-        runtime_chunks
+        fused_hybrid_forward, fused_hybrid_operands, runtime_chunks
     from repro_torch.serving.engine import GraphServeEngine
 
     rows = {}
@@ -423,6 +473,112 @@ def phase_kernels(device):
     coo_du("batched_spmm_coo[dU, reaction100 training]",
            flatten_channels(rb["adj"]), 512, rb["x"].shape[1])
 
+    # -- the hybrid split: the kernel on prepared operands (the prep timed
+    # apart), the whole wrapper against the COO product ------------------
+    def hybrid_row(tag, a, b, m):
+        hp = plan_hybrid(batch=a.batch, m_pad=m, n_b=b.shape[-1],
+                         nnz_pad=a.nnz_pad)
+        rank, st, rl, cid, val, slab = hybrid_operands(
+            a.row_ids, a.col_ids, a.values, a.nnz, m, hp)
+        sparse = int(rl.sum().item())
+        real = int(a.nnz.sum().item())
+        hubs = int((row_degrees(a, m) >= hp.dmin).sum().item())
+        # the slab is read whole; its products count where it holds a value
+        slab_n = 0 if slab is None else slab.numel()
+        slab_nz = 0 if slab is None else int((slab != 0).sum().item())
+        dense = coo_to_dense(a, m)
+        key = f"batched_spmm_hybrid[{tag}]"
+        _measure(rows, key, "batched_spmm_hybrid",
+                 lambda: hybrid_launch(rank, st, rl, cid, val, slab, b,
+                                       plan=hp),
+                 lambda: ref.batched_spmm_hybrid_plain(rank, st, rl, cid,
+                                                       val, slab, b),
+                 3 * rank.numel() * 4 + sparse * 8 + slab_n * 4
+                 + 2 * b.numel() * 4, 2 * (sparse + slab_nz) * b.shape[-1],
+                 f"{a.batch} matrices x {m} rows, nnz_pad {a.nnz_pad}, n_b "
+                 f"{b.shape[-1]}, {real} real nnz ({sparse} in the CSR "
+                 f"remainder), dmin {hp.dmin}, d_pad {hp.d_pad}, "
+                 f"{hubs / a.batch:.3f} hub rows per matrix",
+                 lambda: torch.bmm(dense, b), bitwise=True)
+        rows[key]["prep_ms"] = cuda_ms(lambda: hybrid_operands(
+            a.row_ids, a.col_ids, a.values, a.nnz, m, hp))
+        max_err(batched_spmm_hybrid(a.row_ids, a.col_ids, a.values, a.nnz, b,
+                                    plan=hp),
+                ref.batched_spmm_coo_ref(a, b, m), f"{key} wrapper vs COO")
+
+    pl_adj, pl_m = _powerlaw_channels(device)
+    pl_b = torch.randn((POWERLAW["batch"], pl_m, 64), generator=gen).to(
+        device)
+    hybrid_row("powerlaw", pl_adj[0], pl_b, pl_m)
+    hybrid_row("tox21", a_flat, u, m_pad)
+    a_dense_c = a_dense.contiguous()
+    _measure(rows, "batched_gemm[tox21]", "batched_gemm",
+             lambda: batched_gemm(a_dense_c, u),
+             lambda: ref.batched_gemm_plain(a_dense_c, u),
+             (a_dense_c.numel() + 2 * u.numel()) * 4,
+             2 * a_dense_c.numel() * u.shape[-1],
+             f"{u.shape[0]} dense {m_pad} x {m_pad} adjacencies x (n_b 64)",
+             lambda: torch.bmm(a_dense_c, u), bitwise=True)
+
+    # the fused layer with the hybrid split: the kernel on prepared
+    # operands, the prep timed apart, the whole layer against the plain
+    # fused layer
+    def fused_hybrid_case(tag, adj, x, w, bias, n_nodes):
+        rid, cid, val, nnz_sc = stack_channels(adj)
+        batch, channels, nnz_pad = rid.shape
+        m, n_in, n_out = x.shape[1], x.shape[-1], w.shape[-1]
+        hp = plan_hybrid(batch=batch, m_pad=m, n_b=n_out,
+                         nnz_pad=channels * nnz_pad)
+        ops_ = fused_hybrid_operands(rid, cid, val, m, hp)
+        rid_s, cid_s, val_s, chunks, rank, slab = ops_
+        sparse = int(((val_s != 0) & (rid_s < m)).sum().item())
+        real = int(nnz_sc.sum().item())
+        # the transform this data needs: real rows of each channel with a
+        # non-zero; the head's products where the slab holds a value
+        live_rows = int(((nnz_sc > 0) * n_nodes[:, None]).sum().item())
+        deg = sum(row_degrees(a, m) for a in adj)
+        hubs = int((deg >= hp.dmin).sum().item())
+        dense = torch.stack([coo_to_dense(a, m) for a in adj])
+
+        def library():
+            uu = torch.einsum("bmn,cnf->cbmf", x, w) + bias[:, None, None, :]
+            return torch.matmul(dense, uu).sum(dim=0)
+
+        nbytes = (sparse * 12 + chunks.numel() * 4 + x.numel() * 4
+                  + w.numel() * 4 + bias.numel() * 4 + rank.numel() * 4
+                  + slab.numel() * 4 + batch * m * n_out * 4)
+        flops = (2 * (sparse + int((slab != 0).sum().item())) * n_out
+                 + 2 * live_rows * n_in * n_out)
+        key = f"fused_hybrid_forward[{tag}]"
+        _measure(rows, key, "fused_hybrid_forward",
+                 lambda: fused_forward(rid_s, cid_s, val_s, chunks, x, w,
+                                       bias, None, rank, slab),
+                 lambda: ref.fused_graph_conv_plain(
+                     rid_s, cid_s, val_s, chunks, x, w, bias, None, "none",
+                     rank, slab),
+                 nbytes, flops,
+                 f"{batch} samples x {channels} channels, m_pad {m}, n_in "
+                 f"{n_in} -> n_out {n_out}, {real} real nnz ({sparse} "
+                 f"scattered), dmin {hp.dmin}, d_pad {hp.d_pad}, "
+                 f"{hubs / batch:.3f} hub rows per sample", library)
+        rows[key]["prep_ms"] = cuda_ms(
+            lambda: fused_hybrid_operands(rid, cid, val, m, hp))
+        max_err(fused_hybrid_forward(rid, cid, val, nnz_sc, x, w, bias,
+                                     hplan=hp),
+                ref.fused_graph_conv_plain(rid, cid, val,
+                                           runtime_chunks(nnz_sc), x, w,
+                                           bias), f"{key} layer vs fused")
+
+    fused_hybrid_case("tox21", wave.adj, wave.x, conv["w"], conv["b"],
+                      wave.n_nodes)
+    fused_hybrid_case("reaction100", rw.adj, x2, conv2["w"], conv2["b"],
+                      rw.n_nodes)
+    pl_x = torch.nn.functional.one_hot(
+        torch.randint(0, 62, (POWERLAW["batch"], pl_m), generator=gen),
+        62).float().to(device)
+    fused_hybrid_case("powerlaw", pl_adj, pl_x, conv["w"], conv["b"],
+                      torch.full((POWERLAW["batch"],), pl_m, device=device))
+
     errs = {}
     for r in rows.values():
         errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0), r["max_abs_err"])
@@ -472,16 +628,63 @@ def phase_kernels(device):
                                               bias, r, epi)
             errs["fused_forward"] = max(errs["fused_forward"], max_err(
                 got, want, f"fused_forward {rname} {epi}"))
+        hp = plan_hybrid(batch=coo.batch, m_pad=mp, n_b=48,
+                         nnz_pad=coo.nnz_pad)
+        h_args = hybrid_operands(coo.row_ids, coo.col_ids, coo.values,
+                                 coo.nnz, mp, hp)
+        got = hybrid_launch(*h_args, b, plan=hp)
+        errs["batched_spmm_hybrid"] = max(
+            errs["batched_spmm_hybrid"],
+            max_err(got, ref.batched_spmm_hybrid_plain(*h_args, b),
+                    f"batched_spmm_hybrid {rname}"))
+        check(torch.equal(got, hybrid_launch(*h_args, b, plan=hp)),
+              f"batched_spmm_hybrid {rname}: two calls differ")
+        dense = coo_to_dense(coo, mp).contiguous()
+        errs["batched_gemm"] = max(errs["batched_gemm"], max_err(
+            batched_gemm(dense, b), ref.batched_gemm_plain(dense, b),
+            f"batched_gemm {rname}"))
+        fh = plan_hybrid(batch=coo.batch, m_pad=mp, n_b=40,
+                         nnz_pad=2 * coo.nnz_pad)
+        if fh.d_pad:
+            f_ops = fused_hybrid_operands(rid, cid, val, mp, fh)
+            got = fused_forward(*f_ops[:4], x, w, bias, res, *f_ops[4:],
+                                epilogue="relu")
+            want = ref.fused_graph_conv_plain(*f_ops[:4], x, w, bias, res,
+                                              "relu", *f_ops[4:])
+            errs["fused_hybrid_forward"] = max(
+                errs["fused_hybrid_forward"],
+                max_err(got, want, f"fused_hybrid_forward {rname}"))
         log(f"[kernels] regime {rname}: ELL, COO, CSR (A and its transpose, "
-            f"identical bits twice) and fused (none, relu + residual) match "
-            f"their plain versions")
+            f"identical bits twice), hybrid (identical bits twice, d_pad "
+            f"{hp.d_pad}), GEMM and fused (none, relu + residual; hybrid "
+            f"branch with d_pad {fh.d_pad}) match their plain versions")
+    # the hybrid kernel without a slab: nnz_pad below the hub threshold
+    tri = [(np.array([0, 1, 2], np.int32), np.array([5, 6, 7], np.int32),
+            np.array([1.0, -2.0, 0.5], np.float32))] * 2
+    small = coo_from_lists(tri, [64, 64]).to(device)
+    hp = plan_hybrid(batch=2, m_pad=64, n_b=16, nnz_pad=small.nnz_pad)
+    check(hp.d_pad == 0, f"{hp}: expected no slab")
+    b = torch.randn((2, 64, 16), generator=gen).to(device)
+    h_ops = hybrid_operands(small.row_ids, small.col_ids, small.values,
+                            small.nnz, 64, hp)
+    check(h_ops[-1] is None, "d_pad 0 built a slab")
+    errs["batched_spmm_hybrid"] = max(
+        errs["batched_spmm_hybrid"],
+        max_err(hybrid_launch(*h_ops, b, plan=hp),
+                ref.batched_spmm_hybrid_plain(*h_ops, b),
+                "batched_spmm_hybrid d_pad 0"))
+    log("[kernels] batched_spmm_hybrid with d_pad 0 (nnz_pad "
+        f"{small.nnz_pad} < dmin {hp.dmin}, no slab) matches its plain "
+        "version")
     for r in rows.values():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        prep = ("" if "prep_ms" not in r else
+                f", PyTorch prep (back-to-back) {r['prep_ms']:.4f} ms")
         log(f"[kernels] {r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms "
             f"(back-to-back calls {r['stream_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){prep}, max abs err "
             f"{r['max_abs_err']:.3e}")
     return rows, errs
 
@@ -489,13 +692,19 @@ def phase_kernels(device):
 def _reset_counters():
     from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
     from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
+    from repro_torch.kernels.batched_gemm import batched_gemm
     from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
-    from repro_torch.kernels.fused_graph_conv import fused_forward
+    from repro_torch.kernels.batched_spmm_hybrid import batched_spmm_hybrid
+    from repro_torch.kernels.fused_graph_conv import fused_forward, \
+        fused_hybrid_forward
 
     wrappers = {"batched_spmm_ell": batched_spmm_ell,
                 "batched_spmm_coo": batched_spmm_coo,
                 "batched_spmm_csr": batched_spmm_csr,
-                "fused_forward": fused_forward}
+                "fused_forward": fused_forward,
+                "batched_spmm_hybrid": batched_spmm_hybrid,
+                "batched_gemm": batched_gemm,
+                "fused_hybrid_forward": fused_hybrid_forward}
     for fn in wrappers.values():
         fn.launches = 0
     return wrappers
@@ -582,17 +791,144 @@ def phase_serve(tag, cfg_fn, spec, impls, expect_per_wave, device, tol):
     return launches
 
 
-def _first_grads(cfg, params, batch):
+def _first_grads(cfg, params, batch, relu_masks=None):
     """gcn_loss's gradients at ``params`` on a placed batch (the first
-    step's, computed apart from the counted run)."""
+    step's, computed apart from the counted run), and the input of each
+    ReLU of the forward. With ``relu_masks`` (one boolean tensor per ReLU,
+    in call order) each ReLU passes exactly where its mask holds: the
+    gradients at another run's activation pattern."""
     import torch
     from repro_torch import tree
     from repro_torch.core.gcn import gcn_loss
 
+    pre = []
+
+    class Relu(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is not torch.relu:
+                return func(*args, **(kwargs or {}))
+            h = args[0]
+            pre.append(h.detach())
+            if relu_masks is None:
+                return func(h)
+            return h * relu_masks[len(pre) - 1]
+
     live = [p.detach().clone().requires_grad_() for p in tree.leaves(params)]
-    loss, _ = gcn_loss(tree.unflatten(params, live), cfg, batch["adj"],
-                       batch["x"], batch["n_nodes"], batch["labels"])
-    return torch.autograd.grad(loss, live)
+    with Relu():
+        loss, _ = gcn_loss(tree.unflatten(params, live), cfg, batch["adj"],
+                           batch["x"], batch["n_nodes"], batch["labels"])
+    return torch.autograd.grad(loss, live), pre
+
+
+def _grads_vs_ref(what, got, ref_cfg, params, batch):
+    """Hold an impl's first-step gradients ``got = (grads, relu inputs)``
+    against ref's at the same activation pattern, to GRAD_TOL. A ReLU input
+    within f32 noise of 0 may land on either side in two impls whose sums
+    run in another order, and then one ReLU's gradient passes where the
+    other's does not, whatever the kernels; so ref's gradients are taken
+    with the impl's ReLU masks; at most MAX_FLIPS ReLU inputs may differ
+    in sign, each within FLIP_ATOL of 0. Returns (max abs error, sign
+    differences, their largest |input|, max abs error without the
+    masks)."""
+    import torch
+
+    grads, pre = got
+    free, ref_pre = _first_grads(ref_cfg, params, batch)
+    pinned, _ = _first_grads(ref_cfg, params, batch,
+                             [p > 0 for p in pre])
+    flips, flip_max = 0, 0.0
+    for a, b in zip(pre, ref_pre):
+        d = (a > 0) != (b > 0)
+        flips += int(d.sum().item())
+        if bool(d.any()):
+            flip_max = max(flip_max, float(torch.maximum(
+                a[d].abs(), b[d].abs()).max().item()))
+    check(flips <= MAX_FLIPS,
+          f"{what}: {flips} ReLU inputs differ in sign from ref's, more "
+          f"than {MAX_FLIPS}")
+    check(flip_max <= FLIP_ATOL,
+          f"{what}: a ReLU input differs in sign from ref's at "
+          f"|x| = {flip_max:.3e}, above {FLIP_ATOL}")
+    err = max(max_err(g, r, what, GRAD_TOL) for g, r in zip(grads, pinned))
+    free_err = max(float((g - r).abs().max().item())
+                   for g, r in zip(grads, free))
+    return err, flips, flip_max, free_err
+
+
+def phase_powerlaw(device):
+    """ChemGCN at Tox21 widths on degree-skewed graphs, where the hybrid
+    split has hub rows to take: logits and first-step gradients of the
+    hybrid impls against ``ref``; returns launches per kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batching import plan_hybrid
+    from repro_torch.core.formats import row_degrees
+    from repro_torch.core.gcn import GCNConfig, apply_gcn
+
+    adj, m_pad = _powerlaw_channels(device)
+    batch = POWERLAW["batch"]
+    rng = np.random.default_rng(1)
+    data = {"adj": adj,
+            "x": torch.from_numpy(np.eye(62, dtype=np.float32)[
+                rng.integers(0, 62, (batch, m_pad))]).to(device),
+            "n_nodes": torch.full((batch,), m_pad, dtype=torch.int32,
+                                  device=device),
+            "labels": torch.from_numpy(rng.integers(0, 2, (batch, 12)).astype(
+                np.float32)).to(device)}
+    hp = plan_hybrid(batch=len(adj) * batch, m_pad=m_pad, n_b=64,
+                     nnz_pad=adj[0].nnz_pad)
+    fh = plan_hybrid(batch=batch, m_pad=m_pad, n_b=64,
+                     nnz_pad=len(adj) * adj[0].nnz_pad)
+    hubs = [int((row_degrees(a, m_pad) >= hp.dmin).sum().item()) / batch
+            for a in adj]
+    layer_hubs = int((sum(row_degrees(a, m_pad) for a in adj)
+                      >= fh.dmin).sum().item()) / batch
+    check(min(hubs) > 0 and layer_hubs > 0,
+          f"powerlaw: no hub rows ({hubs}, layer {layer_hubs})")
+    log(f"[powerlaw] {len(adj)} channels x {batch} matrices x {m_pad} rows, "
+        f"nnz_pad {adj[0].nnz_pad}: hub rows per matrix {hubs} (dmin "
+        f"{hp.dmin}, d_pad {hp.d_pad}); per sample over the channels "
+        f"{layer_hubs:.3f} (fused_hybrid dmin {fh.dmin}, d_pad {fh.d_pad})")
+    params = _params(GCNConfig.tox21(impl="ref"), 0, device)
+    expect = {"ref": {},
+              "pallas_hybrid": {"batched_spmm_hybrid": 4,
+                                "batched_spmm_csr": 2},
+              "fused_hybrid": {"fused_hybrid_forward": 4,
+                               "batched_spmm_coo": 2}}
+    logits, grads, launches = {}, {}, {}
+    for impl, want in expect.items():
+        cfg = GCNConfig.tox21(impl=impl)
+        wrappers = _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits[impl] = apply_gcn(params, cfg, adj, data["x"],
+                                 data["n_nodes"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads[impl] = _first_grads(cfg, params, data)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        check(counts == {k: want.get(k, 0) for k in counts},
+              f"powerlaw {impl}: launches {counts}, expected {want}")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        check(bool(torch.isfinite(logits[impl]).all()),
+              f"powerlaw {impl}: non-finite logits")
+        log(f"[powerlaw] impl={impl}: apply_gcn {(t1 - t0) * 1e3:.3f} ms, "
+            f"loss and gradients {(t2 - t1) * 1e3:.3f} ms (first calls); "
+            f"launches {want}")
+    for impl in ("pallas_hybrid", "fused_hybrid"):
+        err = max_err(logits[impl], logits["ref"], f"powerlaw {impl} logits")
+        g_err, flips, flip_max, free_err = _grads_vs_ref(
+            f"powerlaw {impl} first-step grad", grads[impl],
+            GCNConfig.tox21(impl="ref"), params, data)
+        log(f"[powerlaw] impl={impl} vs ref: max abs logit error {err:.3e} "
+            f"(|logit| max {logits['ref'].abs().max().item():.3f}); "
+            f"first-step gradients max abs error {g_err:.3e} at the same "
+            f"ReLU pattern ({flips} ReLU inputs of other sign, |x| <= "
+            f"{flip_max:.1e}; {free_err:.3e} without it)")
+    return launches
 
 
 def _fit(trainer, data, on_phase=None):
@@ -628,11 +964,13 @@ def phase_train(tag, cfg_fn, spec, run, impls, expect_per_step, device,
                           TrainerConfig(str(ck), checkpoint_every=10),
                           device=device)
 
+    params0 = None
     for impl in impls:
         ck = CKPT_DIR / tag / impl
         shutil.rmtree(ck, ignore_errors=True)
         tr = trainer(impl, ck)
-        grads[impl] = _first_grads(tr.cfg, tr.init_state()[0], first)
+        params0 = tr.init_state()[0]     # seed 0: the same for every impl
+        grads[impl] = _first_grads(tr.cfg, params0, first)
         marks = []
 
         def mark(phase):
@@ -652,6 +990,19 @@ def phase_train(tag, cfg_fn, spec, run, impls, expect_per_step, device,
         check(len(curves[impl]) == steps
               and bool(np.isfinite(curves[impl]).all()),
               f"train {tag} {impl}: loss curve {curves[impl]}")
+        if impl == "ref":
+            more = []
+            for k in range(1, REF_RUNS):
+                ck_k = CKPT_DIR / tag / f"ref-{k}"
+                shutil.rmtree(ck_k, ignore_errors=True)
+                more.append(np.asarray(_fit(trainer("ref", ck_k), data)))
+            runs = np.stack([curves["ref"], *more])
+            curves["ref"] = runs.mean(axis=0)
+            ref_spread = float(np.max(np.abs(runs - curves["ref"])
+                                      / np.abs(curves["ref"])))
+            log(f"[train {tag}] impl=ref: {REF_RUNS} runs, the impls are "
+                f"held against their mean curve; largest relative gap of "
+                f"a run to the mean {ref_spread:.3e}")
         split = {p: [] for p in ("batch", "forward", "backward",
                                  "optimizer")}
         for (_, t0), (phase, t1) in zip(marks, marks[1:]):
@@ -670,15 +1021,17 @@ def phase_train(tag, cfg_fn, spec, run, impls, expect_per_step, device,
     for impl in impls:
         if impl == "ref":
             continue
-        g_err = max(max_err(g, r, f"train {tag} {impl} first-step grad",
-                            GRAD_TOL)
-                    for g, r in zip(grads[impl], grads["ref"]))
+        g_err, flips, flip_max, free_err = _grads_vs_ref(
+            f"train {tag} {impl} first-step grad", grads[impl],
+            cfg_fn(impl="ref"), params0, first)
         gap = float(np.max(np.abs(curves[impl] - curves["ref"])
                            / np.abs(curves["ref"])))
         check(gap <= CURVE_RTOL, f"train {tag} {impl}: loss curve differs "
                                  f"from ref by {gap:.3e} relative")
         log(f"[train {tag}] impl={impl} vs ref: first-step gradients max abs"
-            f" error {g_err:.3e} (tolerance {GRAD_TOL}); loss curve max "
+            f" error {g_err:.3e} at the same ReLU pattern (tolerance "
+            f"{GRAD_TOL}; {flips} ReLU inputs of other sign, |x| <= "
+            f"{flip_max:.1e}; {free_err:.3e} without it); loss curve max "
             f"relative gap {gap:.3e}")
     if resume_impl is not None:
         # a fresh trainer over a directory that holds only the step-10
@@ -719,37 +1072,53 @@ def main() -> int:
     device = torch.device(DEVICE)
     phase_build()
     rows, errs = phase_kernels(device)
+    p_launches = phase_powerlaw(device)
 
     tox_launches = phase_serve(
         "tox21", GCNConfig.tox21, GraphDatasetSpec.tox21_like(N_REQUESTS,
                                                               seed=0),
-        ("ref", "fused", "pallas_ell", "pallas_coo"),
+        ("ref", "fused", "pallas_ell", "pallas_coo", "pallas_hybrid",
+         "fused_hybrid", "pallas_gemm"),
         {"fused": {"fused_forward": 2},
          "pallas_ell": {"batched_spmm_ell": 2},
-         "pallas_coo": {"batched_spmm_coo": 2}}, device, F32_TOL)
+         "pallas_coo": {"batched_spmm_coo": 2},
+         "pallas_hybrid": {"batched_spmm_hybrid": 2},
+         "fused_hybrid": {"fused_hybrid_forward": 2},
+         "pallas_gemm": {"batched_gemm": 2}}, device, F32_TOL)
     r_launches = phase_serve(
         "reaction100", GCNConfig.reaction100,
         GraphDatasetSpec.reaction100_like(N_REQUESTS, seed=0),
-        ("ref", "fused"), {"fused": {"fused_forward": 3}}, device, F32_TOL)
+        ("ref", "fused", "fused_hybrid", "pallas_hybrid"),
+        {"fused": {"fused_forward": 3},
+         "fused_hybrid": {"fused_hybrid_forward": 3},
+         "pallas_hybrid": {"batched_spmm_hybrid": 3}}, device, F32_TOL)
     t_launches = phase_train(
         "tox21", GCNConfig.tox21,
         GraphDatasetSpec.tox21_like(TRAIN_TOX21["n_samples"], seed=0),
         TRAIN_TOX21, ("ref", "fused", "pallas_coo", "pallas_ell",
-                      "pallas_csr"),
+                      "pallas_csr", "pallas_hybrid", "fused_hybrid",
+                      "pallas_gemm"),
         {"fused": {"fused_forward": 2, "batched_spmm_coo": 2},
          "pallas_coo": {"batched_spmm_coo": 4},
          "pallas_ell": {"batched_spmm_ell": 2, "batched_spmm_coo": 2},
-         "pallas_csr": {"batched_spmm_csr": 4}}, device,
+         "pallas_csr": {"batched_spmm_csr": 4},
+         "pallas_hybrid": {"batched_spmm_hybrid": 2, "batched_spmm_csr": 2},
+         "fused_hybrid": {"fused_hybrid_forward": 2, "batched_spmm_coo": 2},
+         "pallas_gemm": {"batched_gemm": 2, "batched_spmm_coo": 2}}, device,
         resume_impl="pallas_csr")
     tr_launches = phase_train(
         "reaction100", GCNConfig.reaction100,
         GraphDatasetSpec.reaction100_like(
             TRAIN_R100["batch"] * TRAIN_R100["steps"], seed=0),
-        TRAIN_R100, ("ref", "fused"),
-        {"fused": {"fused_forward": 3, "batched_spmm_coo": 3}}, device)
+        TRAIN_R100, ("ref", "fused", "fused_hybrid", "pallas_hybrid"),
+        {"fused": {"fused_forward": 3, "batched_spmm_coo": 3},
+         "fused_hybrid": {"fused_hybrid_forward": 3, "batched_spmm_coo": 3},
+         "pallas_hybrid": {"batched_spmm_hybrid": 3, "batched_spmm_csr": 3}},
+        device)
 
-    paths = {"serve tox21": tox_launches, "serve reaction100": r_launches,
-             "train tox21": t_launches, "train reaction100": tr_launches}
+    paths = {"powerlaw model": p_launches, "serve tox21": tox_launches,
+             "serve reaction100": r_launches, "train tox21": t_launches,
+             "train reaction100": tr_launches}
     kernels = []
     for kname, key in ENTRY_ROW.items():
         per_path = {p: c.get(kname, 0) for p, c in paths.items()}

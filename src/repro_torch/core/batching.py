@@ -13,14 +13,16 @@ case 3: m_A > 8192 -> don't batch, use a  | case 3: m_pad > LARGE_M, or not even
 one thread block per (matrix x panel)     | the same: grid (batch, p)
 subWarp = next_pow2(n_B) capped at 32     | the same (``sub_warp``)
 
-A panel is at most ``PANEL_MAX`` columns so that a thread of the fused kernel
-keeps its share of a panel row (4 columns) in registers. The planner sees
+A panel is at most ``PANEL_MAX`` columns so that a thread of the fused,
+hybrid and GEMM kernels keeps its share of a panel row (4 columns) in
+registers. The planner sees
 only shapes and emits a :class:`BatchPlan` that the kernels, the plain
 versions and the tests share.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 SMEM_BYTES = 232_448     # shared memory one block may use on sm_90a
 WARP = 32                # lanes per warp; panels are multiples of it
@@ -71,18 +73,83 @@ def _panel(n: int, fixed_bytes: int, bytes_per_col: int) -> int | None:
     return n_block
 
 
-def plan_batched_spmm(*, batch: int, m_pad: int, n_b: int) -> BatchPlan:
-    """Column panels for the ELL and COO kernels. A block holds one
-    ``(m_pad, n_block)`` f32 panel in shared memory: the staged B panel of
-    the ELL kernel, the atomic accumulator of the COO kernel. Unlike the
-    reference's VMEM plan, the index stream (k_pad or nnz_pad slots) is read
-    from global memory and takes no shared memory."""
-    n_block = None if m_pad > LARGE_M else _panel(n_b, 0, m_pad * 4)
+def plan_batched_spmm(*, batch: int, m_pad: int, n_b: int,
+                      fixed_bytes: int = 0) -> BatchPlan:
+    """Column panels for the ELL, COO, CSR and hybrid kernels. A block holds
+    one ``(m_pad, n_block)`` f32 panel in shared memory: the staged B panel
+    of the ELL, CSR and hybrid kernels, the atomic accumulator of the COO
+    kernel, plus ``fixed_bytes`` beside it (the hybrid kernel's row
+    permutation). Unlike the reference's VMEM plan, the index stream (k_pad
+    or nnz_pad slots) is read from global memory and takes no shared
+    memory."""
+    n_block = (None if m_pad > LARGE_M
+               else _panel(n_b, fixed_bytes, m_pad * 4))
     if n_block is None:
         return BatchPlan(batch, m_pad, n_b, n_b, 1, 3, 0)
     p = -(-n_b // n_block)
     return BatchPlan(batch, m_pad, n_b, n_block, p, 1 if p == 1 else 2,
-                     m_pad * n_block * 4)
+                     fixed_bytes + m_pad * n_block * 4)
+
+
+# Hybrid dispatch defaults, the reference's: a row whose density
+# ``deg / m_pad`` reaches TAU is a hub and goes to the dense slab; the rest
+# stay in the row-split CSR remainder, bounded by ``dmin - 1`` slots a row.
+HYBRID_TAU = 0.25
+HYBRID_NBINS = 8
+SUBLANES = 8             # the reference rounds m_pad, d_pad and bins to it
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridPlan:
+    """The reference's static record of the degree-binned hybrid split.
+
+    ``spmm`` is the Hopper column-panel plan of the hybrid kernel (its
+    ``m_pad`` is the reference's, rounded up to 8). A row with
+    ``deg >= dmin`` is a hub. ``d_pad`` is the height of the dense hub slab:
+    every hub holds at least ``dmin`` non-zeros, so ``nnz_pad // dmin``
+    bounds their count, and ``d_pad == 0`` means no slab at all. ``bins``
+    are the reference's work bins of the degree-sorted row axis; the CUDA
+    kernel bounds each row by its own length and does not read them.
+    """
+
+    spmm: BatchPlan
+    dmin: int
+    d_pad: int
+    bins: tuple[tuple[int, int], ...]
+
+
+def plan_hybrid(*, batch: int, m_pad: int, n_b: int,
+                nnz_pad: int) -> HybridPlan:
+    """The reference's ``plan_hybrid`` at its defaults (HYBRID_TAU,
+    HYBRID_NBINS): ``dmin``, ``d_pad`` and ``bins`` are derived from
+    ``m_pad`` rounded up to 8, as the reference derives them, so that rows
+    classify alike in both packages. The panels leave room for the
+    kernel's ``m_pad`` row permutation beside the B panel."""
+    m_pad = _round_up(max(m_pad, 1), SUBLANES)
+    spmm = plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b,
+                             fixed_bytes=4 * m_pad)
+    dmin = max(1, math.ceil(HYBRID_TAU * m_pad))
+    d_pad = (0 if nnz_pad < dmin
+             else min(m_pad, _round_up(max(1, nnz_pad // dmin), SUBLANES)))
+    rows_per_bin = max(SUBLANES,
+                       _round_up(max(1, m_pad // HYBRID_NBINS), SUBLANES))
+    bins = tuple((s, min(s + rows_per_bin, m_pad))
+                 for s in range(0, m_pad, rows_per_bin))
+    return HybridPlan(spmm, dmin, d_pad, bins)
+
+
+def plan_batched_gemm(*, batch: int, m: int, n: int, k: int) -> BatchPlan:
+    """Column panels for the batched GEMM kernel (the gemmBatched analogue):
+    a block keeps the whole ``(m, k)`` A tile and one ``(k, n_block)`` B
+    panel in shared memory and C in registers. Case 3 when the A tile and
+    one 32-lane panel do not fit."""
+    n_block = (None if max(m, k) > LARGE_M
+               else _panel(n, m * k * 4, k * 4))
+    if n_block is None:
+        return BatchPlan(batch, m, n, n, 1, 3, 0)
+    p = -(-n // n_block)
+    return BatchPlan(batch, m, n, n_block, p, 1 if p == 1 else 2,
+                     (m * k + k * n_block) * 4)
 
 
 def chunk_counts(nnz_per_sample) -> tuple[int, ...]:

@@ -287,3 +287,44 @@ def random_batch(rng: np.random.Generator, *, batch: int,
         n_rows.append(m)
     m_pad = _round_up(max(n_rows), 8)
     return coo_from_lists(triples, n_rows), m_pad
+
+
+def powerlaw_degrees(rng: np.random.Generator, n: int, avg_deg: float,
+                     alpha: float = 1.2) -> np.ndarray:
+    """(n,) int64 truncated power-law degrees, ``deg_r ∝ (r+1)^-alpha``
+    rescaled to mean ≈ ``avg_deg``, capped at ``n`` and shuffled so hubs
+    land on random ids (the reference's recipe and draws)."""
+    w = (np.arange(n, dtype=np.float64) + 1.0) ** -alpha
+    deg = np.minimum(
+        np.maximum(np.rint(w * (avg_deg * n / w.sum())), 0.0), n
+    ).astype(np.int64)
+    rng.shuffle(deg)
+    return deg
+
+
+def random_powerlaw_batch(rng: np.random.Generator, *, batch: int,
+                          dim: int | tuple[int, int], avg_deg: float,
+                          alpha: float = 1.2,
+                          self_loops: bool = True) -> tuple[BatchedCOO, int]:
+    """Degree-skewed square sparse matrices with :func:`powerlaw_degrees`
+    rows — a few hub rows hold a large share of the non-zeros, the regime
+    the hybrid split is for. The reference's ``random_powerlaw_batch``: the
+    same draws from the same ``rng``. Returns (BatchedCOO, m_pad)."""
+    dims = (dim, dim) if isinstance(dim, int) else dim
+    triples, n_rows = [], []
+    for _ in range(batch):
+        m = int(rng.integers(dims[0], dims[1] + 1))
+        deg = powerlaw_degrees(rng, m, avg_deg, alpha)
+        rows, cols = [], []
+        for r in range(m):
+            cs = rng.choice(m, size=int(deg[r]), replace=False).tolist()
+            rows.extend([r] * len(cs))
+            cols.extend(cs)
+            if self_loops and r not in cs:
+                rows.append(r)
+                cols.append(r)
+        triples.append((np.asarray(rows, np.int32), np.asarray(cols, np.int32),
+                        np.ones(len(rows), np.float32)))
+        n_rows.append(m)
+    m_pad = _round_up(max(n_rows), 8)
+    return coo_from_lists(triples, n_rows), m_pad

@@ -5,10 +5,10 @@ in ChemGCN). The strategies compute the same function with different op
 structure:
 
 - ``graph_conv_nonbatched``  Fig. 6: one op per (sample × channel);
-- ``graph_conv_batched``     Fig. 7 and beyond: ``impl="fused"`` runs the
-  whole layer as ONE kernel; any SpMM impl runs the stacked form — one
-  feature-transform einsum, ONE ``(channels·batch)`` batched SpMM, one
-  channel sum.
+- ``graph_conv_batched``     Fig. 7 and beyond: ``impl="fused"`` or
+  ``"fused_hybrid"`` runs the whole layer as ONE kernel; any SpMM impl runs
+  the stacked form — one feature-transform einsum, ONE ``(channels·batch)``
+  batched SpMM, one channel sum.
 """
 from __future__ import annotations
 
@@ -72,14 +72,15 @@ def graph_conv_batched(params, adj: Sequence[BatchedCOO], x: torch.Tensor,
                        epilogue: str = "none") -> torch.Tensor:
     """Paper Fig. 7 and beyond: the whole mini-batch's layer in O(1) ops.
 
-    ``impl="fused"`` runs the layer kernel; any other impl runs the stacked
-    form with that SpMM. ``epilogue`` ("none"|"relu") runs inside the fused
-    kernel, as a torch op otherwise."""
+    ``impl="fused"`` / ``"fused_hybrid"`` runs the layer kernel; any other
+    impl runs the stacked form with that SpMM. ``epilogue``
+    ("none"|"relu") runs inside the fused kernel, as a torch op
+    otherwise."""
     check_impl(impl)
-    if impl == "fused":
+    if impl.startswith("fused"):
         rids, cids, vals, nnz = stack_channels(adj)
         return fused_graph_conv(rids, cids, vals, nnz, x, params["w"],
-                                params["b"], epilogue=epilogue)
+                                params["b"], epilogue=epilogue, impl=impl)
     channels = len(adj)
     batch, m_pad = x.shape[0], x.shape[1]
     n_out = params["w"].shape[-1]

@@ -2,8 +2,8 @@
 // ONE kernel, the whole ChemGCN layer of paper Fig. 7 per launch.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_graph_conv.py
-// (fused_forward / _kernel without its rank/slab hybrid branch; the fused
-// registry entry).
+// (fused_forward / _kernel, the fused registry entry, and its rank/slab
+// hybrid branch reached from fused_hybrid_forward, the fused_hybrid entry).
 //
 // What bounds it on an H100: operations at wide layers, launches at narrow
 // ones. The feature transform is 2 * m_pad * n_in * n_out FLOP per sample
@@ -29,6 +29,22 @@
 // residual, applies ReLU and stores the panel once. The atomics make the
 // last bits of a sum vary from run to run; the result is held to the f32
 // tolerance.
+//
+// Hybrid branch (entry fused_graph_conv_hybrid_f32; template kHybrid): the
+// accumulator holds the rows in degree-sorted order. The sparse slots'
+// row ids are already sorted positions (hub slots carry the m_pad
+// sentinel and are skipped), and for each channel, once U_ch is in shared
+// memory, the block adds the head slab_ch . U_ch into accumulator rows
+// [0, d_pad): one thread per (hub row, column) reads the slab row from
+// device memory (a broadcast load per m for the warp; 12.5 KB per channel
+// at m_pad 56, 128 KB at m_pad 256, so it is streamed, not staged, and
+// the shared memory stays the plain kernel's) against the staged U_ch
+// panel and adds the sum with one atomicAdd, so no extra barrier is needed
+// against the scatter's atomics. Every channel runs its transform even
+// with no sparse chunk, since its hub rows may still hold slots. The
+// epilogue reads acc[rank[r]] for output row r, then adds the residual and
+// applies ReLU, the reference's order. The head costs d_pad * m_pad FMAs
+// per column and channel: 4 * 128 * 256 * 64 per powerlaw sample.
 #include "common.cuh"
 
 namespace {
@@ -39,13 +55,16 @@ constexpr int kRowGroups = kThreads / kLanes;  // threads along the rows
 constexpr int kCols = 4;                       // columns per thread
 constexpr int kRows = 8;                       // rows per thread and pass
 
+template <bool kHybrid>
 __global__ void __launch_bounds__(kThreads)
 fused_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
              const float* __restrict__ val, const int* __restrict__ chunks,
              const float* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ bias, const float* __restrict__ res,
+             const int* __restrict__ rank, const float* __restrict__ slab,
              float* __restrict__ y, int channels, int nnz_pad, int chunk,
-             int m_pad, int n_in, int n_out, int n_block, int relu, int sub) {
+             int m_pad, int n_in, int n_out, int n_block, int d_pad, int relu,
+             int sub) {
   extern __shared__ float smem[];
   float* xs = smem;                    // (m_pad, n_in) X tile
   float* us = xs + m_pad * n_in;       // (m_pad, nbw) U_ch panel
@@ -65,7 +84,8 @@ fused_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
   for (int ch = 0; ch < channels; ++ch) {
     const int sc = s * channels + ch;
     const int n = min(max(chunks[sc], 0) * chunk, nnz_pad);
-    if (n == 0) continue;  // the same for every thread of the block
+    // the same for every thread of the block; hub rows need U_ch regardless
+    if (!kHybrid && n == 0) continue;
 
     const float* wch = w + static_cast<size_t>(ch) * n_in * n_out + col0;
     const float* bch = bias + static_cast<size_t>(ch) * n_out + col0;
@@ -106,6 +126,18 @@ fused_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
     }
     __syncthreads();
 
+    if constexpr (kHybrid) {
+      const float* sl = slab + static_cast<size_t>(sc) * d_pad * m_pad;
+      for (int i = tid; i < d_pad * nbw; i += kThreads) {
+        const int d = i / nbw, cc = i - d * nbw;
+        const float* srow = sl + static_cast<size_t>(d) * m_pad;
+        float h = 0.f;
+        for (int m = 0; m < m_pad; ++m)
+          h = fmaf(__ldg(srow + m), us[m * nbw + cc], h);
+        atomicAdd(acc + i, h);
+      }
+    }
+
     const size_t off = static_cast<size_t>(sc) * nnz_pad;
     for (int i = tid / sub; i < n; i += groups) {
       const float v = __ldg(val + off + i);
@@ -125,10 +157,37 @@ fused_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
     const int r = i / nbw, cc = i - r * nbw;
     const size_t g = (static_cast<size_t>(s) * m_pad + r) * n_out + col0 + cc;
     float o = acc[i];
+    if constexpr (kHybrid) {
+      const int q = __ldg(rank + static_cast<size_t>(s) * m_pad + r);
+      o = static_cast<unsigned>(q) < static_cast<unsigned>(m_pad)
+              ? acc[q * nbw + cc] : 0.f;
+    }
     if (res) o += res[g];
     if (relu) o = fmaxf(o, 0.f);
     y[g] = o;
   }
+}
+
+template <bool kHybrid>
+int launch(const int* rid, const int* cid, const float* val,
+           const int* chunks, const float* x, const float* w,
+           const float* bias, const float* res, const int* rank,
+           const float* slab, float* y, int batch, int channels, int nnz_pad,
+           int chunk, int m_pad, int n_in, int n_out, int n_block, int d_pad,
+           int relu, void* stream) {
+  if (n_block < 1 || n_block > kLanes * kCols) return cudaErrorInvalidValue;
+  const size_t smem = (static_cast<size_t>(m_pad) * n_in +
+                       2 * static_cast<size_t>(m_pad) * n_block) *
+                      sizeof(float);
+  cudaError_t e = repro::allow_smem(fused_kernel<kHybrid>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(batch, (n_out + n_block - 1) / n_block);
+  fused_kernel<kHybrid>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          rid, cid, val, chunks, x, w, bias, res, rank, slab, y, channels,
+          nnz_pad, chunk, m_pad, n_in, n_out, n_block, d_pad, relu,
+          repro::sub_warp(n_block));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -141,15 +200,21 @@ extern "C" int fused_graph_conv_f32(const int* rid, const int* cid,
                                     int nnz_pad, int chunk, int m_pad,
                                     int n_in, int n_out, int n_block,
                                     int relu, void* stream) {
-  if (n_block < 1 || n_block > kLanes * kCols) return cudaErrorInvalidValue;
-  const size_t smem = (static_cast<size_t>(m_pad) * n_in +
-                       2 * static_cast<size_t>(m_pad) * n_block) *
-                      sizeof(float);
-  cudaError_t e = repro::allow_smem(fused_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(batch, (n_out + n_block - 1) / n_block);
-  fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      rid, cid, val, chunks, x, w, bias, res, y, channels, nnz_pad, chunk,
-      m_pad, n_in, n_out, n_block, relu, repro::sub_warp(n_block));
-  return cudaGetLastError();
+  return launch<false>(rid, cid, val, chunks, x, w, bias, res, nullptr,
+                       nullptr, y, batch, channels, nnz_pad, chunk, m_pad,
+                       n_in, n_out, n_block, 0, relu, stream);
+}
+
+// rank (batch, m_pad) and slab (batch, channels, d_pad, m_pad), d_pad >= 1
+extern "C" int fused_graph_conv_hybrid_f32(
+    const int* rid, const int* cid, const float* val, const int* chunks,
+    const float* x, const float* w, const float* bias, const float* res,
+    const int* rank, const float* slab, float* y, int batch, int channels,
+    int nnz_pad, int chunk, int m_pad, int n_in, int n_out, int n_block,
+    int d_pad, int relu, void* stream) {
+  if (d_pad < 1 || d_pad > m_pad || rank == nullptr || slab == nullptr)
+    return cudaErrorInvalidValue;
+  return launch<true>(rid, cid, val, chunks, x, w, bias, res, rank, slab, y,
+                      batch, channels, nnz_pad, chunk, m_pad, n_in, n_out,
+                      n_block, d_pad, relu, stream);
 }

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("batched_spmm_ell", "batched_spmm_coo", "batched_spmm_csr",
-           "fused_graph_conv")
+           "batched_spmm_hybrid", "batched_gemm", "fused_graph_conv")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}

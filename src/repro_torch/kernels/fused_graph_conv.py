@@ -8,8 +8,14 @@ accumulator in shared memory; ``U_ch`` never reaches device memory, and each
 (the reference's skew-aware bound). The plain version is
 :func:`repro_torch.kernels.ref.fused_graph_conv_plain`. The backward
 (:func:`fused_bwd`) is the reference's: dU = Aᵀ·dZ through the COO kernel,
-then dense contractions. f32; the reference's hybrid ``rank``/``slab``
-branch is not ported.
+then dense contractions. f32.
+
+``impl="fused_hybrid"`` (:func:`fused_hybrid_forward`) folds the
+degree-binned hybrid split into the same kernel: rows whose degree over
+all channels reaches the hub threshold leave the scatter for per-channel
+dense slabs, the accumulator is kept in degree-sorted row order and the
+epilogue restores the original order. The backward runs on the original
+arrays, unchanged.
 """
 from __future__ import annotations
 
@@ -20,7 +26,9 @@ import torch
 from repro_torch.core.batching import (
     CHUNK,
     BatchPlan,
+    HybridPlan,
     plan_fused_graph_conv,
+    plan_hybrid,
 )
 from repro_torch.kernels import (
     _build,
@@ -30,25 +38,37 @@ from repro_torch.kernels import (
     ref,
     stream_handle,
 )
+from repro_torch.kernels.batched_spmm_hybrid import hub_slab
 from repro_torch.kernels.ops import _forward, bwd_impl_for, dvalues
 
 EPILOGUES = ("none", "relu")
+FUSED_IMPLS = ("fused", "fused_hybrid")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P,) * 9 + (_I,) * 9 + (_P,)
+_HYBRID_ARGTYPES = (_P,) * 11 + (_I,) * 10 + (_P,)
 
 
 def fused_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
                   values: torch.Tensor, chunks: torch.Tensor, x: torch.Tensor,
                   w: torch.Tensor, bias: torch.Tensor,
-                  residual: torch.Tensor | None = None, *,
+                  residual: torch.Tensor | None = None,
+                  rank: torch.Tensor | None = None,
+                  slab: torch.Tensor | None = None, *,
                   plan: BatchPlan | None = None,
                   epilogue: str = "none") -> torch.Tensor:
     """Raw fused forward. ids/values (batch, channels, nnz_pad) int32/f32,
     chunks (batch, channels) int32 CHUNK counts (:func:`runtime_chunks`;
     0.0-valued slots inside them add nothing), x (batch, m_pad, n_in),
     w (channels, n_in, n_out), bias (channels, n_out), residual
-    (batch, m_pad, n_out) or None → (batch, m_pad, n_out) f32."""
+    (batch, m_pad, n_out) or None → (batch, m_pad, n_out) f32.
+
+    ``rank`` (batch, m_pad) int32 and ``slab`` (batch, channels, d_pad,
+    m_pad) f32, set together by :func:`fused_hybrid_forward`, switch on the
+    hybrid branch (the row ids are then degree-sorted positions); its
+    launches count in ``fused_hybrid_forward.launches``."""
+    if (rank is None) != (slab is None):
+        raise ValueError("rank and slab are set together")
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue={epilogue!r}; expected one of {EPILOGUES}")
     if row_ids.dim() != 3 or x.dim() != 3 or w.dim() != 3:
@@ -67,23 +87,44 @@ def fused_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
     if residual is not None:
         check_operand("residual", residual, (batch, m_pad, n_out),
                       torch.float32)
+    if slab is not None:
+        d_pad = slab.shape[2] if slab.dim() == 4 else -1
+        if not 1 <= d_pad <= m_pad:
+            raise ValueError(f"slab: shape {tuple(slab.shape)}, expected "
+                             f"(batch, channels, d_pad, m_pad), 1 <= d_pad "
+                             f"<= m_pad")
+        check_operand("rank", rank, (batch, m_pad), torch.int32)
+        check_operand("slab", slab, (batch, channels, d_pad, m_pad),
+                      torch.float32)
     plan = plan or plan_fused_graph_conv(batch=batch, m_pad=m_pad, n_in=n_in,
                                          n_out=n_out)
     check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_out)
-    if on_cpu(row_ids, col_ids, values, chunks, x, w, bias, residual):
+    if on_cpu(row_ids, col_ids, values, chunks, x, w, bias, residual, rank,
+              slab):
         return ref.fused_graph_conv_plain(row_ids, col_ids, values, chunks,
-                                          x, w, bias, residual, epilogue)
+                                          x, w, bias, residual, epilogue,
+                                          rank, slab)
     out = torch.empty((batch, m_pad, n_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = _build.entry("fused_graph_conv", "fused_graph_conv_f32", _ARGTYPES)
-    code = fn(row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
-              chunks.data_ptr(), x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-              None if residual is None else residual.data_ptr(),
-              out.data_ptr(), batch, channels, nnz_pad, CHUNK, m_pad, n_in,
-              n_out, plan.n_block, int(epilogue == "relu"), stream_handle())
+    head = (row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
+            chunks.data_ptr(), x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            None if residual is None else residual.data_ptr())
+    dims = (batch, channels, nnz_pad, CHUNK, m_pad, n_in, n_out, plan.n_block)
+    relu = int(epilogue == "relu")
+    if slab is None:
+        fn = _build.entry("fused_graph_conv", "fused_graph_conv_f32",
+                          _ARGTYPES)
+        code = fn(*head, out.data_ptr(), *dims, relu, stream_handle())
+        counted = fused_forward
+    else:
+        fn = _build.entry("fused_graph_conv", "fused_graph_conv_hybrid_f32",
+                          _HYBRID_ARGTYPES)
+        code = fn(*head, rank.data_ptr(), slab.data_ptr(), out.data_ptr(),
+                  *dims, slab.shape[2], relu, stream_handle())
+        counted = fused_hybrid_forward
     _build.check("fused_graph_conv", code)
-    fused_forward.launches += 1
+    counted.launches += 1
     return out
 
 
@@ -94,6 +135,82 @@ def runtime_chunks(nnz: torch.Tensor) -> torch.Tensor:
     """Skew-aware chunk counts ``ceil(nnz / CHUNK)`` per (sample × channel),
     from the BatchedCOO ``nnz`` metadata."""
     return ((nnz + CHUNK - 1) // CHUNK).to(torch.int32)
+
+
+def fused_hybrid_operands(row_ids: torch.Tensor, col_ids: torch.Tensor,
+                          values: torch.Tensor, m_pad: int,
+                          hplan: HybridPlan):
+    """The prep of :func:`fused_hybrid_forward`, on the tensors' device and
+    without reading anything back to the host: ``(rid_s, cid_s, val_s,
+    chunks, rank, slab)`` for :func:`fused_forward`.
+
+    A row's degree is summed over the channels, counting the slots whose
+    value is non-zero (padding carries 0.0 and may sit anywhere in the
+    visited chunks). Rows are stably sorted by descending degree; every
+    slot targets its row's sorted position, and the slots of the first
+    ``n_dense`` sorted rows (the hubs) leave the scatter for per-channel
+    ``(d_pad, m_pad)`` slabs through the ``m_pad`` sentinel. The live
+    sparse slots are compacted to the front of each channel, so the chunk
+    counts shrink by what the slabs took. Needs ``hplan.d_pad > 0``."""
+    batch, channels, nnz_pad = row_ids.shape
+    live = values != 0
+    rid_c = row_ids.long().clamp(0, m_pad - 1)
+    cid_c = col_ids.clamp(0, m_pad - 1)
+    deg = torch.zeros((batch, m_pad + 1), dtype=torch.int32,
+                      device=row_ids.device)
+    deg.scatter_add_(1, torch.where(live, rid_c, m_pad).reshape(batch, -1),
+                     torch.ones_like(rid_c, dtype=torch.int32)
+                     .reshape(batch, -1))
+    deg = deg[:, :m_pad]
+    perm = torch.argsort(-deg, dim=1, stable=True)
+    rank = torch.argsort(perm, dim=1, stable=True).to(torch.int32)
+    n_dense = (deg >= hplan.dmin).sum(dim=1).clamp(max=hplan.d_pad)
+    # every slot's sorted row; the hubs are the first n_dense sorted rows
+    pos = torch.gather(rank, 1, rid_c.reshape(batch, -1)).reshape(
+        rid_c.shape)
+    is_hub = pos < n_dense[:, None, None]
+    rid_m = torch.where(is_hub, m_pad, pos)
+    live_sp = live & ~is_hub
+    order = torch.argsort((~live_sp).to(torch.int32), dim=2, stable=True)
+    rid_s = torch.gather(rid_m, 2, order)
+    cid_s = torch.gather(col_ids, 2, order)
+    val_s = torch.gather(values, 2, order)
+    chunks = runtime_chunks(live_sp.sum(dim=2))
+    flat = batch * channels, nnz_pad
+    slab = hub_slab(hplan.d_pad, m_pad, pos.reshape(flat),
+                    is_hub.reshape(flat), cid_c.reshape(flat),
+                    values.reshape(flat))
+    return (rid_s, cid_s, val_s, chunks, rank,
+            slab.view(batch, channels, hplan.d_pad, m_pad))
+
+
+def fused_hybrid_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
+                         values: torch.Tensor, nnz: torch.Tensor,
+                         x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                         residual: torch.Tensor | None = None, *,
+                         plan: BatchPlan | None = None, hplan: HybridPlan,
+                         epilogue: str = "none") -> torch.Tensor:
+    """The hybrid split folded into the fused kernel, the reference's
+    ``fused_hybrid_forward``: :func:`fused_hybrid_operands` in PyTorch ops,
+    then one :func:`fused_forward` launch whose accumulator is in sorted
+    row order and whose epilogue restores the original order. With
+    ``hplan.d_pad == 0`` no row can be a hub and the plain fused kernel
+    runs, as in the reference."""
+    m_pad = x.shape[1]
+    if hplan.spmm.m_pad != m_pad:
+        raise ValueError(f"{hplan} does not match m_pad={m_pad} (the hybrid "
+                         "split takes m_pad a multiple of 8)")
+    if hplan.d_pad == 0:
+        return fused_forward(row_ids, col_ids, values, runtime_chunks(nnz),
+                             x, w, bias, residual, plan=plan,
+                             epilogue=epilogue)
+    rid_s, cid_s, val_s, chunks, rank, slab = fused_hybrid_operands(
+        row_ids, col_ids, values, m_pad, hplan)
+    return fused_forward(rid_s, cid_s, val_s, chunks, x, w, bias, residual,
+                         rank, slab, plan=plan, epilogue=epilogue)
+
+
+fused_hybrid_forward.launches = 0
 
 
 def fused_bwd(rids, cids, values, x, w, bias, y, dy, *, epilogue: str,
@@ -149,12 +266,18 @@ class _FusedGraphConv(torch.autograd.Function):
     """The fused layer with the reference's VJP (:func:`fused_bwd`)."""
 
     @staticmethod
-    def forward(ctx, values, x, w, bias, residual, rids, cids, chunks, plan,
-                epilogue):
-        y = fused_forward(rids, cids, values, chunks, x, w, bias, residual,
-                          plan=plan, epilogue=epilogue)
+    def forward(ctx, values, x, w, bias, residual, rids, cids, nnz, plan,
+                hplan, epilogue, impl):
+        if hplan is None:
+            y = fused_forward(rids, cids, values, runtime_chunks(nnz), x, w,
+                              bias, residual, plan=plan, epilogue=epilogue)
+        else:
+            y = fused_hybrid_forward(rids, cids, values, nnz, x, w, bias,
+                                     residual, plan=plan, hplan=hplan,
+                                     epilogue=epilogue)
         ctx.save_for_backward(rids, cids, values, x, w, bias, y)
         ctx.epilogue = epilogue
+        ctx.impl = impl
         return y
 
     @staticmethod
@@ -162,27 +285,36 @@ class _FusedGraphConv(torch.autograd.Function):
         rids, cids, values, x, w, bias, y = ctx.saved_tensors
         grads = fused_bwd(rids, cids, values, x, w, bias, y, dy,
                           epilogue=ctx.epilogue,
-                          bwd_impl=bwd_impl_for("fused"),
+                          bwd_impl=bwd_impl_for(ctx.impl),
                           needs=ctx.needs_input_grad[:5])
-        return grads + (None,) * 5
+        return grads + (None,) * 7
 
 
 def fused_graph_conv(row_ids: torch.Tensor, col_ids: torch.Tensor,
                      values: torch.Tensor, nnz: torch.Tensor,
                      x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
                      epilogue: str = "none",
-                     residual: torch.Tensor | None = None) -> torch.Tensor:
+                     residual: torch.Tensor | None = None,
+                     impl: str = "fused") -> torch.Tensor:
     """``Y = epilogue(Σ_ch A_ch·(X·W_ch + b_ch) [+ residual])`` in one device
     op, ``nnz`` (batch, channels) being each channel's true non-zero count.
-    Differentiable in ``values``, ``x``, ``w``, ``bias`` and ``residual``;
-    on CUDA tensors the backward's dU runs the COO kernel."""
-    plan = plan_fused_graph_conv(batch=x.shape[0], m_pad=x.shape[1],
+    ``impl`` is ``"fused"`` or ``"fused_hybrid"`` (hub rows judged on the
+    layer's whole edge budget, ``channels · nnz_pad`` slots). Differentiable
+    in ``values``, ``x``, ``w``, ``bias`` and ``residual``; on CUDA tensors
+    the backward's dU runs the COO kernel."""
+    if impl not in FUSED_IMPLS:
+        raise ValueError(f"impl={impl!r}; expected one of {FUSED_IMPLS}")
+    batch, channels, nnz_pad = row_ids.shape
+    plan = plan_fused_graph_conv(batch=batch, m_pad=x.shape[1],
                                  n_in=x.shape[2], n_out=w.shape[-1])
     if plan.case == 3:
         raise ValueError(
             f"m_pad={plan.m_pad} is planner case 3: the fused kernel does "
             "not batch matrices this large — use the stacked "
             "graph_conv_batched fallback")
+    hplan = None
+    if impl == "fused_hybrid":
+        hplan = plan_hybrid(batch=batch, m_pad=x.shape[1], n_b=w.shape[-1],
+                            nnz_pad=channels * nnz_pad)
     return _FusedGraphConv.apply(values, x, w, bias, residual, row_ids,
-                                 col_ids, runtime_chunks(nnz), plan,
-                                 epilogue)
+                                 col_ids, nnz, plan, hplan, epilogue, impl)

@@ -7,9 +7,9 @@ the reference's names. Every impl is differentiable in ``a.values`` and
 reference's custom VJP: dB = Aᵀ·dC is a batched SpMM of the class
 :func:`bwd_impl_for` picks (:func:`backward_db`) and dValues a batched
 gather-dot (:func:`dvalues`), each computed only when asked for. This port
-is f32 and (mul, sum); the names it does not carry yet (``hybrid``,
-``pallas_gemm``, the precision variants, ``auto``) raise and are listed in
-``ROADMAP.md``.
+is f32 and (mul, sum); the reference's names that are not in
+:data:`IMPLS` (the precision variants ``*_bf16``/``*_i8`` and ``auto``)
+raise and are listed in ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -24,9 +24,14 @@ from repro_torch.core.formats import (
     validate_ell_k_pad,
 )
 from repro_torch.kernels import ref
+from repro_torch.kernels.batched_gemm import batched_gemm
 from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
 from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
 from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
+from repro_torch.kernels.batched_spmm_hybrid import (
+    batched_spmm_hybrid,
+    batched_spmm_hybrid_ref,
+)
 
 # - ref:        plain batched COO scatter-add (the oracle)
 # - ell:        plain ELL row split (gather + contraction)
@@ -34,20 +39,29 @@ from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
 # - csr:        plain CSR row split (rpt search + scatter-add)
 # - pallas_csr: batched SWA-CSR on flat CSR arrays, the row-split CSR CUDA
 #               kernel (no atomics; its own CSR-class backward)
-# - pallas_coo: batched SWA-SparseTensor, the nnz-split COO CUDA kernel
-# - dense:      densify + torch.bmm (the gemmBatched baseline)
-# - loop:       the NON-batched baseline, one SpMM per sample
-# - fused:      the graph-conv LAYER kernel (graph_conv_batched only)
+# - pallas_coo:    batched SWA-SparseTensor, the nnz-split COO CUDA kernel
+# - hybrid:        plain degree split: hub-row slab product + ELL remainder
+#                  of width dmin - 1
+# - pallas_hybrid: the degree-sorted hybrid CUDA kernel (hub slab + CSR
+#                  remainder, inverse row permutation in the epilogue)
+# - dense:         densify + torch.bmm (the gemmBatched library baseline)
+# - pallas_gemm:   densify + the batched GEMM CUDA kernel
+# - loop:          the NON-batched baseline, one SpMM per sample
+# - fused:         the graph-conv LAYER kernel (graph_conv_batched only)
+# - fused_hybrid:  the LAYER kernel with the hybrid split folded in
 IMPLS = ("ref", "ell", "pallas_ell", "csr", "pallas_csr", "pallas_coo",
-         "dense", "loop", "fused")
+         "hybrid", "pallas_hybrid", "dense", "pallas_gemm", "loop", "fused",
+         "fused_hybrid")
 
 # impls that run a hand-written kernel on CUDA tensors (the registry keeps
 # the reference's names: pallas_* is the kernel class, not the toolchain)
-KERNEL_IMPLS = ("pallas_ell", "pallas_csr", "pallas_coo", "fused")
+KERNEL_IMPLS = ("pallas_ell", "pallas_csr", "pallas_coo", "pallas_hybrid",
+                "pallas_gemm", "fused", "fused_hybrid")
 
 
 def check_impl(impl: str) -> None:
-    """Raise for ``auto`` and for registry names this port does not carry."""
+    """Raise for ``auto`` and for registry names this port does not carry
+    (the reference's precision variants)."""
     if impl == "auto":
         raise ValueError(
             "impl='auto' is not ported: the autotune, its roofline constants "
@@ -55,7 +69,8 @@ def check_impl(impl: str) -> None:
             f"Autotune). Pin one of {IMPLS}")
     if impl not in IMPLS:
         raise ValueError(
-            f"impl={impl!r} is not in the port's registry {IMPLS}; "
+            f"impl={impl!r} is not in the port's registry {IMPLS} (the "
+            "reduced-precision *_bf16 / *_i8 variants are not ported); "
             "ROADMAP.md lists what is still to port")
 
 
@@ -64,12 +79,18 @@ def bwd_impl_for(impl: str) -> str:
 
     Aᵀ loses the per-row ELL bound, so ELL-class forwards fall to the COO
     class; the CSR class stays CSR (the swapped COO re-sorts into the exact
-    transposed CSR); the fused layer's dU = Aᵀ·dZ is a plain batched SpMM of
-    the COO class. The reference's precision and hybrid entries are not
-    ported."""
+    transposed CSR). The hybrid class maps to the CSR class (its remainder
+    is the CSR row split): its inverse permutation sits inside the forward,
+    so cotangents arrive in original row order and Aᵀ is not re-sorted by
+    its own degrees. ``pallas_gemm`` and both fused layers (dU = Aᵀ·dZ)
+    take the COO kernel; ``dense`` stays dense."""
     if impl in ("csr", "pallas_csr"):
         return impl
-    if impl.startswith("pallas") or impl == "fused":
+    if impl == "hybrid":
+        return "csr"
+    if impl == "pallas_hybrid":
+        return "pallas_csr"
+    if impl.startswith("pallas") or impl.startswith("fused"):
         return "pallas_coo"
     return impl if impl in ("ref", "loop", "dense") else "ref"
 
@@ -77,13 +98,14 @@ def bwd_impl_for(impl: str) -> str:
 def _kernel_case3(impl: str, b: torch.Tensor, m_pad: int) -> None:
     """Paper case 3 (too large for the batched shared-memory strategy): the
     reference takes its plain per-sample path; off the CPU a kernel impl
-    must run its kernel, and the large-matrix one is not written yet."""
+    (pallas_ell, pallas_csr, pallas_coo, pallas_hybrid, pallas_gemm) must
+    run its kernel, and the large-matrix one is not written yet."""
     if impl in KERNEL_IMPLS and b.device.type != "cpu":
         raise ValueError(
-            f"impl={impl!r}: m_pad={m_pad} is planner case 3 (one 32-lane "
-            "panel does not fit a block's shared memory); the large-matrix "
-            "kernel is not written yet (ROADMAP.md §2, 'Large-matrix "
-            "kernel')")
+            f"impl={impl!r}: m_pad={m_pad} is planner case 3 (the block's "
+            "shared-memory working set does not fit, not even with one "
+            "32-lane panel); the large-matrix kernel is not written yet "
+            "(ROADMAP.md §2, 'Large-matrix kernel')")
 
 
 def _forward(row_ids, col_ids, nnz, values, b, *, impl: str,
@@ -100,8 +122,26 @@ def _forward(row_ids, col_ids, nnz, values, b, *, impl: str,
         return torch.stack([
             ref.spmm_coo_single(row_ids[s], col_ids[s], values[s], b[s],
                                 m_pad) for s in range(batch)])
-    if impl == "dense":
-        return ref.batched_gemm_ref(coo_to_dense(a, m_pad), b)
+    if impl in ("dense", "pallas_gemm"):
+        a_dense = coo_to_dense(a, m_pad).to(b.dtype).contiguous()
+        if impl == "dense":
+            return ref.batched_gemm_ref(a_dense, b)
+        gplan = batching.plan_batched_gemm(batch=batch, m=m_pad, n=n_b,
+                                           k=m_pad)
+        if gplan.case == 3:
+            _kernel_case3(impl, b, m_pad)
+            return ref.batched_gemm_plain(a_dense, b)
+        return batched_gemm(a_dense, b, plan=gplan)
+    if impl in ("hybrid", "pallas_hybrid"):
+        hplan = batching.plan_hybrid(batch=batch, m_pad=m_pad, n_b=n_b,
+                                     nnz_pad=row_ids.shape[1])
+        if impl == "hybrid":
+            return batched_spmm_hybrid_ref(a, b, m_pad, plan=hplan)
+        if hplan.spmm.case == 3:
+            _kernel_case3(impl, b, m_pad)
+            return ref.batched_spmm_coo_ref(a, b, m_pad)
+        return batched_spmm_hybrid(row_ids, col_ids, values, nnz, b,
+                                   plan=hplan)
     plan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
     if impl in ("csr", "pallas_csr"):
         csr = coo_to_csr(a, m_pad)
@@ -184,11 +224,11 @@ def batched_spmm(a: BatchedCOO, b: torch.Tensor, *, impl: str,
     values; b: (batch, m_pad, n_b). Differentiable in ``a.values`` and
     ``b``; on CUDA tensors a kernel impl's backward runs kernels too."""
     check_impl(impl)
-    if impl == "fused":
+    if impl.startswith("fused"):
         raise ValueError(
-            "impl='fused' is the graph-conv LAYER kernel (it needs W and "
+            f"impl={impl!r} is the graph-conv LAYER kernel (it needs W and "
             "bias, not a bare dense operand) — call "
-            "repro_torch.core.graph_conv.graph_conv_batched(impl='fused')")
+            f"repro_torch.core.graph_conv.graph_conv_batched(impl={impl!r})")
     if a.values.dim() != 2:
         raise NotImplementedError(
             "vector edge values are g-SpMM, which is not ported (ROADMAP.md)")
@@ -205,3 +245,15 @@ def batched_gspmm(a: BatchedCOO, b: torch.Tensor, *, op: str = "mul",
             f"g-SpMM (op={op!r}, reduce={reduce!r}) is not ported "
             "(ROADMAP.md); only (mul, sum) runs")
     return batched_spmm(a, b, impl=impl, k_pad=k_pad)
+
+
+def dense_batched_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``C[s] = A[s] · B[s]`` through the batched GEMM kernel (the
+    reference's standalone entry point, benchmark use): a (batch, m, k),
+    b (batch, k, n) f32."""
+    plan = batching.plan_batched_gemm(batch=a.shape[0], m=a.shape[1],
+                                      n=b.shape[-1], k=a.shape[2])
+    if plan.case == 3:
+        raise ValueError(f"{plan}: the A tile does not fit one block's "
+                         "shared memory")
+    return batched_gemm(a, b, plan=plan)

@@ -110,12 +110,63 @@ def batched_gemm_ref(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a_dense.to(b.dtype), b)
 
 
+def batched_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched GEMM kernel: ``C[s] = A[s]·B[s]`` as the
+    kernel sums it, one rank-1 update per k in order, in f32."""
+    c = torch.zeros((a.shape[0], a.shape[1], b.shape[-1]),
+                    dtype=torch.float32, device=b.device)
+    af, bf = a.float(), b.float()
+    for k in range(a.shape[2]):
+        c += af[:, :, k, None] * bf[:, None, k, :]
+    return c.to(b.dtype)
+
+
+def batched_spmm_hybrid_plain(rank, start_s, rlen_sparse, cid, val, slab, b):
+    """Plain version of the hybrid kernel on its prepared operands
+    (``batched_spmm_hybrid.hybrid_operands``): in degree-sorted row order,
+    row q sums ``val · B[cid]`` over its ``rlen_sparse[q]`` CSR slots from
+    ``start_s[q]``, the hub rows ``[0, d_pad)`` add ``slab · B``, and
+    ``out[r] = acc[rank[r]]`` puts the rows back in their original order.
+    ``slab`` is None when the plan has no hub slab."""
+    batch, m_pad, _ = b.shape
+    nnz_pad = cid.shape[1]
+    # the sorted row that owns each slot: a search over the starts of the
+    # rows that have sparse slots (their ranges are disjoint)
+    live = rlen_sparse > 0
+    key = torch.where(live, start_s, nnz_pad)
+    key_s, owner = torch.sort(key, dim=1, stable=True)
+    slot = torch.arange(nnz_pad, dtype=key.dtype, device=b.device)
+    j = torch.searchsorted(key_s.contiguous(), slot.expand(batch, nnz_pad)
+                           .contiguous(), right=True) - 1
+    q = torch.gather(owner, 1, j.clamp(min=0))
+    keep = (j >= 0) & (slot[None] < torch.gather(start_s + rlen_sparse, 1, q))
+    acc = _coo_product(torch.where(keep, q, m_pad), cid, val, None, b, m_pad)
+    acc = acc.float()
+    if slab is not None:
+        d_pad = slab.shape[1]
+        acc[:, :d_pad] += torch.einsum("bdm,bmn->bdn", slab.float(),
+                                       b.float())
+    out = torch.gather(acc, 1, rank.long()[..., None].expand(-1, -1,
+                                                             acc.shape[-1]))
+    return out.to(b.dtype)
+
+
 def fused_graph_conv_plain(row_ids, col_ids, values, chunks, x, w, bias,
-                           residual=None, epilogue: str = "none"):
+                           residual=None, epilogue: str = "none", rank=None,
+                           slab=None):
     """Plain version of the fused layer kernel:
     ``Y = epi(Σ_ch A_ch·(X·W_ch + b_ch) [+ residual])``, each channel's
     scatter over its first ``chunks[s, ch] · CHUNK`` slots (the reference's
-    skew-aware bound). Ids are ``(batch, channels, nnz_pad)``."""
+    skew-aware bound). Ids are ``(batch, channels, nnz_pad)``.
+
+    The hybrid branch (``rank`` (batch, m_pad) and ``slab`` (batch,
+    channels, d_pad, m_pad), both or neither), in the reference's order:
+    the scatter lands in degree-sorted rows (the row ids are sorted
+    positions), the head ``Σ_ch slab_ch·U_ch`` is added to rows
+    ``[0, d_pad)``, ``acc[rank[r]]`` restores the original row order, then
+    the residual and ReLU."""
+    if (rank is None) != (slab is None):
+        raise ValueError("rank and slab are set together")
     batch, channels, nnz_pad = row_ids.shape
     m_pad, n_out = x.shape[1], w.shape[-1]
     u = (torch.einsum("bmn,cnf->bcmf", x.float(), w.float())
@@ -129,6 +180,13 @@ def fused_graph_conv_plain(row_ids, col_ids, values, chunks, x, w, bias,
     y = _coo_product(flat(row_ids), flat(col_ids), flat(values), slots, u,
                      m_pad)
     y = y.view(batch, channels, m_pad, n_out).sum(dim=1)
+    if slab is not None:
+        y = y.float()
+        d_pad = slab.shape[2]
+        y[:, :d_pad] += torch.einsum(
+            "bcdm,bcmf->bdf", slab.float(),
+            u.view(batch, channels, m_pad, n_out))
+        y = torch.gather(y, 1, rank.long()[..., None].expand(-1, -1, n_out))
     if residual is not None:
         y = y + residual.float()
     if epilogue == "relu":

@@ -76,7 +76,8 @@ def test_registry_and_backward_classes_match_reference():
     for impl in ops.IMPLS:
         assert ops.bwd_impl_for(impl) == j_ops.bwd_impl_for(impl), impl
     assert [ops.bwd_impl_for(i) for i in ops.KERNEL_IMPLS] == \
-        ["pallas_coo", "pallas_csr", "pallas_coo", "pallas_coo"]
+        ["pallas_coo", "pallas_csr", "pallas_coo", "pallas_csr",
+         "pallas_coo", "pallas_coo", "pallas_coo"]
 
 
 def test_dvalues_covers_padded_slots_like_reference():

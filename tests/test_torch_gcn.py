@@ -25,7 +25,8 @@ from test_torch_formats import to_np, torch_coo
 
 ATOL = 1e-4
 PORT_IMPLS = ("ref", "ell", "csr", "dense", "loop", "pallas_ell",
-              "pallas_csr", "pallas_coo", "fused")
+              "pallas_csr", "pallas_coo", "fused", "hybrid", "pallas_hybrid",
+              "pallas_gemm", "fused_hybrid")
 
 
 @functools.lru_cache(maxsize=None)

@@ -20,19 +20,23 @@ from repro_torch.core.formats import coo_from_lists
 from repro_torch.core.graph_conv import stack_channels
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import ops
+from repro_torch.kernels.batched_gemm import batched_gemm
 from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
 from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
 from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
+from repro_torch.kernels.batched_spmm_hybrid import batched_spmm_hybrid
 from repro_torch.kernels.fused_graph_conv import (
     fused_forward,
     fused_graph_conv,
+    fused_hybrid_forward,
     runtime_chunks,
 )
 from test_torch_formats import CASE_NAMES, case, to_np, torch_coo
 
 ATOL, RTOL = TOLS["f32"]
 PORT_SPMM_IMPLS = ("ref", "ell", "pallas_ell", "csr", "pallas_csr",
-                   "pallas_coo", "dense", "loop")
+                   "pallas_coo", "hybrid", "pallas_hybrid", "dense",
+                   "pallas_gemm", "loop")
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,9 +203,10 @@ def test_failed_kernel_build_raises_with_compiler_output(monkeypatch,
 
 def test_launch_counters_and_sources_present():
     for fn in (batched_spmm_ell, batched_spmm_coo, batched_spmm_csr,
-               fused_forward):
+               batched_spmm_hybrid, batched_gemm, fused_forward,
+               fused_hybrid_forward):
         assert isinstance(fn.launches, int)
-    assert len(_build.SOURCES) == 4
+    assert len(_build.SOURCES) == 6
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces the TPU kernel src/repro/kernels/" in src
@@ -233,7 +238,7 @@ def test_dispatch_raises_for_unported_paths():
     bt = torch.from_numpy(b)
     with pytest.raises(ValueError, match="Autotune"):
         ops.batched_spmm(coo, bt, impl="auto")
-    for impl in ("pallas_gemm", "pallas_ell_bf16", "hybrid"):
+    for impl in ("pallas_hybrid_bf16", "pallas_ell_bf16", "fused_bf16"):
         with pytest.raises(ValueError, match="ROADMAP"):
             ops.batched_spmm(coo, bt, impl=impl, k_pad=k_pad)
     with pytest.raises(ValueError, match="graph_conv_batched"):

@@ -21,7 +21,8 @@ from repro_torch.serving.engine import GraphRequest, GraphServeEngine
 
 GEOM = dict(batch=4, m_pad=16, nnz_pad=64)
 PORT_IMPLS = ("ref", "ell", "dense", "loop", "pallas_ell", "pallas_coo",
-              "fused")
+              "fused", "hybrid", "pallas_hybrid", "pallas_gemm",
+              "fused_hybrid")
 
 
 def _requests(cls, n=7):
