@@ -17,7 +17,12 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    CSR, hybrid and GEMM kernels also twice for identical bits, the hybrid
    kernel also without a slab, and the COO and CSR kernels in their
    backward roles (dU of the fused layer, dB of ``pallas_csr`` on the
-   transposed CSR);
+   transposed CSR); then the g-SpMM entries of the ELL, CSR and COO
+   kernels at the R-GCN ((copy_lhs, mean), n_b 64) and GAT ((mul, sum),
+   vector edges, n_b 16) Tox21 serving shapes and on every (op, reduce)
+   corner of the three regimes (max corners bitwise), and the grouped
+   matmul at R-GCN's Tox21 serving and training and Reaction100 layer-2
+   shapes (ELL, CSR and grouped matmul twice for identical bits);
 4. powerlaw model: ChemGCN at Tox21 widths on four channels of 40
    degree-skewed 256-row graphs, ``apply_gcn`` and first-step gradients
    of ``gcn_loss`` with ``impl`` = pallas_hybrid and fused_hybrid against
@@ -38,7 +43,12 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ms per step split into batch placement, forward, backward and
    optimizer, and a resume from the step-10 checkpoint;
 8. train Reaction100: 5 steps in batches of 100, ``impl`` = fused,
-   fused_hybrid and pallas_hybrid against ``ref``.
+   fused_hybrid and pallas_hybrid against ``ref``;
+9. GAT and R-GCN ChemGCN (``GCNConfig.tox21(layer="gat" | "rgcn")``):
+   serve the Tox21 requests and train 12 Tox21 steps (a resume from step
+   10) with ``impl`` = pallas_coo, pallas_csr, pallas_ell against ``ref``,
+   and serve Reaction100 with R-GCN (pallas_csr against ref; the grouped
+   matmul at 512 width); launch counts per wave and per step.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -73,6 +83,7 @@ TOX21 = dict(batch=128, m_pad=56, nnz_pad=256)
 N_REQUESTS = 512
 TRAIN_TOX21 = dict(n_samples=1000, batch=50, steps=20, lr=3e-3)
 TRAIN_R100 = dict(batch=100, steps=5, lr=3e-3)
+TRAIN_GNN_STEPS = 12           # GAT / R-GCN Tox21 steps (a resume at 10)
 # the degree-skewed geometry the reference benchmarks the hybrid split on
 # (benchmarks/bench_formats.py "powerlaw"), seed 0
 POWERLAW = dict(batch=40, dim=256, avg_deg=8)
@@ -85,6 +96,7 @@ TPU_SITE = {
     "batched_spmm_hybrid": "src/repro/kernels/batched_spmm_hybrid.py:223",
     "batched_gemm": "src/repro/kernels/batched_gemm.py:44",
     "fused_hybrid_forward": "src/repro/kernels/fused_graph_conv.py:197",
+    "grouped_matmul": "src/repro/kernels/grouped_matmul.py:87",
 }
 SOURCE = {"batched_spmm_ell": "batched_spmm_ell",
           "batched_spmm_coo": "batched_spmm_coo",
@@ -92,18 +104,23 @@ SOURCE = {"batched_spmm_ell": "batched_spmm_ell",
           "fused_forward": "fused_graph_conv",
           "batched_spmm_hybrid": "batched_spmm_hybrid",
           "batched_gemm": "batched_gemm",
-          "fused_hybrid_forward": "fused_graph_conv"}
+          "fused_hybrid_forward": "fused_graph_conv",
+          "grouped_matmul": "grouped_matmul"}
 # the row of each kernel that its {"kernels": ...} entry reports: the shape
-# its first main path gives it (serving for ELL, COO, fused, hybrid, GEMM
-# and fused hybrid, training for CSR); the other rows are printed as
-# [kernels] lines
+# its first main path gives it (serving for ELL, COO, fused, hybrid, GEMM,
+# fused hybrid and the grouped matmul, training for CSR); the other rows,
+# the g-SpMM entries of the ELL, COO and CSR kernels among them, are
+# printed as [kernels] lines
 ENTRY_ROW = {"batched_spmm_ell": "batched_spmm_ell",
              "batched_spmm_coo": "batched_spmm_coo",
              "batched_spmm_csr": "batched_spmm_csr",
              "fused_forward": "fused_forward[tox21]",
              "batched_spmm_hybrid": "batched_spmm_hybrid[tox21]",
              "batched_gemm": "batched_gemm[tox21]",
-             "fused_hybrid_forward": "fused_hybrid_forward[tox21]"}
+             "fused_hybrid_forward": "fused_hybrid_forward[tox21]",
+             "grouped_matmul": "grouped_matmul[rgcn tox21 serving layer 1]"}
+GSPMM_CORNERS = [(op, red) for op in ("mul", "add", "copy_lhs")
+                 for red in ("sum", "max", "mean")]
 
 
 class SmokeFailure(RuntimeError):
@@ -676,7 +693,13 @@ def phase_kernels(device):
     log("[kernels] batched_spmm_hybrid with d_pad 0 (nnz_pad "
         f"{small.nnz_pad} < dmin {hp.dmin}, no slab) matches its plain "
         "version")
-    for r in rows.values():
+    _log_rows(rows.values())
+    return rows, errs
+
+
+def _log_rows(rows):
+    """One [kernels] line per timed row."""
+    for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         prep = ("" if "prep_ms" not in r else
@@ -686,7 +709,233 @@ def phase_kernels(device):
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}){prep}, max abs err "
             f"{r['max_abs_err']:.3e}")
-    return rows, errs
+
+
+def _library_gspmm(a, b, values, op, reduce):
+    """The PyTorch calls that compute the same g-SpMM as one call of a
+    kernel (its library yardstick, never used by the port): ``index_select``
+    of every valid slot's B row, the combine, then ``index_add_`` (sum) or
+    ``scatter_reduce_`` (amax / mean, rows without an edge left 0) into the
+    flattened output rows. The valid slots' flat indices are found before,
+    outside the timed calls."""
+    import torch
+
+    batch, m, n_b = b.shape
+    slot = torch.arange(a.nnz_pad, device=b.device)
+    s_idx, i_idx = (slot[None, :] < a.nnz[:, None]).nonzero(as_tuple=True)
+    rows = s_idx * m + a.row_ids[s_idx, i_idx].long()
+    cols = s_idx * m + a.col_ids[s_idx, i_idx].long()
+    e = values[s_idx, i_idx]
+    e = e[:, None] if e.dim() == 1 else e
+    b_flat = b.reshape(-1, n_b)
+
+    def run():
+        msg = b_flat.index_select(0, cols)
+        if op == "mul":
+            msg = msg * e
+        elif op == "add":
+            msg = msg + e
+        out = torch.zeros((batch * m, n_b), device=b.device)
+        if reduce == "sum":
+            out.index_add_(0, rows, msg)
+        else:
+            out.scatter_reduce_(0, rows[:, None].expand_as(msg), msg,
+                                "amax" if reduce == "max" else "mean",
+                                include_self=False)
+        return out.view(batch, m, n_b)
+
+    return run
+
+
+def phase_gnn_kernels(device, rows, errs):
+    """The g-SpMM entries of the ELL, CSR and COO kernels and the grouped
+    matmul against their plain versions: at the GAT and R-GCN shapes of the
+    main paths (timed, with bounds and library calls), on every (op,
+    reduce) corner of the three regimes, max corners bitwise, the ELL and
+    CSR entries and the grouped matmul with identical bits twice. Adds to
+    ``rows`` and ``errs``."""
+    import torch
+    from repro_torch.core.formats import coo_to_csr, coo_to_ell, \
+        max_row_degree, row_degrees
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.core.graph_conv import flatten_channels
+    from repro_torch.data.graphs import GraphDatasetSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
+    from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
+    from repro_torch.kernels.grouped_matmul import _gmm, _row_groups
+    from repro_torch.kernels.segment_softmax import segment_softmax
+    from repro_torch.serving.engine import GraphServeEngine
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    m_pad = TOX21["m_pad"]
+    before = set(rows)
+
+    def gspmm_rows(tag, a, b, values, op, reduce, k_pad=8):
+        """Times of the three kernels' g-SpMM entries on one workload."""
+        batch, m, n_b = b.shape
+        real = int(a.nnz.sum().item())
+        e_bytes = 0 if op == "copy_lhs" else real * 4 * (
+            n_b if values.dim() == 3 else 1)
+        io = 2 * b.numel() * 4 + e_bytes
+        flops = real * n_b * (1 if op == "copy_lhs" else 2)
+        shape = (f"{batch} matrices x {m} rows, nnz_pad {a.nnz_pad}, n_b "
+                 f"{n_b}, {real} real nnz, ({op}, {reduce}), "
+                 + ("vector" if values.dim() == 3 else "scalar") + " edges")
+        kw = dict(op=op, reduce=reduce)
+        library = _library_gspmm(a, b, values, op, reduce)
+        csr = coo_to_csr(a.with_values(values), m)
+        _measure(rows, f"batched_spmm_csr[g-SpMM, {tag}]", "batched_spmm_csr",
+                 lambda: batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, b,
+                                          **kw),
+                 lambda: ref.batched_gspmm_csr_plain(csr.rpt, csr.col_ids,
+                                                     csr.values, b, **kw),
+                 io + csr.rpt.numel() * 4 + real * 4, flops, shape, library,
+                 bitwise=True)
+        rlen = row_degrees(a, m)
+        ell = coo_to_ell(a.with_values(values), m, k_pad)
+        _measure(rows, f"batched_spmm_ell[g-SpMM, {tag}]", "batched_spmm_ell",
+                 lambda: batched_spmm_ell(ell.col_ids, ell.values, b,
+                                          rlen=rlen, **kw),
+                 lambda: ref.batched_gspmm_ell_plain(ell.col_ids, ell.values,
+                                                     rlen, b, **kw),
+                 io + rlen.numel() * 4 + real * 4, flops,
+                 f"{shape}, k_pad {k_pad}", library, bitwise=True)
+        _measure(rows, f"batched_spmm_coo[g-SpMM, {tag}]", "batched_spmm_coo",
+                 lambda: batched_spmm_coo(a.row_ids, a.col_ids, values, b,
+                                          nnz=a.nnz, **kw),
+                 lambda: ref.batched_gspmm_coo_plain(a.row_ids, a.col_ids,
+                                                     values, a.nnz, b, **kw),
+                 io + a.nnz.numel() * 4 + real * 8, flops, shape, library)
+
+    # R-GCN, Tox21 serving: the first wave's 4 relations x 128 graphs,
+    # the (copy_lhs, mean) aggregation of layer 1 (n_b 64)
+    cfg = GCNConfig.tox21(layer="rgcn", impl="ref", bn_mode="sample")
+    params = _params(cfg, 0, device)
+    wave = GraphServeEngine(params, cfg, device=device, **TOX21).assemble(
+        _requests(GraphDatasetSpec.tox21_like(TOX21["batch"], seed=0)))
+    a_rel = flatten_channels(wave.adj)
+    h = torch.randn((a_rel.batch, m_pad, 64), generator=gen).to(device)
+    gspmm_rows("rgcn tox21 serving", a_rel, h, a_rel.values, "copy_lhs",
+               "mean")
+    # GAT, Tox21 serving: channel 0 of the wave under 4 heads (head-major,
+    # 512 samples), attention weights over rows repeated over d_head 16
+    heads, d_head = 4, 16
+    a0 = wave.adj[0]
+    logits = torch.randn((a0.batch, a0.nnz_pad, heads), generator=gen).to(
+        device)
+    alpha = segment_softmax(logits, a0.row_ids, nnz=a0.nnz, m_pad=m_pad)
+
+    def flat(t):
+        return t.expand((heads,) + t.shape).reshape((heads * a0.batch,)
+                                                    + t.shape[1:])
+
+    e_vec = alpha.permute(2, 0, 1).reshape(heads * a0.batch, a0.nnz_pad, 1) \
+        .expand(-1, -1, d_head).contiguous()
+    a_gat = a0.__class__(flat(a0.row_ids), flat(a0.col_ids), e_vec,
+                         flat(a0.nnz), flat(a0.n_rows))
+    hg = torch.randn((heads * a0.batch, m_pad, d_head), generator=gen).to(
+        device)
+    gspmm_rows("gat tox21 serving", a_gat, hg, e_vec, "mul", "sum")
+
+    # the grouped matmul of R-GCN: Tox21 serving layer 1 (4 relations x
+    # 7,168 tokens, aligned tiles), Tox21 training layer 1 (groups of
+    # 2,800 rows: tiles straddle), Reaction100 layer 2 (512 -> 512)
+    def gmm_row(tag, x, w):
+        e, k, n = w.shape
+        tokens = x.shape[0] * x.shape[1]
+        xt = x.reshape(1, tokens, k).expand(e, tokens, k).reshape(-1, k) \
+            .contiguous()
+        rg = _row_groups(torch.full((e,), tokens, dtype=torch.int32,
+                                    device=device), xt.shape[0], e)
+        m = xt.shape[0]
+        straddle = tokens % 64 != 0
+        _measure(rows, f"grouped_matmul[{tag}]", "grouped_matmul",
+                 lambda: _gmm(xt, w, rg),
+                 lambda: ref.grouped_matmul_ref(xt, rg, w),
+                 (xt.numel() + w.numel() + m * n + m) * 4, 2 * m * k * n,
+                 f"M {m} ({e} groups of {tokens} rows, 64-row tiles "
+                 f"{'straddle' if straddle else 'aligned'}), K {k}, N {n}",
+                 lambda: torch.bmm(xt.view(e, tokens, k), w).view(m, n),
+                 bitwise=True)
+
+    gmm_row("rgcn tox21 serving layer 1", wave.x, params["convs"][0]["w_rel"])
+    tb = _on(_train_batches(GraphDatasetSpec.tox21_like(
+        TRAIN_TOX21["n_samples"], seed=0), TRAIN_TOX21["batch"])[0], device)
+    gmm_row("rgcn tox21 training layer 1", tb["x"],
+            params["convs"][0]["w_rel"])
+    r_cfg = GCNConfig.reaction100(layer="rgcn", impl="ref")
+    r_params = _params(r_cfg, 0, device)
+    x2 = torch.randn((TOX21["batch"], m_pad, 512), generator=gen).to(device)
+    gmm_row("rgcn reaction100 layer 2", x2, r_params["convs"][1]["w_rel"])
+    for k, r in rows.items():
+        if k not in before:
+            errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0),
+                                    r["max_abs_err"])
+
+    # -- every (op, reduce) corner on the three regimes, small sizes ------
+    checks = 0
+    for rname, coo, mp in _regimes(device):
+        k_pad = max(1, int(max_row_degree(coo, mp).max().item()))
+        rlen = row_degrees(coo, mp)
+        b = torch.randn((coo.batch, mp, 48), generator=gen).to(device)
+        slot = torch.arange(coo.nnz_pad, device=device)
+        valid = (slot[None, :] < coo.nnz[:, None])[..., None]
+        vec = torch.where(valid, torch.randn(
+            tuple(coo.values.shape) + (48,), generator=gen).to(device), 0.0)
+        for values in (coo.values, vec):
+            a = coo.with_values(values)
+            e = coo_to_ell(a, mp, k_pad)
+            csr = coo_to_csr(a, mp)
+            for op, red in GSPMM_CORNERS:
+                kw = dict(op=op, reduce=red)
+                runs = [
+                    ("batched_spmm_ell", lambda: batched_spmm_ell(
+                        e.col_ids, e.values, b, rlen=rlen, **kw),
+                     lambda: ref.batched_gspmm_ell_plain(
+                         e.col_ids, e.values, rlen, b, **kw), True),
+                    ("batched_spmm_csr", lambda: batched_spmm_csr(
+                        csr.rpt, csr.col_ids, csr.values, b, **kw),
+                     lambda: ref.batched_gspmm_csr_plain(
+                         csr.rpt, csr.col_ids, csr.values, b, **kw), True),
+                    ("batched_spmm_coo", lambda: batched_spmm_coo(
+                        a.row_ids, a.col_ids, values, b, nnz=a.nnz, **kw),
+                     lambda: ref.batched_gspmm_coo_plain(
+                         a.row_ids, a.col_ids, values, a.nnz, b, **kw),
+                     False)]
+                for kname, kern, plain, repeatable in runs:
+                    got, want = kern(), plain()
+                    what = (f"{kname} g-SpMM ({op}, {red}) "
+                            f"{'vector' if values.dim() == 3 else 'scalar'} "
+                            f"{rname}")
+                    if red == "max":
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, want),
+                              f"{what}: not bitwise equal to plain")
+                    errs[kname] = max(errs[kname], max_err(got, want, what))
+                    if repeatable:
+                        check(torch.equal(got, kern()),
+                              f"{what}: two calls differ")
+                    checks += 1
+        # the grouped matmul: ragged groups, an empty one, rows past the sum
+        sizes = torch.tensor([5, 70, 1, 0, 300], dtype=torch.int32,
+                             device=device)
+        xg = torch.randn((393, 33), generator=gen).to(device)
+        wg = torch.randn((5, 33, 20), generator=gen).to(device)
+        rg = _row_groups(sizes, 393, 5)
+        got = _gmm(xg, wg, rg)
+        errs["grouped_matmul"] = max(errs["grouped_matmul"], max_err(
+            got, ref.grouped_matmul_ref(xg, rg, wg), f"grouped_matmul {rname}"))
+        check(torch.equal(got, _gmm(xg, wg, rg)),
+              f"grouped_matmul {rname}: two calls differ")
+    log(f"[kernels] g-SpMM entries of the ELL, CSR and COO kernels: {checks} "
+        "checks of every (op, reduce) corner, scalar and vector edges, on "
+        "the uniform / skewed / zero-nnz regimes match their plain versions "
+        "(max corners bitwise; ELL and CSR identical bits twice); the "
+        "grouped matmul on ragged groups (an empty one, rows past the sum) "
+        "matches its plain version with identical bits twice")
+    _log_rows(r for k, r in rows.items() if k not in before)
 
 
 def _reset_counters():
@@ -697,6 +946,7 @@ def _reset_counters():
     from repro_torch.kernels.batched_spmm_hybrid import batched_spmm_hybrid
     from repro_torch.kernels.fused_graph_conv import fused_forward, \
         fused_hybrid_forward
+    from repro_torch.kernels.grouped_matmul import _gmm
 
     wrappers = {"batched_spmm_ell": batched_spmm_ell,
                 "batched_spmm_coo": batched_spmm_coo,
@@ -704,7 +954,8 @@ def _reset_counters():
                 "fused_forward": fused_forward,
                 "batched_spmm_hybrid": batched_spmm_hybrid,
                 "batched_gemm": batched_gemm,
-                "fused_hybrid_forward": fused_hybrid_forward}
+                "fused_hybrid_forward": fused_hybrid_forward,
+                "grouped_matmul": _gmm}
     for fn in wrappers.values():
         fn.launches = 0
     return wrappers
@@ -754,13 +1005,12 @@ def phase_serve(tag, cfg_fn, spec, impls, expect_per_wave, device, tol):
         logits, host, dev = _serve(eng, requests)
         counts = {k: fn.launches for k, fn in wrappers.items()}
         waves = len(host)
-        for kname, per_wave in expect_per_wave.get(impl, {}).items():
-            check(counts[kname] == per_wave * waves,
-                  f"{tag} {impl}: {kname} launched {counts[kname]} times, "
-                  f"expected {per_wave} x {waves} waves")
-            launches[kname] = launches.get(kname, 0) + counts[kname]
-        if impl == "ref":
-            check(not any(counts.values()), f"{tag} ref launched {counts}")
+        want = {k: expect_per_wave.get(impl, {}).get(k, 0) * waves
+                for k in counts}
+        check(counts == want, f"{tag} {impl}: launches {counts}, expected "
+                              f"{want} ({waves} waves)")
+        for kname, n in counts.items():
+            launches[kname] = launches.get(kname, 0) + n
         results[impl] = np.stack(logits)
         check(bool(np.isfinite(results[impl]).all()),
               f"{tag} {impl}: non-finite logits")
@@ -1052,7 +1302,52 @@ def phase_train(tag, cfg_fn, spec, run, impls, expect_per_step, device,
     return launches
 
 
+def phase_gnn_paths(device):
+    """ChemGCN with GAT and R-GCN conv layers: serve Tox21 (both) and
+    Reaction100 (R-GCN, the grouped matmul at 512 width), train Tox21
+    (both, with a resume); returns launches per kernel of each path."""
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.data.graphs import GraphDatasetSpec
+
+    impls = ("ref", "pallas_coo", "pallas_csr", "pallas_ell")
+    kernel = {"pallas_coo": "batched_spmm_coo",
+              "pallas_csr": "batched_spmm_csr",
+              "pallas_ell": "batched_spmm_ell"}
+    paths = {}
+    for layer in ("rgcn", "gat"):
+        def cfg_fn(layer=layer, **kw):
+            return GCNConfig.tox21(layer=layer, **kw)
+
+        # per layer: R-GCN one grouped matmul (every impl, ref too: the
+        # reference's R-GCN always runs its _gmm) and one g-SpMM; GAT one
+        # g-SpMM. A training step adds the grouped matmul of layer 2's dx
+        # (layer 1's input takes no gradient); the g-SpMM backward is plain.
+        wave = {"grouped_matmul": 2} if layer == "rgcn" else {}
+        step = {"grouped_matmul": 3} if layer == "rgcn" else {}
+        serve = {"ref": wave, **{i: {**wave, k: 2} for i, k in kernel.items()}}
+        train = {"ref": step, **{i: {**step, k: 2} for i, k in kernel.items()}}
+        paths[f"serve tox21 {layer}"] = phase_serve(
+            f"tox21 {layer}", cfg_fn,
+            GraphDatasetSpec.tox21_like(N_REQUESTS, seed=0), impls, serve,
+            device, F32_TOL)
+        paths[f"train tox21 {layer}"] = phase_train(
+            f"tox21-{layer}", cfg_fn,
+            GraphDatasetSpec.tox21_like(TRAIN_TOX21["n_samples"], seed=0),
+            dict(TRAIN_TOX21, steps=TRAIN_GNN_STEPS), impls, train, device,
+            resume_impl="pallas_csr")
+    paths["serve reaction100 rgcn"] = phase_serve(
+        "reaction100 rgcn",
+        lambda **kw: GCNConfig.reaction100(layer="rgcn", **kw),
+        GraphDatasetSpec.reaction100_like(N_REQUESTS, seed=0),
+        ("ref", "pallas_csr"),
+        {"ref": {"grouped_matmul": 3},
+         "pallas_csr": {"grouped_matmul": 3, "batched_spmm_csr": 3}},
+        device, F32_TOL)
+    return paths
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script; "
               "run it from the root of a checkout", file=sys.stderr)
@@ -1067,11 +1362,11 @@ def main() -> int:
     from repro_torch.core.gcn import GCNConfig
     from repro_torch.data.graphs import GraphDatasetSpec
 
-    t_start = time.perf_counter()
     name, card = phase_device()
     device = torch.device(DEVICE)
     phase_build()
     rows, errs = phase_kernels(device)
+    phase_gnn_kernels(device, rows, errs)
     p_launches = phase_powerlaw(device)
 
     tox_launches = phase_serve(
@@ -1119,6 +1414,7 @@ def main() -> int:
     paths = {"powerlaw model": p_launches, "serve tox21": tox_launches,
              "serve reaction100": r_launches, "train tox21": t_launches,
              "train reaction100": tr_launches}
+    paths.update(phase_gnn_paths(device))
     kernels = []
     for kname, key in ENTRY_ROW.items():
         per_path = {p: c.get(kname, 0) for p, c in paths.items()}

@@ -14,9 +14,26 @@ from repro_torch import resolve_device
 from repro_torch.core.gcn import GCNConfig
 
 
+def _conv_shapes(cfg: GCNConfig, n_in: int, n_out: int) -> dict:
+    """Each leaf's shape in one conv layer of ``cfg.layer``."""
+    if cfg.layer == "gat":
+        if n_out % cfg.heads:
+            raise ValueError(f"n_out={n_out} not divisible by "
+                             f"heads={cfg.heads}")
+        d_head = n_out // cfg.heads
+        return {"w": (cfg.heads, n_in, d_head), "a_src": (cfg.heads, d_head),
+                "a_dst": (cfg.heads, d_head), "b": (n_out,)}
+    if cfg.layer == "rgcn":
+        return {"w_rel": (cfg.channels, n_in, n_out),
+                "w_self": (n_in, n_out), "b": (n_out,)}
+    return {"w": (cfg.channels, n_in, n_out), "b": (cfg.channels, n_out)}
+
+
 def params_from_jax(np_params, cfg: GCNConfig, *, device=None) -> dict:
     """Copy a reference ChemGCN pytree (numpy leaves) onto ``device``,
-    checking every shape against ``cfg``."""
+    checking every leaf's name and shape against ``cfg`` (``cfg.layer``
+    picks the conv layers' trees: GCN ``w``/``b``, GAT ``w``/``a_src``/
+    ``a_dst``/``b``, R-GCN ``w_rel``/``w_self``/``b``)."""
     device = resolve_device(device)
 
     def leaf(a, shape, name):
@@ -32,9 +49,12 @@ def params_from_jax(np_params, cfg: GCNConfig, *, device=None) -> dict:
     n_in = cfg.n_features
     for i, w in enumerate(cfg.conv_widths):
         conv, bn = np_params["convs"][i], np_params["bns"][i]
-        out["convs"].append({
-            "w": leaf(conv["w"], (cfg.channels, n_in, w), f"convs[{i}].w"),
-            "b": leaf(conv["b"], (cfg.channels, w), f"convs[{i}].b")})
+        shapes = _conv_shapes(cfg, n_in, w)
+        if set(conv) != set(shapes):
+            raise ValueError(f"convs[{i}]: leaves {sorted(conv)}, expected "
+                             f"{sorted(shapes)} for layer={cfg.layer!r}")
+        out["convs"].append({k: leaf(conv[k], shape, f"convs[{i}].{k}")
+                             for k, shape in shapes.items()})
         out["bns"].append({
             "scale": leaf(bn["scale"], (w,), f"bns[{i}].scale"),
             "bias": leaf(bn["bias"], (w,), f"bns[{i}].bias")})

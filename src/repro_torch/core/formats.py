@@ -25,7 +25,8 @@ class BatchedCOO:
     """SparseTensor/COO analogue: flat non-zero triples, padded to nnz_pad.
 
     row_ids, col_ids : (batch, nnz_pad) int32  — padding points at row/col 0
-    values           : (batch, nnz_pad) float  — padding is 0.0
+    values           : (batch, nnz_pad) float  — padding is 0.0; g-SpMM
+                       vector edges are (batch, nnz_pad, d_e)
     nnz              : (batch,) int32          — true nnz per matrix
     n_rows           : (batch,) int32          — true m_A per matrix
     """
@@ -56,7 +57,7 @@ class BatchedELL:
     """Row-padded ELL, the layout of the row-split (SWA-CSR) kernel.
 
     col_ids : (batch, m_pad, k_pad) int32  — padding points at column 0
-    values  : (batch, m_pad, k_pad) float  — padding is 0.0
+    values  : (batch, m_pad, k_pad[, d_e]) float  — padding is 0.0
     n_rows  : (batch,) int32
     """
 
@@ -72,7 +73,7 @@ class BatchedCSR:
 
     rpt     : (batch, m_pad + 1) int32 — row r owns slots rpt[r]..rpt[r+1]
     col_ids : (batch, nnz_pad) int32   — row-sorted; padding at the tail
-    values  : (batch, nnz_pad) float
+    values  : (batch, nnz_pad[, d_e]) float
     n_rows  : (batch,) int32
     """
 
@@ -134,6 +135,13 @@ def _valid_slots(coo: BatchedCOO) -> torch.Tensor:
     return slot[None, :] < coo.nnz[:, None]
 
 
+def _gather_slots(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``values[s, order[s, i]]`` along the slot axis, for scalar edges
+    (batch, nnz_pad) and vector edges (batch, nnz_pad, d_e) alike."""
+    idx = order.view(order.shape + (1,) * (values.dim() - 2))
+    return torch.gather(values, 1, idx.expand(order.shape + values.shape[2:]))
+
+
 def row_degrees(coo: BatchedCOO, m_pad: int) -> torch.Tensor:
     """(batch, m_pad) int32 — the true per-row non-zero count of each sample
     (only valid slots counted; row ids clipped into range as the reference
@@ -178,7 +186,7 @@ def coo_to_ell(coo: BatchedCOO, m_pad: int, k_pad: int) -> BatchedELL:
     rid_eff = torch.where(valid, coo.row_ids.long(), m_pad)
     rid_s, order = torch.sort(rid_eff, dim=1, stable=True)
     cid_s = torch.gather(coo.col_ids, 1, order)
-    val_s = torch.gather(coo.values, 1, order)
+    val_s = _gather_slots(coo.values, order)
     valid_s = torch.gather(valid, 1, order)
     # position within row = slot - first slot of this row
     is_start = torch.ones_like(valid_s)
@@ -190,12 +198,15 @@ def coo_to_ell(coo: BatchedCOO, m_pad: int, k_pad: int) -> BatchedELL:
     col = torch.zeros((batch, m_pad * k_pad + 1), dtype=coo.col_ids.dtype,
                       device=dev)
     col.scatter_(1, flat, torch.where(ok, cid_s, 0))
-    val = torch.zeros((batch, m_pad * k_pad + 1), dtype=coo.values.dtype,
-                      device=dev)
-    val.scatter_(1, flat, torch.where(ok, val_s, 0))
+    tail = tuple(coo.values.shape[2:])
+    val = torch.zeros((batch, m_pad * k_pad + 1) + tail,
+                      dtype=coo.values.dtype, device=dev)
+    ok_v = ok.view(ok.shape + (1,) * len(tail))
+    val.scatter_(1, flat.view(flat.shape + (1,) * len(tail)).expand(
+        val_s.shape), torch.where(ok_v, val_s, 0))
     shape = (batch, m_pad, k_pad)
     return BatchedELL(col_ids=col[:, :-1].contiguous().view(shape),
-                      values=val[:, :-1].contiguous().view(shape),
+                      values=val[:, :-1].contiguous().view(shape + tail),
                       n_rows=coo.n_rows)
 
 
@@ -219,7 +230,7 @@ def coo_to_csr(coo: BatchedCOO, m_pad: int) -> BatchedCSR:
                       device=rid_s.device)
     rpt[:, 1:] = torch.cumsum(counts[:, :m_pad], dim=1)
     return BatchedCSR(rpt=rpt, col_ids=torch.gather(coo.col_ids, 1, order),
-                      values=torch.gather(coo.values, 1, order),
+                      values=_gather_slots(coo.values, order),
                       n_rows=coo.n_rows)
 
 

@@ -3,8 +3,12 @@
 A stack of graph-convolution layers, masked batch-norm after each, ReLU, a
 masked sum readout over nodes and a dense head: Tox21 has 12 binary tasks
 (sigmoid cross-entropy), Reaction100 100 classes (softmax cross-entropy,
-:func:`gcn_loss`). Parameters are a pytree of tensors with the
-reference's names (``convs[i].w/b``, ``bns[i].scale/bias``, ``head.w/b``);
+:func:`gcn_loss`). ``GCNConfig.layer`` picks the conv layer: ``"gcn"``
+(the channel-summed graph conv, paper eq. (2)), ``"gat"`` (multi-head
+attention over the first channel's connectivity) or ``"rgcn"`` (the
+channels as relations), the last two from ``repro_torch.models.gnn``.
+Parameters are a pytree of tensors with the reference's names
+(``convs[i]`` per layer kind, ``bns[i].scale/bias``, ``head.w/b``);
 :class:`GCN` holds them as an ``nn.Module``.
 """
 from __future__ import annotations
@@ -23,6 +27,12 @@ from repro_torch.core.graph_conv import (
     graph_conv_nonbatched,
     init_graph_conv,
 )
+from repro_torch.models.gnn import (
+    gat_layer,
+    init_gat_layer,
+    init_rgcn_layer,
+    rgcn_layer,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +46,9 @@ class GCNConfig:
     conv_widths: tuple[int, ...] = (64, 64)
     n_tasks: int = 12
     task: str = "multitask_binary"   # or "multiclass"
-    layer: str = "gcn"               # only "gcn" is ported
+    layer: str = "gcn"               # "gcn", "gat" or "rgcn"
+    heads: int = 4                   # attention heads (layer="gat"; every
+                                     # conv width must divide by it)
     impl: str = "auto"
     k_pad: int = 8
     batched: bool = True             # Fig. 7 (True) vs Fig. 6 (False)
@@ -54,16 +66,32 @@ class GCNConfig:
                          task="multiclass", **kw)
 
 
+LAYERS = ("gcn", "gat", "rgcn")
+
+
 def check_config(cfg: GCNConfig) -> None:
-    """Raise for the parts of the reference's config this port leaves out."""
-    if cfg.layer != "gcn":
-        raise NotImplementedError(
-            f"layer={cfg.layer!r} (GAT/R-GCN over g-SpMM) is not ported; "
-            "see ROADMAP.md")
+    """Raise for an unknown layer kind and for the parts of the reference's
+    config this port leaves out."""
+    if cfg.layer not in LAYERS:
+        raise ValueError(f"unknown layer kind {cfg.layer!r}: expected 'gcn', "
+                         "'gat' or 'rgcn'")
     if cfg.precision != "f32":
         raise NotImplementedError(
             f"precision={cfg.precision!r}: the reduced-precision variants "
             "are not ported; see ROADMAP.md")
+
+
+def _init_conv(cfg: GCNConfig, n_in: int, n_out: int, *, generator,
+               device) -> dict:
+    """One conv layer's parameters for ``cfg.layer``."""
+    if cfg.layer == "gat":
+        return init_gat_layer(n_in, n_out, cfg.heads, generator=generator,
+                              device=device)
+    if cfg.layer == "rgcn":
+        return init_rgcn_layer(n_in, n_out, cfg.channels,
+                               generator=generator, device=device)
+    return init_graph_conv(n_in, n_out, cfg.channels, generator=generator,
+                           device=device)
 
 
 def init_gcn(cfg: GCNConfig, *, generator: torch.Generator | None = None,
@@ -75,8 +103,8 @@ def init_gcn(cfg: GCNConfig, *, generator: torch.Generator | None = None,
     params = {"convs": [], "bns": []}
     n_in = cfg.n_features
     for w in cfg.conv_widths:
-        params["convs"].append(init_graph_conv(
-            n_in, w, cfg.channels, generator=generator, device=device))
+        params["convs"].append(_init_conv(cfg, n_in, w, generator=generator,
+                                          device=device))
         params["bns"].append({
             "scale": torch.ones((w,), dtype=torch.float32, device=device),
             "bias": torch.zeros((w,), dtype=torch.float32, device=device),
@@ -116,11 +144,19 @@ def apply_gcn(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
     """Logits (batch, n_tasks) for x (batch, m_pad, n_features) and per-channel
     adjacencies; runs on the device the tensors lie on."""
     check_config(cfg)
+    if cfg.layer != "gcn" and not cfg.batched:
+        # GAT and R-GCN exist only on the batched g-SpMM stack: there is no
+        # Fig. 6 per-sample baseline for them
+        raise ValueError(f"layer={cfg.layer!r} requires batched=True")
     mask = (torch.arange(x.shape[1], device=x.device)[None, :, None]
             < n_nodes[:, None, None]).to(x.dtype)
     h = x
     for conv_p, bn_p in zip(params["convs"], params["bns"]):
-        if cfg.batched:
+        if cfg.layer == "gat":
+            h = gat_layer(conv_p, adj[0], h, impl=cfg.impl, k_pad=cfg.k_pad)
+        elif cfg.layer == "rgcn":
+            h = rgcn_layer(conv_p, adj, h, impl=cfg.impl, k_pad=cfg.k_pad)
+        elif cfg.batched:
             h = graph_conv_batched(conv_p, adj, h, impl=cfg.impl,
                                    k_pad=cfg.k_pad)
         else:
@@ -154,8 +190,9 @@ def gcn_loss(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
 
 class GCN(nn.Module):
     """ChemGCN as a module: parameters named as the reference's pytree
-    (``convs.0.w``, ``bns.0.scale``, ``head.w`` …), trainable; ``forward``
-    is :func:`apply_gcn`."""
+    (``convs.0.w``, ``convs.0.a_src`` for GAT, ``convs.0.w_rel`` for R-GCN,
+    ``bns.0.scale``, ``head.w`` …), trainable; ``forward`` is
+    :func:`apply_gcn`."""
 
     def __init__(self, cfg: GCNConfig, params: dict | None = None, *,
                  generator: torch.Generator | None = None, device=None):

@@ -1,0 +1,38 @@
+"""Message passing, the g-SpMM primitive as a layer building block beside
+``repro_torch.core.graph_conv``: per sample,
+``out[r] = reduce_{edges (r, c)} op(x[c], e)`` with a static ``(op,
+reduce)`` and edge values ``e`` that are scalars or per-edge feature
+vectors — ONE batched call for the whole mini-batch. The GNN layers built
+on it are in ``repro_torch.models.gnn``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import BatchedCOO
+from repro_torch.kernels.ops import batched_gspmm
+
+
+def resolve_message_passing_impl(adj: BatchedCOO, x: torch.Tensor, *,
+                                 op: str = "mul", reduce: str = "sum",
+                                 impl: str = "auto",
+                                 k_pad: int | None = None):
+    """The reference resolves ``impl`` against the call's workload through
+    its autotune, which is not ported: this raises, as ``impl="auto"``
+    does."""
+    raise ValueError(
+        "impl resolution (impl='auto') is not ported: the autotune, its "
+        "roofline constants and tuning cache are TPU-calibrated (ROADMAP.md,"
+        " queue 1: Autotune); pin one of repro_torch.kernels.ops.GSPMM_IMPLS")
+
+
+def message_passing(adj: BatchedCOO, x: torch.Tensor, *, op: str = "mul",
+                    reduce: str = "sum", impl: str,
+                    k_pad: int | None = None) -> torch.Tensor:
+    """One batched message-passing step over x (batch, m_pad, n_b) with
+    ``e = adj.values``, scalar per edge or a (batch, nnz_pad, d_e) vector
+    with ``d_e == n_b``. Differentiable in ``adj.values`` and ``x``; rows of
+    degree 0 give 0.0 for every reduce. (mul, sum) with scalar edges is
+    exactly ``batched_spmm``."""
+    return batched_gspmm(adj, x, op=op, reduce=reduce, impl=impl,
+                         k_pad=k_pad)

@@ -25,6 +25,16 @@
 //
 // No atomics: every output element is one fixed-order sum, so the result is
 // bitwise the same from run to run.
+//
+// g-SpMM entry (batched_gspmm_csr_f32), the reference kernel's (op, reduce)
+// branches: C[s, r] = reduce_{rpt[r] <= k < rpt[r+1]} op(B[s, cid[k]], e_k),
+// op in {mul, add, copy_lhs}, reduce in {sum, max, mean}, scalar edges
+// (batch, nnz_pad) or vector edges (batch, nnz_pad, n_b) in the CSR sort
+// order. The same design: a row's own slot range is its mask (the
+// reference's k < rlen), its register accumulator starts at 0.0 or at the
+// finite -3e38 for max, and the store writes 0.0 into an empty row for max
+// and divides by max(rlen, 1) for mean. Still no atomics, still bitwise
+// repeatable.
 #include "common.cuh"
 
 namespace {
@@ -69,7 +79,70 @@ csr_kernel(const int* __restrict__ rpt, const int* __restrict__ cid,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+csr_gspmm_kernel(const int* __restrict__ rpt, const int* __restrict__ cid,
+                 const float* __restrict__ val, const float* __restrict__ b,
+                 float* __restrict__ c, int m_pad, int nnz_pad, int n_b,
+                 int n_block, int sub, int op, int reduce, int vec) {
+  extern __shared__ float bs[];  // (m_pad, nbw) panel of B
+  const int s = blockIdx.x;
+  const int col0 = blockIdx.y * n_block;
+  const int nbw = min(n_block, n_b - col0);
+  const size_t mat = static_cast<size_t>(s) * m_pad;
+
+  const float* bsrc = b + mat * n_b + col0;
+  for (int i = threadIdx.x; i < m_pad * nbw; i += kThreads) {
+    const int r = i / nbw, cc = i - r * nbw;
+    bs[i] = bsrc[static_cast<size_t>(r) * n_b + cc];
+  }
+  __syncthreads();
+
+  const int* rp = rpt + static_cast<size_t>(s) * (m_pad + 1);
+  const int* sc = cid + static_cast<size_t>(s) * nnz_pad;
+  const size_t voff = static_cast<size_t>(s) * nnz_pad;
+  const float init = reduce == repro::kMax ? repro::kNegInf : 0.f;
+  const int lane = threadIdx.x % sub, groups = kThreads / sub;
+  float* dst = c + mat * n_b + col0;
+  for (int r = threadIdx.x / sub; r < m_pad; r += groups) {
+    const int r0 = __ldg(rp + r), r1 = __ldg(rp + r + 1);
+    const int lo = max(r0, 0), hi = min(r1, nnz_pad);
+    for (int cc = lane; cc < nbw; cc += sub) {
+      float acc = init;
+      for (int k = lo; k < hi; ++k) {
+        const int j = __ldg(sc + k);
+        if (static_cast<unsigned>(j) >= static_cast<unsigned>(m_pad))
+          continue;
+        float e = 0.f;
+        if (op != repro::kOpCopyLhs)
+          e = vec ? __ldg(val + (voff + k) * n_b + col0 + cc)
+                  : __ldg(val + voff + k);
+        const float m = repro::combine(bs[j * nbw + cc], e, op);
+        acc = reduce == repro::kMax ? fmaxf(acc, m) : acc + m;
+      }
+      dst[static_cast<size_t>(r) * n_b + cc] =
+          repro::finish(acc, r1 - r0, reduce);
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int batched_gspmm_csr_f32(const int* rpt, const int* cid,
+                                     const float* val, const float* b,
+                                     float* c, int batch, int m_pad,
+                                     int nnz_pad, int n_b, int n_block,
+                                     int op, int reduce, int vec,
+                                     void* stream) {
+  const size_t smem = static_cast<size_t>(m_pad) * n_block * sizeof(float);
+  cudaError_t e = repro::allow_smem(csr_gspmm_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
+  csr_gspmm_kernel<<<grid, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      rpt, cid, val, b, c, m_pad, nnz_pad, n_b, n_block,
+      repro::sub_warp(n_block), op, reduce, vec);
+  return cudaGetLastError();
+}
 
 extern "C" int batched_spmm_csr_f32(const int* rpt, const int* cid,
                                     const float* val, const float* b,

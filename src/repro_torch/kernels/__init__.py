@@ -47,6 +47,22 @@ def check_plan(plan, *, batch: int, m_pad: int, n_b: int) -> None:
                          "not take matrices this large")
 
 
+# The static g-SpMM axes, in the order of the kernels' codes
+# (csrc/common.cuh). ``copy_lhs`` ignores the edge value.
+GSPMM_OPS = ("mul", "add", "copy_lhs")
+GSPMM_REDUCES = ("sum", "max", "mean")
+
+
+def gspmm_codes(op: str, reduce: str) -> tuple[int, int]:
+    """The kernels' integer codes of a g-SpMM ``(op, reduce)``."""
+    if op not in GSPMM_OPS:
+        raise ValueError(f"unknown g-SpMM op {op!r}; expected {GSPMM_OPS}")
+    if reduce not in GSPMM_REDUCES:
+        raise ValueError(
+            f"unknown g-SpMM reduce {reduce!r}; expected {GSPMM_REDUCES}")
+    return GSPMM_OPS.index(op), GSPMM_REDUCES.index(reduce)
+
+
 def stream_handle() -> int:
     """PyTorch's current CUDA stream, as the handle the kernels launch on."""
     return torch.cuda.current_stream().cuda_stream

@@ -1,0 +1,107 @@
+"""Ragged grouped matmul: ``out[i] = x[i] @ w[g(i)]`` for rows sorted by
+group, with ragged group sizes — the batch of small matmuls of differing
+sizes that the paper batches into one kernel, here R-GCN's per-relation
+transforms (``models/gnn.rgcn_layer``).
+
+The kernel is ``csrc/grouped_matmul.cu`` (a tiled f32 SGEMM whose 64-row
+tiles loop over the groups they hold); the plain version is
+:func:`repro_torch.kernels.ref.grouped_matmul_ref`. :func:`grouped_matmul`
+is differentiable in ``x`` and ``w`` with the reference's VJP: ``dx`` is the
+same kernel against the transposed weights, ``dw[g] = Σ_{i∈g} x[i]ᵀ ·
+dout[i]`` a one-hot grouped einsum (plain in the reference too); each is
+computed only when asked for. Rows past ``sum(group_sizes)`` belong to group
+``E - 1`` in both directions.
+
+One departure: the reference's kernel visits at most
+``max_groups_per_tile`` (4) groups per 128-row tile and leaves the rows of
+any further group 0; this port computes every row (``ROADMAP.md`` §3).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, check_operand, on_cpu, ref, \
+    stream_handle
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _P)
+
+
+def _row_groups(group_sizes: torch.Tensor, m: int, e: int) -> torch.Tensor:
+    """(m,) int32 group of each row from the ragged sizes, on their device
+    with no host sync: a search over the cumulative sizes, rows past the
+    last boundary clamped to group ``e - 1``."""
+    starts = torch.cumsum(group_sizes.to(torch.int64), 0)
+    rows = torch.arange(m, device=group_sizes.device)
+    return torch.searchsorted(starts, rows, right=True).clamp(
+        max=e - 1).to(torch.int32)
+
+
+def _gmm(x: torch.Tensor, w: torch.Tensor,
+         row_group: torch.Tensor) -> torch.Tensor:
+    """The kernel's wrapper: x (M, K) f32 rows sorted by group, w (E, K, N)
+    f32, row_group (M,) int32 → (M, N) f32."""
+    if x.dim() != 2 or w.dim() != 3:
+        raise ValueError("_gmm takes a 2-D x and a 3-D w")
+    m, k = x.shape
+    e, _, n = w.shape
+    check_operand("x", x, (m, k), torch.float32)
+    check_operand("w", w, (e, k, n), torch.float32)
+    check_operand("row_group", row_group, (m,), torch.int32)
+    if on_cpu(x, w, row_group):
+        return ref.grouped_matmul_ref(x, row_group, w)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if out.numel() == 0 or e == 0:
+        return out.zero_()
+    fn = _build.entry("grouped_matmul", "grouped_matmul_f32", _ARGTYPES)
+    code = fn(x.data_ptr(), w.data_ptr(), row_group.data_ptr(),
+              out.data_ptr(), m, k, n, e, stream_handle())
+    _build.check("grouped_matmul", code)
+    _gmm.launches += 1
+    return out
+
+
+_gmm.launches = 0
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """``_gmm`` with the reference's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w, row_group):
+        ctx.save_for_backward(x, w, row_group)
+        return _gmm(x, w, row_group)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, row_group = ctx.saved_tensors
+        dout = dout.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _gmm(dout, w.transpose(1, 2).contiguous(), row_group)
+        if ctx.needs_input_grad[1]:
+            onehot = torch.nn.functional.one_hot(
+                row_group.long(), w.shape[0]).to(torch.float32)
+            dw = torch.einsum("me,mk,mn->ekn", onehot, x.float(),
+                              dout.float()).to(w.dtype)
+        return dx, dw, None
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   group_sizes: torch.Tensor) -> torch.Tensor:
+    """``out[i] = x[i] @ w[group_of(i)]`` with rows pre-sorted by group:
+    x (M, K), w (E, K, N), group_sizes (E,) int32 with sum ≤ M (rows past
+    it go to group E - 1). Differentiable in ``x`` and ``w``."""
+    row_group = _row_groups(group_sizes, x.shape[0], w.shape[0])
+    return _GroupedMatmul.apply(x.contiguous(), w.contiguous(), row_group)
+
+
+def sort_by_group(eids: torch.Tensor, e: int):
+    """Stable sort of token slots by group: (order, group_sizes (e,)
+    int32)."""
+    order = torch.sort(eids, stable=True).indices
+    sizes = torch.zeros((e,), dtype=torch.int32, device=eids.device)
+    sizes.index_add_(0, eids.long(), torch.ones_like(eids, dtype=torch.int32))
+    return order, sizes

@@ -10,6 +10,16 @@ gather-dot (:func:`dvalues`), each computed only when asked for. This port
 is f32 and (mul, sum); the reference's names that are not in
 :data:`IMPLS` (the precision variants ``*_bf16``/``*_i8`` and ``auto``)
 raise and are listed in ``ROADMAP.md``.
+
+g-SpMM (:func:`batched_gspmm`) generalizes ``C[rid] += val · B[cid]`` into
+message passing ``C[r] = reduce(op(B[c], e))`` with ``op ∈``
+:data:`GSPMM_OPS`, ``reduce ∈`` :data:`GSPMM_REDUCES` and edge values that
+may be per-edge feature vectors ``(batch, nnz_pad, d_e)``. The (mul, sum)
+corner with scalar edges IS :func:`batched_spmm`; every other corner runs
+the capable subset :data:`GSPMM_IMPLS` with explicit padding masks, its
+forward through the ELL, CSR and COO kernels' g-SpMM entries on the card
+and its backward (:func:`gspmm_backward`) as plain gather/scatter, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -21,11 +31,13 @@ from repro_torch.core.formats import (
     coo_to_csr,
     coo_to_dense,
     coo_to_ell,
+    row_degrees,
     validate_ell_k_pad,
 )
-from repro_torch.kernels import ref
+from repro_torch.kernels import GSPMM_OPS, GSPMM_REDUCES, ref
 from repro_torch.kernels.batched_gemm import batched_gemm
-from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
+from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo, \
+    gspmm_plan
 from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
 from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
 from repro_torch.kernels.batched_spmm_hybrid import (
@@ -52,6 +64,18 @@ from repro_torch.kernels.batched_spmm_hybrid import (
 IMPLS = ("ref", "ell", "pallas_ell", "csr", "pallas_csr", "pallas_coo",
          "hybrid", "pallas_hybrid", "dense", "pallas_gemm", "loop", "fused",
          "fused_hybrid")
+
+# The impls that implement the whole g-SpMM matrix (op × reduce × edge
+# width), the reference's ``autotune.GSPMM_IMPLS``: the GEMM and hybrid
+# classes are (mul, sum) products only.
+GSPMM_IMPLS = ("ref", "loop", "ell", "pallas_ell", "csr", "pallas_csr",
+               "pallas_coo")
+
+
+def supports_gspmm(impl: str) -> bool:
+    """Whether ``impl`` can run a non-(mul, sum) or vector-edge workload."""
+    return impl in GSPMM_IMPLS
+
 
 # impls that run a hand-written kernel on CUDA tensors (the registry keeps
 # the reference's names: pallas_* is the kernel class, not the toolchain)
@@ -181,15 +205,14 @@ def dvalues(row_ids, col_ids, dc, b) -> torch.Tensor:
     gather-dot of the backward, over every slot (padded slots too, as in the
     reference). A slot whose row or column id is out of range gives NaN, as
     the reference's filling gather does."""
-    def take(t, ids):
-        idx = ids.long().clamp(0, t.shape[1] - 1)
-        return torch.gather(t.float(), 1,
-                            idx[..., None].expand(-1, -1, t.shape[-1]))
+    return (_take_fill(dc, row_ids) * _take_fill(b, col_ids)).sum(dim=-1)
 
-    dot = (take(dc, row_ids) * take(b, col_ids)).sum(dim=-1)
-    ok = ((row_ids >= 0) & (row_ids < dc.shape[1])
-          & (col_ids >= 0) & (col_ids < b.shape[1]))
-    return torch.where(ok, dot, float("nan"))
+
+def _take_fill(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``t[s, ids[s, i]]`` in f32, with NaN rows for ids outside the matrix
+    (the reference's filling gather): t (batch, m, n), ids (batch, slots)."""
+    ok = (ids >= 0) & (ids < t.shape[1])
+    return torch.where(ok[..., None], ref._gather_rows(t, ids), float("nan"))
 
 
 class _SpMM(torch.autograd.Function):
@@ -230,21 +253,184 @@ def batched_spmm(a: BatchedCOO, b: torch.Tensor, *, impl: str,
             "bias, not a bare dense operand) — call "
             f"repro_torch.core.graph_conv.graph_conv_batched(impl={impl!r})")
     if a.values.dim() != 2:
-        raise NotImplementedError(
-            "vector edge values are g-SpMM, which is not ported (ROADMAP.md)")
+        raise ValueError("vector edge values are g-SpMM: call "
+                         "batched_gspmm(op='mul', reduce='sum')")
     return _SpMM.apply(a.values, b, a.row_ids, a.col_ids, a.nnz, impl, k_pad)
+
+
+def _gspmm_forward(row_ids, col_ids, nnz, values, b, *, impl: str,
+                   k_pad: int | None, op: str, reduce: str) -> torch.Tensor:
+    """One batched g-SpMM forward of ``impl`` (no autograd). Every path
+    masks padding from the true ``nnz`` or the row degrees: the 0.0-valued
+    padding is inert only under (mul, sum). At paper case 3 the plain impls
+    take the oracle, and a kernel impl on the card raises."""
+    batch, m_pad, n_b = b.shape
+    a = BatchedCOO(row_ids, col_ids, values, nnz,
+                   torch.full((batch,), m_pad, dtype=torch.int32,
+                              device=b.device))
+    if impl == "ref":
+        return ref.batched_gspmm_ref(a, b, m_pad, op=op, reduce=reduce)
+    if impl == "loop":
+        return torch.stack([
+            ref.gspmm_coo_single(row_ids[s], col_ids[s], values[s], b[s],
+                                 m_pad, nnz[s], op=op, reduce=reduce)
+            for s in range(batch)])
+
+    def case3():
+        _kernel_case3(impl, b, m_pad)
+        return ref.batched_gspmm_ref(a, b, m_pad, op=op, reduce=reduce)
+
+    plan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
+    if impl in ("csr", "pallas_csr"):
+        csr = coo_to_csr(a, m_pad)
+        if impl == "csr":
+            return ref.batched_gspmm_csr_ref(csr, b, op=op, reduce=reduce)
+        if plan.case == 3:
+            return case3()
+        return batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, b,
+                                plan=plan, op=op, reduce=reduce)
+    if impl in ("ell", "pallas_ell"):
+        if k_pad is None:
+            raise ValueError(f"{impl} requires k_pad (max nnz/row)")
+        validate_ell_k_pad(a, m_pad, k_pad)
+        # the ELL layout cannot tell a real 0.0 edge from a padded slot, so
+        # the per-row live bound travels beside it
+        rlen = row_degrees(a, m_pad)
+        ell = coo_to_ell(a, m_pad, k_pad)
+        if impl == "ell":
+            return ref.batched_gspmm_ell_ref(ell, rlen, b, op=op,
+                                             reduce=reduce)
+        if plan.case == 3:
+            return case3()
+        return batched_spmm_ell(ell.col_ids, ell.values, b, plan=plan,
+                                rlen=rlen, op=op, reduce=reduce)
+    if impl == "pallas_coo":
+        plan = gspmm_plan(batch=batch, m_pad=m_pad, n_b=n_b)
+        if plan.case == 3:
+            return case3()
+        return batched_spmm_coo(row_ids, col_ids, values, b, plan=plan,
+                                nnz=nnz, op=op, reduce=reduce)
+    raise ValueError(f"unknown g-SpMM impl {impl!r}; expected one of "
+                     f"{GSPMM_IMPLS}")
+
+
+def _scatter_add(msg: torch.Tensor, ids: torch.Tensor,
+                 m: int) -> torch.Tensor:
+    """out[s, ids[s, i]] += msg[s, i], ids outside ``[0, m)`` dropped."""
+    return ref._scatter_rows(msg, ids, (ids >= 0) & (ids < m), m)
+
+
+def gspmm_backward(row_ids, col_ids, nnz, values, b, c, dc, *, op: str,
+                   reduce: str, impl: str, need_values: bool = True,
+                   need_b: bool = True):
+    """(dValues, dB) of one g-SpMM forward, the reference's VJP; a gradient
+    that is not needed is None.
+
+    ``mean`` pre-scales the cotangent by 1/deg and reduces to the sum
+    backward. The (mul, sum/mean) scalar-edge corner keeps the batched SpMM
+    backward of ``impl``'s class (:func:`backward_db` with the padded
+    values zeroed, :func:`dvalues` masked to the valid slots). Every other
+    corner is a gather/scatter: ``max`` routes each row's cotangent to the
+    edges whose message equals the row's output (exact f32 equality: the
+    forward computed the same expression), ties split evenly; dB scatters
+    ``∂msg/∂B`` (e for mul, 1 otherwise) by column; dValues is the
+    cotangent times the gathered B rows for mul (summed over the features
+    for scalar edges), the bare cotangent for add and 0 for copy_lhs."""
+    m_pad = b.shape[1]
+    valid = ref._slots_below(nnz, row_ids.shape[1])
+    rid_c = row_ids.long().clamp(0, m_pad - 1)
+    dcf = dc.float()
+    if reduce == "mean":
+        # the row degrees, row ids clipped into range (formats.row_degrees)
+        deg = dcf.new_zeros(dcf.shape[:2]).scatter_add_(1, rid_c,
+                                                        valid.float())
+        dcf = dcf / torch.clamp(deg, min=1.0)[..., None]
+    scalar = values.dim() == 2
+    if op == "mul" and reduce in ("sum", "mean") and scalar:
+        dval = db = None
+        if need_values:
+            dval = (dvalues(row_ids, col_ids, dcf, b) * valid).to(
+                values.dtype)
+        if need_b:
+            db = backward_db(row_ids, col_ids, nnz, values * valid,
+                             dcf.contiguous(), impl=impl).to(b.dtype)
+        return dval, db
+    vmask = valid[..., None]
+    u = _take_fill(b, col_ids)
+    dmsg = ref._gather_rows(dcf, rid_c)
+    if reduce == "max":
+        msg = ref.gspmm_combine(u, values, op)
+        win = ((msg == ref._gather_rows(c, rid_c)) & vmask).float()
+        nwin = _scatter_add(win, rid_c, m_pad)
+        dmsg = win * dmsg / torch.clamp(ref._gather_rows(nwin, rid_c),
+                                        min=1.0)
+    else:
+        dmsg = torch.where(vmask, dmsg, 0.0)
+    if op == "mul":
+        e = values.float()[..., None] if scalar else values.float()
+        db = _scatter_add(dmsg * e, col_ids, m_pad)
+        dval = (dmsg * u).sum(dim=-1) if scalar else dmsg * u
+    elif op == "add":
+        db = _scatter_add(dmsg, col_ids, m_pad)
+        dval = dmsg.sum(dim=-1) if scalar else dmsg
+    else:   # copy_lhs: the edge value never enters the forward
+        db = _scatter_add(dmsg, col_ids, m_pad)
+        dval = torch.zeros(values.shape, dtype=torch.float32,
+                           device=values.device)
+    return (dval.to(values.dtype) if need_values else None,
+            db.to(b.dtype) if need_b else None)
+
+
+class _GSpMM(torch.autograd.Function):
+    """g-SpMM with the reference's custom VJP (:func:`gspmm_backward`); the
+    forward output is kept only for the max backward's routing."""
+
+    @staticmethod
+    def forward(ctx, values, b, row_ids, col_ids, nnz, impl, k_pad, op,
+                reduce):
+        c = _gspmm_forward(row_ids, col_ids, nnz, values, b, impl=impl,
+                           k_pad=k_pad, op=op, reduce=reduce)
+        ctx.save_for_backward(values, b, row_ids, col_ids, nnz,
+                              c if reduce == "max" else None)
+        ctx.impl, ctx.op, ctx.reduce = impl, op, reduce
+        return c
+
+    @staticmethod
+    def backward(ctx, dc):
+        values, b, row_ids, col_ids, nnz, c = ctx.saved_tensors
+        dval, db = gspmm_backward(
+            row_ids, col_ids, nnz, values, b, c, dc, op=ctx.op,
+            reduce=ctx.reduce, impl=ctx.impl,
+            need_values=ctx.needs_input_grad[0],
+            need_b=ctx.needs_input_grad[1])
+        return dval, db, None, None, None, None, None, None, None
 
 
 def batched_gspmm(a: BatchedCOO, b: torch.Tensor, *, op: str = "mul",
                   reduce: str = "sum", impl: str,
                   k_pad: int | None = None) -> torch.Tensor:
-    """g-SpMM: only the (mul, sum) scalar-edge corner, which IS
-    :func:`batched_spmm`, is ported."""
-    if (op, reduce) != ("mul", "sum"):
-        raise NotImplementedError(
-            f"g-SpMM (op={op!r}, reduce={reduce!r}) is not ported "
-            "(ROADMAP.md); only (mul, sum) runs")
-    return batched_spmm(a, b, impl=impl, k_pad=k_pad)
+    """Generalized SpMM / message passing: per sample s,
+    ``C[s][r] = reduce_{edges (r, c)} op(B[s][c], e)`` with ``e =
+    a.values``, scalars (batch, nnz_pad) or vectors (batch, nnz_pad, d_e)
+    with ``d_e`` equal to B's width. Differentiable in ``a.values`` and
+    ``b``; rows of degree 0 give 0.0 with zero gradient for every reduce.
+
+    (mul, sum) with scalar edges IS :func:`batched_spmm`, over its whole
+    registry; every other corner runs :data:`GSPMM_IMPLS`."""
+    if op not in GSPMM_OPS:
+        raise ValueError(f"unknown g-SpMM op {op!r}; expected {GSPMM_OPS}")
+    if reduce not in GSPMM_REDUCES:
+        raise ValueError(
+            f"unknown g-SpMM reduce {reduce!r}; expected {GSPMM_REDUCES}")
+    if (op, reduce) == ("mul", "sum") and a.values.dim() == 2:
+        return batched_spmm(a, b, impl=impl, k_pad=k_pad)
+    check_impl(impl)
+    if not supports_gspmm(impl):
+        raise ValueError(
+            f"impl {impl!r} cannot run g-SpMM (op={op!r}, reduce={reduce!r});"
+            f" the capable set is {GSPMM_IMPLS} at f32")
+    return _GSpMM.apply(a.values, b, a.row_ids, a.col_ids, a.nnz, impl,
+                        k_pad, op, reduce)
 
 
 def dense_batched_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -105,6 +105,163 @@ def batched_spmm_csr_plain(rpt, col_ids, values, b):
     return _coo_product(rows, col_ids, values, rpt[:, -1], b, b.shape[1])
 
 
+# ---------------------------------------------------------------------------
+# g-SpMM: C[r] = reduce_{edges (r, c)} op(B[c], e)
+# ---------------------------------------------------------------------------
+
+# Finite stand-in for -inf in the max accumulators (the reference's): -inf
+# would turn the empty-row fix-up into inf - inf under autodiff.
+NEG_INF = -3.0e38
+
+
+def gspmm_combine(u: torch.Tensor, e: torch.Tensor | None,
+                  op: str) -> torch.Tensor:
+    """The per-edge combine ``op(u, e)``: ``u`` the gathered B rows, ``e``
+    the edge value, a scalar broadcast over the features or a ``d_e ==
+    n_b`` vector. ``copy_lhs`` ignores ``e``."""
+    if op == "copy_lhs":
+        return u
+    ef = e.float()
+    if ef.dim() < u.dim():
+        ef = ef[..., None]
+    if op == "mul":
+        return u * ef
+    if op == "add":
+        return u + ef
+    raise ValueError(f"unknown g-SpMM op {op!r}")
+
+
+def _slots_below(bound: torch.Tensor, slots: int) -> torch.Tensor:
+    """(batch, slots) bool: slot < bound[s]."""
+    slot = torch.arange(slots, device=bound.device)
+    return slot[None, :] < bound[:, None]
+
+
+def _gspmm_reduce(msg, rows, keep, deg, m_out: int, reduce: str):
+    """Reduce the messages ``msg`` (batch, slots, n) f32 into their rows
+    ``rows`` over the slots where ``keep`` holds; ``deg`` (batch, m_out) is
+    each row's degree: ``mean`` divides by max(deg, 1), and ``max`` writes
+    the 0.0 identity into rows of degree 0."""
+    if reduce in ("sum", "mean"):
+        out = _scatter_rows(msg, rows, keep, m_out)
+        if reduce == "mean":
+            out = out / torch.clamp(deg.float(), min=1.0)[..., None]
+        return out
+    if reduce != "max":
+        raise ValueError(f"unknown g-SpMM reduce {reduce!r}")
+    batch, _, n = msg.shape
+    idx = torch.where(keep, rows.long(), m_out)[..., None].expand(msg.shape)
+    out = msg.new_full((batch, m_out + 1, n), NEG_INF)
+    out.scatter_reduce_(1, idx, torch.where(keep[..., None], msg, NEG_INF),
+                        "amax", include_self=True)
+    return torch.where(deg[..., None] > 0, out[:, :m_out], 0.0)
+
+
+def gspmm_coo_single(row_ids, col_ids, values, b, m_out: int, nnz, *,
+                     op: str = "mul", reduce: str = "sum") -> torch.Tensor:
+    """g-SpMM of ONE matrix: padding is masked explicitly from ``nnz`` (the
+    0.0-valued padding is inert only under (mul, sum)); rows of degree 0
+    take 0.0 for every reduce."""
+    return _gspmm_oracle(row_ids[None], col_ids[None], values[None],
+                         torch.as_tensor(nnz, device=b.device).reshape(1),
+                         b[None], m_out, op, reduce)[0]
+
+
+def _gspmm_oracle(row_ids, col_ids, values, nnz, b, m_out, op, reduce):
+    valid = _slots_below(nnz, row_ids.shape[1])
+    msg = gspmm_combine(_gather_rows(b, col_ids), values, op)
+    keep = valid & _in_range(row_ids, m_out)
+    deg = _scatter_rows(keep[..., None].float(), row_ids, keep, m_out)[..., 0]
+    return _gspmm_reduce(msg, row_ids, keep, deg, m_out, reduce).to(b.dtype)
+
+
+def batched_gspmm_ref(a: BatchedCOO, b: torch.Tensor, m_out: int, *,
+                      op: str = "mul", reduce: str = "sum") -> torch.Tensor:
+    """The batched g-SpMM oracle (the reference's ``batched_gspmm_ref``):
+    ``C[s, r] = reduce_{valid slots i with rid = r} op(B[s, cid], e)``."""
+    return _gspmm_oracle(a.row_ids, a.col_ids, a.values, a.nnz, b, m_out,
+                         op, reduce)
+
+
+def batched_gspmm_coo_plain(row_ids, col_ids, values, nnz, b, *,
+                            op: str, reduce: str) -> torch.Tensor:
+    """Plain version of the COO kernel's g-SpMM entry: slots past ``nnz[s]``
+    are masked, each row's degree counts its valid slots with the row id
+    clipped into ``[0, m_pad)`` (the reference kernel's wrapper), and slots
+    whose ids fall outside the matrix add nothing."""
+    m = b.shape[1]
+    valid = _slots_below(nnz, row_ids.shape[1])
+    keep = valid & _in_range(row_ids, m) & _in_range(col_ids, m)
+    msg = gspmm_combine(_gather_rows(b, col_ids), values, op)
+    deg = torch.zeros(row_ids.shape[0], m, device=b.device).scatter_add_(
+        1, row_ids.long().clamp(0, m - 1), valid.float())
+    return _gspmm_reduce(msg, row_ids, keep, deg, m, reduce).to(b.dtype)
+
+
+def batched_gspmm_ell_ref(a: BatchedELL, rlen: torch.Tensor, b: torch.Tensor,
+                          *, op: str = "mul",
+                          reduce: str = "sum") -> torch.Tensor:
+    """Row-split g-SpMM over the ELL layout: slot k of row r is live while
+    ``k < rlen[r]`` (the ELL layout cannot tell a real 0.0 edge from
+    padding, so the live bound travels beside it)."""
+    return batched_gspmm_ell_plain(a.col_ids, a.values, rlen, b, op=op,
+                                   reduce=reduce)
+
+
+def batched_gspmm_ell_plain(col_ids, values, rlen, b, *, op: str,
+                            reduce: str) -> torch.Tensor:
+    """Plain version of the ELL kernel's g-SpMM entry, on its raw
+    operands."""
+    batch, m_pad, k_pad = col_ids.shape
+    u = _gather_rows(b, col_ids.reshape(batch, m_pad * k_pad))
+    msg = gspmm_combine(u.view(batch, m_pad, k_pad, -1), values, op)
+    live = ((torch.arange(k_pad, device=b.device)[None, None, :]
+             < rlen[..., None]) & _in_range(col_ids, b.shape[1]))[..., None]
+    if reduce in ("sum", "mean"):
+        out = torch.where(live, msg, 0.0).sum(dim=2)
+        if reduce == "mean":
+            out = out / torch.clamp(rlen, min=1).float()[..., None]
+    elif reduce == "max":
+        out = torch.where(live, msg, NEG_INF).amax(dim=2)
+        out = torch.where((rlen > 0)[..., None], out, 0.0)
+    else:
+        raise ValueError(f"unknown g-SpMM reduce {reduce!r}")
+    return out.to(b.dtype)
+
+
+def batched_gspmm_csr_ref(a: BatchedCSR, b: torch.Tensor, *,
+                          op: str = "mul", reduce: str = "sum") -> torch.Tensor:
+    """CSR g-SpMM: each slot's row from a search of ``rpt``, slots at or
+    past ``rpt[-1]`` masked, the degree ``rpt[r+1] - rpt[r]``."""
+    return batched_gspmm_csr_plain(a.rpt, a.col_ids, a.values, b, op=op,
+                                   reduce=reduce)
+
+
+def batched_gspmm_csr_plain(rpt, col_ids, values, b, *, op: str,
+                            reduce: str) -> torch.Tensor:
+    """Plain version of the CSR kernel's g-SpMM entry, on its raw
+    operands."""
+    nnz_pad = col_ids.shape[1]
+    keep = (_slots_below(rpt[:, -1], nnz_pad)
+            & _in_range(col_ids, b.shape[1]))
+    msg = gspmm_combine(_gather_rows(b, col_ids), values, op)
+    return _gspmm_reduce(msg, csr_slot_rows(rpt, nnz_pad), keep,
+                         rpt[:, 1:] - rpt[:, :-1], b.shape[1],
+                         reduce).to(b.dtype)
+
+
+def grouped_matmul_ref(x: torch.Tensor, group_ids: torch.Tensor,
+                       w: torch.Tensor) -> torch.Tensor:
+    """``out[i] = x[i] @ w[group_ids[i]]`` — the ragged grouped matmul, and
+    the plain version of the grouped-matmul kernel. One product per group
+    (no (M, K, N) gather of the weights); a row whose group id lies outside
+    ``[0, E)`` gets 0."""
+    out = x.new_zeros((x.shape[0], w.shape[-1]))
+    for g in range(w.shape[0]):
+        out = torch.where((group_ids == g)[:, None], x @ w[g], out)
+    return out
+
+
 def batched_gemm_ref(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """gemmBatched analogue: (batch, m, k) @ (batch, k, n)."""
     return torch.bmm(a_dense.to(b.dtype), b)

@@ -3,7 +3,9 @@
 A queue of single-molecule scoring requests becomes ONE batched forward pass
 per wave of ``batch`` slots: per conv layer either one fused layer kernel
 (``impl="fused"``) or one stacked ``(channels·batch)`` batched SpMM — the
-paper's launch-amortization argument applied to online inference. Empty and
+paper's launch-amortization argument applied to online inference — or,
+for ``GCNConfig.layer="gat"``/``"rgcn"``, the GNN layer's batched ops (one
+g-SpMM, and for R-GCN one grouped matmul). Empty and
 failed slots carry zero-nnz adjacencies and contribute nothing.
 
 A wave is assembled on the host in numpy, moved with one copy per operand,
@@ -90,7 +92,9 @@ class GraphServeEngine:
         self.batch, self.m_pad, self.nnz_pad = batch, m_pad, nnz_pad
         self.device = resolve_device(device)
         self.params = _tree_to(params, self.device)
-        # only an ELL-class impl silently drops > k_pad nnz per row
+        # only an ELL-class impl silently drops > k_pad nnz per row; as in
+        # the reference, every channel is checked, also under layer="gat",
+        # whose layers read channel 0 only
         self._ell_degree_guard = (cfg.k_pad is not None
                                   and cfg.impl in ("ell", "pallas_ell"))
 

@@ -205,6 +205,9 @@ def test_case3_kernel_impls_raise_on_the_card(dev):
     for impl in ("pallas_coo", "pallas_ell", "pallas_csr"):
         with pytest.raises(ValueError, match="case 3"):
             ops.batched_spmm(coo, b, impl=impl, k_pad=1)
+        with pytest.raises(ValueError, match="case 3"):
+            ops.batched_gspmm(coo, b, op="copy_lhs", reduce="mean",
+                              impl=impl, k_pad=1)
 
 
 def test_trainer_steps_on_the_card_match_ref(dev, tmp_path):
@@ -374,3 +377,153 @@ def test_dense_adjacency_gemm_matches_bmm(dev):
     a = coo_to_dense(coo, m_pad).contiguous()
     b = torch.randn((coo.batch, m_pad, 64), device=dev)
     torch.testing.assert_close(batched_gemm(a, b), torch.bmm(a, b), **TOL)
+
+
+GSPMM_CORNERS = [(op, red) for op in ("mul", "add", "copy_lhs")
+                 for red in ("sum", "max", "mean")]
+
+
+def _vector_values(coo, n_b):
+    """(batch, nnz_pad, n_b) N(0, 1) edge vectors, 0.0 at the padding."""
+    slot = torch.arange(coo.nnz_pad, device=coo.nnz.device)
+    valid = (slot[None, :] < coo.nnz[:, None])[..., None]
+    vv = torch.randn(tuple(coo.values.shape) + (n_b,), device=valid.device)
+    return torch.where(valid, vv, 0.0)
+
+
+@pytest.mark.parametrize("edges", ("scalar", "vector"))
+@pytest.mark.parametrize("name", REGIMES)
+def test_gspmm_kernels_match_plain(dev, name, edges):
+    """The g-SpMM entries of the ELL, CSR and COO kernels against their
+    plain versions on every (op, reduce) corner: max corners bitwise (max
+    is exact in any order, the atomics of COO included), the rest to the
+    f32 tolerance; the ELL and CSR entries give identical bits twice."""
+    from repro_torch.core.formats import row_degrees
+
+    coo, m_pad = _regime(name)
+    coo = coo.to(dev)
+    n_b = 48
+    if edges == "vector":
+        coo = coo.with_values(_vector_values(coo, n_b))
+    b = torch.randn((coo.batch, m_pad, n_b), device=dev)
+    k_pad = max(1, int(max_row_degree(coo, m_pad).max()))
+    rlen = row_degrees(coo, m_pad)
+    e = coo_to_ell(coo, m_pad, k_pad)
+    csr = coo_to_csr(coo, m_pad)
+    for op, red in GSPMM_CORNERS:
+        kw = dict(op=op, reduce=red)
+        runs = [
+            ("ell", lambda: batched_spmm_ell(e.col_ids, e.values, b,
+                                             rlen=rlen, **kw),
+             lambda: ref.batched_gspmm_ell_plain(e.col_ids, e.values, rlen,
+                                                 b, **kw), True),
+            ("csr", lambda: batched_spmm_csr(csr.rpt, csr.col_ids,
+                                             csr.values, b, **kw),
+             lambda: ref.batched_gspmm_csr_plain(csr.rpt, csr.col_ids,
+                                                 csr.values, b, **kw), True),
+            ("coo", lambda: batched_spmm_coo(coo.row_ids, coo.col_ids,
+                                             coo.values, b, nnz=coo.nnz,
+                                             **kw),
+             lambda: ref.batched_gspmm_coo_plain(coo.row_ids, coo.col_ids,
+                                                 coo.values, coo.nnz, b,
+                                                 **kw), False)]
+        for kname, kern, plain, repeatable in runs:
+            got, want = kern(), plain()
+            what = f"{kname} ({op}, {red}) {edges} on {name}"
+            if red == "max":
+                assert torch.equal(got, want), what
+            else:
+                torch.testing.assert_close(got, want, **TOL, msg=what)
+            if repeatable:
+                assert torch.equal(got, kern()), f"{what}: two calls differ"
+            # every kernel agrees with the oracle on the COO batch
+            torch.testing.assert_close(
+                got, ref.batched_gspmm_ref(coo, b, m_pad, **kw), **TOL,
+                msg=f"{what} vs the oracle")
+
+
+@pytest.mark.parametrize("sizes,k,n", [
+    ((7168,) * 4, 62, 64),          # R-GCN Tox21 serving: aligned tiles
+    ((2800,) * 4, 64, 64),          # Tox21 training: straddling tiles
+    ((5, 70, 1, 0, 300), 33, 20),   # ragged, an empty group, rows past sum
+    ((1024,) * 4, 512, 512),        # R-GCN at Reaction100 width
+])
+def test_grouped_matmul_kernel_matches_plain_and_is_bitwise(dev, sizes, k,
+                                                            n):
+    from repro_torch.kernels.grouped_matmul import _gmm, _row_groups
+
+    m = sum(sizes) + (17 if sizes[0] == 5 else 0)
+    x = torch.randn((m, k), device=dev)
+    w = torch.randn((len(sizes), k, n), device=dev) / k ** 0.5
+    rg = _row_groups(torch.tensor(sizes, dtype=torch.int32, device=dev), m,
+                     len(sizes))
+    got = _gmm(x, w, rg)
+    torch.testing.assert_close(got, ref.grouped_matmul_ref(x, rg, w), **TOL)
+    assert torch.equal(got, _gmm(x, w, rg))
+    # dx: the same kernel on the transposed weights
+    wt = w.transpose(1, 2).contiguous()
+    d = torch.randn((m, n), device=dev)
+    torch.testing.assert_close(_gmm(d, wt, rg), ref.grouped_matmul_ref(
+        d, rg, wt), **TOL)
+
+
+def test_gnn_layers_on_the_card_match_the_cpu(dev):
+    """GAT and R-GCN ChemGCN logits and first-step gradients on the card
+    (kernels) against the same model on the CPU (plain versions)."""
+    from repro_torch import tree
+    from repro_torch.core.gcn import apply_gcn, gcn_loss
+    from repro_torch.data.graphs import batches
+
+    spec = GraphDatasetSpec.tox21_like(n_samples=24, seed=5)
+    batch = next(batches(generate(spec), spec, 24))
+    for layer in ("gat", "rgcn"):
+        params = init_gcn(GCNConfig.tox21(layer=layer), device="cpu",
+                          generator=torch.Generator().manual_seed(1))
+        for impl in ("pallas_ell", "pallas_csr", "pallas_coo"):
+            cfg = GCNConfig.tox21(layer=layer, impl=impl, bn_mode="sample")
+            out = {}
+            for where in ("cpu", dev):
+                p = tree.tree_map(
+                    lambda t: t.detach().to(where).requires_grad_(), params)
+                adj = [a.to(where) for a in batch["adj"]]
+                leaves = tree.leaves(p)
+                logits = apply_gcn(p, cfg, adj, batch["x"].to(where),
+                                   batch["n_nodes"].to(where))
+                loss, _ = gcn_loss(p, cfg, adj, batch["x"].to(where),
+                                   batch["n_nodes"].to(where),
+                                   batch["labels"].to(where))
+                out[str(where)] = [logits.detach().cpu()] + [
+                    g.cpu() for g in torch.autograd.grad(loss, leaves)]
+            for i, (got, want) in enumerate(zip(out[str(dev)], out["cpu"])):
+                torch.testing.assert_close(
+                    got, want, atol=3e-4, rtol=3e-5,
+                    msg=f"{layer} {impl} leaf {i}")
+
+
+def test_pallas_ell_gspmm_raises_past_k_pad_on_the_card(dev):
+    from repro_torch.kernels import ops
+
+    coo, m_pad = _regime("skewed")
+    coo = coo.to(dev)
+    b = torch.randn((coo.batch, m_pad, 16), device=dev)
+    with pytest.raises(ValueError, match="max row degree"):
+        ops.batched_gspmm(coo, b, op="copy_lhs", reduce="mean",
+                          impl="pallas_ell", k_pad=2)
+
+
+@pytest.mark.parametrize("name", HYBRID_REGIMES)
+def test_coo_gspmm_max_is_bitwise(dev, name):
+    """The COO kernel's max corners (a compare-and-swap float max in shared
+    memory) equal the plain version bitwise, also where many slots of a hub
+    row contend (the powerlaw regime)."""
+    coo, m_pad = _regime(name)
+    coo = coo.to(dev)
+    b = torch.randn((coo.batch, m_pad, 64), device=dev)
+    for values in (coo.values, _vector_values(coo, 64)):
+        for op in ("mul", "add", "copy_lhs"):
+            got = batched_spmm_coo(coo.row_ids, coo.col_ids, values, b,
+                                   nnz=coo.nnz, op=op, reduce="max")
+            want = ref.batched_gspmm_coo_plain(coo.row_ids, coo.col_ids,
+                                               values, coo.nnz, b, op=op,
+                                               reduce="max")
+            assert torch.equal(got, want), f"({op}, max) {values.dim()}-D"

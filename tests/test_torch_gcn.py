@@ -163,7 +163,9 @@ def test_unported_config_and_device_paths_raise(monkeypatch):
     params = params_from_jax(np_params, _port_cfg(cfg), device="cpu")
     for kw, err in (({"impl": "auto"}, ValueError),
                     ({"impl": "fused_bf16"}, ValueError),
-                    ({"layer": "gat"}, NotImplementedError),
+                    ({"layer": "gat", "batched": False}, ValueError),
+                    ({"layer": "rgcn", "batched": False}, ValueError),
+                    ({"layer": "sage"}, ValueError),
                     ({"precision": "bf16"}, NotImplementedError),
                     ({"bn_mode": "global"}, ValueError)):
         with pytest.raises(err):
@@ -178,6 +180,8 @@ def test_unported_config_and_device_paths_raise(monkeypatch):
         assert torch.isfinite(x.grad).all()
         dx[impl] = x.grad
     torch.testing.assert_close(dx["fused"], dx["ref"], atol=3e-4, rtol=3e-5)
+    with pytest.raises(ValueError, match="divisible"):
+        tgcn.init_gcn(_port_cfg(cfg, layer="gat", heads=5), device="cpu")
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(np_params, _port_cfg(cfg, conv_widths=(32, 64)),
                         device="cpu")

@@ -31,6 +31,7 @@ from repro_torch.kernels.fused_graph_conv import (
     fused_hybrid_forward,
     runtime_chunks,
 )
+from repro_torch.kernels.grouped_matmul import _gmm
 from test_torch_formats import CASE_NAMES, case, to_np, torch_coo
 
 ATOL, RTOL = TOLS["f32"]
@@ -204,9 +205,9 @@ def test_failed_kernel_build_raises_with_compiler_output(monkeypatch,
 def test_launch_counters_and_sources_present():
     for fn in (batched_spmm_ell, batched_spmm_coo, batched_spmm_csr,
                batched_spmm_hybrid, batched_gemm, fused_forward,
-               fused_hybrid_forward):
+               fused_hybrid_forward, _gmm):
         assert isinstance(fn.launches, int)
-    assert len(_build.SOURCES) == 6
+    assert len(_build.SOURCES) == 7
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces the TPU kernel src/repro/kernels/" in src
@@ -247,8 +248,11 @@ def test_dispatch_raises_for_unported_paths():
         ops.batched_spmm(coo, bt, impl="pallas_ell")
     with pytest.raises(ValueError, match="max row degree"):
         ops.batched_spmm(coo, bt, impl="pallas_ell", k_pad=k_pad - 1)
-    with pytest.raises(NotImplementedError, match="g-SpMM"):
-        ops.batched_gspmm(coo, bt, op="add", reduce="sum", impl="ref")
+    with pytest.raises(ValueError, match="g-SpMM"):
+        ops.batched_gspmm(coo, bt, op="add", reduce="sum", impl="pallas_gemm")
+    with pytest.raises(ValueError, match="batched_gspmm"):
+        ops.batched_spmm(coo.with_values(coo.values[..., None]), bt,
+                         impl="ref")
     # every impl takes gradients: a kernel impl's match impl="ref"'s
     grads = {}
     for impl in ("pallas_coo", "ref"):
