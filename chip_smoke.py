@@ -22,7 +22,9 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    vector edges, n_b 16) Tox21 serving shapes and on every (op, reduce)
    corner of the three regimes (max corners bitwise), and the grouped
    matmul at R-GCN's Tox21 serving and training and Reaction100 layer-2
-   shapes (ELL, CSR and grouped matmul twice for identical bits);
+   shapes (ELL, CSR and grouped matmul twice for identical bits; the
+   grouped matmul also with 5 groups in one 128-row tile, whose fifth
+   group's rows come out 0 as in the reference);
 4. powerlaw model: ChemGCN at Tox21 widths on four channels of 40
    degree-skewed 256-row graphs, ``apply_gcn`` and first-step gradients
    of ``gcn_loss`` with ``impl`` = pallas_hybrid and fused_hybrid against
@@ -50,8 +52,25 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    and serve Reaction100 with R-GCN (pallas_csr against ref; the grouped
    matmul at 512 width); launch counts per wave and per step.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last
-line is ``{"ok": true, "device": {...}}``.
+Before phases 4-9, the LM zoo's serving path runs (and frees its model):
+
+- the flash-attention kernel against its plain version at the Llama-3-8B
+  prefill shape (bf16 within one bf16 ulp, timed beside its bound and SDPA;
+  f32 within 2e-5) and on the five corners of ``tests/test_kernels.py`` in
+  f32 and bf16, identical bits twice;
+- Llama-3-8B at full width (bf16, seed-0 random weights on the card):
+  ``lm.prefill`` of 2 x 4096 tokens with ``attention_impl`` = pallas (32
+  kernel launches a call), xla_packed and xla_chunked (at the default
+  blocks and at 512-blocks, the second plain order), the kernel's last
+  logits within ``NOISE_MULT`` times the two plain orders' difference and
+  its argmax where the top-2 margin exceeds it; then ``ServeEngine`` waves
+  of greedy decode over 8 requests (exact lengths, identical twice, no
+  flash launch: decode attends by plain products), ms per step split into
+  device and host, and one-request waves' first tokens against prefill's
+  argmax where the top-2 margin exceeds the prompt's noise floor.
+
+The line before the last is the ``{"kernels": [...]}`` record (9
+kernels); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -67,7 +86,15 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12         # H100 SXM f32, outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 F32_TOL = (1e-4, 1e-5)         # (atol, rtol): tests/oracle.py TOLS["f32"]
+# flash attention against its plain version: the reference test's
+# tolerances (tests/test_kernels.py), as (atol, rtol), on its five corners
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
+# at the main-path shape, where randn inputs give outputs of ~0.03: one bf16
+# ulp (2^-7 of the value; both sides round the same f32 sum once) plus f32
+# noise in bf16; the f32 run of the same shape is held at FLASH_TOL
+FLASH_MAIN_TOL = {"float32": FLASH_TOL["float32"], "bfloat16": (1e-4, 8e-3)}
 DEVICE = "cuda"
 GRAD_TOL = (3e-4, 3e-5)        # layer gradients: 3x F32_TOL (tests/oracle.py)
 CURVE_RTOL = 1e-3              # loss curves against impl="ref"
@@ -88,6 +115,19 @@ TRAIN_GNN_STEPS = 12           # GAT / R-GCN Tox21 steps (a resume at 10)
 # (benchmarks/bench_formats.py "powerlaw"), seed 0
 POWERLAW = dict(batch=40, dim=256, avg_deg=8)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+# Llama-3-8B at full width, bf16, seed-0 random weights. Prefill: 2 x 4096
+# prompt tokens (train_4k's length; prefill_32k's 32 x 32768 is cut to fit
+# the time limit). Serving: waves of 4 slots, 8 requests.
+LM_ARCH = "llama3-8b"
+PREFILL = dict(batch=2, seq_len=4096, calls=2)
+LM_SERVE = dict(batch=4, max_len=256, n_requests=8, new_tokens=16,
+                min_prompt=16, max_prompt=96)
+# the kernel's prefill logits may differ from xla_packed's by at most this
+# multiple of the two plain orders' difference (the bf16 noise floor)
+NOISE_MULT = 2.0
+# the second plain order: xla_chunked at these blocks (at the default 1024
+# it is xla_packed's arithmetic, bit for bit)
+CHUNKED_ORDER = dict(q_block=512, kv_block=512)
 TPU_SITE = {
     "batched_spmm_ell": "src/repro/kernels/batched_spmm_ell.py:142",
     "batched_spmm_coo": "src/repro/kernels/batched_spmm_coo.py:168",
@@ -97,6 +137,7 @@ TPU_SITE = {
     "batched_gemm": "src/repro/kernels/batched_gemm.py:44",
     "fused_hybrid_forward": "src/repro/kernels/fused_graph_conv.py:197",
     "grouped_matmul": "src/repro/kernels/grouped_matmul.py:87",
+    "flash_attention": "src/repro/kernels/flash_attention.py:110",
 }
 SOURCE = {"batched_spmm_ell": "batched_spmm_ell",
           "batched_spmm_coo": "batched_spmm_coo",
@@ -105,10 +146,12 @@ SOURCE = {"batched_spmm_ell": "batched_spmm_ell",
           "batched_spmm_hybrid": "batched_spmm_hybrid",
           "batched_gemm": "batched_gemm",
           "fused_hybrid_forward": "fused_graph_conv",
-          "grouped_matmul": "grouped_matmul"}
+          "grouped_matmul": "grouped_matmul",
+          "flash_attention": "flash_attention"}
 # the row of each kernel that its {"kernels": ...} entry reports: the shape
 # its first main path gives it (serving for ELL, COO, fused, hybrid, GEMM,
-# fused hybrid and the grouped matmul, training for CSR); the other rows,
+# fused hybrid and the grouped matmul, training for CSR, the Llama-3-8B
+# prefill for flash attention); the other rows,
 # the g-SpMM entries of the ELL, COO and CSR kernels among them, are
 # printed as [kernels] lines
 ENTRY_ROW = {"batched_spmm_ell": "batched_spmm_ell",
@@ -118,7 +161,8 @@ ENTRY_ROW = {"batched_spmm_ell": "batched_spmm_ell",
              "batched_spmm_hybrid": "batched_spmm_hybrid[tox21]",
              "batched_gemm": "batched_gemm[tox21]",
              "fused_hybrid_forward": "fused_hybrid_forward[tox21]",
-             "grouped_matmul": "grouped_matmul[rgcn tox21 serving layer 1]"}
+             "grouped_matmul": "grouped_matmul[rgcn tox21 serving layer 1]",
+             "flash_attention": "flash_attention[llama3-8b prefill]"}
 GSPMM_CORNERS = [(op, red) for op in ("mul", "add", "copy_lhs")
                  for red in ("sum", "max", "mean")]
 
@@ -189,10 +233,12 @@ def graph_ms(fn, iters: int = 30, replays: int = 5) -> float:
     return ms
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flop_rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of bytes over the
-    HBM rate and operations over the f32 peak."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    HBM rate and operations over the peak of their type (f32 unless
+    ``flop_rate`` says otherwise)."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -316,25 +362,30 @@ def _train_batches(spec, batch: int):
 
 
 def _measure(rows, key, kernel, kern, plain, nbytes, flops, shape,
-             library=None, bitwise=False):
-    """Hold ``kern()`` against ``plain()`` (and ``library()`` when given,
-    and two calls for identical bits when ``bitwise``), then time all
-    three by CUDA-graph replay, and the kernel by back-to-back calls too;
-    adds the row ``key`` of kernel ``kernel``."""
+             library=None, bitwise=False, tol=F32_TOL,
+             flop_rate=F32_FLOP_PER_S, iters=30, replays=5, library_tol=None):
+    """Hold ``kern()`` against ``plain()`` within ``tol`` (and
+    ``library()`` when given within ``library_tol``, by default ``tol``, and
+    two calls for identical bits when ``bitwise``), then time all three by
+    CUDA-graph replay (``iters`` calls replayed ``replays`` times), and the
+    kernel by back-to-back calls too; adds the row ``key`` of kernel
+    ``kernel``."""
     import torch
 
     got = kern()
-    err = max_err(got, plain(), key)
+    err = max_err(got, plain(), key, tol)
     if bitwise:
         check(torch.equal(got, kern()), f"{key}: two calls differ")
     if library is not None:
-        max_err(library(), plain(), f"{key} library call")
-    b_ms, b_by = bound(nbytes, flops)
+        max_err(library(), plain(), f"{key} library call",
+                library_tol or tol)
+    b_ms, b_by = bound(nbytes, flops, flop_rate)
+    timed = dict(iters=iters, replays=replays)
     rows[key] = dict(
-        name=key, kernel=kernel, max_abs_err=err, ms=graph_ms(kern),
-        stream_ms=cuda_ms(kern), plain_ms=graph_ms(plain), bound_ms=b_ms,
-        bound_by=b_by,
-        library_ms=None if library is None else graph_ms(library),
+        name=key, kernel=kernel, max_abs_err=err, ms=graph_ms(kern, **timed),
+        stream_ms=cuda_ms(kern, iters=iters),
+        plain_ms=graph_ms(plain, **timed), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None if library is None else graph_ms(library, **timed),
         shape=shape)
 
 
@@ -764,7 +815,8 @@ def phase_gnn_kernels(device, rows, errs):
     from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
     from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
     from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
-    from repro_torch.kernels.grouped_matmul import _gmm, _row_groups
+    from repro_torch.kernels.grouped_matmul import _gmm, _row_groups, \
+        _visited_groups
     from repro_torch.kernels.segment_softmax import segment_softmax
     from repro_torch.serving.engine import GraphServeEngine
 
@@ -851,6 +903,9 @@ def phase_gnn_kernels(device, rows, errs):
                                     device=device), xt.shape[0], e)
         m = xt.shape[0]
         straddle = tokens % 64 != 0
+        check(bool((_visited_groups(rg, 128, 4) >= 0).all()),
+              f"grouped_matmul {tag}: a 128-row tile holds more than 4 "
+              "groups")
         _measure(rows, f"grouped_matmul[{tag}]", "grouped_matmul",
                  lambda: _gmm(xt, w, rg),
                  lambda: ref.grouped_matmul_ref(xt, rg, w),
@@ -918,23 +973,32 @@ def phase_gnn_kernels(device, rows, errs):
                         check(torch.equal(got, kern()),
                               f"{what}: two calls differ")
                     checks += 1
-        # the grouped matmul: ragged groups, an empty one, rows past the sum
+        # the grouped matmul: ragged groups, an empty one, rows past the
+        # sum, and 5 groups in the first 128-row tile, whose fifth group's
+        # rows there come out 0 (the reference's max_groups_per_tile = 4)
         sizes = torch.tensor([5, 70, 1, 0, 300], dtype=torch.int32,
                              device=device)
         xg = torch.randn((393, 33), generator=gen).to(device)
         wg = torch.randn((5, 33, 20), generator=gen).to(device)
         rg = _row_groups(sizes, 393, 5)
+        visited = _visited_groups(rg, 128, 4)
+        check(int((visited < 0).sum().item()) == 52,
+              "grouped_matmul: expected 52 rows past 4 groups of a tile")
         got = _gmm(xg, wg, rg)
+        check(bool((got[visited < 0] == 0).all()),
+              f"grouped_matmul {rname}: rows past 4 groups of a tile not 0")
         errs["grouped_matmul"] = max(errs["grouped_matmul"], max_err(
-            got, ref.grouped_matmul_ref(xg, rg, wg), f"grouped_matmul {rname}"))
+            got, ref.grouped_matmul_ref(xg, visited, wg),
+            f"grouped_matmul {rname}"))
         check(torch.equal(got, _gmm(xg, wg, rg)),
               f"grouped_matmul {rname}: two calls differ")
     log(f"[kernels] g-SpMM entries of the ELL, CSR and COO kernels: {checks} "
         "checks of every (op, reduce) corner, scalar and vector edges, on "
         "the uniform / skewed / zero-nnz regimes match their plain versions "
         "(max corners bitwise; ELL and CSR identical bits twice); the "
-        "grouped matmul on ragged groups (an empty one, rows past the sum) "
-        "matches its plain version with identical bits twice")
+        "grouped matmul on ragged groups (an empty one, rows past the sum, "
+        "the 52 rows of a fifth group in one 128-row tile 0 as in the "
+        "reference) matches its plain version with identical bits twice")
     _log_rows(r for k, r in rows.items() if k not in before)
 
 
@@ -946,6 +1010,7 @@ def _reset_counters():
     from repro_torch.kernels.batched_spmm_hybrid import batched_spmm_hybrid
     from repro_torch.kernels.fused_graph_conv import fused_forward, \
         fused_hybrid_forward
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.grouped_matmul import _gmm
 
     wrappers = {"batched_spmm_ell": batched_spmm_ell,
@@ -955,7 +1020,8 @@ def _reset_counters():
                 "batched_spmm_hybrid": batched_spmm_hybrid,
                 "batched_gemm": batched_gemm,
                 "fused_hybrid_forward": fused_hybrid_forward,
-                "grouped_matmul": _gmm}
+                "grouped_matmul": _gmm,
+                "flash_attention": flash_attention}
     for fn in wrappers.values():
         fn.launches = 0
     return wrappers
@@ -1346,6 +1412,333 @@ def phase_gnn_paths(device):
     return paths
 
 
+def _attended_pairs(tq: int, tk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the mask keeps, per (batch, head)."""
+    n = 0
+    for t in range(tq):
+        hi = min(t + 1, tk) if causal else tk
+        lo = max(0, t - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def phase_flash_kernels(device, rows, errs):
+    """The flash-attention kernel against its plain version: at the
+    Llama-3-8B prefill shape (bf16, timed, with its bound and SDPA beside
+    it) and on the reference test's five corners in f32 and bf16, identical
+    bits twice everywhere. Adds to ``rows`` and ``errs``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import KV_TILE, flash_attention
+
+    from repro_torch import configs
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    cfg = configs.get(LM_ARCH)
+    b, t = PREFILL["batch"], PREFILL["seq_len"]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # (tag, b, t, h, kv, hd, causal, window, dtype): the main path's shape,
+    # then tests/test_kernels.py's five corners
+    cases = [("llama3-8b prefill", b, t, h, kv, hd, True, 0, "bfloat16"),
+             ("llama3-8b prefill float32", b, t, h, kv, hd, True, 0,
+              "float32")]
+    for dtype in ("float32", "bfloat16"):
+        cases += [(f"mha causal {dtype}", 2, 64, 4, 4, 32, True, 0, dtype),
+                  (f"gqa {dtype}", 1, 128, 8, 2, 16, True, 0, dtype),
+                  (f"mqa ragged {dtype}", 2, 96, 4, 1, 32, True, 0, dtype),
+                  (f"window 48 {dtype}", 1, 128, 4, 4, 32, True, 48, dtype),
+                  (f"bidirectional {dtype}", 2, 64, 4, 2, 32, False, 0,
+                   dtype)]
+    err = main_f32 = 0.0
+    for tag, b, t, h, kv, hd, causal, window, dtype in cases:
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, t, h, hd), generator=gen, device=device).to(dt)
+        k, v = (torch.randn((b, t, kv, hd), generator=gen,
+                            device=device).to(dt) for _ in range(2))
+        kw = dict(causal=causal, window=window)
+
+        def kern(q=q, k=k, v=v, kw=kw):
+            return flash_attention(q, k, v, **kw)
+
+        def plain(q=q, k=k, v=v, kw=kw):
+            return ref.flash_attention_plain(q, k, v, kv_block=KV_TILE, **kw)
+
+        tol = (FLASH_MAIN_TOL if tag.startswith("llama3-8b") else
+               FLASH_TOL)[dtype]
+        if tag != "llama3-8b prefill":
+            got = kern()
+            e = max_err(got.float(), plain().float(),
+                        f"flash_attention {tag}", tol)
+            main_f32 = e if tag.startswith("llama3-8b") else main_f32
+            err = max(err, e)
+            check(torch.equal(got, kern()),
+                  f"flash_attention {tag}: two calls differ")
+            continue
+
+        def library(q=q, k=k, v=v):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)
+
+        flops = 4 * b * h * hd * _attended_pairs(t, t, causal, window)
+        # q, k and v read once, the output (q's shape) written once
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        key = f"flash_attention[{tag}]"
+        _measure(rows, key, "flash_attention", kern, plain, nbytes, flops,
+                 f"B {b}, T {t}, H {h}, KV {kv}, hd {hd}, causal, {dtype}, "
+                 f"{flops:.3e} FLOP unmasked", library, bitwise=True,
+                 tol=tol, flop_rate=BF16_FLOP_PER_S, iters=3, replays=2,
+                 library_tol=FLASH_TOL[dtype])
+        err = max(err, rows[key]["max_abs_err"])
+        del q, k, v
+    errs["flash_attention"] = err
+    log("[kernels] flash_attention on the five corners of "
+        "tests/test_kernels.py (MHA causal, GQA, MQA with T 96, window 48, "
+        f"bidirectional) in f32 (tolerance {FLASH_TOL['float32']}) and bf16 "
+        f"({FLASH_TOL['bfloat16']}) and at the Llama-3-8B prefill shape in "
+        f"bf16 ({FLASH_MAIN_TOL['bfloat16']}) and f32 (max abs err "
+        f"{main_f32:.3e}, tolerance {FLASH_MAIN_TOL['float32']}) matches its "
+        "plain version, identical bits twice")
+    _log_rows([rows["flash_attention[llama3-8b prefill]"]])
+    torch.cuda.empty_cache()
+
+
+def _lm_prompts(cfg):
+    """LM_SERVE's requests: prompts of min_prompt..max_prompt tokens from
+    ``make_batch`` (seed 0, step 1), new_tokens each, the fourth with a
+    budget of 0."""
+    from repro_torch.data.tokens import TokenStreamSpec, make_batch
+    from repro_torch.serving.engine import Request
+
+    n, lo, hi = (LM_SERVE["n_requests"], LM_SERVE["min_prompt"],
+                 LM_SERVE["max_prompt"])
+    toks = make_batch(TokenStreamSpec(vocab=cfg.vocab, batch=n, seq_len=hi,
+                                      seed=0), 1)
+    lengths = [lo + (hi - lo) * i // (n - 1) for i in range(n)]
+    return [Request(prompt=toks[i, :lengths[i]].tolist(),
+                    max_new_tokens=0 if i == 3 else LM_SERVE["new_tokens"])
+            for i in range(n)]
+
+
+def phase_lm(device):
+    """Llama-3-8B at full width on the card: ``lm.prefill`` of 2 x 4096
+    tokens through the flash-attention kernel and through the two plain
+    impls, then ``ServeEngine`` waves of greedy decode; the model is freed
+    before the next phase. Returns the launches per kernel of each path."""
+    import gc
+
+    import torch
+
+    paths = _lm_paths(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    check(allocated < 1e9, f"{allocated / 1e9:.2f} GB still allocated after "
+                           "the LM phases")
+    log(f"[lm] model freed: {allocated / 1e9:.2f} GB allocated on the card")
+    return paths
+
+
+def _lm_paths(device):
+    """The body of :func:`phase_lm`; everything it allocates dies with its
+    frame."""
+    import torch
+    from repro_torch import configs, tree, tuning
+    from repro_torch.data.tokens import TokenStreamSpec, make_batch
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = configs.get(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    blk = params["blocks"]["0_attn_dense"]
+    n_norm = params["final_norm"]["scale"].numel() + sum(
+        p["scale"].numel() for p in (blk["ln1"], blk["ln2"], *(
+            blk["attn"][k] for k in ("q_norm", "k_norm")
+            if k in blk["attn"])))
+    check(n_params - n_norm == cfg.param_count(),
+          f"{n_params} parameters ({n_norm} in norms), param_count() says "
+          f"{cfg.param_count()} without the norms")
+    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}: {n_params} "
+        f"parameters ({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+
+    # -- prefill -----------------------------------------------------------
+    toks = make_batch(TokenStreamSpec(vocab=cfg.vocab,
+                                      batch=PREFILL["batch"],
+                                      seq_len=PREFILL["seq_len"], seed=0), 0)
+    batch = {"tokens": torch.from_numpy(toks).to(device)}
+    n_tok = toks.size
+    orders = {"pallas": {}, "xla_packed": {}, "xla_chunked": {},
+              "xla_chunked 512": CHUNKED_ORDER}
+    last, launches = {}, {}
+    for name, blocks in orders.items():
+        impl = name.split()[0]
+        wrappers = _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        with torch.inference_mode(), tuning.use_flags(attention_impl=impl,
+                                                      **blocks):
+            for _ in range(PREFILL["calls"]):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                logits, enc_out = lm.prefill(params, cfg, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        want = {k: 0 for k in counts}
+        if impl == "pallas":
+            want["flash_attention"] = cfg.n_layers * PREFILL["calls"]
+            launches = counts
+        check(counts == want, f"prefill {name}: launches {counts}, expected "
+                              f"{want}")
+        check(enc_out is None and tuple(logits.shape) == (
+            PREFILL["batch"], 1, cfg.vocab), f"prefill {name}: "
+            f"{tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()),
+              f"prefill {name}: non-finite logits")
+        last[name] = logits[:, 0].float()
+        log(f"[lm prefill] attention_impl={name}: {PREFILL['batch']} x "
+            f"{PREFILL['seq_len']} tokens, ms per call {times[0]:.1f} (first)"
+            f", {times[-1]:.1f} (last): {n_tok / times[-1] * 1e3:.0f} tokens/"
+            f"s; flash_attention launches {counts['flash_attention']}; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    same = torch.equal(last["xla_packed"], last["xla_chunked"])
+    floor = float((last["xla_chunked 512"] - last["xla_packed"]).abs().max())
+    gap = float((last["pallas"] - last["xla_packed"]).abs().max())
+    gap_c = float((last["pallas"] - last["xla_chunked 512"]).abs().max())
+    check(floor > 0, "the two plain orders agree bit for bit: no noise floor")
+    check(gap <= NOISE_MULT * floor,
+          f"prefill: the kernel's last logits differ from xla_packed's by "
+          f"{gap:.3e}, more than {NOISE_MULT} x the noise floor {floor:.3e}")
+    ref_logits = last["xla_packed"]
+    top2 = ref_logits.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > floor
+    agree = ref_logits.argmax(-1) == last["pallas"].argmax(-1)
+    check(bool(agree[decided].all()),
+          f"prefill: argmax differs where the top-2 margin {margin.tolist()} "
+          f"exceeds the floor {floor:.3e}")
+    log(f"[lm prefill] xla_chunked at the default blocks equals xla_packed "
+        f"bit for bit: {same}; noise floor (xla_chunked at "
+        f"{CHUNKED_ORDER['q_block']}-blocks vs xla_packed) {floor:.4e}; "
+        f"kernel vs xla_packed {gap:.4e} ({gap / floor:.2f} x the floor, "
+        f"limit {NOISE_MULT}), vs xla_chunked 512 {gap_c:.4e}; |logit| max "
+        f"{float(ref_logits.abs().max()):.3f}; argmax agrees on "
+        f"{int(agree.sum())} of {agree.numel()} rows ({int(decided.sum())} "
+        f"with a top-2 margin above the floor: {margin.tolist()})")
+    paths = {"lm prefill": launches}
+
+    # -- serving -----------------------------------------------------------
+    engine = ServeEngine(params, cfg, batch=LM_SERVE["batch"],
+                         max_len=LM_SERVE["max_len"], device=device)
+    steps = []
+    decode = engine._decode
+
+    def counted(*a):
+        steps.append(1)
+        return decode(*a)
+
+    engine._decode = counted
+    outs = []
+    for attempt in range(2):
+        reqs = _lm_prompts(cfg)
+        wrappers = _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        steps.clear()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        check(counts == {k: 0 for k in counts},
+              f"serve: launches {counts}, expected none")
+        for i, r in enumerate(reqs):
+            check(r.done and not r.truncated
+                  and len(r.out) == r.max_new_tokens
+                  and all(0 <= x < cfg.vocab for x in r.out),
+                  f"serve: request {i} done={r.done} truncated="
+                  f"{r.truncated} with {len(r.out)} of {r.max_new_tokens} "
+                  "tokens")
+        outs.append([r.out for r in reqs])
+        generated = sum(len(r.out) for r in reqs)
+        if attempt == 0:
+            first = (wall, len(steps), generated,
+                     torch.cuda.max_memory_allocated())
+    check(outs[0] == outs[1], "serve: greedy tokens differ between two runs")
+    paths["lm serve"] = counts
+    # device time of one decode step at the serving batch: CUDA-graph
+    # replay of decode_step at position 128 of a fresh cache
+    with torch.inference_mode():
+        caches = lm.init_decode_state(cfg, LM_SERVE["batch"],
+                                      LM_SERVE["max_len"], device=device)
+        tok = torch.zeros((LM_SERVE["batch"], 1), dtype=torch.int64,
+                          device=device)
+        step_dev = graph_ms(lambda: lm.decode_step(params, cfg, tok, caches,
+                                                   128), iters=5, replays=4)
+    wall, n_steps, generated, peak = first
+    per_step = wall / n_steps
+    log(f"[lm serve] ServeEngine(batch={LM_SERVE['batch']}, max_len="
+        f"{LM_SERVE['max_len']}): {LM_SERVE['n_requests']} requests (prompts "
+        f"{LM_SERVE['min_prompt']}-{LM_SERVE['max_prompt']} tokens, "
+        f"{LM_SERVE['new_tokens']} new, one with 0) in "
+        f"{-(-LM_SERVE['n_requests'] // LM_SERVE['batch'])} waves: every "
+        f"request done with exact lengths; {n_steps} decode steps in "
+        f"{wall:.1f} ms ({generated} tokens generated: "
+        f"{generated / wall * 1e3:.1f} tokens/s, "
+        f"{n_steps * LM_SERVE['batch'] / wall * 1e3:.1f} slot-steps/s); ms "
+        f"per decode step {per_step:.2f} wall = {step_dev:.2f} device "
+        f"(CUDA-graph replay) + {per_step - step_dev:.2f} host; greedy "
+        f"tokens identical on a second run; peak memory {peak / 1e9:.2f} GB")
+    log("[lm serve] flash_attention launches while serving: 0 (decode "
+        "attends over the KV cache by plain products, as the reference's "
+        "decode does; the kernel runs only in prefill and forward)")
+
+    # one-request waves of unpadded prompts: each first token against the
+    # argmax of prefill's last logits through the kernel, where the top-2
+    # margin exceeds that prompt's own noise floor (xla_packed against
+    # xla_chunked at 8-blocks; a floor of 0 decides nothing)
+    decided = agreed = 0
+    for req in _lm_prompts(cfg):
+        r = Request(prompt=req.prompt, max_new_tokens=1)
+        engine.run([r])
+        toks1 = {"tokens": torch.tensor([r.prompt], device=device)}
+        got = {}
+        for impl, blocks in (("pallas", {}), ("xla_packed", {}),
+                             ("xla_chunked", dict(q_block=8, kv_block=8))):
+            with torch.inference_mode(), tuning.use_flags(
+                    attention_impl=impl, **blocks):
+                got[impl] = lm.prefill(params, cfg, toks1)[0][0, 0].float()
+        floor_p = float((got["xla_packed"] - got["xla_chunked"]).abs().max())
+        top2 = got["pallas"].topk(2).values
+        m = float(top2[0] - top2[1])
+        hit = r.out[0] == int(got["pallas"].argmax())
+        if 0 < floor_p < m:
+            decided += 1
+            agreed += hit
+            check(hit, f"serve: first token {r.out[0]} of a "
+                       f"{len(r.prompt)}-token prompt is not prefill's "
+                       f"argmax {int(got['pallas'].argmax())} (margin "
+                       f"{m:.3e} > floor {floor_p:.3e})")
+        log(f"[lm serve] one-request wave of a {len(r.prompt)}-token prompt: "
+            f"first token {r.out[0]}, prefill (kernel) argmax "
+            f"{int(got['pallas'].argmax())}, top-2 margin {m:.4e}, the "
+            f"prompt's noise floor {floor_p:.4e}"
+            + ("" if 0 < floor_p < m else " (not decided)"))
+    log(f"[lm serve] first token = prefill's argmax on {agreed} of "
+        f"{decided} one-request waves whose margin exceeds the floor")
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -1367,6 +1760,8 @@ def main() -> int:
     phase_build()
     rows, errs = phase_kernels(device)
     phase_gnn_kernels(device, rows, errs)
+    phase_flash_kernels(device, rows, errs)
+    lm_paths = phase_lm(device)
     p_launches = phase_powerlaw(device)
 
     tox_launches = phase_serve(
@@ -1415,6 +1810,7 @@ def main() -> int:
              "serve reaction100": r_launches, "train tox21": t_launches,
              "train reaction100": tr_launches}
     paths.update(phase_gnn_paths(device))
+    paths.update(lm_paths)
     kernels = []
     for kname, key in ENTRY_ROW.items():
         per_path = {p: c.get(kname, 0) for p, c in paths.items()}

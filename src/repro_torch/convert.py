@@ -1,4 +1,4 @@
-"""The reference's ChemGCN parameters and Adam state → the port's.
+"""The reference's ChemGCN and LM parameters and Adam state → the port's.
 
 The caller hands over the reference's pytree with its leaves as numpy
 arrays (``jax.tree.map(np.asarray, params)``); nothing here imports JAX. The
@@ -11,7 +11,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gcn import GCNConfig
+from repro_torch.models.lm import param_shapes
 
 
 def _conv_shapes(cfg: GCNConfig, n_in: int, n_out: int) -> dict:
@@ -77,3 +79,34 @@ def opt_state_from_jax(np_state, cfg: GCNConfig, *, device=None) -> dict:
             "v": params_from_jax(np_state["v"], cfg, device=device),
             "step": torch.tensor(int(step), dtype=torch.int32,
                                  device=device)}
+
+
+def lm_params_from_jax(np_params, cfg: ModelConfig, *, device=None) -> dict:
+    """Copy a reference LM pytree (numpy leaves) onto ``device``, checking
+    every leaf's name, shape and dtype against ``cfg`` (:func:`repro_torch.
+    models.lm.param_shapes`: weights in ``cfg.dtype``, norm scales in f32)
+    and keeping each leaf's dtype. A bf16 leaf (an
+    ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects) goes
+    through float32, exactly."""
+    device = resolve_device(device)
+
+    def walk(src, spec, path):
+        if isinstance(spec, dict):
+            if not isinstance(src, dict) or set(src) != set(spec):
+                got = sorted(src) if isinstance(src, dict) else type(src)
+                raise ValueError(f"{path or 'params'}: leaves {got}, "
+                                 f"expected {sorted(spec)} for {cfg.name}")
+            return {k: walk(src[k], spec[k], f"{path}.{k}" if path else k)
+                    for k in spec}
+        a = np.asarray(src)
+        if a.shape != spec[0]:
+            raise ValueError(f"{path}: shape {a.shape}, expected {spec[0]}")
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        if t.dtype != spec[1]:
+            raise ValueError(f"{path}: dtype {a.dtype}, expected {spec[1]}")
+        return t.to(device)
+
+    return walk(np_params, param_shapes(cfg), "")

@@ -3,9 +3,13 @@
 // group sizes belong to group E - 1, as the wrapper computes it).
 //
 // Replaces the TPU kernel src/repro/kernels/grouped_matmul.py (_gmm /
-// _kernel, the grouped_matmul of models/gnn.rgcn_layer), which visited at
-// most max_groups_per_tile = 4 groups per 128-row tile and left the rows of
-// any further group 0. This kernel visits every group a tile holds.
+// _kernel, the grouped_matmul of models/gnn.rgcn_layer), which visits at
+// most max_groups_per_tile = 4 groups per tm = 128-row tile, the group of
+// the tile's first row and the next three, and leaves the rows of any
+// further group 0. This kernel keeps that contract whatever its own
+// 64-row tiling: a row whose group lies max_groups or more past the group
+// of the first row of its tm-row tile is staged as no group and comes out
+// 0.
 //
 // What bounds it on an H100: at R-GCN's widths (K, N = 62..512) a call
 // moves x, w and out once and does 2*M*K*N f32 operations: at K = N = 64 it
@@ -37,7 +41,7 @@ constexpr int kSub = kTile / kSide;
 __global__ void __launch_bounds__(kThreads)
 gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
            const int* __restrict__ row_group, float* __restrict__ out, int m,
-           int k, int n, int e) {
+           int k, int n, int e, int tm, int max_groups) {
   __shared__ float xs[kDepth][kTile + 1];   // x tile, transposed (padded
                                             // against bank conflicts)
   __shared__ float ws[kDepth][kTile];   // w[g] tile
@@ -46,15 +50,24 @@ gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int row0 = blockIdx.x * kTile, col0 = blockIdx.y * kTile;
   const int tid = threadIdx.x, tx = tid % kSide, ty = tid / kSide;
   const int rows = min(kTile, m - row0);
-  if (tid < kTile) rg[tid] = tid < rows ? __ldg(row_group + row0 + tid) : -1;
+  if (tid < kTile) {
+    int g = -1;   // -1: no group, the row comes out 0
+    if (tid < rows) {
+      const int row = row0 + tid;
+      g = __ldg(row_group + row);
+      if (g - __ldg(row_group + row / tm * tm) >= max_groups) g = -1;
+    }
+    rg[tid] = g;
+  }
   __syncthreads();
   if (tid == 0) {
-    int lo = rg[0], hi = rg[0];
-    for (int r = 1; r < rows; ++r) {
+    int lo = e, hi = -1;   // no row with a group: the loop below is empty
+    for (int r = 0; r < rows; ++r) {
+      if (rg[r] < 0) continue;
       lo = min(lo, rg[r]);
       hi = max(hi, rg[r]);
     }
-    g_range[0] = max(lo, 0);
+    g_range[0] = lo;
     g_range[1] = min(hi, e - 1);
   }
   __syncthreads();
@@ -119,9 +132,11 @@ gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 extern "C" int grouped_matmul_f32(const float* x, const float* w,
                                   const int* row_group, float* out, int m,
-                                  int k, int n, int e, void* stream) {
+                                  int k, int n, int e, int tm, int max_groups,
+                                  void* stream) {
+  if (tm < 1 || max_groups < 1) return cudaErrorInvalidValue;
   const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
   gmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, row_group, out, m, k, n, e);
+      x, w, row_group, out, m, k, n, e, tm, max_groups);
   return cudaGetLastError();
 }

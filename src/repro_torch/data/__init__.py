@@ -1,1 +1,2 @@
-"""Data pipelines: synthetic molecular graphs (ChemGCN)."""
+"""Data pipelines: synthetic molecular graphs (ChemGCN) and LM token
+batches."""

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("batched_spmm_ell", "batched_spmm_coo", "batched_spmm_csr",
            "batched_spmm_hybrid", "batched_gemm", "fused_graph_conv",
-           "grouped_matmul")
+           "grouped_matmul", "flash_attention")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -12,9 +12,10 @@ dout[i]`` a one-hot grouped einsum (plain in the reference too); each is
 computed only when asked for. Rows past ``sum(group_sizes)`` belong to group
 ``E - 1`` in both directions.
 
-One departure: the reference's kernel visits at most
-``max_groups_per_tile`` (4) groups per 128-row tile and leaves the rows of
-any further group 0; this port computes every row (``ROADMAP.md`` §3).
+As in the reference, a ``tm``-row tile (128) visits at most
+``max_groups_per_tile`` (4) groups, the first row's group and the next
+three: the rows of any later group in that tile come out 0, in the forward
+and in ``dx``; ``dw`` is not masked (:func:`_visited_groups`).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.kernels import _build, check_operand, on_cpu, ref, \
     stream_handle
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 
 
 def _row_groups(group_sizes: torch.Tensor, m: int, e: int) -> torch.Tensor:
@@ -39,10 +40,24 @@ def _row_groups(group_sizes: torch.Tensor, m: int, e: int) -> torch.Tensor:
         max=e - 1).to(torch.int32)
 
 
-def _gmm(x: torch.Tensor, w: torch.Tensor,
-         row_group: torch.Tensor) -> torch.Tensor:
+def _visited_groups(row_group: torch.Tensor, tm: int,
+                    max_groups_per_tile: int) -> torch.Tensor:
+    """``row_group`` with -1 for every row that the reference's kernel
+    leaves 0: a row whose group lies ``max_groups_per_tile`` or more past
+    the group of the first row of its ``tm``-row tile (groups ascend down
+    the rows)."""
+    m = row_group.shape[0]
+    first = (torch.arange(m, device=row_group.device) // tm) * tm
+    keep = row_group - row_group[first] < max_groups_per_tile
+    return torch.where(keep, row_group, -1).to(torch.int32)
+
+
+def _gmm(x: torch.Tensor, w: torch.Tensor, row_group: torch.Tensor, *,
+         tm: int = 128, max_groups_per_tile: int = 4) -> torch.Tensor:
     """The kernel's wrapper: x (M, K) f32 rows sorted by group, w (E, K, N)
-    f32, row_group (M,) int32 → (M, N) f32."""
+    f32, row_group (M,) int32 → (M, N) f32, the rows that a ``tm``-row tile
+    of the reference does not visit 0 (:func:`_visited_groups`; the kernel
+    applies the same rule as it stages a tile)."""
     if x.dim() != 2 or w.dim() != 3:
         raise ValueError("_gmm takes a 2-D x and a 3-D w")
     m, k = x.shape
@@ -50,14 +65,19 @@ def _gmm(x: torch.Tensor, w: torch.Tensor,
     check_operand("x", x, (m, k), torch.float32)
     check_operand("w", w, (e, k, n), torch.float32)
     check_operand("row_group", row_group, (m,), torch.int32)
+    if tm < 1 or max_groups_per_tile < 1:
+        raise ValueError(f"tm={tm} and max_groups_per_tile="
+                         f"{max_groups_per_tile} must be positive")
     if on_cpu(x, w, row_group):
-        return ref.grouped_matmul_ref(x, row_group, w)
+        return ref.grouped_matmul_ref(
+            x, _visited_groups(row_group, tm, max_groups_per_tile), w)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or e == 0:
         return out.zero_()
     fn = _build.entry("grouped_matmul", "grouped_matmul_f32", _ARGTYPES)
     code = fn(x.data_ptr(), w.data_ptr(), row_group.data_ptr(),
-              out.data_ptr(), m, k, n, e, stream_handle())
+              out.data_ptr(), m, k, n, e, tm, max_groups_per_tile,
+              stream_handle())
     _build.check("grouped_matmul", code)
     _gmm.launches += 1
     return out
@@ -70,9 +90,10 @@ class _GroupedMatmul(torch.autograd.Function):
     """``_gmm`` with the reference's custom VJP."""
 
     @staticmethod
-    def forward(ctx, x, w, row_group):
+    def forward(ctx, x, w, row_group, tm, max_groups_per_tile):
         ctx.save_for_backward(x, w, row_group)
-        return _gmm(x, w, row_group)
+        ctx.tiling = dict(tm=tm, max_groups_per_tile=max_groups_per_tile)
+        return _gmm(x, w, row_group, **ctx.tiling)
 
     @staticmethod
     def backward(ctx, dout):
@@ -80,22 +101,27 @@ class _GroupedMatmul(torch.autograd.Function):
         dout = dout.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _gmm(dout, w.transpose(1, 2).contiguous(), row_group)
+            dx = _gmm(dout, w.transpose(1, 2).contiguous(), row_group,
+                      **ctx.tiling)
         if ctx.needs_input_grad[1]:
             onehot = torch.nn.functional.one_hot(
                 row_group.long(), w.shape[0]).to(torch.float32)
             dw = torch.einsum("me,mk,mn->ekn", onehot, x.float(),
                               dout.float()).to(w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None, None
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
-                   group_sizes: torch.Tensor) -> torch.Tensor:
+                   group_sizes: torch.Tensor, *, tm: int = 128,
+                   max_groups_per_tile: int = 4) -> torch.Tensor:
     """``out[i] = x[i] @ w[group_of(i)]`` with rows pre-sorted by group:
     x (M, K), w (E, K, N), group_sizes (E,) int32 with sum ≤ M (rows past
-    it go to group E - 1). Differentiable in ``x`` and ``w``."""
+    it go to group E - 1); a ``tm``-row tile visits at most
+    ``max_groups_per_tile`` groups, as in the reference. Differentiable in
+    ``x`` and ``w``."""
     row_group = _row_groups(group_sizes, x.shape[0], w.shape[0])
-    return _GroupedMatmul.apply(x.contiguous(), w.contiguous(), row_group)
+    return _GroupedMatmul.apply(x.contiguous(), w.contiguous(), row_group,
+                                tm, max_groups_per_tile)
 
 
 def sort_by_group(eids: torch.Tensor, e: int):

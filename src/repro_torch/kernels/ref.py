@@ -349,3 +349,47 @@ def fused_graph_conv_plain(row_ids, col_ids, values, chunks, x, w, bias,
     if epilogue == "relu":
         y = torch.relu(y)
     return y.to(x.dtype)
+
+
+FLASH_NEG_INF = -1e30                 # the reference flash kernel's NEG_INF
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          kv_block: int = 64) -> torch.Tensor:
+    """Plain version of the flash-attention kernel: the reference kernel's
+    blocked online softmax over ``kv_block``-key tiles from position 0, for
+    every query row at once (the q tiling does not change a row's
+    arithmetic). q (B, Tq, H, hd), k and v (B, Tk, KV, hd) → q's shape and
+    type; widened to f32, masked scores ``FLASH_NEG_INF``, p kept in f32,
+    ``acc / max(l, 1e-20)``."""
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
+    groups = h // k.shape[2]
+    scale = hd ** -0.5
+    kv_block = max(1, min(kv_block, tk))
+    qf = q.float().transpose(1, 2)                          # (B, H, Tq, hd)
+    kf = k.float().repeat_interleave(groups, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(groups, dim=2).transpose(1, 2)
+    qpos = torch.arange(tq, device=q.device)[:, None]
+    acc = torch.zeros((b, h, tq, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, tq), FLASH_NEG_INF, device=q.device)
+    l = torch.zeros((b, h, tq), device=q.device)
+    for k0 in range(0, tk, kv_block):
+        kpos = torch.arange(k0, min(k0 + kv_block, tk), device=q.device)
+        s = (qf @ kf[:, :, k0:k0 + kv_block].transpose(-1, -2)) * scale
+        mask = torch.ones((tq, kpos.numel()), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos
+        if window:
+            mask &= kpos[None, :] > qpos - window
+        s = torch.where(mask, s, FLASH_NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p @ vf[:, :, k0:k0 + kv_block]
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.transpose(1, 2).to(q.dtype).contiguous()

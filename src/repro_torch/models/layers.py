@@ -1,0 +1,299 @@
+"""Shared layers of the LM zoo (the reference's ``models/layers.py``): the
+norms, RoPE, self-attention with GQA, qk-norm, a sliding window and a
+decode-time KV cache, and the SwiGLU FFN.
+
+Parameters are dicts of tensors named as the reference's pytree. Attention
+runs one of three impls, chosen by ``tuning.flags().attention_impl``:
+``"xla_packed"`` (triangle-packed blocked attention, the default),
+``"xla_chunked"`` (plain blocked online softmax) and ``"pallas"`` (the
+flash-attention kernel, :mod:`repro_torch.kernels.flash_attention`, which
+takes K/V with their KV heads unrepeated; its plain version on the CPU).
+The two plain impls mask with ``-inf`` and guard fully masked rows as the
+reference does; on bf16 inputs they take the score and p·v products in
+f32, as the reference's ``preferred_element_type=float32``. Single-token
+decode attends over the whole cache by plain products and never reaches the
+kernel, as in the reference.
+
+The decode cache is written in place (the reference's
+``dynamic_update_slice`` returns a new array): ``attention_apply`` returns
+the same cache dict it was given. Cross-attention and MoE are not ported
+yet (ROADMAP.md queue 1 item 12).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import tuning
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
+
+UNPORTED = "not ported yet (ROADMAP.md queue 1 item 12)"
+
+
+def _normal(shape, dtype, generator, device) -> torch.Tensor:
+    """N(0, 0.02²) draws, the reference's ``initializers.normal(0.02)``."""
+    return torch.empty(shape, dtype=dtype, device=device).normal_(
+        0.0, 0.02, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rms_norm(d, *, device=None):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rms_norm(p, x, eps=1e-5):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+def init_layer_norm(d, *, device=None):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layer_norm(p, x, eps=1e-5):
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * p["scale"]
+            + p["bias"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., T, H, hd); positions: (..., T) int. Split halves, angles in
+    f32, the result cast back to x's type."""
+    hd = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, hd, 2, dtype=torch.float32,
+                                    device=x.device) / hd)
+    ang = positions[..., None].float() * freqs            # (..., T, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg: ModelConfig, dtype, *, generator=None, device=None):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": _normal((d, h * hd), dtype, generator, device),
+         "wk": _normal((d, kv * hd), dtype, generator, device),
+         "wv": _normal((d, kv * hd), dtype, generator, device),
+         "wo": _normal((h * hd, d), dtype, generator, device)}
+    if cfg.qk_norm:
+        p["q_norm"] = init_rms_norm(hd, device=device)
+        p["k_norm"] = init_rms_norm(hd, device=device)
+    return p
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, T, KV, hd) → (B, T, KV·groups, hd)."""
+    return k.repeat_interleave(groups, dim=2)
+
+
+def _online_update(state, s, mask, vb):
+    """One online-softmax step of the plain impls over a (…, q, k) score
+    block ``s`` (masked to -inf where ``mask`` is False), fully masked rows
+    guarded by ``m_safe``; returns the new (acc, m, l)."""
+    acc, m, l = state
+    s = torch.where(mask, s, -torch.inf)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+    p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+    corr = torch.exp(torch.where(torch.isneginf(m), m_safe, m) - m_safe)
+    l_new = l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                   vb.float())
+    return acc_new, m_new, l_new
+
+
+def _pad_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad axis 1 of a (B, T, H, hd) tensor to length ``n``."""
+    return F.pad(x, (0, 0, 0, 0, 0, n - x.shape[1]))
+
+
+def chunked_attention(q, k, v, *, causal: bool, q_offset=0, window: int = 0,
+                      q_block: int = 0, kv_block: int = 0):
+    """Online-softmax blocked attention (plain flash attention): q (B, Tq,
+    H, hd), k and v (B, Tk, H, hd) (already GQA-expanded); a loop over q
+    blocks, and in each over every kv block."""
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
+    scale = hd ** -0.5
+    q_block = min(q_block or tuning.flags().q_block, tq)
+    kv_block = min(kv_block or tuning.flags().kv_block, tk)
+    nq, nk = -(-tq // q_block), -(-tk // kv_block)
+    qp, kp, vp = (_pad_seq(q, nq * q_block), _pad_seq(k, nk * kv_block),
+                  _pad_seq(v, nk * kv_block))
+    dev = q.device
+    q_pos = q_offset + torch.arange(nq * q_block, device=dev).reshape(
+        nq, q_block)
+    k_pos = torch.arange(nk * kv_block, device=dev).reshape(nk, kv_block)
+    k_valid = k_pos < tk
+    outs = []
+    for iq in range(nq):
+        qb = qp[:, iq * q_block:(iq + 1) * q_block].float()
+        qpos = q_pos[iq]
+        state = (torch.zeros((b, h, q_block, hd), device=dev),
+                 torch.full((b, h, q_block), -torch.inf, device=dev),
+                 torch.zeros((b, h, q_block), device=dev))
+        for ik in range(nk):
+            kb = kp[:, ik * kv_block:(ik + 1) * kv_block]
+            vb = vp[:, ik * kv_block:(ik + 1) * kv_block]
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kb.float()) * scale
+            mask = k_valid[ik][None, :].expand(q_block, kv_block)
+            if causal:
+                mask = mask & (k_pos[ik][None, :] <= qpos[:, None])
+            if window:
+                mask = mask & (k_pos[ik][None, :] > qpos[:, None] - window)
+            state = _online_update(state, s, mask, vb)
+        acc, _, l = state
+        out = acc / torch.clamp(l, min=1e-20)[..., None]
+        outs.append(out.transpose(1, 2))                 # (B, qb, H, hd)
+    return torch.cat(outs, dim=1)[:, :tq].to(q.dtype)
+
+
+def packed_causal_attention(q, k, v, *, window: int = 0, block: int = 0):
+    """Triangle-packed blocked causal attention: only the (iq, ik) block
+    pairs on or below the diagonal (and, with a window, those that meet the
+    window band) are visited, in the reference's order (``np.tril_indices``,
+    then the band filter); each q block carries its own online-softmax
+    state."""
+    b, t, h, hd = q.shape
+    fl = tuning.flags()
+    block = min(block or max(fl.q_block, fl.kv_block), t)
+    nb = -(-t // block)
+    qp, kp, vp = (_pad_seq(x, nb * block) for x in (q, k, v))
+    iqs, iks = np.tril_indices(nb)
+    if window:
+        keep = (iks + 1) * block - 1 > iqs * block - window
+        iqs, iks = iqs[keep], iks[keep]
+    scale = hd ** -0.5
+    dev = q.device
+    pos = torch.arange(block, device=dev)
+    state = [(torch.zeros((b, h, block, hd), device=dev),
+              torch.full((b, h, block), -torch.inf, device=dev),
+              torch.zeros((b, h, block), device=dev)) for _ in range(nb)]
+    for iq, ik in zip(iqs.tolist(), iks.tolist()):
+        qb = qp[:, iq * block:(iq + 1) * block]
+        kb = kp[:, ik * block:(ik + 1) * block]
+        vb = vp[:, ik * block:(ik + 1) * block]
+        s = torch.einsum("bqhd,bkhd->bhqk", qb.float(), kb.float()) * scale
+        qpos = iq * block + pos[:, None]
+        kpos = ik * block + pos[None, :]
+        mask = (kpos <= qpos) & (kpos < t)
+        if window:
+            mask &= kpos > qpos - window
+        state[iq] = _online_update(state[iq], s, mask, vb)
+    out = torch.cat([acc / torch.clamp(l, min=1e-20)[..., None]
+                     for acc, _, l in state], dim=2)     # (B, H, nb·blk, hd)
+    return out.transpose(1, 2)[:, :t].to(q.dtype)
+
+
+def _decode_attention(q, k, v, cfg: ModelConfig, cache_pos: int):
+    """Single-token attention over the whole cache (B, S, H, hd): slots
+    that hold no position yet, or one outside the window (ring buffer), are
+    masked; a plain product, as in the reference."""
+    s_cache = k.shape[1]
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    slots = torch.arange(s_cache, device=q.device)
+    if cfg.window:
+        # slot s holds absolute position cache_pos - ((cache_pos - s) mod S)
+        age = torch.remainder(cache_pos - slots, s_cache)
+        exists = (slots <= cache_pos) | (cache_pos >= s_cache)
+        valid = exists & (age < cfg.window)
+    else:
+        valid = slots <= cache_pos
+    s = torch.where(valid[None, None, None, :], s, -torch.inf)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+
+
+def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
+                    positions: torch.Tensor, causal: bool = True,
+                    kv_cache: dict | None = None, cache_pos: int | None = None,
+                    xa=None, cache_mode: str = "write"):
+    """Self-attention with GQA, optional qk-norm, RoPE, window and an
+    optional decode-time KV cache ``{"k", "v"}`` (B, S, KV, hd), written in
+    place at ``cache_pos`` (a ring buffer when ``cfg.window``). Returns
+    (out, the cache)."""
+    if xa is not None or cache_mode != "write":
+        raise NotImplementedError(f"cross-attention is {UNPORTED}")
+    b, t, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, t, h, hd)
+    k = (x @ p["wk"]).reshape(b, t, kv, hd)
+    v = (x @ p["wv"]).reshape(b, t, kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q)
+        k = rms_norm(p["k_norm"], k)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is not None:
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        s_cache = ck.shape[1]
+        slot = cache_pos % s_cache if cfg.window else cache_pos
+        # dynamic_update_slice clamps the start so that the update fits
+        slot = max(0, min(slot, s_cache - t))
+        ck[:, slot:slot + t] = k.to(ck.dtype)
+        cv[:, slot:slot + t] = v.to(cv.dtype)
+        groups = h // ck.shape[2]
+        out = _decode_attention(q, _repeat_kv(ck, groups),
+                                _repeat_kv(cv, groups), cfg,
+                                cache_pos).to(x.dtype)
+    else:
+        impl = tuning.flags().attention_impl
+        if impl == "pallas":
+            # the kernel reads KV head h // groups itself: no repeat
+            out = flash_attention(q, k, v, causal=causal,
+                                  window=cfg.window).to(x.dtype)
+        else:
+            groups = h // kv
+            k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+            if impl == "xla_packed" and causal and k.shape[1] == t:
+                out = packed_causal_attention(q, k, v, window=cfg.window)
+            else:
+                out = chunked_attention(q, k, v, causal=causal,
+                                        window=cfg.window)
+    out = out.reshape(b, t, h * hd) @ p["wo"]
+    return out.to(x.dtype), kv_cache
+
+
+# ---------------------------------------------------------------------------
+# FFN: SwiGLU (MoE not ported yet)
+# ---------------------------------------------------------------------------
+
+def init_ffn(d: int, d_ff: int, dtype, *, generator=None, device=None):
+    return {"w_gate": _normal((d, d_ff), dtype, generator, device),
+            "w_up": _normal((d, d_ff), dtype, generator, device),
+            "w_down": _normal((d_ff, d), dtype, generator, device)}
+
+
+def ffn_apply(p, x):
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def init_moe(*args, **kwargs):
+    raise NotImplementedError(f"MoE is {UNPORTED}")
+
+
+def _moe_grouped(*args, **kwargs):
+    raise NotImplementedError(f"MoE is {UNPORTED}")
+
+
+def moe_apply(*args, **kwargs):
+    raise NotImplementedError(f"MoE is {UNPORTED}")

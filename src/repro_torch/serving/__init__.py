@@ -1,1 +1,2 @@
-"""Batched serving: ``GraphServeEngine``, the per-wave ChemGCN executor."""
+"""Batched serving: ``ServeEngine`` (LM decode waves) and
+``GraphServeEngine``, the per-wave ChemGCN executor."""

@@ -1,6 +1,18 @@
-"""Wave-scheduled batched ChemGCN inference (``GraphServeEngine``).
+"""Wave-scheduled batched serving engines: LM decode waves
+(``ServeEngine``) and ChemGCN inference waves (``GraphServeEngine``).
 
-A queue of single-molecule scoring requests becomes ONE batched forward pass
+``ServeEngine`` serves a queue of prompts in waves of ``batch`` slots:
+prompts are left-padded with token 0 to the wave's longest and prefilled in
+lockstep through the decode step (positions shared by the wave), then
+every slot decodes one token per step, greedy (argmax) or sampled at a
+temperature; a slot that has its ``max_new_tokens`` stops collecting, and
+the wave ends when every slot is done or the ``max_len`` window is full (a
+slot cut off there is ``truncated``, not ``done``). Sampling draws from a
+seeded ``torch.Generator``: its draws are not ``jax.random``'s, so the two
+packages agree token for token only at temperature 0.
+
+For ``GraphServeEngine``, a queue of single-molecule scoring requests
+becomes ONE batched forward pass
 per wave of ``batch`` slots: per conv layer either one fused layer kernel
 (``impl="fused"``) or one stacked ``(channels·batch)`` batched SpMM — the
 paper's launch-amortization argument applied to online inference — or,
@@ -22,9 +34,30 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import BatchedCOO, coo_from_lists
 from repro_torch.core.gcn import GCNConfig, apply_gcn, check_config
 from repro_torch.kernels.ops import check_impl
+from repro_torch.models import lm
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: list[int]
+    max_new_tokens: int = 16
+    out: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False          # served to completion (max_new_tokens reached)
+    truncated: bool = False     # cut off by the engine's max_len window
+
+
+def _serve_in_waves(engine, requests: list) -> list:
+    """Shared wave scheduler: slice the queue into ``engine.batch``-slot
+    waves, run each through ``engine._run_wave``."""
+    queue = list(requests)
+    while queue:
+        wave, queue = queue[:engine.batch], queue[engine.batch:]
+        engine._run_wave(wave)
+    return requests
 
 
 @dataclasses.dataclass
@@ -74,6 +107,86 @@ def _tree_to(tree, device):
     if isinstance(tree, (list, tuple)):
         return [_tree_to(v, device) for v in tree]
     return torch.as_tensor(tree).to(device)
+
+
+class ServeEngine:
+    """LM decode waves over ``params`` (the pytree of
+    :func:`repro_torch.models.lm.init_params` or
+    :func:`repro_torch.convert.lm_params_from_jax`), moved to ``device``,
+    the current CUDA device unless the caller asks for another. Every step
+    is one :func:`~repro_torch.models.lm.decode_step` for the whole wave,
+    run under ``torch.inference_mode()``."""
+
+    def __init__(self, params, cfg: ModelConfig, *, batch: int = 4,
+                 max_len: int = 128, temperature: float = 0.0, seed: int = 0,
+                 device=None):
+        lm.check_ported(cfg)
+        self.cfg = cfg
+        self.batch, self.max_len = batch, max_len
+        self.temperature = temperature
+        self.device = resolve_device(device)
+        self.params = _tree_to(params, self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _decode(self, tokens, caches, pos: int):
+        return lm.decode_step(self.params, self.cfg, tokens, caches, pos)
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        """(batch, vocab) logits → (batch,) tokens on the host: argmax, or
+        the Gumbel-max draw of ``softmax(logits / temperature)``."""
+        if self.temperature > 0:
+            u = torch.rand(logits.shape, generator=self.generator,
+                           device=logits.device)
+            logits = logits.float() / self.temperature - torch.log(
+                -torch.log(u))
+        return torch.argmax(logits, dim=-1).cpu().numpy()
+
+    def _run_wave(self, wave: list[Request]) -> None:
+        n = len(wave)
+        maxp = max(len(r.prompt) for r in wave)
+        toks = np.zeros((self.batch, maxp), np.int64)
+        for s, r in enumerate(wave):
+            toks[s, maxp - len(r.prompt):] = r.prompt    # left padding
+        with torch.inference_mode():
+            caches = lm.init_decode_state(self.cfg, self.batch, self.max_len,
+                                          device=self.device)
+            prompt = torch.from_numpy(toks).to(self.device)
+            # lockstep prefill through the decode step (positions shared)
+            last = None
+            for i in range(maxp):
+                last, caches = self._decode(prompt[:, i:i + 1], caches, i)
+            pos = maxp
+            cur = self._sample(last[:, 0, :])
+            active = np.array([True] * n + [False] * (self.batch - n))
+            for s, r in enumerate(wave):
+                if r.max_new_tokens <= 0:       # zero-budget: no tokens
+                    r.done = True
+                    active[s] = False
+                    continue
+                r.out.append(int(cur[s]))
+                if r.max_new_tokens <= 1:
+                    r.done = True
+                    active[s] = False
+            while active.any() and pos < self.max_len - 1:
+                step = torch.from_numpy(cur.reshape(-1, 1)).to(self.device)
+                logits, caches = self._decode(step, caches, pos)
+                cur = self._sample(logits[:, 0, :])
+                pos += 1
+                for s, r in enumerate(wave):
+                    if not active[s]:
+                        continue
+                    r.out.append(int(cur[s]))
+                    if len(r.out) >= r.max_new_tokens:
+                        r.done = True
+                        active[s] = False
+        # slots still active hit the max_len window, not their budget
+        for s, r in enumerate(wave):
+            if active[s]:
+                r.truncated = True
+                active[s] = False
+
+    def run(self, requests: list[Request]) -> list[Request]:
+        return _serve_in_waves(self, requests)
 
 
 class GraphServeEngine:

@@ -450,21 +450,27 @@ def test_gspmm_kernels_match_plain(dev, name, edges):
 ])
 def test_grouped_matmul_kernel_matches_plain_and_is_bitwise(dev, sizes, k,
                                                             n):
-    from repro_torch.kernels.grouped_matmul import _gmm, _row_groups
+    from repro_torch.kernels.grouped_matmul import _gmm, _row_groups, \
+        _visited_groups
 
     m = sum(sizes) + (17 if sizes[0] == 5 else 0)
     x = torch.randn((m, k), device=dev)
     w = torch.randn((len(sizes), k, n), device=dev) / k ** 0.5
     rg = _row_groups(torch.tensor(sizes, dtype=torch.int32, device=dev), m,
                      len(sizes))
+    # the ragged case has 5 groups in its first 128-row tile: the fifth
+    # group's rows there come out 0, as in the reference
+    visited = _visited_groups(rg, 128, 4)
+    assert bool((visited < 0).any()) == (sizes[0] == 5)
     got = _gmm(x, w, rg)
-    torch.testing.assert_close(got, ref.grouped_matmul_ref(x, rg, w), **TOL)
+    torch.testing.assert_close(got, ref.grouped_matmul_ref(x, visited, w),
+                               **TOL)
     assert torch.equal(got, _gmm(x, w, rg))
     # dx: the same kernel on the transposed weights
     wt = w.transpose(1, 2).contiguous()
     d = torch.randn((m, n), device=dev)
     torch.testing.assert_close(_gmm(d, wt, rg), ref.grouped_matmul_ref(
-        d, rg, wt), **TOL)
+        d, visited, wt), **TOL)
 
 
 def test_gnn_layers_on_the_card_match_the_cpu(dev):
@@ -527,3 +533,89 @@ def test_coo_gspmm_max_is_bitwise(dev, name):
                                                values, coo.nnz, b, op=op,
                                                reduce="max")
             assert torch.equal(got, want), f"({op}, max) {values.dim()}-D"
+
+
+# (b, tq, tk, h, kv, hd, causal, window): the reference test's five corners,
+# then Llama-3 heads at a ragged length, StableLM's hd 160, a bidirectional
+# window and a query shorter than the keys
+FLASH_SHAPES = [
+    (2, 64, 64, 4, 4, 32, True, 0), (1, 128, 128, 8, 2, 16, True, 0),
+    (2, 96, 96, 4, 1, 32, True, 0), (1, 128, 128, 4, 4, 32, True, 48),
+    (2, 64, 64, 4, 2, 32, False, 0), (1, 300, 300, 32, 8, 128, True, 0),
+    (1, 200, 200, 4, 4, 160, True, 0), (2, 130, 130, 4, 2, 64, False, 70),
+    (1, 50, 120, 4, 2, 64, False, 0)]
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain_and_is_bitwise(dev, shape,
+                                                             dtype):
+    """Tolerance: the reference test's, 2e-5 (f32) and 3e-2 (bf16)."""
+    from repro_torch.kernels.flash_attention import KV_TILE, flash_attention
+
+    b, tq, tk, h, kv, hd, causal, window = shape
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, tq, h, hd), device=dev).to(dt)
+    k, v = (torch.randn((b, tk, kv, hd), device=dev).to(dt) for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     kv_block=KV_TILE)
+    tol = 2e-5 if dt == torch.float32 else 3e-2
+    assert got.dtype == dt
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+
+
+def test_flash_attention_kernel_raises_on_an_unbuilt_head_dim(dev):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.randn((1, 8, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_attention(q, q, q)
+
+
+def test_reduced_lm_on_the_card_matches_the_cpu(dev):
+    """The reduced llama3-8b and qwen3-14b (f32) on the card against the
+    same parameters on the CPU: forward under the three attention impls
+    (the kernel once per layer under "pallas"), decode steps and greedy
+    serving. Tolerance: f32 (1e-4, 1e-5)."""
+    from repro_torch import configs, tree, tuning
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    for arch in ("llama3-8b", "qwen3-14b"):
+        cfg = configs.get(arch).reduced()
+        p = lm.init_params(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+        pd = tree.tree_map(lambda t: t.to(dev), p)
+        tokens = torch.randint(0, cfg.vocab, (2, 70))
+        for impl in ("xla_packed", "xla_chunked", "pallas"):
+            with tuning.use_flags(attention_impl=impl, q_block=32,
+                                  kv_block=32):
+                want = lm.forward(p, cfg, {"tokens": tokens})[0]
+                before = flash_attention.launches
+                got = lm.forward(pd, cfg, {"tokens": tokens.to(dev)})[0]
+            launched = flash_attention.launches - before
+            assert launched == (cfg.n_layers if impl == "pallas" else 0)
+            torch.testing.assert_close(got.cpu(), want, **TOL,
+                                       msg=f"{arch} {impl}")
+        caches = {"cpu": lm.init_decode_state(cfg, 2, 16, device="cpu"),
+                  "dev": lm.init_decode_state(cfg, 2, 16, device=dev)}
+        for i in range(6):
+            want, caches["cpu"] = lm.decode_step(p, cfg, tokens[:, i:i + 1],
+                                                 caches["cpu"], i)
+            got, caches["dev"] = lm.decode_step(
+                pd, cfg, tokens[:, i:i + 1].to(dev), caches["dev"], i)
+            torch.testing.assert_close(got.cpu(), want, **TOL)
+        reqs = {w: [Request(prompt=[3, 1, 4, 1, 5][:n], max_new_tokens=5)
+                    for n in (5, 2, 3)] for w in ("cpu", "dev")}
+        ServeEngine(p, cfg, batch=3, max_len=32, device="cpu").run(
+            reqs["cpu"])
+        ServeEngine(pd, cfg, batch=3, max_len=32, device=dev).run(
+            reqs["dev"])
+        assert all(r.done and len(r.out) == 5 for r in reqs["dev"])
+        assert [r.out for r in reqs["dev"]] == [r.out for r in reqs["cpu"]]

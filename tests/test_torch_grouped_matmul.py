@@ -2,9 +2,9 @@
 against the JAX reference on the CPU, its ``_gmm`` Pallas kernel in
 interpret mode: the forward, ``dx`` and ``dw`` of its custom VJP, with and
 without row tiles that straddle a group boundary, and rows past the sum of
-the group sizes. Also the one departure: the reference visits at most
-``max_groups_per_tile`` groups per row tile and leaves the rows of further
-groups 0; the port computes every row. Tolerance: ``tests/oracle.py`` f32.
+the group sizes; and the reference's ``max_groups_per_tile`` contract: a
+row tile visits at most that many groups and leaves the rows of further
+groups 0, in both packages. Tolerance: ``tests/oracle.py`` f32.
 """
 import jax
 import jax.numpy as jnp
@@ -48,7 +48,7 @@ def test_grouped_matmul_forward_and_vjp_match_reference(name):
     dx_j, dw_j = vjp(jnp.asarray(g))
     xt = torch.from_numpy(x).requires_grad_()
     wt = torch.from_numpy(w).requires_grad_()
-    out = tgmm.grouped_matmul(xt, wt, torch.from_numpy(sizes))
+    out = tgmm.grouped_matmul(xt, wt, torch.from_numpy(sizes), tm=tm)
     out.backward(torch.from_numpy(g))
     for what, got, want in (("forward", out.detach(), out_j),
                             ("dx", xt.grad, dx_j), ("dw", wt.grad, dw_j)):
@@ -76,25 +76,37 @@ def test_row_groups_and_sort_by_group_match_reference(name):
     ([4, 4, 4, 4], False),          # 4 groups: the reference visits all
 ])
 def test_max_groups_per_tile_departure(sizes, crosses_more_than_4):
-    """The reference's kernel visits groups first..first+3 of a 16-row tile
-    and leaves the rows of later groups 0; the port computes every row.
-    Where no tile holds more than 4 groups the two agree everywhere."""
+    """Both packages visit groups first..first+3 of a 16-row tile and leave
+    the rows of later groups 0, in the forward and in dx; dw is the
+    unmasked one-hot einsum in both. Where no tile holds more than 4 groups
+    every row is the dense product."""
     rng = np.random.default_rng(9)
     x = rng.normal(size=(16, 5)).astype(np.float32)
     w = rng.normal(size=(len(sizes), 5, 6)).astype(np.float32)
-    want = np.asarray(jgmm.grouped_matmul(
-        jnp.asarray(x), jnp.asarray(w), jnp.asarray(sizes, jnp.int32), tm=16,
-        tn=8, interpret=True))
-    got = tgmm.grouped_matmul(torch.from_numpy(x), torch.from_numpy(w),
-                              torch.tensor(sizes, dtype=torch.int32)).numpy()
+    g = rng.normal(size=(16, 6)).astype(np.float32)
+    s_j = jnp.asarray(sizes, jnp.int32)
+    want, vjp = jax.vjp(lambda a, b: jgmm.grouped_matmul(
+        a, b, s_j, tm=16, tn=8, interpret=True), jnp.asarray(x),
+        jnp.asarray(w))
+    dx_j, dw_j = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    out = tgmm.grouped_matmul(xt, wt, torch.tensor(sizes, dtype=torch.int32),
+                              tm=16)
+    out.backward(torch.from_numpy(g))
+    got = out.detach().numpy()
+    for what, a, b in (("forward", got, want), ("dx", xt.grad, dx_j),
+                       ("dw", wt.grad, dw_j)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=ATOL,
+                                   rtol=RTOL, err_msg=what)
     rows_g = np.repeat(np.arange(len(sizes)), sizes)
     dense = np.einsum("mk,mkn->mn", x, w[rows_g])
-    np.testing.assert_allclose(got, dense, atol=ATOL, rtol=RTOL)
     visited = rows_g < 4
-    np.testing.assert_allclose(got[visited], want[visited], atol=ATOL,
+    np.testing.assert_allclose(got[visited], dense[visited], atol=ATOL,
                                rtol=RTOL)
     if crosses_more_than_4:
-        assert (want[~visited] == 0).all() and (got[~visited] != 0).all()
+        assert (got[~visited] == 0).all() and (xt.grad[~visited] == 0).all()
+        assert (dense[~visited] != 0).all()
     else:
         assert visited.all()
 
@@ -105,9 +117,9 @@ def test_gradients_only_when_asked_and_wrapper_checks(monkeypatch):
     calls = []
     real = tgmm._gmm
 
-    def counted(*a):
+    def counted(*a, **kw):
         calls.append(a[1].shape)
-        return real(*a)
+        return real(*a, **kw)
 
     monkeypatch.setattr(tgmm, "_gmm", counted)
     sizes, x, w, g, _ = _inputs("straddle")

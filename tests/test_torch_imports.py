@@ -31,7 +31,7 @@ def test_port_modules_import_without_jax_or_reference():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 33, mods\n"
+        "assert len(mods) >= 50, mods\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
@@ -40,7 +40,7 @@ def test_port_modules_import_without_jax_or_reference():
 
 def test_no_jax_or_reference_import_in_port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 35
+    assert len(files) >= 52
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"

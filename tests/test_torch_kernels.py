@@ -31,6 +31,7 @@ from repro_torch.kernels.fused_graph_conv import (
     fused_hybrid_forward,
     runtime_chunks,
 )
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grouped_matmul import _gmm
 from test_torch_formats import CASE_NAMES, case, to_np, torch_coo
 
@@ -205,9 +206,9 @@ def test_failed_kernel_build_raises_with_compiler_output(monkeypatch,
 def test_launch_counters_and_sources_present():
     for fn in (batched_spmm_ell, batched_spmm_coo, batched_spmm_csr,
                batched_spmm_hybrid, batched_gemm, fused_forward,
-               fused_hybrid_forward, _gmm):
+               fused_hybrid_forward, _gmm, flash_attention):
         assert isinstance(fn.launches, int)
-    assert len(_build.SOURCES) == 7
+    assert len(_build.SOURCES) == 8
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces the TPU kernel src/repro/kernels/" in src
