@@ -24,7 +24,12 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    matmul at R-GCN's Tox21 serving and training and Reaction100 layer-2
    shapes (ELL, CSR and grouped matmul twice for identical bits; the
    grouped matmul also with 5 groups in one 128-row tile, whose fifth
-   group's rows come out 0 as in the reference);
+   group's rows come out 0 as in the reference); then the seven
+   reduced-precision entries (bf16 ELL, CSR, COO, hybrid and fused, i8
+   ELL and CSR) at the Tox21 serving shape (and Reaction100 layer 2 for
+   the fused one), each timed beside its f32 entry on the same inputs,
+   and on the three regimes: bf16 within one bf16 ulp, i8 within the f32
+   tolerance, CSR and hybrid identical bits twice;
 4. powerlaw model: ChemGCN at Tox21 widths on four channels of 40
    degree-skewed 256-row graphs, ``apply_gcn`` and first-step gradients
    of ``gcn_loss`` with ``impl`` = pallas_hybrid and fused_hybrid against
@@ -50,9 +55,16 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    serve the Tox21 requests and train 12 Tox21 steps (a resume from step
    10) with ``impl`` = pallas_coo, pallas_csr, pallas_ell against ``ref``,
    and serve Reaction100 with R-GCN (pallas_csr against ref; the grouped
-   matmul at 512 width); launch counts per wave and per step.
+   matmul at 512 width); launch counts per wave and per step;
+10. reduced precision: serve Tox21 with each of the nine variants
+   (logits within tests/oracle.py TOLS[policy] of ref) and Reaction100
+   with fused_bf16, pallas_hybrid_bf16 and pallas_csr_i8 (the gap to ref
+   printed), and train 20 Tox21 steps with fused_bf16, pallas_csr_bf16,
+   pallas_hybrid_bf16 and pallas_ell_i8 (first-step gradients against
+   the variant's own plain versions on the CPU, loss curves within the
+   policy's rtol of the mean f32 ref curve); exact launch counts.
 
-Before phases 4-9, the LM zoo's serving path runs (and frees its model):
+Before phases 4-10, the LM zoo's serving path runs (and frees its model):
 
 - the flash-attention kernel against its plain version at the Llama-3-8B
   prefill shape (bf16 within one bf16 ulp, timed beside its bound and SDPA;
@@ -69,7 +81,7 @@ Before phases 4-9, the LM zoo's serving path runs (and frees its model):
   device and host, and one-request waves' first tokens against prefill's
   argmax where the top-2 margin exceeds the prompt's noise floor.
 
-The line before the last is the ``{"kernels": [...]}`` record (9
+The line before the last is the ``{"kernels": [...]}`` record (16
 kernels); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -88,6 +100,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12         # H100 SXM f32, outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 F32_TOL = (1e-4, 1e-5)         # (atol, rtol): tests/oracle.py TOLS["f32"]
+# tests/oracle.py TOLS: each storage policy against the f32 oracle
+POLICY_TOLS = {"f32": F32_TOL, "bf16": (8e-2, 2e-2), "i8": (0.25, 2e-2)}
+# a bf16 entry against its plain version: both round the same f32 sum to
+# bf16 once, so they differ by at most one bf16 ulp (2^-7 of the value)
+# where the two f32 sums straddle a rounding boundary, plus f32 noise
+BF16_KERNEL_TOL = (1e-4, 8e-3)
 # flash attention against its plain version: the reference test's
 # tolerances (tests/test_kernels.py), as (atol, rtol), on its five corners
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
@@ -106,6 +124,10 @@ REF_RUNS = 3
 # and at most MAX_FLIPS of them may differ in one comparison
 FLIP_ATOL = 1e-5
 MAX_FLIPS = 4
+# the same for a bf16 variant against its own plain versions: there a ReLU
+# input of a unit-scale batch-norm output is bf16 noise, one bf16 ulp of
+# 1.0 (7.8e-3), from 0 when its sign differs
+FLIP_ATOL_BF16 = 1e-2
 TOX21 = dict(batch=128, m_pad=56, nnz_pad=256)
 N_REQUESTS = 512
 TRAIN_TOX21 = dict(n_samples=1000, batch=50, steps=20, lr=3e-3)
@@ -138,6 +160,14 @@ TPU_SITE = {
     "fused_hybrid_forward": "src/repro/kernels/fused_graph_conv.py:197",
     "grouped_matmul": "src/repro/kernels/grouped_matmul.py:87",
     "flash_attention": "src/repro/kernels/flash_attention.py:110",
+    "batched_spmm_ell_bf16": "src/repro/kernels/batched_spmm_ell.py:142",
+    "batched_spmm_ell_i8": "src/repro/kernels/batched_spmm_ell.py:142",
+    "batched_spmm_csr_bf16": "src/repro/kernels/batched_spmm_csr.py:163",
+    "batched_spmm_csr_i8": "src/repro/kernels/batched_spmm_csr.py:163",
+    "batched_spmm_coo_bf16": "src/repro/kernels/batched_spmm_coo.py:168",
+    "fused_forward_bf16": "src/repro/kernels/fused_graph_conv.py:197",
+    "batched_spmm_hybrid_bf16":
+        "src/repro/kernels/batched_spmm_hybrid.py:223",
 }
 SOURCE = {"batched_spmm_ell": "batched_spmm_ell",
           "batched_spmm_coo": "batched_spmm_coo",
@@ -147,13 +177,21 @@ SOURCE = {"batched_spmm_ell": "batched_spmm_ell",
           "batched_gemm": "batched_gemm",
           "fused_hybrid_forward": "fused_graph_conv",
           "grouped_matmul": "grouped_matmul",
-          "flash_attention": "flash_attention"}
+          "flash_attention": "flash_attention",
+          "batched_spmm_ell_bf16": "batched_spmm_ell",
+          "batched_spmm_ell_i8": "batched_spmm_ell",
+          "batched_spmm_csr_bf16": "batched_spmm_csr",
+          "batched_spmm_csr_i8": "batched_spmm_csr",
+          "batched_spmm_coo_bf16": "batched_spmm_coo",
+          "fused_forward_bf16": "fused_graph_conv",
+          "batched_spmm_hybrid_bf16": "batched_spmm_hybrid"}
 # the row of each kernel that its {"kernels": ...} entry reports: the shape
 # its first main path gives it (serving for ELL, COO, fused, hybrid, GEMM,
 # fused hybrid and the grouped matmul, training for CSR, the Llama-3-8B
-# prefill for flash attention); the other rows,
-# the g-SpMM entries of the ELL, COO and CSR kernels among them, are
-# printed as [kernels] lines
+# prefill for flash attention, the Tox21 serving shape for the seven
+# reduced-precision entries); the other rows, the g-SpMM entries of the
+# ELL, COO and CSR kernels and the Reaction100 row of the bf16 fused entry
+# among them, are printed as [kernels] lines
 ENTRY_ROW = {"batched_spmm_ell": "batched_spmm_ell",
              "batched_spmm_coo": "batched_spmm_coo",
              "batched_spmm_csr": "batched_spmm_csr",
@@ -162,7 +200,12 @@ ENTRY_ROW = {"batched_spmm_ell": "batched_spmm_ell",
              "batched_gemm": "batched_gemm[tox21]",
              "fused_hybrid_forward": "fused_hybrid_forward[tox21]",
              "grouped_matmul": "grouped_matmul[rgcn tox21 serving layer 1]",
-             "flash_attention": "flash_attention[llama3-8b prefill]"}
+             "flash_attention": "flash_attention[llama3-8b prefill]",
+             **{k: f"{k}[tox21]" for k in (
+                 "batched_spmm_ell_bf16", "batched_spmm_ell_i8",
+                 "batched_spmm_csr_bf16", "batched_spmm_csr_i8",
+                 "batched_spmm_coo_bf16", "fused_forward_bf16",
+                 "batched_spmm_hybrid_bf16")}}
 GSPMM_CORNERS = [(op, red) for op in ("mul", "add", "copy_lhs")
                  for red in ("sum", "max", "mean")]
 
@@ -246,6 +289,7 @@ def max_err(got, want, what: str, tol=F32_TOL) -> float:
     import torch
 
     torch.cuda.synchronize()
+    got, want = got.float(), want.float()
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     atol, rtol = tol
     err = (got - want).abs()
@@ -1002,14 +1046,279 @@ def phase_gnn_kernels(device, rows, errs):
     _log_rows(r for k, r in rows.items() if k not in before)
 
 
-def _reset_counters():
-    from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
-    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
-    from repro_torch.kernels.batched_gemm import batched_gemm
-    from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
-    from repro_torch.kernels.batched_spmm_hybrid import batched_spmm_hybrid
+def phase_precision_kernels(device, rows, errs):
+    """The seven reduced-precision entries against their plain versions:
+    timed at the Tox21 serving shape (the first wave of the serving phase,
+    512 matrices x 56 rows, k_pad 8, nnz_pad 256, n_b 64) and, for the
+    fused entry, also at Reaction100 layer 2, each beside its f32 entry's
+    time on the same inputs, its bound at the narrowed widths and its
+    library call (``torch.bmm`` on the densified bf16 adjacency; for i8
+    the f32 ``torch.bmm`` on the dequantized one); then on the three
+    regimes. bf16 within BF16_KERNEL_TOL, i8 within F32_TOL; the CSR and
+    hybrid entries give identical bits twice. Adds to ``rows`` and
+    ``errs``."""
+    import torch
+    from repro_torch.core.batching import plan_hybrid
+    from repro_torch.core.formats import coo_to_csr, coo_to_dense, \
+        coo_to_ell, max_row_degree, narrow_col_ids, quantize_values_i8, \
+        row_degrees
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.core.graph_conv import flatten_channels, stack_channels
+    from repro_torch.data.graphs import GraphDatasetSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo, \
+        batched_spmm_coo_bf16
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr, \
+        batched_spmm_csr_bf16, batched_spmm_csr_i8
+    from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell, \
+        batched_spmm_ell_bf16, batched_spmm_ell_i8
+    from repro_torch.kernels.batched_spmm_hybrid import hybrid_launch, \
+        hybrid_operands
     from repro_torch.kernels.fused_graph_conv import fused_forward, \
-        fused_hybrid_forward
+        fused_forward_bf16, runtime_chunks
+    from repro_torch.serving.engine import GraphServeEngine
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    bf = torch.bfloat16
+    m_pad = TOX21["m_pad"]
+    before = set(rows)
+    cfg = GCNConfig.tox21(impl="fused", bn_mode="sample")
+    params = _params(cfg, 0, device)
+    wave = GraphServeEngine(params, cfg, device=device, **TOX21).assemble(
+        _requests(GraphDatasetSpec.tox21_like(TOX21["batch"], seed=0)))
+    conv = params["convs"][0]
+    a = flatten_channels(wave.adj)
+    u = (torch.einsum("bmn,cnf->cbmf", wave.x, conv["w"])
+         + conv["b"][:, None, None, :]).reshape(-1, m_pad, 64).contiguous()
+    uh = u.to(bf)
+    nnz = int(a.nnz.sum().item())
+    batch = a.batch
+    io = 2 * u.numel() * 4               # B read once, C written once (f32)
+    flops = 2 * nnz * 64
+    shape = (f"{batch} matrices x {m_pad} rows, k_pad {cfg.k_pad}, nnz_pad "
+             f"{a.nnz_pad}, n_b 64, {nnz} real nnz")
+    dense = coo_to_dense(a, m_pad)
+    codes, scale = quantize_values_i8(a.values)
+    dense_q = coo_to_dense(a.with_values(codes.float()), m_pad) \
+        * scale[:, None, None]
+    ell, ell_q = (coo_to_ell(x, m_pad, cfg.k_pad)
+                  for x in (a, a.with_values(codes)))
+    e16 = narrow_col_ids(ell.col_ids, m_pad)
+    eh = ell.values.to(bf)
+    csr, csr_q = coo_to_csr(a, m_pad), coo_to_csr(a.with_values(codes),
+                                                    m_pad)
+    c16 = narrow_col_ids(csr.col_ids, m_pad)
+    ch = csr.values.to(bf)
+    r16, k16 = (narrow_col_ids(t, m_pad) for t in (a.row_ids, a.col_ids))
+    vh = a.values.to(bf)
+    lib_bf16 = (lambda: torch.bmm(dense.to(bf), uh))
+    lib_i8 = (lambda: torch.bmm(dense_q, u))
+    rpt_b = csr.rpt.numel() * 4
+
+    def precision_row(key, kernel, kern, plain, f32_kern, nbytes, library,
+                      bf16, flop_rate, **kw):
+        _measure(rows, key, kernel, kern, plain, nbytes,
+                 kw.pop("flops", flops), kw.pop("shape", shape), library,
+                 tol=BF16_KERNEL_TOL if bf16 else F32_TOL,
+                 flop_rate=flop_rate,
+                 library_tol=POLICY_TOLS["bf16"] if bf16 else F32_TOL, **kw)
+        rows[key]["f32_ms"] = graph_ms(f32_kern)
+
+    precision_row(
+        "batched_spmm_ell_bf16[tox21]", "batched_spmm_ell_bf16",
+        lambda: batched_spmm_ell_bf16(e16, eh, uh),
+        lambda: ref.batched_spmm_ell_plain(e16, eh, uh),
+        lambda: batched_spmm_ell(ell.col_ids, ell.values, u),
+        io // 2 + nnz * 4, lib_bf16, True, BF16_FLOP_PER_S)
+    precision_row(
+        "batched_spmm_ell_i8[tox21]", "batched_spmm_ell_i8",
+        lambda: batched_spmm_ell_i8(e16, ell_q.values, scale, u),
+        lambda: ref.batched_spmm_ell_plain(e16, ell_q.values, u, scale),
+        lambda: batched_spmm_ell(ell.col_ids, ell.values, u),
+        io + nnz * 3 + batch * 4, lib_i8, False, F32_FLOP_PER_S)
+    precision_row(
+        "batched_spmm_csr_bf16[tox21]", "batched_spmm_csr_bf16",
+        lambda: batched_spmm_csr_bf16(csr.rpt, c16, ch, uh),
+        lambda: ref.batched_spmm_csr_plain(csr.rpt, c16, ch, uh),
+        lambda: batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, u),
+        rpt_b + io // 2 + nnz * 4, lib_bf16, True, BF16_FLOP_PER_S,
+        bitwise=True)
+    precision_row(
+        "batched_spmm_csr_i8[tox21]", "batched_spmm_csr_i8",
+        lambda: batched_spmm_csr_i8(csr.rpt, c16, csr_q.values, scale, u),
+        lambda: ref.batched_spmm_csr_plain(csr.rpt, c16, csr_q.values, u,
+                                           scale),
+        lambda: batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, u),
+        rpt_b + io + nnz * 3 + batch * 4, lib_i8, False, F32_FLOP_PER_S,
+        bitwise=True)
+    precision_row(
+        "batched_spmm_coo_bf16[tox21]", "batched_spmm_coo_bf16",
+        lambda: batched_spmm_coo_bf16(r16, k16, vh, uh),
+        lambda: ref.batched_spmm_coo_plain(r16, k16, vh, uh),
+        lambda: batched_spmm_coo(a.row_ids, a.col_ids, a.values, u),
+        io // 2 + nnz * 6, lib_bf16, True, BF16_FLOP_PER_S)
+    hp = plan_hybrid(batch=batch, m_pad=m_pad, n_b=64, nnz_pad=a.nnz_pad,
+                     itemsize=2)
+    hp32 = plan_hybrid(batch=batch, m_pad=m_pad, n_b=64, nnz_pad=a.nnz_pad)
+    h32 = hybrid_operands(a.row_ids, a.col_ids, a.values, a.nnz, m_pad,
+                          hp32)
+    hh = hybrid_operands(a.row_ids, a.col_ids, vh, a.nnz, m_pad, hp)
+    hh = hh[:3] + (narrow_col_ids(hh[3], m_pad),) + hh[4:]
+    rank, _, rl, _, _, slab = hh
+    sparse = int(rl.sum().item())
+    slab_n = 0 if slab is None else slab.numel()
+    slab_nz = 0 if slab is None else int((slab != 0).sum().item())
+    hubs = int((row_degrees(a, m_pad) >= hp.dmin).sum().item())
+    precision_row(
+        "batched_spmm_hybrid_bf16[tox21]", "batched_spmm_hybrid_bf16",
+        lambda: hybrid_launch(*hh, uh, plan=hp),
+        lambda: ref.batched_spmm_hybrid_plain(*hh, uh),
+        lambda: hybrid_launch(*h32, u, plan=hp32),
+        3 * rank.numel() * 4 + sparse * 4 + slab_n * 2 + io // 2, lib_bf16,
+        True, BF16_FLOP_PER_S, bitwise=True,
+        flops=2 * (sparse + slab_nz) * 64,
+        shape=f"{shape} ({sparse} in the CSR remainder), dmin {hp.dmin}, "
+              f"d_pad {hp.d_pad}, {hubs / batch:.3f} hub rows per matrix")
+
+    # the fused entry: Tox21 layer 1, and Reaction100 layer 2 (n_in 512)
+    def fused_row(tag, adj, x, w, bias, n_nodes):
+        rid, cid, val, nnz_sc = stack_channels(adj)
+        chunks = runtime_chunks(nnz_sc)
+        rid16, cid16 = (narrow_col_ids(t, m_pad) for t in (rid, cid))
+        valh, xh, wh, bh = (t.to(bf) for t in (val, x, w, bias))
+        live_rows = int(((chunks > 0) * n_nodes[:, None]).sum().item())
+        real = int(nnz_sc.sum().item())
+        n_in, n_out = x.shape[-1], w.shape[-1]
+        dense_c = torch.stack([coo_to_dense(c, m_pad) for c in adj]).to(bf)
+
+        def library():
+            uu = (torch.einsum("bmn,cnf->cbmf", xh, wh)
+                  + bh[:, None, None, :])
+            return torch.matmul(dense_c, uu).sum(dim=0)
+
+        precision_row(
+            f"fused_forward_bf16[{tag}]", "fused_forward_bf16",
+            lambda: fused_forward_bf16(rid16, cid16, valh, chunks, xh, wh,
+                                       bh),
+            lambda: ref.fused_graph_conv_plain(rid16, cid16, valh, chunks,
+                                               xh, wh, bh),
+            lambda: fused_forward(rid, cid, val, chunks, x, w, bias),
+            real * 6 + chunks.numel() * 4 + (x.numel() + w.numel()
+                                             + bias.numel()) * 2
+            + x.shape[0] * m_pad * n_out * 2, library, True,
+            BF16_FLOP_PER_S,
+            flops=2 * real * n_out + 2 * live_rows * n_in * n_out,
+            shape=f"{x.shape[0]} samples x {w.shape[0]} channels, m_pad "
+                  f"{m_pad}, n_in {n_in} -> n_out {n_out}, {real} real nnz")
+
+    fused_row("tox21", wave.adj, wave.x, conv["w"], conv["b"], wave.n_nodes)
+    r_cfg = GCNConfig.reaction100(impl="fused", bn_mode="sample")
+    r_params = _params(r_cfg, 0, device)
+    rw = GraphServeEngine(r_params, r_cfg, device=device, **TOX21).assemble(
+        _requests(GraphDatasetSpec.reaction100_like(TOX21["batch"], seed=0)))
+    x2 = torch.randn((TOX21["batch"], m_pad, 512), generator=gen).to(device)
+    x2 *= (torch.arange(m_pad, device=device)[None, :, None]
+           < rw.n_nodes[:, None, None])
+    conv2 = r_params["convs"][1]
+    fused_row("reaction100", rw.adj, x2, conv2["w"], conv2["b"], rw.n_nodes)
+    for r in rows.values():
+        if r["name"] not in before:
+            errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0),
+                                    r["max_abs_err"])
+
+    # -- the three regimes, small sizes, N(0, 1) values --------------------
+    for rname, coo, mp in _regimes(device):
+        k_pad = max(1, int(max_row_degree(coo, mp).max().item()))
+        b = torch.randn((coo.batch, mp, 48), generator=gen).to(device)
+        bh = b.to(bf)
+        h = coo.with_values(coo.values.to(bf))
+        q_codes, q_scale = quantize_values_i8(coo.values)
+        q = coo.with_values(q_codes)
+        e, eq = coo_to_ell(h, mp, k_pad), coo_to_ell(q, mp, k_pad)
+        c, cq = coo_to_csr(h, mp), coo_to_csr(q, mp)
+        ce, cc = narrow_col_ids(e.col_ids, mp), narrow_col_ids(c.col_ids, mp)
+        rr, kk = (narrow_col_ids(t, mp) for t in (h.row_ids, h.col_ids))
+        hpl = plan_hybrid(batch=coo.batch, m_pad=mp, n_b=48,
+                          nnz_pad=coo.nnz_pad, itemsize=2)
+        hop = hybrid_operands(h.row_ids, h.col_ids, h.values, h.nnz, mp, hpl)
+        hop = hop[:3] + (narrow_col_ids(hop[3], mp),) + hop[4:]
+        perm = torch.randperm(coo.nnz_pad, generator=gen).to(device)
+        adj2 = [h, h.__class__(h.row_ids[:, perm], h.col_ids[:, perm],
+                               h.values[:, perm], h.nnz, h.n_rows)]
+        rid, cid, val, nnz_sc = stack_channels(adj2)
+        rid, cid = narrow_col_ids(rid, mp), narrow_col_ids(cid, mp)
+        chunks = runtime_chunks(nnz_sc)
+        x = torch.randn((coo.batch, mp, 12), generator=gen).to(device).to(bf)
+        w = (torch.randn((2, 12, 40), generator=gen) / 4).to(device).to(bf)
+        bias = torch.randn((2, 40), generator=gen).to(device).to(bf)
+        res = torch.randn((coo.batch, mp, 40), generator=gen).to(device) \
+            .to(bf)
+        checks = [
+            ("batched_spmm_ell_bf16", lambda: batched_spmm_ell_bf16(
+                ce, e.values, bh),
+             lambda: ref.batched_spmm_ell_plain(ce, e.values, bh), False),
+            ("batched_spmm_ell_i8", lambda: batched_spmm_ell_i8(
+                narrow_col_ids(eq.col_ids, mp), eq.values, q_scale, b),
+             lambda: ref.batched_spmm_ell_plain(
+                 narrow_col_ids(eq.col_ids, mp), eq.values, b, q_scale),
+             False),
+            ("batched_spmm_csr_bf16", lambda: batched_spmm_csr_bf16(
+                c.rpt, cc, c.values, bh),
+             lambda: ref.batched_spmm_csr_plain(c.rpt, cc, c.values, bh),
+             True),
+            ("batched_spmm_csr_i8", lambda: batched_spmm_csr_i8(
+                cq.rpt, narrow_col_ids(cq.col_ids, mp), cq.values, q_scale,
+                b),
+             lambda: ref.batched_spmm_csr_plain(
+                 cq.rpt, narrow_col_ids(cq.col_ids, mp), cq.values, b,
+                 q_scale), True),
+            ("batched_spmm_coo_bf16", lambda: batched_spmm_coo_bf16(
+                rr, kk, h.values, bh),
+             lambda: ref.batched_spmm_coo_plain(rr, kk, h.values, bh),
+             False),
+            ("batched_spmm_hybrid_bf16", lambda: hybrid_launch(
+                *hop, bh, plan=hpl),
+             lambda: ref.batched_spmm_hybrid_plain(*hop, bh), True),
+            ("fused_forward_bf16", lambda: fused_forward_bf16(
+                rid, cid, val, chunks, x, w, bias),
+             lambda: ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w,
+                                                bias), False),
+            ("fused_forward_bf16", lambda: fused_forward_bf16(
+                rid, cid, val, chunks, x, w, bias, res, epilogue="relu"),
+             lambda: ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w,
+                                                bias, res, "relu"), False)]
+        for kname, kern, plain, bitwise in checks:
+            tol = F32_TOL if kname.endswith("i8") else BF16_KERNEL_TOL
+            got = kern()
+            errs[kname] = max(errs[kname], max_err(got, plain(),
+                                                   f"{kname} {rname}", tol))
+            if bitwise:
+                check(torch.equal(got, kern()),
+                      f"{kname} {rname}: two calls differ")
+        log(f"[kernels] regime {rname}: the bf16 ELL, CSR, COO, hybrid "
+            f"(d_pad {hpl.d_pad}) and fused (none, relu + residual) entries "
+            f"within {BF16_KERNEL_TOL}, the i8 ELL and CSR entries within "
+            f"{F32_TOL} of their plain versions; CSR and hybrid identical "
+            "bits twice")
+    _log_rows(r for k, r in rows.items() if k not in before)
+    for k, r in rows.items():
+        if k not in before:
+            log(f"[kernels] {k}: f32 entry on the same inputs "
+                f"{r['f32_ms']:.4f} ms, the variant {r['ms']:.4f} ms")
+
+
+def _reset_counters():
+    from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo, \
+        batched_spmm_coo_bf16
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr, \
+        batched_spmm_csr_bf16, batched_spmm_csr_i8
+    from repro_torch.kernels.batched_gemm import batched_gemm
+    from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell, \
+        batched_spmm_ell_bf16, batched_spmm_ell_i8
+    from repro_torch.kernels.batched_spmm_hybrid import \
+        batched_spmm_hybrid, batched_spmm_hybrid_bf16
+    from repro_torch.kernels.fused_graph_conv import fused_forward, \
+        fused_forward_bf16, fused_hybrid_forward
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.grouped_matmul import _gmm
 
@@ -1021,7 +1330,14 @@ def _reset_counters():
                 "batched_gemm": batched_gemm,
                 "fused_hybrid_forward": fused_hybrid_forward,
                 "grouped_matmul": _gmm,
-                "flash_attention": flash_attention}
+                "flash_attention": flash_attention,
+                "batched_spmm_ell_bf16": batched_spmm_ell_bf16,
+                "batched_spmm_ell_i8": batched_spmm_ell_i8,
+                "batched_spmm_csr_bf16": batched_spmm_csr_bf16,
+                "batched_spmm_csr_i8": batched_spmm_csr_i8,
+                "batched_spmm_coo_bf16": batched_spmm_coo_bf16,
+                "fused_forward_bf16": fused_forward_bf16,
+                "batched_spmm_hybrid_bf16": batched_spmm_hybrid_bf16}
     for fn in wrappers.values():
         fn.launches = 0
     return wrappers
@@ -1055,11 +1371,18 @@ def _serve(eng, requests, passes: int = 2):
     return [r.logits for r in requests], host, dev
 
 
-def phase_serve(tag, cfg_fn, spec, impls, expect_per_wave, device, tol):
+def phase_serve(tag, cfg_fn, spec, impls, expect_per_wave, device, tol,
+                impl_tol=None):
     """Serve ``spec``'s requests once per impl; returns launches per kernel
-    and a summary line per impl."""
+    and a summary line per impl. Logits are held against ``ref``'s within
+    ``tol``, or within ``impl_tol[impl]`` where that is given; ``None``
+    there prints the gap and holds nothing."""
     import numpy as np
+    from repro_torch.autotune.cost_model import precision_of
     from repro_torch.serving.engine import GraphServeEngine
+
+    def tol_of(impl):
+        return (impl_tol or {}).get(impl, tol)
 
     requests = _requests(spec)
     params = _params(cfg_fn(impl="ref"), 0, device)
@@ -1090,8 +1413,10 @@ def phase_serve(tag, cfg_fn, spec, impls, expect_per_wave, device, tol):
             alone = _requests(spec)[:1]
             eng.run_wave(alone)
             d = float(np.abs(alone[0].logits - results[impl][0]).max())
-            check(d <= tol[0], f"{tag} {impl}: request alone vs in a full "
-                               f"wave differs by {d:.3e}")
+            atol = (tol_of(impl)
+                    or POLICY_TOLS[precision_of(impl)[1]])[0]
+            check(d <= atol, f"{tag} {impl}: request alone vs in a full "
+                             f"wave differs by {d:.3e}")
             log(f"[serve {tag}] impl={impl}: alone vs in a full wave: max "
                 f"abs diff {d:.3e}")
     want = results["ref"]
@@ -1099,11 +1424,16 @@ def phase_serve(tag, cfg_fn, spec, impls, expect_per_wave, device, tol):
         if impl == "ref":
             continue
         err = np.abs(results[impl] - want)
-        ok = bool((err <= tol[0] + tol[1] * np.abs(want)).all())
-        check(ok, f"{tag} {impl} vs ref: max abs logit error "
-                  f"{err.max():.3e} above {tol}")
+        t = tol_of(impl)
+        if t is not None:
+            ok = bool((err <= t[0] + t[1] * np.abs(want)).all())
+            check(ok, f"{tag} {impl} vs ref: max abs logit error "
+                      f"{err.max():.3e} above {t}")
+        rel = float((err / np.maximum(np.abs(want), 1e-6)).max())
         log(f"[serve {tag}] impl={impl} vs ref: max abs logit error "
-            f"{err.max():.3e} (|logit| max {np.abs(want).max():.3f})")
+            f"{err.max():.3e}, max relative {rel:.3e} (|logit| max "
+            f"{np.abs(want).max():.3f}; "
+            + (f"held within {t})" if t is not None else "not held)"))
     return launches
 
 
@@ -1169,6 +1499,39 @@ def _grads_vs_ref(what, got, ref_cfg, params, batch):
     free_err = max(float((g - r).abs().max().item())
                    for g, r in zip(grads, free))
     return err, flips, flip_max, free_err
+
+
+def _grads_vs_plain(what, got, cfg, params, batch, tol, flip_atol):
+    """Hold a variant's first-step gradients on the card ``got = (grads,
+    relu inputs)`` against the same variant's plain versions on the CPU,
+    taken at the card run's ReLU pattern, within ``tol``; at most MAX_FLIPS
+    ReLU inputs may differ in sign, each within ``flip_atol`` of 0 (as in
+    :func:`_grads_vs_ref`). Returns (max abs error, sign differences, their
+    largest |input|)."""
+    import torch
+    from repro_torch import tree
+
+    grads, pre = got
+    cpu = tree.tree_map(lambda t: t.detach().cpu(), params)
+    b_cpu = {"adj": [a.to("cpu") for a in batch["adj"]],
+             **{k: batch[k].cpu() for k in ("x", "n_nodes", "labels")}}
+    _, plain_pre = _first_grads(cfg, cpu, b_cpu)
+    pinned, _ = _first_grads(cfg, cpu, b_cpu, [p.cpu() > 0 for p in pre])
+    flips, flip_max = 0, 0.0
+    for a, b in zip(pre, plain_pre):
+        d = (a.cpu() > 0) != (b > 0)
+        flips += int(d.sum().item())
+        if bool(d.any()):
+            flip_max = max(flip_max, float(torch.maximum(
+                a.cpu()[d].abs(), b[d].abs()).max().item()))
+    check(flips <= MAX_FLIPS,
+          f"{what}: {flips} ReLU inputs differ in sign from the plain "
+          f"versions', more than {MAX_FLIPS}")
+    check(flip_max <= flip_atol,
+          f"{what}: a ReLU input differs in sign from the plain versions' "
+          f"at |x| = {flip_max:.3e}, above {flip_atol}")
+    err = max(max_err(g.cpu(), r, what, tol) for g, r in zip(grads, pinned))
+    return err, flips, flip_max
 
 
 def phase_powerlaw(device):
@@ -1266,6 +1629,7 @@ def phase_train(tag, cfg_fn, spec, run, impls, expect_per_step, device,
 
     import numpy as np
     import torch
+    from repro_torch.autotune.cost_model import precision_of
     from repro_torch.optim.adam import AdamConfig
     from repro_torch.training.trainer import GCNTrainer, TrainerConfig
 
@@ -1337,11 +1701,34 @@ def phase_train(tag, cfg_fn, spec, run, impls, expect_per_step, device,
     for impl in impls:
         if impl == "ref":
             continue
+        gap = float(np.max(np.abs(curves[impl] - curves["ref"])
+                           / np.abs(curves["ref"])))
+        policy = precision_of(impl)[1]
+        if policy != "f32":
+            # a variant: its gradients against its own plain versions (the
+            # layer-gradient rule, 3x its policy's tolerance for bf16, 3x
+            # f32 for i8 whose codes are shared), its curve within its
+            # policy's rtol of the mean f32 ref curve
+            g_tol = (tuple(3 * t for t in POLICY_TOLS[policy])
+                     if policy == "bf16" else GRAD_TOL)
+            g_err, flips, flip_max = _grads_vs_plain(
+                f"train {tag} {impl} first-step grad", grads[impl],
+                cfg_fn(impl=impl), params0, first, g_tol,
+                FLIP_ATOL_BF16 if policy == "bf16" else FLIP_ATOL)
+            rtol = POLICY_TOLS[policy][1]
+            check(bool(np.isfinite(curves[impl]).all()) and gap <= rtol,
+                  f"train {tag} {impl}: loss curve differs from ref by "
+                  f"{gap:.3e} relative, above {rtol}")
+            log(f"[train {tag}] impl={impl}: first-step gradients on the "
+                f"card vs its plain versions on the CPU: max abs error "
+                f"{g_err:.3e} at the same ReLU pattern (tolerance {g_tol}; "
+                f"{flips} ReLU inputs of other sign, |x| <= {flip_max:.1e});"
+                f" loss curve vs the f32 ref curve: max relative gap "
+                f"{gap:.3e} (tolerance {rtol})")
+            continue
         g_err, flips, flip_max, free_err = _grads_vs_ref(
             f"train {tag} {impl} first-step grad", grads[impl],
             cfg_fn(impl="ref"), params0, first)
-        gap = float(np.max(np.abs(curves[impl] - curves["ref"])
-                           / np.abs(curves["ref"])))
         check(gap <= CURVE_RTOL, f"train {tag} {impl}: loss curve differs "
                                  f"from ref by {gap:.3e} relative")
         log(f"[train {tag}] impl={impl} vs ref: first-step gradients max abs"
@@ -1409,6 +1796,55 @@ def phase_gnn_paths(device):
         {"ref": {"grouped_matmul": 3},
          "pallas_csr": {"grouped_matmul": 3, "batched_spmm_csr": 3}},
         device, F32_TOL)
+    return paths
+
+
+def phase_precision_paths(device):
+    """ChemGCN with each reduced-precision variant pinned: serve Tox21 (all
+    nine, logits within TOLS[policy] of f32 ref) and Reaction100
+    (fused_bf16, pallas_hybrid_bf16, pallas_csr_i8; the gap to ref printed),
+    and train 20 Tox21 steps (fused_bf16, pallas_csr_bf16,
+    pallas_hybrid_bf16, pallas_ell_i8; first-step gradients against the
+    variant's own plain versions, loss curves within TOLS[policy] rtol of
+    the mean f32 ref curve); returns launches per kernel of each path."""
+    from repro_torch.autotune.cost_model import PRECISION_IMPLS, \
+        precision_of
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.data.graphs import GraphDatasetSpec
+
+    # the kernel each variant's forward launches; ell_bf16 and csr_bf16
+    # are plain (the reference's XLA siblings) and launch none
+    entry = {"pallas_ell_bf16": "batched_spmm_ell_bf16",
+             "pallas_ell_i8": "batched_spmm_ell_i8",
+             "pallas_csr_bf16": "batched_spmm_csr_bf16",
+             "pallas_csr_i8": "batched_spmm_csr_i8",
+             "pallas_coo_bf16": "batched_spmm_coo_bf16",
+             "fused_bf16": "fused_forward_bf16",
+             "pallas_hybrid_bf16": "batched_spmm_hybrid_bf16"}
+    variants = tuple(PRECISION_IMPLS)
+    tols = {i: POLICY_TOLS[precision_of(i)[1]] for i in variants}
+    paths = {}
+    paths["serve tox21 precision"] = phase_serve(
+        "tox21", GCNConfig.tox21,
+        GraphDatasetSpec.tox21_like(N_REQUESTS, seed=0), ("ref",) + variants,
+        {i: {entry[i]: 2} for i in entry}, device, F32_TOL, impl_tol=tols)
+    r_impls = ("fused_bf16", "pallas_hybrid_bf16", "pallas_csr_i8")
+    paths["serve reaction100 precision"] = phase_serve(
+        "reaction100", GCNConfig.reaction100,
+        GraphDatasetSpec.reaction100_like(N_REQUESTS, seed=0),
+        ("ref",) + r_impls, {i: {entry[i]: 3} for i in r_impls}, device,
+        F32_TOL, impl_tol={i: None for i in r_impls})
+    paths["train tox21 precision"] = phase_train(
+        "tox21-precision", GCNConfig.tox21,
+        GraphDatasetSpec.tox21_like(TRAIN_TOX21["n_samples"], seed=0),
+        TRAIN_TOX21, ("ref", "fused_bf16", "pallas_csr_bf16",
+                      "pallas_hybrid_bf16", "pallas_ell_i8"),
+        {"fused_bf16": {"fused_forward_bf16": 2, "batched_spmm_coo_bf16": 2},
+         "pallas_csr_bf16": {"batched_spmm_csr_bf16": 4},
+         "pallas_hybrid_bf16": {"batched_spmm_hybrid_bf16": 2,
+                                "batched_spmm_csr_bf16": 2},
+         "pallas_ell_i8": {"batched_spmm_ell_i8": 2, "batched_spmm_coo": 2}},
+        device)
     return paths
 
 
@@ -1761,6 +2197,7 @@ def main() -> int:
     rows, errs = phase_kernels(device)
     phase_gnn_kernels(device, rows, errs)
     phase_flash_kernels(device, rows, errs)
+    phase_precision_kernels(device, rows, errs)
     lm_paths = phase_lm(device)
     p_launches = phase_powerlaw(device)
 
@@ -1810,6 +2247,7 @@ def main() -> int:
              "serve reaction100": r_launches, "train tox21": t_launches,
              "train reaction100": tr_launches}
     paths.update(phase_gnn_paths(device))
+    paths.update(phase_precision_paths(device))
     paths.update(lm_paths)
     kernels = []
     for kname, key in ENTRY_ROW.items():

@@ -74,21 +74,22 @@ def _panel(n: int, fixed_bytes: int, bytes_per_col: int) -> int | None:
 
 
 def plan_batched_spmm(*, batch: int, m_pad: int, n_b: int,
-                      fixed_bytes: int = 0) -> BatchPlan:
+                      fixed_bytes: int = 0, itemsize: int = 4) -> BatchPlan:
     """Column panels for the ELL, COO, CSR and hybrid kernels. A block holds
-    one ``(m_pad, n_block)`` f32 panel in shared memory: the staged B panel
-    of the ELL, CSR and hybrid kernels, the atomic accumulator of the COO
-    kernel, plus ``fixed_bytes`` beside it (the hybrid kernel's row
-    permutation). Unlike the reference's VMEM plan, the index stream (k_pad
-    or nnz_pad slots) is read from global memory and takes no shared
-    memory."""
+    one ``(m_pad, n_block)`` panel of ``itemsize``-byte elements in shared
+    memory: the staged B panel of the ELL, CSR and hybrid kernels (2 bytes
+    for a bf16 B), plus ``fixed_bytes`` beside it (the hybrid kernel's row
+    permutation). The COO kernel's panel is its atomic accumulator, which
+    stays f32 whatever B's type, so the COO kernel is planned at 4 bytes.
+    Unlike the reference's VMEM plan, the index stream (k_pad or nnz_pad
+    slots) is read from global memory and takes no shared memory."""
     n_block = (None if m_pad > LARGE_M
-               else _panel(n_b, fixed_bytes, m_pad * 4))
+               else _panel(n_b, fixed_bytes, m_pad * itemsize))
     if n_block is None:
         return BatchPlan(batch, m_pad, n_b, n_b, 1, 3, 0)
     p = -(-n_b // n_block)
     return BatchPlan(batch, m_pad, n_b, n_block, p, 1 if p == 1 else 2,
-                     fixed_bytes + m_pad * n_block * 4)
+                     fixed_bytes + m_pad * n_block * itemsize)
 
 
 # Hybrid dispatch defaults, the reference's: a row whose density
@@ -119,15 +120,16 @@ class HybridPlan:
 
 
 def plan_hybrid(*, batch: int, m_pad: int, n_b: int,
-                nnz_pad: int) -> HybridPlan:
+                nnz_pad: int, itemsize: int = 4) -> HybridPlan:
     """The reference's ``plan_hybrid`` at its defaults (HYBRID_TAU,
     HYBRID_NBINS): ``dmin``, ``d_pad`` and ``bins`` are derived from
     ``m_pad`` rounded up to 8, as the reference derives them, so that rows
-    classify alike in both packages. The panels leave room for the
-    kernel's ``m_pad`` row permutation beside the B panel."""
+    classify alike in both packages. The panels of ``itemsize``-byte B
+    elements leave room for the kernel's ``m_pad`` int32 row permutation
+    beside the B panel."""
     m_pad = _round_up(max(m_pad, 1), SUBLANES)
     spmm = plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b,
-                             fixed_bytes=4 * m_pad)
+                             fixed_bytes=4 * m_pad, itemsize=itemsize)
     dmin = max(1, math.ceil(HYBRID_TAU * m_pad))
     d_pad = (0 if nnz_pad < dmin
              else min(m_pad, _round_up(max(1, nnz_pad // dmin), SUBLANES)))
@@ -167,16 +169,18 @@ def chunk_counts(nnz_per_sample) -> tuple[int, ...]:
 
 
 def plan_fused_graph_conv(*, batch: int, m_pad: int, n_in: int,
-                          n_out: int) -> BatchPlan:
+                          n_out: int, itemsize: int = 4) -> BatchPlan:
     """Blocking plan for the fused graph-conv kernel. One block keeps in
-    shared memory the sample's X tile ``(m_pad, n_in)``, one channel's
-    ``U_ch`` panel ``(m_pad, n_block)`` and the accumulator
-    ``(m_pad, n_block)``; W and the index stream are read from global
-    memory (L2)."""
+    shared memory the sample's X tile ``(m_pad, n_in)`` of ``itemsize``-byte
+    elements (2 for bf16 X), one channel's ``U_ch`` panel ``(m_pad,
+    n_block)`` and the accumulator ``(m_pad, n_block)``, both f32 whatever
+    X's type (padded to 16 bytes, where the f32 panels start); W and the
+    index stream are read from global memory (L2)."""
+    x_tile = _round_up(m_pad * n_in * itemsize, 16)
     n_block = (None if m_pad > LARGE_M
-               else _panel(n_out, m_pad * n_in * 4, 2 * m_pad * 4))
+               else _panel(n_out, x_tile, 2 * m_pad * 4))
     if n_block is None:
         return BatchPlan(batch, m_pad, n_out, n_out, 1, 3, 0)
     p = -(-n_out // n_block)
     return BatchPlan(batch, m_pad, n_out, n_block, p, 1 if p == 1 else 2,
-                     (m_pad * n_in + 2 * m_pad * n_block) * 4)
+                     x_tile + 2 * m_pad * n_block * 4)

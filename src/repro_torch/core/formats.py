@@ -20,6 +20,41 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+# Largest index an int16 id array can hold. The COO kernels pad row ids
+# with the sentinel ``m_pad`` (one past the last row), so the narrowing
+# guard needs ``m_pad`` itself, not only ``m_pad - 1``, to fit.
+INT16_MAX = 32767
+
+
+def narrow_col_ids(ids: torch.Tensor, m_pad: int) -> torch.Tensor:
+    """Narrow an id array to int16 storage, the reduced-precision kernels'
+    index width. ``m_pad`` is the exclusive bound and the COO padding
+    sentinel, so the guard is on ``m_pad`` itself; it is a shape, so an
+    overflow raises on the host instead of wrapping negative."""
+    if m_pad > INT16_MAX:
+        raise ValueError(
+            f"m_pad={m_pad} does not fit int16 column indices (max "
+            f"{INT16_MAX} including the m_pad padding sentinel): use a "
+            "full-precision impl for this geometry")
+    return ids.to(torch.int16)
+
+
+def quantize_values_i8(values: torch.Tensor):
+    """Per-matrix symmetric int8 quantization of a batched values array,
+    the reference's arithmetic: ``scale = maxabs / 127`` in f32 (1.0 for
+    an all-zero matrix), ``codes = round(values / scale)`` rounding half to
+    even. Returns ``(codes, scale)``: int8 codes of the input's shape and
+    a (batch,) f32 scale with ``codes * scale ≈ values``. Padded 0.0 slots
+    quantize to code 0. SpMM is linear in the values, so the kernels apply
+    the scale once to the f32 accumulator after the reduction."""
+    v = values.float()
+    maxabs = v.abs().amax(dim=tuple(range(1, v.dim())))
+    scale = torch.where(maxabs > 0, maxabs / 127.0,
+                        torch.ones_like(maxabs))
+    codes = torch.round(v / scale.view((-1,) + (1,) * (v.dim() - 1)))
+    return codes.to(torch.int8), scale
+
+
 @dataclasses.dataclass(frozen=True)
 class BatchedCOO:
     """SparseTensor/COO analogue: flat non-zero triples, padded to nnz_pad.
@@ -50,6 +85,13 @@ class BatchedCOO:
 
     def to(self, device) -> "BatchedCOO":
         return BatchedCOO(*(t.to(device) for t in dataclasses.astuple(self)))
+
+    def transpose(self, m_pad: int) -> "BatchedCOO":
+        """Aᵀ for the backward pass (paper §IV-D): in COO, the index arrays
+        swapped. ``m_pad`` is unused, as in the reference."""
+        del m_pad
+        return dataclasses.replace(self, row_ids=self.col_ids,
+                                   col_ids=self.row_ids)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.autotune.cost_model import POLICIES
 from repro_torch.core.formats import BatchedCOO
 from repro_torch.core.graph_conv import (
     graph_conv_batched,
@@ -39,7 +40,10 @@ from repro_torch.models.gnn import (
 class GCNConfig:
     """The reference's ``GCNConfig`` without ``interpret`` (the port picks
     plain or kernel execution from the tensors' device). ``impl`` must be
-    pinned: ``"auto"`` raises in this port."""
+    pinned: ``"auto"`` raises in this port. A pinned impl carries its own
+    storage policy (``"fused_bf16"``, ``"pallas_csr_i8"``, ...);
+    ``precision`` steers only ``"auto"``, as in the reference, so under a
+    pinned impl it is checked and otherwise ignored."""
 
     n_features: int = 62
     channels: int = 4
@@ -52,7 +56,7 @@ class GCNConfig:
     impl: str = "auto"
     k_pad: int = 8
     batched: bool = True             # Fig. 7 (True) vs Fig. 6 (False)
-    precision: str = "f32"           # only "f32" is ported
+    precision: str = "f32"           # "f32", "bf16" or "i8" (auto only)
     bn_mode: str = "batch"           # "batch" or per-graph "sample"
 
     @staticmethod
@@ -70,15 +74,13 @@ LAYERS = ("gcn", "gat", "rgcn")
 
 
 def check_config(cfg: GCNConfig) -> None:
-    """Raise for an unknown layer kind and for the parts of the reference's
-    config this port leaves out."""
+    """Raise for an unknown layer kind or storage policy."""
     if cfg.layer not in LAYERS:
         raise ValueError(f"unknown layer kind {cfg.layer!r}: expected 'gcn', "
                          "'gat' or 'rgcn'")
-    if cfg.precision != "f32":
-        raise NotImplementedError(
-            f"precision={cfg.precision!r}: the reduced-precision variants "
-            "are not ported; see ROADMAP.md")
+    if cfg.precision not in POLICIES:
+        raise ValueError(f"unknown precision {cfg.precision!r}: expected one "
+                         f"of {POLICIES}")
 
 
 def _init_conv(cfg: GCNConfig, n_in: int, n_out: int, *, generator,

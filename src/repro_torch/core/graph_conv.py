@@ -5,10 +5,11 @@ in ChemGCN). The strategies compute the same function with different op
 structure:
 
 - ``graph_conv_nonbatched``  Fig. 6: one op per (sample × channel);
-- ``graph_conv_batched``     Fig. 7 and beyond: ``impl="fused"`` or
-  ``"fused_hybrid"`` runs the whole layer as ONE kernel; any SpMM impl runs
-  the stacked form — one feature-transform einsum, ONE ``(channels·batch)``
-  batched SpMM, one channel sum.
+- ``graph_conv_batched``     Fig. 7 and beyond: ``impl="fused"``,
+  ``"fused_hybrid"`` or ``"fused_bf16"`` runs the whole layer as ONE
+  kernel; any SpMM impl (a precision variant too) runs the stacked form —
+  one feature-transform einsum, ONE ``(channels·batch)`` batched SpMM, one
+  channel sum.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.formats import BatchedCOO
+from repro_torch.autotune.cost_model import precision_of
+from repro_torch.core.formats import BatchedCOO, narrow_col_ids
 from repro_torch.kernels.fused_graph_conv import fused_graph_conv
 from repro_torch.kernels.ops import batched_spmm, check_impl
 from repro_torch.kernels.ref import spmm_coo_single
@@ -72,15 +74,31 @@ def graph_conv_batched(params, adj: Sequence[BatchedCOO], x: torch.Tensor,
                        epilogue: str = "none") -> torch.Tensor:
     """Paper Fig. 7 and beyond: the whole mini-batch's layer in O(1) ops.
 
-    ``impl="fused"`` / ``"fused_hybrid"`` runs the layer kernel; any other
-    impl runs the stacked form with that SpMM. ``epilogue``
-    ("none"|"relu") runs inside the fused kernel, as a torch op
-    otherwise."""
+    ``impl="fused"`` / ``"fused_hybrid"`` / ``"fused_bf16"`` runs the layer
+    kernel; any other impl runs the stacked form with that SpMM (a
+    precision variant applies its policy inside ``batched_spmm``).
+    ``epilogue`` ("none"|"relu") runs inside the fused kernel, as a torch
+    op otherwise.
+
+    ``fused_bf16`` narrows the ids to int16 and casts the values, X, W and
+    bias to bfloat16 before the kernel, and Y back to X's dtype after it,
+    as the reference does. The casts are autograd ops, so the gradients
+    are rounded to bf16 where the reference's ``astype`` VJPs round
+    them."""
     check_impl(impl)
-    if impl.startswith("fused"):
+    base, policy = precision_of(impl)
+    if base.startswith("fused"):
         rids, cids, vals, nnz = stack_channels(adj)
-        return fused_graph_conv(rids, cids, vals, nnz, x, params["w"],
-                                params["b"], epilogue=epilogue, impl=impl)
+        xx, ww, bb = x, params["w"], params["b"]
+        if policy == "bf16":
+            m_pad = x.shape[1]
+            rids = narrow_col_ids(rids, m_pad)
+            cids = narrow_col_ids(cids, m_pad)
+            vals, xx, ww, bb = (t.to(torch.bfloat16)
+                                for t in (vals, xx, ww, bb))
+        y = fused_graph_conv(rids, cids, vals, nnz, xx, ww, bb,
+                             epilogue=epilogue, impl=impl)
+        return y.to(x.dtype) if policy != "f32" else y
     channels = len(adj)
     batch, m_pad = x.shape[0], x.shape[1]
     n_out = params["w"].shape[-1]

@@ -23,6 +23,17 @@
 // The atomics make the order of the adds, and so the last bits of a sum,
 // vary from run to run; the result is held to the f32 tolerance.
 //
+// bf16 entry (batched_spmm_coo_bf16), the reference kernel's other operand
+// branches (_kernel :51: int16 row and column ids widened on load (:61),
+// bf16 values and B): one template over the value type V, the dense type D
+// and the id type I. The output panel in shared memory stays f32 (the
+// atomics add f32 products of the widened operands), B rows are read as
+// bf16 from global memory, and each output is rounded to bf16 once on the
+// way out (__float2bfloat16_rn). It runs the pallas_coo_bf16 forward and
+// dB / dU of the pallas_ell_bf16 and fused_bf16 backwards. The m_pad row-id
+// sentinel fits int16 because the wrapper's narrowing refuses
+// m_pad > 32767.
+//
 // g-SpMM entry (batched_gspmm_coo_f32), the reference kernel's (op, reduce)
 // branches: C[s, r] = reduce_{i < nnz[s], rid[i] = r} op(B[s, cid[i]], e_i)
 // with op in {mul, add, copy_lhs}, reduce in {sum, max, mean}, and scalar
@@ -42,12 +53,13 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <typename V, typename D, typename I>
 __global__ void __launch_bounds__(kThreads)
-coo_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
-           const float* __restrict__ val, const float* __restrict__ b,
-           float* __restrict__ c, int nnz_pad, int m_pad, int n_b,
-           int n_block, int sub) {
-  extern __shared__ float acc[];  // (m_pad, nbw) output panel
+coo_kernel(const I* __restrict__ rid, const I* __restrict__ cid,
+           const V* __restrict__ val, const D* __restrict__ b,
+           D* __restrict__ c, int nnz_pad, int m_pad, int n_b, int n_block,
+           int sub) {
+  extern __shared__ float acc[];  // (m_pad, nbw) f32 output panel
   const int s = blockIdx.x;
   const int col0 = blockIdx.y * n_block;
   const int nbw = min(n_block, n_b - col0);
@@ -56,25 +68,25 @@ coo_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
 
   const size_t off = static_cast<size_t>(s) * nnz_pad;
   const size_t mat = static_cast<size_t>(s) * m_pad;
-  const float* bsrc = b + mat * n_b + col0;
+  const D* bsrc = b + mat * n_b + col0;
   const int lane = threadIdx.x % sub, groups = kThreads / sub;
   for (int i = threadIdx.x / sub; i < nnz_pad; i += groups) {
-    const float v = __ldg(val + off + i);
-    const int r = __ldg(rid + off + i), j = __ldg(cid + off + i);
+    const float v = repro::ldf(val + off + i);
+    const int r = repro::ldi(rid + off + i), j = repro::ldi(cid + off + i);
     if (v == 0.f || static_cast<unsigned>(r) >= static_cast<unsigned>(m_pad) ||
         static_cast<unsigned>(j) >= static_cast<unsigned>(m_pad))
       continue;
-    const float* brow = bsrc + static_cast<size_t>(j) * n_b;
+    const D* brow = bsrc + static_cast<size_t>(j) * n_b;
     float* arow = acc + r * nbw;
     for (int cc = lane; cc < nbw; cc += sub)
-      atomicAdd(arow + cc, v * __ldg(brow + cc));
+      atomicAdd(arow + cc, v * repro::ldf(brow + cc));
   }
   __syncthreads();
 
-  float* dst = c + mat * n_b + col0;
+  D* dst = c + mat * n_b + col0;
   for (int i = threadIdx.x; i < m_pad * nbw; i += kThreads) {
     const int r = i / nbw, cc = i - r * nbw;
-    dst[static_cast<size_t>(r) * n_b + cc] = acc[i];
+    dst[static_cast<size_t>(r) * n_b + cc] = repro::from_f32<D>(acc[i]);
   }
 }
 
@@ -149,17 +161,42 @@ extern "C" int batched_gspmm_coo_f32(const int* rid, const int* cid,
   return cudaGetLastError();
 }
 
+namespace {
+
+template <typename V, typename D, typename I>
+int launch(const void* rid, const void* cid, const void* val, const void* b,
+           void* c, int batch, int nnz_pad, int m_pad, int n_b, int n_block,
+           void* stream) {
+  const size_t smem = static_cast<size_t>(m_pad) * n_block * sizeof(float);
+  cudaError_t e = repro::allow_smem(coo_kernel<V, D, I>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
+  coo_kernel<V, D, I>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const I*>(rid), static_cast<const I*>(cid),
+          static_cast<const V*>(val), static_cast<const D*>(b),
+          static_cast<D*>(c), nnz_pad, m_pad, n_b, n_block,
+          repro::sub_warp(n_block));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int batched_spmm_coo_f32(const int* rid, const int* cid,
                                     const float* val, const float* b,
                                     float* c, int batch, int nnz_pad,
                                     int m_pad, int n_b, int n_block,
                                     void* stream) {
-  const size_t smem = static_cast<size_t>(m_pad) * n_block * sizeof(float);
-  cudaError_t e = repro::allow_smem(coo_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
-  coo_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      rid, cid, val, b, c, nnz_pad, m_pad, n_b, n_block,
-      repro::sub_warp(n_block));
-  return cudaGetLastError();
+  return launch<float, float, int>(rid, cid, val, b, c, batch, nnz_pad,
+                                   m_pad, n_b, n_block, stream);
+}
+
+// rid and cid (batch, nnz_pad) int16, val bf16, b and c (batch, m_pad, n_b)
+// bf16
+extern "C" int batched_spmm_coo_bf16(const void* rid, const void* cid,
+                                     const void* val, const void* b, void* c,
+                                     int batch, int nnz_pad, int m_pad,
+                                     int n_b, int n_block, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16, short>(
+      rid, cid, val, b, c, batch, nnz_pad, m_pad, n_b, n_block, stream);
 }

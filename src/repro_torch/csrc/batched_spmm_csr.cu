@@ -26,6 +26,17 @@
 // No atomics: every output element is one fixed-order sum, so the result is
 // bitwise the same from run to run.
 //
+// Reduced-precision entries, the reference kernel's other operand branches
+// (_kernel :58: int16 col_ids widened on load (:67), bf16 values and B,
+// int8 codes with a per-matrix f32 scale applied once to the accumulator,
+// :101-105): one template over the value type V, the dense type D, the
+// column-id type I and kScale (rpt stays int32, as in the reference).
+// batched_spmm_csr_bf16 stages the B panel as bf16, sums the widened
+// products in an f32 register and rounds each output once
+// (__float2bfloat16_rn); batched_spmm_csr_i8 reads int8 codes against an
+// f32 B and multiplies the f32 sum by scale[s] before the store. Still no
+// atomics: both give identical bits from run to run.
+//
 // g-SpMM entry (batched_gspmm_csr_f32), the reference kernel's (op, reduce)
 // branches: C[s, r] = reduce_{rpt[r] <= k < rpt[r+1]} op(B[s, cid[k]], e_k),
 // op in {mul, add, copy_lhs}, reduce in {sum, max, mean}, scalar edges
@@ -41,18 +52,20 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <typename V, typename D, typename I, bool kScale>
 __global__ void __launch_bounds__(kThreads)
-csr_kernel(const int* __restrict__ rpt, const int* __restrict__ cid,
-           const float* __restrict__ val, const float* __restrict__ b,
-           float* __restrict__ c, int m_pad, int nnz_pad, int n_b,
-           int n_block, int sub) {
-  extern __shared__ float bs[];  // (m_pad, nbw) panel of B
+csr_kernel(const int* __restrict__ rpt, const I* __restrict__ cid,
+           const V* __restrict__ val, const float* __restrict__ scale,
+           const D* __restrict__ b, D* __restrict__ c, int m_pad,
+           int nnz_pad, int n_b, int n_block, int sub) {
+  extern __shared__ float csr_smem[];
+  D* bs = reinterpret_cast<D*>(csr_smem);  // (m_pad, nbw) panel of B
   const int s = blockIdx.x;
   const int col0 = blockIdx.y * n_block;
   const int nbw = min(n_block, n_b - col0);
   const size_t mat = static_cast<size_t>(s) * m_pad;
 
-  const float* bsrc = b + mat * n_b + col0;
+  const D* bsrc = b + mat * n_b + col0;
   for (int i = threadIdx.x; i < m_pad * nbw; i += kThreads) {
     const int r = i / nbw, cc = i - r * nbw;
     bs[i] = bsrc[static_cast<size_t>(r) * n_b + cc];
@@ -60,21 +73,23 @@ csr_kernel(const int* __restrict__ rpt, const int* __restrict__ cid,
   __syncthreads();
 
   const int* rp = rpt + static_cast<size_t>(s) * (m_pad + 1);
-  const int* sc = cid + static_cast<size_t>(s) * nnz_pad;
-  const float* sv = val + static_cast<size_t>(s) * nnz_pad;
+  const I* sc = cid + static_cast<size_t>(s) * nnz_pad;
+  const V* sv = val + static_cast<size_t>(s) * nnz_pad;
   const int lane = threadIdx.x % sub, groups = kThreads / sub;
-  float* dst = c + mat * n_b + col0;
+  D* dst = c + mat * n_b + col0;
   for (int r = threadIdx.x / sub; r < m_pad; r += groups) {
     const int lo = max(__ldg(rp + r), 0);
     const int hi = min(__ldg(rp + r + 1), nnz_pad);
     for (int cc = lane; cc < nbw; cc += sub) {
       float acc = 0.f;
       for (int k = lo; k < hi; ++k) {
-        const int j = __ldg(sc + k);
+        const int j = repro::ldi(sc + k);
         if (static_cast<unsigned>(j) < static_cast<unsigned>(m_pad))
-          acc = fmaf(__ldg(sv + k), bs[j * nbw + cc], acc);
+          acc = fmaf(repro::ldf(sv + k), repro::to_f32(bs[j * nbw + cc]),
+                     acc);
       }
-      dst[static_cast<size_t>(r) * n_b + cc] = acc;
+      if constexpr (kScale) acc *= __ldg(scale + s);
+      dst[static_cast<size_t>(r) * n_b + cc] = repro::from_f32<D>(acc);
     }
   }
 }
@@ -144,17 +159,53 @@ extern "C" int batched_gspmm_csr_f32(const int* rpt, const int* cid,
   return cudaGetLastError();
 }
 
+namespace {
+
+template <typename V, typename D, typename I, bool kScale>
+int launch(const int* rpt, const void* cid, const void* val,
+           const float* scale, const void* b, void* c, int batch, int m_pad,
+           int nnz_pad, int n_b, int n_block, void* stream) {
+  const size_t smem = static_cast<size_t>(m_pad) * n_block * sizeof(D);
+  cudaError_t e = repro::allow_smem(csr_kernel<V, D, I, kScale>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
+  csr_kernel<V, D, I, kScale>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          rpt, static_cast<const I*>(cid), static_cast<const V*>(val), scale,
+          static_cast<const D*>(b), static_cast<D*>(c), m_pad, nnz_pad, n_b,
+          n_block, repro::sub_warp(n_block));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int batched_spmm_csr_f32(const int* rpt, const int* cid,
                                     const float* val, const float* b,
                                     float* c, int batch, int m_pad,
                                     int nnz_pad, int n_b, int n_block,
                                     void* stream) {
-  const size_t smem = static_cast<size_t>(m_pad) * n_block * sizeof(float);
-  cudaError_t e = repro::allow_smem(csr_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
-  csr_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      rpt, cid, val, b, c, m_pad, nnz_pad, n_b, n_block,
-      repro::sub_warp(n_block));
-  return cudaGetLastError();
+  return launch<float, float, int, false>(rpt, cid, val, nullptr, b, c,
+                                          batch, m_pad, nnz_pad, n_b, n_block,
+                                          stream);
+}
+
+// cid (batch, nnz_pad) int16, val bf16, b and c (batch, m_pad, n_b) bf16
+extern "C" int batched_spmm_csr_bf16(const int* rpt, const void* cid,
+                                     const void* val, const void* b, void* c,
+                                     int batch, int m_pad, int nnz_pad,
+                                     int n_b, int n_block, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16, short, false>(
+      rpt, cid, val, nullptr, b, c, batch, m_pad, nnz_pad, n_b, n_block,
+      stream);
+}
+
+// cid int16, val int8 codes, scale (batch,) f32, b and c f32
+extern "C" int batched_spmm_csr_i8(const int* rpt, const void* cid,
+                                   const void* val, const float* scale,
+                                   const float* b, float* c, int batch,
+                                   int m_pad, int nnz_pad, int n_b,
+                                   int n_block, void* stream) {
+  return launch<signed char, float, short, true>(
+      rpt, cid, val, scale, b, c, batch, m_pad, nnz_pad, n_b, n_block,
+      stream);
 }

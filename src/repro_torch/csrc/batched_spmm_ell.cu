@@ -19,6 +19,19 @@
 // is stored once. Padded slots (value 0.0, id 0) add 0; ids outside
 // [0, m_pad) are skipped.
 //
+// Reduced-precision entries, the reference kernel's other operand branches
+// (_kernel :45: int16 col_ids widened on load, bf16 values and B, int8
+// codes with a per-matrix f32 scale applied once to the accumulator,
+// :83-87): one template over the value type V, the dense type D, the id
+// type I and kScale. batched_spmm_ell_bf16 takes int16 ids, bf16 values
+// and a bf16 B, stages the B panel in shared memory as bf16 (half the f32
+// panel), sums the widened products in an f32 register and rounds the
+// output to bf16 once (__float2bfloat16_rn). batched_spmm_ell_i8 takes
+// int16 ids, int8 codes and an f32 B, and multiplies each row's f32 sum by
+// scale[s] before the f32 store. What bounds them is still bytes: bf16
+// halves B and C, the bulk of the traffic; i8 shrinks only the ids and
+// values (~5% of it at the main-path shape).
+//
 // g-SpMM entry (batched_gspmm_ell_f32), the reference kernel's (op, reduce)
 // branches with its per-row live bound: C[s, r] = reduce_{k < rlen[r]}
 // op(B[s, cid[r, k]], e_rk), op in {mul, add, copy_lhs}, reduce in {sum,
@@ -34,17 +47,20 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <typename V, typename D, typename I, bool kScale>
 __global__ void __launch_bounds__(kThreads)
-ell_kernel(const int* __restrict__ cid, const float* __restrict__ val,
-           const float* __restrict__ b, float* __restrict__ c, int m_pad,
-           int k_pad, int n_b, int n_block, int sub) {
-  extern __shared__ float bs[];  // (m_pad, nbw) panel of B
+ell_kernel(const I* __restrict__ cid, const V* __restrict__ val,
+           const float* __restrict__ scale, const D* __restrict__ b,
+           D* __restrict__ c, int m_pad, int k_pad, int n_b, int n_block,
+           int sub) {
+  extern __shared__ float ell_smem[];
+  D* bs = reinterpret_cast<D*>(ell_smem);  // (m_pad, nbw) panel of B
   const int s = blockIdx.x;
   const int col0 = blockIdx.y * n_block;
   const int nbw = min(n_block, n_b - col0);
   const size_t mat = static_cast<size_t>(s) * m_pad;
 
-  const float* bsrc = b + mat * n_b + col0;
+  const D* bsrc = b + mat * n_b + col0;
   for (int i = threadIdx.x; i < m_pad * nbw; i += kThreads) {
     const int r = i / nbw, cc = i - r * nbw;
     bs[i] = bsrc[static_cast<size_t>(r) * n_b + cc];
@@ -52,18 +68,20 @@ ell_kernel(const int* __restrict__ cid, const float* __restrict__ val,
   __syncthreads();
 
   const int lane = threadIdx.x % sub, groups = kThreads / sub;
-  float* dst = c + mat * n_b + col0;
+  D* dst = c + mat * n_b + col0;
   for (int r = threadIdx.x / sub; r < m_pad; r += groups) {
-    const int* rc = cid + (mat + r) * k_pad;
-    const float* rv = val + (mat + r) * k_pad;
+    const I* rc = cid + (mat + r) * k_pad;
+    const V* rv = val + (mat + r) * k_pad;
     for (int cc = lane; cc < nbw; cc += sub) {
       float acc = 0.f;
       for (int k = 0; k < k_pad; ++k) {
-        const int j = __ldg(rc + k);
+        const int j = repro::ldi(rc + k);
         if (static_cast<unsigned>(j) < static_cast<unsigned>(m_pad))
-          acc = fmaf(__ldg(rv + k), bs[j * nbw + cc], acc);
+          acc = fmaf(repro::ldf(rv + k), repro::to_f32(bs[j * nbw + cc]),
+                     acc);
       }
-      dst[static_cast<size_t>(r) * n_b + cc] = acc;
+      if constexpr (kScale) acc *= __ldg(scale + s);
+      dst[static_cast<size_t>(r) * n_b + cc] = repro::from_f32<D>(acc);
     }
   }
 }
@@ -130,15 +148,48 @@ extern "C" int batched_gspmm_ell_f32(const int* cid, const float* val,
   return cudaGetLastError();
 }
 
+namespace {
+
+template <typename V, typename D, typename I, bool kScale>
+int launch(const void* cid, const void* val, const float* scale,
+           const void* b, void* c, int batch, int m_pad, int k_pad, int n_b,
+           int n_block, void* stream) {
+  const size_t smem = static_cast<size_t>(m_pad) * n_block * sizeof(D);
+  cudaError_t e = repro::allow_smem(ell_kernel<V, D, I, kScale>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
+  ell_kernel<V, D, I, kScale>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const I*>(cid), static_cast<const V*>(val), scale,
+          static_cast<const D*>(b), static_cast<D*>(c), m_pad, k_pad, n_b,
+          n_block, repro::sub_warp(n_block));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int batched_spmm_ell_f32(const int* cid, const float* val,
                                     const float* b, float* c, int batch,
                                     int m_pad, int k_pad, int n_b,
                                     int n_block, void* stream) {
-  const size_t smem = static_cast<size_t>(m_pad) * n_block * sizeof(float);
-  cudaError_t e = repro::allow_smem(ell_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
-  ell_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      cid, val, b, c, m_pad, k_pad, n_b, n_block, repro::sub_warp(n_block));
-  return cudaGetLastError();
+  return launch<float, float, int, false>(cid, val, nullptr, b, c, batch,
+                                          m_pad, k_pad, n_b, n_block, stream);
+}
+
+// cid (batch, m_pad, k_pad) int16, val bf16, b and c (batch, m_pad, n_b) bf16
+extern "C" int batched_spmm_ell_bf16(const void* cid, const void* val,
+                                     const void* b, void* c, int batch,
+                                     int m_pad, int k_pad, int n_b,
+                                     int n_block, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16, short, false>(
+      cid, val, nullptr, b, c, batch, m_pad, k_pad, n_b, n_block, stream);
+}
+
+// cid int16, val int8 codes, scale (batch,) f32, b and c f32
+extern "C" int batched_spmm_ell_i8(const void* cid, const void* val,
+                                   const float* scale, const float* b,
+                                   float* c, int batch, int m_pad, int k_pad,
+                                   int n_b, int n_block, void* stream) {
+  return launch<signed char, float, short, true>(
+      cid, val, scale, b, c, batch, m_pad, k_pad, n_b, n_block, stream);
 }

@@ -34,6 +34,15 @@
 //
 // No atomics: every output element is one fixed-order sum, so the result is
 // bitwise the same from run to run.
+//
+// bf16 entry (batched_spmm_hybrid_bf16), the reference kernel's other
+// operand branch (_kernel :121 with bf16 values, slab and B and the int16
+// cid_f of narrow=, :199-200): one template over the value type V (values
+// and slab), the dense type D and the column-id type I. The B panel is
+// staged as bf16, slab and CSR products of the widened operands sum in f32
+// registers, and each output is rounded to bf16 once
+// (__float2bfloat16_rn). There is no i8 hybrid, as in the reference
+// (has_scale=False).
 #include "common.cuh"
 
 namespace {
@@ -41,21 +50,23 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCols = 4;  // columns a lane holds: n_block <= 4 * 32
 
+template <typename V, typename D, typename I>
 __global__ void __launch_bounds__(kThreads)
 hybrid_kernel(const int* __restrict__ rank, const int* __restrict__ start,
-              const int* __restrict__ rlen, const int* __restrict__ cid,
-              const float* __restrict__ val, const float* __restrict__ slab,
-              const float* __restrict__ b, float* __restrict__ c, int m_pad,
+              const int* __restrict__ rlen, const I* __restrict__ cid,
+              const V* __restrict__ val, const V* __restrict__ slab,
+              const D* __restrict__ b, D* __restrict__ c, int m_pad,
               int nnz_pad, int n_b, int n_block, int d_pad, int sub) {
-  extern __shared__ float smem[];
-  float* bs = smem;                                     // (m_pad, nbw)
-  int* perm = reinterpret_cast<int*>(bs + m_pad * n_block);  // (m_pad,)
+  extern __shared__ float hybrid_smem[];
+  D* bs = reinterpret_cast<D*>(hybrid_smem);            // (m_pad, nbw)
+  int* perm = reinterpret_cast<int*>(                   // (m_pad,)
+      bs + repro::pad4<D>(m_pad * n_block));
   const int s = blockIdx.x;
   const int col0 = blockIdx.y * n_block;
   const int nbw = min(n_block, n_b - col0);
   const size_t mat = static_cast<size_t>(s) * m_pad;
 
-  const float* bsrc = b + mat * n_b + col0;
+  const D* bsrc = b + mat * n_b + col0;
   for (int i = threadIdx.x; i < m_pad * nbw; i += kThreads) {
     const int r = i / nbw, cc = i - r * nbw;
     bs[i] = bsrc[static_cast<size_t>(r) * n_b + cc];
@@ -70,10 +81,10 @@ hybrid_kernel(const int* __restrict__ rank, const int* __restrict__ start,
 
   const int* st = start + mat;
   const int* rl = rlen + mat;
-  const int* sc = cid + static_cast<size_t>(s) * nnz_pad;
-  const float* sv = val + static_cast<size_t>(s) * nnz_pad;
+  const I* sc = cid + static_cast<size_t>(s) * nnz_pad;
+  const V* sv = val + static_cast<size_t>(s) * nnz_pad;
   const int lane = threadIdx.x % sub, groups = kThreads / sub;
-  float* dst = c + mat * n_b + col0;
+  D* dst = c + mat * n_b + col0;
   for (int q = threadIdx.x / sub; q < m_pad; q += groups) {
     const int r = perm[q];
     if (r < 0) continue;  // rank was not a permutation
@@ -81,36 +92,61 @@ hybrid_kernel(const int* __restrict__ rank, const int* __restrict__ start,
 #pragma unroll
     for (int t = 0; t < kCols; ++t) acc[t] = 0.f;
     if (q < d_pad) {
-      const float* srow = slab + (static_cast<size_t>(s) * d_pad + q) * m_pad;
+      const V* srow = slab + (static_cast<size_t>(s) * d_pad + q) * m_pad;
       for (int m = 0; m < m_pad; ++m) {
-        const float a = __ldg(srow + m);
-        const float* brow = bs + m * nbw;
+        const float a = repro::ldf(srow + m);
+        const D* brow = bs + m * nbw;
 #pragma unroll
         for (int t = 0; t < kCols; ++t) {
           const int cc = lane + sub * t;
-          if (cc < nbw) acc[t] = fmaf(a, brow[cc], acc[t]);
+          if (cc < nbw) acc[t] = fmaf(a, repro::to_f32(brow[cc]), acc[t]);
         }
       }
     }
     const int lo = max(__ldg(st + q), 0);
     const int hi = min(lo + max(__ldg(rl + q), 0), nnz_pad);
     for (int k = lo; k < hi; ++k) {
-      const int j = __ldg(sc + k);
+      const int j = repro::ldi(sc + k);
       if (static_cast<unsigned>(j) >= static_cast<unsigned>(m_pad)) continue;
-      const float v = __ldg(sv + k);
-      const float* brow = bs + j * nbw;
+      const float v = repro::ldf(sv + k);
+      const D* brow = bs + j * nbw;
 #pragma unroll
       for (int t = 0; t < kCols; ++t) {
         const int cc = lane + sub * t;
-        if (cc < nbw) acc[t] = fmaf(v, brow[cc], acc[t]);
+        if (cc < nbw) acc[t] = fmaf(v, repro::to_f32(brow[cc]), acc[t]);
       }
     }
 #pragma unroll
     for (int t = 0; t < kCols; ++t) {
       const int cc = lane + sub * t;
-      if (cc < nbw) dst[static_cast<size_t>(r) * n_b + cc] = acc[t];
+      if (cc < nbw)
+        dst[static_cast<size_t>(r) * n_b + cc] = repro::from_f32<D>(acc[t]);
     }
   }
+}
+
+template <typename V, typename D, typename I>
+int launch(const int* rank, const int* start, const int* rlen,
+           const void* cid, const void* val, const void* slab, const void* b,
+           void* c, int batch, int m_pad, int nnz_pad, int n_b, int n_block,
+           int d_pad, void* stream) {
+  const int sub = repro::sub_warp(n_block);
+  if (n_block < 1 || n_block > kCols * sub || d_pad < 0 || d_pad > m_pad ||
+      (d_pad > 0 && slab == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      static_cast<size_t>(repro::pad4<D>(m_pad * n_block)) * sizeof(D) +
+      static_cast<size_t>(m_pad) * sizeof(int);
+  cudaError_t e = repro::allow_smem(hybrid_kernel<V, D, I>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
+  hybrid_kernel<V, D, I>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          rank, start, rlen, static_cast<const I*>(cid),
+          static_cast<const V*>(val), static_cast<const V*>(slab),
+          static_cast<const D*>(b), static_cast<D*>(c), m_pad, nnz_pad, n_b,
+          n_block, d_pad, sub);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -121,17 +157,20 @@ extern "C" int batched_spmm_hybrid_f32(const int* rank, const int* start,
                                        const float* b, float* c, int batch,
                                        int m_pad, int nnz_pad, int n_b,
                                        int n_block, int d_pad, void* stream) {
-  const int sub = repro::sub_warp(n_block);
-  if (n_block < 1 || n_block > kCols * sub || d_pad < 0 || d_pad > m_pad ||
-      (d_pad > 0 && slab == nullptr))
-    return cudaErrorInvalidValue;
-  const size_t smem =
-      (static_cast<size_t>(m_pad) * n_block + m_pad) * sizeof(float);
-  cudaError_t e = repro::allow_smem(hybrid_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
-  hybrid_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      rank, start, rlen, cid, val, slab, b, c, m_pad, nnz_pad, n_b, n_block,
-      d_pad, sub);
-  return cudaGetLastError();
+  return launch<float, float, int>(rank, start, rlen, cid, val, slab, b, c,
+                                   batch, m_pad, nnz_pad, n_b, n_block, d_pad,
+                                   stream);
+}
+
+// cid (batch, nnz_pad) int16; val, slab (batch, d_pad, m_pad), b and c bf16
+extern "C" int batched_spmm_hybrid_bf16(const int* rank, const int* start,
+                                        const int* rlen, const void* cid,
+                                        const void* val, const void* slab,
+                                        const void* b, void* c, int batch,
+                                        int m_pad, int nnz_pad, int n_b,
+                                        int n_block, int d_pad,
+                                        void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16, short>(
+      rank, start, rlen, cid, val, slab, b, c, batch, m_pad, nnz_pad, n_b,
+      n_block, d_pad, stream);
 }

@@ -1,11 +1,15 @@
 // Shared by every kernel library of the port: the error-string entry point
 // the Python wrappers call when a launch returns a non-zero code, the
 // paper's sub-warp width, the opt-in for more than 48 KB of dynamic
-// shared memory (without it such a launch is refused and never runs), and
-// the g-SpMM pieces of the ELL, COO and CSR kernels: the (op, reduce) codes
-// the wrappers pass, the per-edge combine and a shared-memory float max.
+// shared memory (without it such a launch is refused and never runs), the
+// g-SpMM pieces of the ELL, COO and CSR kernels (the (op, reduce) codes the
+// wrappers pass, the per-edge combine and a shared-memory float max), and
+// the element types of the reduced-precision entries: loads that widen
+// f32, bf16 and int8 to f32 and int32 or int16 ids to int, and the one
+// rounding of an f32 sum to the output type.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 extern "C" const char* repro_error_string(int code) {
@@ -60,6 +64,57 @@ __device__ __forceinline__ float finish(float acc, int deg, int reduce) {
   if (reduce == kMax) return deg > 0 ? acc : 0.f;
   if (reduce == kMean) return acc / static_cast<float>(deg > 1 ? deg : 1);
   return acc;
+}
+
+// Element types: value and dense operands are float, __nv_bfloat16 or (int8
+// value codes) signed char; ids are int or (narrowed) short. to_f32 widens
+// an element already read (from shared memory), ldf / ldi read one through
+// the read-only cache and widen it.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(signed char v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ float ldf(const signed char* p) {
+  return static_cast<float>(__ldg(p));
+}
+__device__ __forceinline__ int ldi(const int* p) { return __ldg(p); }
+__device__ __forceinline__ int ldi(const short* p) { return __ldg(p); }
+
+// The one rounding of an f32 sum to the output type (round to nearest
+// even, as PyTorch's .to(torch.bfloat16)).
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Where the next array starts in dynamic shared memory after one of
+// ``bytes``, at 16-byte alignment: align16 in bytes (the launch's size),
+// words16 in 4-byte words (an offset from a float-typed base).
+__host__ __device__ constexpr size_t align16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+__device__ __forceinline__ int words16(size_t bytes) {
+  return static_cast<int>(align16(bytes) / 4);
+}
+
+// Elements of type T in an array of n that a 4-byte (float or int) array
+// may follow in dynamic shared memory: n itself for 4-byte types, n
+// rounded up to an even count for bf16.
+template <typename T>
+__host__ __device__ constexpr int pad4(int n) {
+  constexpr int k = sizeof(T) >= 4 ? 1 : 4 / static_cast<int>(sizeof(T));
+  return (n + k - 1) / k * k;
 }
 
 template <typename Kernel>

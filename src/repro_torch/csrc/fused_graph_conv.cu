@@ -45,6 +45,19 @@
 // epilogue reads acc[rank[r]] for output row r, then adds the residual and
 // applies ReLU, the reference's order. The head costs d_pad * m_pad FMAs
 // per column and channel: 4 * 128 * 256 * 64 per powerlaw sample.
+//
+// bf16 entry (fused_graph_conv_bf16, the fused_bf16 registry entry), the
+// reference kernel's other operand branch (_kernel :54 with int16 ids
+// widened on load (:90) and bf16 values, X, W and bias): one template over
+// the value type V, the dense type D (X, W, bias, residual and Y) and the
+// id type I. The X tile is staged as bf16 (half the f32 tile), U_ch =
+// X W_ch + b_ch is computed with f32 FMAs of the widened operands and kept
+// in the f32 shared panel, never rounded; the scatter adds f32 products
+// into the f32 accumulator, and only Y is rounded to bf16, once, in the
+// epilogue (__float2bfloat16_rn), as the reference stores its f32
+// accumulator in X's dtype. At 512 width the transform's operations bound
+// it: the bf16 tensor-core peak is the yardstick, and this f32-FMA loop is
+// far from it.
 #include "common.cuh"
 
 namespace {
@@ -55,26 +68,29 @@ constexpr int kRowGroups = kThreads / kLanes;  // threads along the rows
 constexpr int kCols = 4;                       // columns per thread
 constexpr int kRows = 8;                       // rows per thread and pass
 
-template <bool kHybrid>
+template <typename V, typename D, typename I, bool kHybrid>
 __global__ void __launch_bounds__(kThreads)
-fused_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
-             const float* __restrict__ val, const int* __restrict__ chunks,
-             const float* __restrict__ x, const float* __restrict__ w,
-             const float* __restrict__ bias, const float* __restrict__ res,
-             const int* __restrict__ rank, const float* __restrict__ slab,
-             float* __restrict__ y, int channels, int nnz_pad, int chunk,
+fused_kernel(const I* __restrict__ rid, const I* __restrict__ cid,
+             const V* __restrict__ val, const int* __restrict__ chunks,
+             const D* __restrict__ x, const D* __restrict__ w,
+             const D* __restrict__ bias, const D* __restrict__ res,
+             const int* __restrict__ rank, const V* __restrict__ slab,
+             D* __restrict__ y, int channels, int nnz_pad, int chunk,
              int m_pad, int n_in, int n_out, int n_block, int d_pad, int relu,
              int sub) {
-  extern __shared__ float smem[];
-  float* xs = smem;                    // (m_pad, n_in) X tile
-  float* us = xs + m_pad * n_in;       // (m_pad, nbw) U_ch panel
-  float* acc = us + m_pad * n_block;   // (m_pad, nbw) accumulator
+  extern __shared__ __align__(16) float fused_smem[];
+  D* xs = reinterpret_cast<D*>(fused_smem);  // (m_pad, n_in) X tile
+  // the f32 panels start at the next 16 bytes, an offset from the float
+  // base: with U at xs + m_pad * n_in the f32 entry compiled to code ~8%
+  // slower on an H100 (PERF.md, Findings)
+  float* us = fused_smem + repro::words16(m_pad * n_in * sizeof(D));
+  float* acc = us + m_pad * n_block;         // (m_pad, nbw) accumulator
   const int s = blockIdx.x;
   const int col0 = blockIdx.y * n_block;
   const int nbw = min(n_block, n_out - col0);
   const int tid = threadIdx.x;
 
-  const float* xsrc = x + static_cast<size_t>(s) * m_pad * n_in;
+  const D* xsrc = x + static_cast<size_t>(s) * m_pad * n_in;
   for (int i = tid; i < m_pad * n_in; i += kThreads) xs[i] = xsrc[i];
   for (int i = tid; i < m_pad * nbw; i += kThreads) acc[i] = 0.f;
   __syncthreads();
@@ -87,11 +103,11 @@ fused_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
     // the same for every thread of the block; hub rows need U_ch regardless
     if (!kHybrid && n == 0) continue;
 
-    const float* wch = w + static_cast<size_t>(ch) * n_in * n_out + col0;
-    const float* bch = bias + static_cast<size_t>(ch) * n_out + col0;
+    const D* wch = w + static_cast<size_t>(ch) * n_in * n_out + col0;
+    const D* bch = bias + static_cast<size_t>(ch) * n_out + col0;
     for (int r0 = 0; r0 < m_pad; r0 += kRowGroups * kRows) {
       float a[kRows][kCols];
-      const float* xr[kRows];
+      const D* xr[kRows];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         xr[i] = xs + min(r0 + ty + kRowGroups * i, m_pad - 1) * n_in;
@@ -103,12 +119,13 @@ fused_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
 #pragma unroll
         for (int q = 0; q < kCols; ++q) {
           const int cc = tx + kLanes * q;
-          wv[q] = cc < nbw ? __ldg(wch + static_cast<size_t>(k) * n_out + cc)
-                           : 0.f;
+          wv[q] = cc < nbw
+                      ? repro::ldf(wch + static_cast<size_t>(k) * n_out + cc)
+                      : 0.f;
         }
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
-          const float xv = xr[i][k];
+          const float xv = repro::to_f32(xr[i][k]);
 #pragma unroll
           for (int q = 0; q < kCols; ++q) a[i][q] = fmaf(xv, wv[q], a[i][q]);
         }
@@ -120,28 +137,28 @@ fused_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
 #pragma unroll
         for (int q = 0; q < kCols; ++q) {
           const int cc = tx + kLanes * q;
-          if (cc < nbw) us[r * nbw + cc] = a[i][q] + __ldg(bch + cc);
+          if (cc < nbw) us[r * nbw + cc] = a[i][q] + repro::ldf(bch + cc);
         }
       }
     }
     __syncthreads();
 
     if constexpr (kHybrid) {
-      const float* sl = slab + static_cast<size_t>(sc) * d_pad * m_pad;
+      const V* sl = slab + static_cast<size_t>(sc) * d_pad * m_pad;
       for (int i = tid; i < d_pad * nbw; i += kThreads) {
         const int d = i / nbw, cc = i - d * nbw;
-        const float* srow = sl + static_cast<size_t>(d) * m_pad;
+        const V* srow = sl + static_cast<size_t>(d) * m_pad;
         float h = 0.f;
         for (int m = 0; m < m_pad; ++m)
-          h = fmaf(__ldg(srow + m), us[m * nbw + cc], h);
+          h = fmaf(repro::ldf(srow + m), us[m * nbw + cc], h);
         atomicAdd(acc + i, h);
       }
     }
 
     const size_t off = static_cast<size_t>(sc) * nnz_pad;
     for (int i = tid / sub; i < n; i += groups) {
-      const float v = __ldg(val + off + i);
-      const int r = __ldg(rid + off + i), j = __ldg(cid + off + i);
+      const float v = repro::ldf(val + off + i);
+      const int r = repro::ldi(rid + off + i), j = repro::ldi(cid + off + i);
       if (v == 0.f || static_cast<unsigned>(r) >= static_cast<unsigned>(m_pad) ||
           static_cast<unsigned>(j) >= static_cast<unsigned>(m_pad))
         continue;
@@ -162,31 +179,34 @@ fused_kernel(const int* __restrict__ rid, const int* __restrict__ cid,
       o = static_cast<unsigned>(q) < static_cast<unsigned>(m_pad)
               ? acc[q * nbw + cc] : 0.f;
     }
-    if (res) o += res[g];
+    if (res) o += repro::ldf(res + g);
     if (relu) o = fmaxf(o, 0.f);
-    y[g] = o;
+    y[g] = repro::from_f32<D>(o);
   }
 }
 
-template <bool kHybrid>
-int launch(const int* rid, const int* cid, const float* val,
-           const int* chunks, const float* x, const float* w,
-           const float* bias, const float* res, const int* rank,
-           const float* slab, float* y, int batch, int channels, int nnz_pad,
-           int chunk, int m_pad, int n_in, int n_out, int n_block, int d_pad,
-           int relu, void* stream) {
+template <typename V, typename D, typename I, bool kHybrid>
+int launch(const void* rid, const void* cid, const void* val,
+           const int* chunks, const void* x, const void* w, const void* bias,
+           const void* res, const int* rank, const void* slab, void* y,
+           int batch, int channels, int nnz_pad, int chunk, int m_pad,
+           int n_in, int n_out, int n_block, int d_pad, int relu,
+           void* stream) {
   if (n_block < 1 || n_block > kLanes * kCols) return cudaErrorInvalidValue;
-  const size_t smem = (static_cast<size_t>(m_pad) * n_in +
-                       2 * static_cast<size_t>(m_pad) * n_block) *
-                      sizeof(float);
-  cudaError_t e = repro::allow_smem(fused_kernel<kHybrid>, smem);
+  const size_t smem =
+      repro::align16(static_cast<size_t>(m_pad) * n_in * sizeof(D)) +
+      2 * static_cast<size_t>(m_pad) * n_block * sizeof(float);
+  cudaError_t e = repro::allow_smem(fused_kernel<V, D, I, kHybrid>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(batch, (n_out + n_block - 1) / n_block);
-  fused_kernel<kHybrid>
+  fused_kernel<V, D, I, kHybrid>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          rid, cid, val, chunks, x, w, bias, res, rank, slab, y, channels,
-          nnz_pad, chunk, m_pad, n_in, n_out, n_block, d_pad, relu,
-          repro::sub_warp(n_block));
+          static_cast<const I*>(rid), static_cast<const I*>(cid),
+          static_cast<const V*>(val), chunks, static_cast<const D*>(x),
+          static_cast<const D*>(w), static_cast<const D*>(bias),
+          static_cast<const D*>(res), rank, static_cast<const V*>(slab),
+          static_cast<D*>(y), channels, nnz_pad, chunk, m_pad, n_in, n_out,
+          n_block, d_pad, relu, repro::sub_warp(n_block));
   return cudaGetLastError();
 }
 
@@ -200,9 +220,10 @@ extern "C" int fused_graph_conv_f32(const int* rid, const int* cid,
                                     int nnz_pad, int chunk, int m_pad,
                                     int n_in, int n_out, int n_block,
                                     int relu, void* stream) {
-  return launch<false>(rid, cid, val, chunks, x, w, bias, res, nullptr,
-                       nullptr, y, batch, channels, nnz_pad, chunk, m_pad,
-                       n_in, n_out, n_block, 0, relu, stream);
+  return launch<float, float, int, false>(
+      rid, cid, val, chunks, x, w, bias, res, nullptr, nullptr, y, batch,
+      channels, nnz_pad, chunk, m_pad, n_in, n_out, n_block, 0, relu,
+      stream);
 }
 
 // rank (batch, m_pad) and slab (batch, channels, d_pad, m_pad), d_pad >= 1
@@ -214,7 +235,22 @@ extern "C" int fused_graph_conv_hybrid_f32(
     int d_pad, int relu, void* stream) {
   if (d_pad < 1 || d_pad > m_pad || rank == nullptr || slab == nullptr)
     return cudaErrorInvalidValue;
-  return launch<true>(rid, cid, val, chunks, x, w, bias, res, rank, slab, y,
-                      batch, channels, nnz_pad, chunk, m_pad, n_in, n_out,
-                      n_block, d_pad, relu, stream);
+  return launch<float, float, int, true>(
+      rid, cid, val, chunks, x, w, bias, res, rank, slab, y, batch, channels,
+      nnz_pad, chunk, m_pad, n_in, n_out, n_block, d_pad, relu, stream);
+}
+
+// ids (batch, channels, nnz_pad) int16; val, x, w, bias, res and y bf16
+extern "C" int fused_graph_conv_bf16(const void* rid, const void* cid,
+                                     const void* val, const int* chunks,
+                                     const void* x, const void* w,
+                                     const void* bias, const void* res,
+                                     void* y, int batch, int channels,
+                                     int nnz_pad, int chunk, int m_pad,
+                                     int n_in, int n_out, int n_block,
+                                     int relu, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16, short, false>(
+      rid, cid, val, chunks, x, w, bias, res, nullptr, nullptr, y, batch,
+      channels, nnz_pad, chunk, m_pad, n_in, n_out, n_block, 0, relu,
+      stream);
 }

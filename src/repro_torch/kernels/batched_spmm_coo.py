@@ -18,6 +18,11 @@ of ``max`` itself; its plain version is
 :func:`repro_torch.kernels.ref.batched_gspmm_coo_plain`. The g-SpMM plan
 takes :func:`gspmm_plan`: the block also counts row degrees in shared
 memory.
+
+:func:`batched_spmm_coo_bf16` is the reference kernel's bf16 branch: int16
+row and column ids, bf16 values and B, an f32 accumulator, bf16 out. Its
+plain version is :func:`ref.batched_spmm_coo_plain`; it counts its own
+launches.
 """
 from __future__ import annotations
 
@@ -104,3 +109,36 @@ def batched_spmm_coo(row_ids: torch.Tensor, col_ids: torch.Tensor,
 
 
 batched_spmm_coo.launches = 0
+
+
+def batched_spmm_coo_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
+                          values: torch.Tensor, b: torch.Tensor, *,
+                          plan: BatchPlan | None = None) -> torch.Tensor:
+    """row_ids/col_ids (batch, nnz_pad) int16, values bf16, b (batch, m_pad,
+    n_b) bf16 → bf16: f32 sums in shared memory rounded to bf16 once. The
+    plan is the f32 one: the shared accumulator stays f32."""
+    if b.dim() != 3 or row_ids.dim() != 2:
+        raise ValueError("batched_spmm_coo_bf16 takes 2-D ids and a 3-D b")
+    batch, nnz_pad = row_ids.shape
+    m_pad, n_b = b.shape[1], b.shape[2]
+    check_operand("row_ids", row_ids, (batch, nnz_pad), torch.int16)
+    check_operand("col_ids", col_ids, (batch, nnz_pad), torch.int16)
+    check_operand("values", values, (batch, nnz_pad), torch.bfloat16)
+    check_operand("b", b, (batch, m_pad, n_b), torch.bfloat16)
+    plan = plan or plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
+    check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_b)
+    if on_cpu(row_ids, col_ids, values, b):
+        return ref.batched_spmm_coo_plain(row_ids, col_ids, values, b)
+    out = torch.empty_like(b)
+    if out.numel() == 0:
+        return out
+    fn = _build.entry("batched_spmm_coo", "batched_spmm_coo_bf16", _ARGTYPES)
+    code = fn(row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
+              b.data_ptr(), out.data_ptr(), batch, nnz_pad, m_pad, n_b,
+              plan.n_block, stream_handle())
+    _build.check("batched_spmm_coo", code)
+    batched_spmm_coo_bf16.launches += 1
+    return out
+
+
+batched_spmm_coo_bf16.launches = 0

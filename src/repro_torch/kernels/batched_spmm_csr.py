@@ -13,6 +13,14 @@ g-SpMM (the reference kernel's ``op``/``reduce`` operands): another
 order launch the kernel's g-SpMM entry, whose plain version is
 :func:`repro_torch.kernels.ref.batched_gspmm_csr_plain`; each row's slot
 range is its mask, so no ``nnz`` is needed.
+
+Reduced precision (the reference kernel's int16 / bf16 / int8 branches):
+:func:`batched_spmm_csr_bf16` takes int16 column ids, bf16 values and a
+bf16 B and returns bf16; :func:`batched_spmm_csr_i8` takes int16 column
+ids, int8 codes, their per-matrix f32 ``scale`` and an f32 B and returns
+f32. ``rpt`` stays int32. Both sum in f32 without atomics (identical bits
+from run to run); their plain version is the same
+:func:`ref.batched_spmm_csr_plain`. Each entry counts its own launches.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from repro_torch.kernels import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _GSPMM_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+_I8_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 
 
 def batched_spmm_csr(rpt: torch.Tensor, col_ids: torch.Tensor,
@@ -83,3 +92,69 @@ def batched_spmm_csr(rpt: torch.Tensor, col_ids: torch.Tensor,
 
 
 batched_spmm_csr.launches = 0
+
+
+def _reduced(counted, entry: str, rpt: torch.Tensor, col_ids: torch.Tensor,
+             values: torch.Tensor, scale: torch.Tensor | None,
+             b: torch.Tensor, plan: BatchPlan | None) -> torch.Tensor:
+    """The bf16 (``scale`` None) or i8 entry: checks, then the plain
+    version on CPU tensors or the kernel, counted in ``counted``."""
+    if b.dim() != 3 or rpt.dim() != 2 or col_ids.dim() != 2:
+        raise ValueError(f"{entry} takes 2-D rpt and ids and a 3-D b")
+    batch, m_pad, n_b = b.shape
+    nnz_pad = col_ids.shape[1]
+    i8 = scale is not None
+    check_operand("rpt", rpt, (batch, m_pad + 1), torch.int32)
+    check_operand("col_ids", col_ids, (batch, nnz_pad), torch.int16)
+    check_operand("values", values, (batch, nnz_pad),
+                  torch.int8 if i8 else torch.bfloat16)
+    check_operand("b", b, (batch, m_pad, n_b),
+                  torch.float32 if i8 else torch.bfloat16)
+    if i8:
+        check_operand("scale", scale, (batch,), torch.float32)
+    plan = plan or plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b,
+                                     itemsize=b.element_size())
+    check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_b)
+    if on_cpu(rpt, col_ids, values, scale, b):
+        return ref.batched_spmm_csr_plain(rpt, col_ids, values, b, scale)
+    out = torch.empty_like(b)
+    if out.numel() == 0:
+        return out
+    if i8:
+        fn = _build.entry("batched_spmm_csr", entry, _I8_ARGTYPES)
+        code = fn(rpt.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
+                  scale.data_ptr(), b.data_ptr(), out.data_ptr(), batch,
+                  m_pad, nnz_pad, n_b, plan.n_block, stream_handle())
+    else:
+        fn = _build.entry("batched_spmm_csr", entry, _ARGTYPES)
+        code = fn(rpt.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
+                  b.data_ptr(), out.data_ptr(), batch, m_pad, nnz_pad, n_b,
+                  plan.n_block, stream_handle())
+    _build.check("batched_spmm_csr", code)
+    counted.launches += 1
+    return out
+
+
+def batched_spmm_csr_bf16(rpt: torch.Tensor, col_ids: torch.Tensor,
+                          values: torch.Tensor, b: torch.Tensor, *,
+                          plan: BatchPlan | None = None) -> torch.Tensor:
+    """rpt (batch, m_pad + 1) int32, col_ids (batch, nnz_pad) int16, values
+    bf16 (row-sorted), b (batch, m_pad, n_b) bf16 → bf16: f32 sums rounded
+    to bf16 once."""
+    return _reduced(batched_spmm_csr_bf16, "batched_spmm_csr_bf16", rpt,
+                    col_ids, values, None, b, plan)
+
+
+def batched_spmm_csr_i8(rpt: torch.Tensor, col_ids: torch.Tensor,
+                        codes: torch.Tensor, scale: torch.Tensor,
+                        b: torch.Tensor, *,
+                        plan: BatchPlan | None = None) -> torch.Tensor:
+    """rpt int32, col_ids (batch, nnz_pad) int16, codes int8 (row-sorted),
+    scale (batch,) f32, b (batch, m_pad, n_b) f32 → f32: each f32 sum times
+    its matrix's scale."""
+    return _reduced(batched_spmm_csr_i8, "batched_spmm_csr_i8", rpt, col_ids,
+                    codes, scale, b, plan)
+
+
+batched_spmm_csr_bf16.launches = 0
+batched_spmm_csr_i8.launches = 0

@@ -12,6 +12,13 @@ the row degrees ``rlen`` (batch, m_pad) — the layout cannot tell a real 0.0
 edge from padding — another ``(op, reduce)`` or vector edges (batch, m_pad,
 k_pad, n_b), the wrapper launches the kernel's g-SpMM entry, whose plain
 version is :func:`repro_torch.kernels.ref.batched_gspmm_ell_plain`.
+
+Reduced precision (the reference kernel's int16 / bf16 / int8 branches):
+:func:`batched_spmm_ell_bf16` takes int16 ids, bf16 values and a bf16 B
+and returns bf16; :func:`batched_spmm_ell_i8` takes int16 ids, int8 codes,
+their per-matrix f32 ``scale`` and an f32 B and returns f32. Both sum in
+f32; their plain version is the same :func:`ref.batched_spmm_ell_plain`.
+Each entry counts its own launches.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from repro_torch.kernels import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _GSPMM_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+_I8_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 
 
 def batched_spmm_ell(col_ids: torch.Tensor, values: torch.Tensor,
@@ -87,3 +95,66 @@ def batched_spmm_ell(col_ids: torch.Tensor, values: torch.Tensor,
 
 
 batched_spmm_ell.launches = 0
+
+
+def _reduced(counted, entry: str, col_ids: torch.Tensor,
+             values: torch.Tensor, scale: torch.Tensor | None,
+             b: torch.Tensor, plan: BatchPlan | None) -> torch.Tensor:
+    """The bf16 (``scale`` None) or i8 entry: checks, then the plain
+    version on CPU tensors or the kernel, counted in ``counted``."""
+    if b.dim() != 3 or col_ids.dim() != 3:
+        raise ValueError(f"{entry} takes 3-D col_ids and b")
+    batch, m_pad, k_pad = col_ids.shape
+    n_b = b.shape[-1]
+    i8 = scale is not None
+    check_operand("col_ids", col_ids, (batch, m_pad, k_pad), torch.int16)
+    check_operand("values", values, (batch, m_pad, k_pad),
+                  torch.int8 if i8 else torch.bfloat16)
+    check_operand("b", b, (batch, m_pad, n_b),
+                  torch.float32 if i8 else torch.bfloat16)
+    if i8:
+        check_operand("scale", scale, (batch,), torch.float32)
+    plan = plan or plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b,
+                                     itemsize=b.element_size())
+    check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_b)
+    if on_cpu(col_ids, values, scale, b):
+        return ref.batched_spmm_ell_plain(col_ids, values, b, scale)
+    out = torch.empty_like(b)
+    if out.numel() == 0:
+        return out
+    if i8:
+        fn = _build.entry("batched_spmm_ell", entry, _I8_ARGTYPES)
+        code = fn(col_ids.data_ptr(), values.data_ptr(), scale.data_ptr(),
+                  b.data_ptr(), out.data_ptr(), batch, m_pad, k_pad, n_b,
+                  plan.n_block, stream_handle())
+    else:
+        fn = _build.entry("batched_spmm_ell", entry, _ARGTYPES)
+        code = fn(col_ids.data_ptr(), values.data_ptr(), b.data_ptr(),
+                  out.data_ptr(), batch, m_pad, k_pad, n_b, plan.n_block,
+                  stream_handle())
+    _build.check("batched_spmm_ell", code)
+    counted.launches += 1
+    return out
+
+
+def batched_spmm_ell_bf16(col_ids: torch.Tensor, values: torch.Tensor,
+                          b: torch.Tensor, *,
+                          plan: BatchPlan | None = None) -> torch.Tensor:
+    """col_ids (batch, m_pad, k_pad) int16, values bf16, b (batch, m_pad,
+    n_b) bf16 → bf16: f32 sums rounded to bf16 once."""
+    return _reduced(batched_spmm_ell_bf16, "batched_spmm_ell_bf16", col_ids,
+                    values, None, b, plan)
+
+
+def batched_spmm_ell_i8(col_ids: torch.Tensor, codes: torch.Tensor,
+                        scale: torch.Tensor, b: torch.Tensor, *,
+                        plan: BatchPlan | None = None) -> torch.Tensor:
+    """col_ids (batch, m_pad, k_pad) int16, codes int8, scale (batch,) f32,
+    b (batch, m_pad, n_b) f32 → f32: each f32 sum times its matrix's
+    scale."""
+    return _reduced(batched_spmm_ell_i8, "batched_spmm_ell_i8", col_ids,
+                    codes, scale, b, plan)
+
+
+batched_spmm_ell_bf16.launches = 0
+batched_spmm_ell_i8.launches = 0

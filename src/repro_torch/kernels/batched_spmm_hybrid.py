@@ -17,6 +17,11 @@ reference leaves that prep to XLA), and the plain version is
 the same split as a slab product plus an ELL remainder of width
 ``dmin - 1``. f32, (mul, sum); the kernel's result is bitwise the same from
 run to run (no atomics).
+
+:func:`batched_spmm_hybrid_bf16` is the reference kernel's bf16 branch
+(``pallas_hybrid_bf16``): bf16 values, slab and B, the CSR column ids
+narrowed to int16 after the prep, f32 sums rounded to bf16 once. It counts
+its own launches; :func:`hybrid_launch` takes either type.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.core.formats import (
     BatchedCOO,
     coo_to_csr,
     coo_to_ell,
+    narrow_col_ids,
     row_degrees,
 )
 from repro_torch.kernels import (
@@ -99,26 +105,27 @@ def hybrid_operands(row_ids, col_ids, values, nnz, m_pad: int,
     return rank, start_s, rlen_sparse, csr.col_ids, csr.values, slab
 
 
-def batched_spmm_hybrid(row_ids: torch.Tensor, col_ids: torch.Tensor,
-                        values: torch.Tensor, nnz: torch.Tensor,
-                        b: torch.Tensor, *, plan: HybridPlan) -> torch.Tensor:
-    """ids/values (batch, nnz_pad) int32/f32, nnz (batch,) int32, b
-    (batch, m_pad, n_b) f32 → (batch, m_pad, n_b) f32, with ``m_pad`` a
-    multiple of 8 (the plan's, as in the reference)."""
+def _hybrid(row_ids, col_ids, values, nnz, b, plan: HybridPlan,
+            bf16: bool) -> torch.Tensor:
+    """Checks, the prep, then the plain version on CPU tensors or the
+    kernel; ``bf16`` narrows the prepared column ids to int16."""
     if b.dim() != 3 or row_ids.dim() != 2:
         raise ValueError("batched_spmm_hybrid takes 2-D ids and a 3-D b")
     batch, m_pad, n_b = b.shape
     nnz_pad = row_ids.shape[1]
-    for name, t, dt in (("row_ids", row_ids, torch.int32),
-                        ("col_ids", col_ids, torch.int32),
-                        ("values", values, torch.float32)):
-        check_operand(name, t, (batch, nnz_pad), dt)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    for name, t, want in (("row_ids", row_ids, torch.int32),
+                          ("col_ids", col_ids, torch.int32),
+                          ("values", values, dt)):
+        check_operand(name, t, (batch, nnz_pad), want)
     check_operand("nnz", nnz, (batch,), torch.int32)
-    check_operand("b", b, (batch, m_pad, n_b), torch.float32)
+    check_operand("b", b, (batch, m_pad, n_b), dt)
     check_plan(plan.spmm, batch=batch, m_pad=m_pad, n_b=n_b)
     cpu = on_cpu(row_ids, col_ids, values, nnz, b)
     rank, start_s, rlen_sp, cid, val, slab = hybrid_operands(
         row_ids, col_ids, values, nnz, m_pad, plan)
+    if bf16:
+        cid = narrow_col_ids(cid, m_pad)
     if cpu:
         return ref.batched_spmm_hybrid_plain(rank, start_s, rlen_sp, cid, val,
                                              slab, b)
@@ -126,41 +133,66 @@ def batched_spmm_hybrid(row_ids: torch.Tensor, col_ids: torch.Tensor,
                          plan=plan)
 
 
+def batched_spmm_hybrid(row_ids: torch.Tensor, col_ids: torch.Tensor,
+                        values: torch.Tensor, nnz: torch.Tensor,
+                        b: torch.Tensor, *, plan: HybridPlan) -> torch.Tensor:
+    """ids/values (batch, nnz_pad) int32/f32, nnz (batch,) int32, b
+    (batch, m_pad, n_b) f32 → (batch, m_pad, n_b) f32, with ``m_pad`` a
+    multiple of 8 (the plan's, as in the reference)."""
+    return _hybrid(row_ids, col_ids, values, nnz, b, plan, bf16=False)
+
+
+def batched_spmm_hybrid_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
+                             values: torch.Tensor, nnz: torch.Tensor,
+                             b: torch.Tensor, *,
+                             plan: HybridPlan) -> torch.Tensor:
+    """ids (batch, nnz_pad) int32, values bf16, nnz (batch,) int32, b
+    (batch, m_pad, n_b) bf16 → bf16; the plan sized for a bf16 B panel."""
+    return _hybrid(row_ids, col_ids, values, nnz, b, plan, bf16=True)
+
+
 def hybrid_launch(rank, start_s, rlen_sparse, cid, val, slab, b, *,
                   plan: HybridPlan) -> torch.Tensor:
     """Launch the hybrid kernel on prepared operands (those of
-    :func:`hybrid_operands`, all on the current CUDA device)."""
+    :func:`hybrid_operands`, all on the current CUDA device): the f32 entry
+    for f32 values, slab and B with int32 column ids, the bf16 entry for
+    bf16 ones with int16 column ids."""
     batch, m_pad, n_b = b.shape
     nnz_pad = cid.shape[1]
+    bf16 = val.dtype == torch.bfloat16
+    dt = torch.bfloat16 if bf16 else torch.float32
     for name, t in (("rank", rank), ("start_s", start_s),
                     ("rlen_sparse", rlen_sparse)):
         check_operand(name, t, (batch, m_pad), torch.int32)
-    check_operand("cid", cid, (batch, nnz_pad), torch.int32)
-    check_operand("val", val, (batch, nnz_pad), torch.float32)
-    check_operand("b", b, (batch, m_pad, n_b), torch.float32)
+    check_operand("cid", cid, (batch, nnz_pad),
+                  torch.int16 if bf16 else torch.int32)
+    check_operand("val", val, (batch, nnz_pad), dt)
+    check_operand("b", b, (batch, m_pad, n_b), dt)
     if (slab is None) != (plan.d_pad == 0):
         raise ValueError(f"slab must be given exactly when d_pad > 0 ({plan})")
     if slab is not None:
-        check_operand("slab", slab, (batch, plan.d_pad, m_pad), torch.float32)
+        check_operand("slab", slab, (batch, plan.d_pad, m_pad), dt)
     check_plan(plan.spmm, batch=batch, m_pad=m_pad, n_b=n_b)
     if on_cpu(rank, start_s, rlen_sparse, cid, val, slab, b):
         raise ValueError("hybrid_launch takes CUDA tensors")
     out = torch.empty_like(b)
     if out.numel() == 0:
         return out
-    fn = _build.entry("batched_spmm_hybrid", "batched_spmm_hybrid_f32",
-                      _ARGTYPES)
+    entry = "batched_spmm_hybrid_bf16" if bf16 else "batched_spmm_hybrid_f32"
+    fn = _build.entry("batched_spmm_hybrid", entry, _ARGTYPES)
     code = fn(rank.data_ptr(), start_s.data_ptr(), rlen_sparse.data_ptr(),
               cid.data_ptr(), val.data_ptr(),
               None if slab is None else slab.data_ptr(), b.data_ptr(),
               out.data_ptr(), batch, m_pad, nnz_pad, n_b, plan.spmm.n_block,
               plan.d_pad, stream_handle())
     _build.check("batched_spmm_hybrid", code)
-    batched_spmm_hybrid.launches += 1
+    counted = batched_spmm_hybrid_bf16 if bf16 else batched_spmm_hybrid
+    counted.launches += 1
     return out
 
 
 batched_spmm_hybrid.launches = 0
+batched_spmm_hybrid_bf16.launches = 0
 
 
 def batched_spmm_hybrid_ref(a: BatchedCOO, b: torch.Tensor, m_pad: int, *,

@@ -16,6 +16,13 @@ all channels reaches the hub threshold leave the scatter for per-channel
 dense slabs, the accumulator is kept in degree-sorted row order and the
 epilogue restores the original order. The backward runs on the original
 arrays, unchanged.
+
+``impl="fused_bf16"`` (:func:`fused_forward_bf16`) is the reference
+kernel's bf16 branch: int16 ids, bf16 values, X, W, bias and Y. The
+transform ``U = X·W + b`` is computed in f32 from the widened operands and
+never rounded; only Y is stored as bf16. Its backward takes dU through the
+bf16 COO kernel (``bwd_impl_for``) and returns each gradient in its
+operand's bf16 dtype, as the reference's does.
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ from repro_torch.kernels.batched_spmm_hybrid import hub_slab
 from repro_torch.kernels.ops import _forward, bwd_impl_for, dvalues
 
 EPILOGUES = ("none", "relu")
-FUSED_IMPLS = ("fused", "fused_hybrid")
+FUSED_IMPLS = ("fused", "fused_hybrid", "fused_bf16")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P,) * 9 + (_I,) * 9 + (_P,)
@@ -67,6 +74,27 @@ def fused_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
     m_pad) f32, set together by :func:`fused_hybrid_forward`, switch on the
     hybrid branch (the row ids are then degree-sorted positions); its
     launches count in ``fused_hybrid_forward.launches``."""
+    return _fused(row_ids, col_ids, values, chunks, x, w, bias, residual,
+                  rank, slab, plan, epilogue, bf16=False)
+
+
+def fused_forward_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
+                       values: torch.Tensor, chunks: torch.Tensor,
+                       x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       residual: torch.Tensor | None = None, *,
+                       plan: BatchPlan | None = None,
+                       epilogue: str = "none") -> torch.Tensor:
+    """The bf16 entry: ids (batch, channels, nnz_pad) int16, values, x, w,
+    bias and residual bf16 → Y (batch, m_pad, n_out) bf16, rounded once
+    from the f32 accumulator; the plan sized for a bf16 X tile."""
+    return _fused(row_ids, col_ids, values, chunks, x, w, bias, residual,
+                  None, None, plan, epilogue, bf16=True)
+
+
+def _fused(row_ids, col_ids, values, chunks, x, w, bias, residual, rank,
+           slab, plan, epilogue, *, bf16: bool) -> torch.Tensor:
+    """Checks, then the plain version on CPU tensors or the f32, hybrid or
+    bf16 entry of the kernel, each counted in its own wrapper."""
     if (rank is None) != (slab is None):
         raise ValueError("rank and slab are set together")
     if epilogue not in EPILOGUES:
@@ -77,16 +105,17 @@ def fused_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
     m_pad, n_in = x.shape[1], x.shape[2]
     n_out = w.shape[-1]
     ids = (batch, channels, nnz_pad)
-    check_operand("row_ids", row_ids, ids, torch.int32)
-    check_operand("col_ids", col_ids, ids, torch.int32)
-    check_operand("values", values, ids, torch.float32)
+    id_t = torch.int16 if bf16 else torch.int32
+    dt = torch.bfloat16 if bf16 else torch.float32
+    check_operand("row_ids", row_ids, ids, id_t)
+    check_operand("col_ids", col_ids, ids, id_t)
+    check_operand("values", values, ids, dt)
     check_operand("chunks", chunks, (batch, channels), torch.int32)
-    check_operand("x", x, (batch, m_pad, n_in), torch.float32)
-    check_operand("w", w, (channels, n_in, n_out), torch.float32)
-    check_operand("bias", bias, (channels, n_out), torch.float32)
+    check_operand("x", x, (batch, m_pad, n_in), dt)
+    check_operand("w", w, (channels, n_in, n_out), dt)
+    check_operand("bias", bias, (channels, n_out), dt)
     if residual is not None:
-        check_operand("residual", residual, (batch, m_pad, n_out),
-                      torch.float32)
+        check_operand("residual", residual, (batch, m_pad, n_out), dt)
     if slab is not None:
         d_pad = slab.shape[2] if slab.dim() == 4 else -1
         if not 1 <= d_pad <= m_pad:
@@ -97,7 +126,8 @@ def fused_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
         check_operand("slab", slab, (batch, channels, d_pad, m_pad),
                       torch.float32)
     plan = plan or plan_fused_graph_conv(batch=batch, m_pad=m_pad, n_in=n_in,
-                                         n_out=n_out)
+                                         n_out=n_out,
+                                         itemsize=x.element_size())
     check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_out)
     if on_cpu(row_ids, col_ids, values, chunks, x, w, bias, residual, rank,
               slab):
@@ -113,10 +143,10 @@ def fused_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
     dims = (batch, channels, nnz_pad, CHUNK, m_pad, n_in, n_out, plan.n_block)
     relu = int(epilogue == "relu")
     if slab is None:
-        fn = _build.entry("fused_graph_conv", "fused_graph_conv_f32",
-                          _ARGTYPES)
+        entry = "fused_graph_conv_bf16" if bf16 else "fused_graph_conv_f32"
+        fn = _build.entry("fused_graph_conv", entry, _ARGTYPES)
         code = fn(*head, out.data_ptr(), *dims, relu, stream_handle())
-        counted = fused_forward
+        counted = fused_forward_bf16 if bf16 else fused_forward
     else:
         fn = _build.entry("fused_graph_conv", "fused_graph_conv_hybrid_f32",
                           _HYBRID_ARGTYPES)
@@ -129,6 +159,7 @@ def fused_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
 
 
 fused_forward.launches = 0
+fused_forward_bf16.launches = 0
 
 
 def runtime_chunks(nnz: torch.Tensor) -> torch.Tensor:
@@ -268,7 +299,11 @@ class _FusedGraphConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, values, x, w, bias, residual, rids, cids, nnz, plan,
                 hplan, epilogue, impl):
-        if hplan is None:
+        if impl == "fused_bf16":
+            y = fused_forward_bf16(rids, cids, values, runtime_chunks(nnz), x,
+                                   w, bias, residual, plan=plan,
+                                   epilogue=epilogue)
+        elif hplan is None:
             y = fused_forward(rids, cids, values, runtime_chunks(nnz), x, w,
                               bias, residual, plan=plan, epilogue=epilogue)
         else:
@@ -298,15 +333,19 @@ def fused_graph_conv(row_ids: torch.Tensor, col_ids: torch.Tensor,
                      impl: str = "fused") -> torch.Tensor:
     """``Y = epilogue(Σ_ch A_ch·(X·W_ch + b_ch) [+ residual])`` in one device
     op, ``nnz`` (batch, channels) being each channel's true non-zero count.
-    ``impl`` is ``"fused"`` or ``"fused_hybrid"`` (hub rows judged on the
-    layer's whole edge budget, ``channels · nnz_pad`` slots). Differentiable
-    in ``values``, ``x``, ``w``, ``bias`` and ``residual``; on CUDA tensors
-    the backward's dU runs the COO kernel."""
+    ``impl`` is ``"fused"``, ``"fused_hybrid"`` (hub rows judged on the
+    layer's whole edge budget, ``channels · nnz_pad`` slots) or
+    ``"fused_bf16"`` (int16 ids and bf16 operands, as
+    :func:`repro_torch.core.graph_conv.graph_conv_batched` casts them).
+    Differentiable in ``values``, ``x``, ``w``, ``bias`` and ``residual``;
+    on CUDA tensors the backward's dU runs the COO kernel (its bf16 entry
+    for ``fused_bf16``)."""
     if impl not in FUSED_IMPLS:
         raise ValueError(f"impl={impl!r}; expected one of {FUSED_IMPLS}")
     batch, channels, nnz_pad = row_ids.shape
     plan = plan_fused_graph_conv(batch=batch, m_pad=x.shape[1],
-                                 n_in=x.shape[2], n_out=w.shape[-1])
+                                 n_in=x.shape[2], n_out=w.shape[-1],
+                                 itemsize=x.element_size())
     if plan.case == 3:
         raise ValueError(
             f"m_pad={plan.m_pad} is planner case 3: the fused kernel does "

@@ -6,10 +6,15 @@ the reference's names. Every impl is differentiable in ``a.values`` and
 ``b`` through one ``torch.autograd.Function``, the counterpart of the
 reference's custom VJP: dB = Aᵀ·dC is a batched SpMM of the class
 :func:`bwd_impl_for` picks (:func:`backward_db`) and dValues a batched
-gather-dot (:func:`dvalues`), each computed only when asked for. This port
-is f32 and (mul, sum); the reference's names that are not in
-:data:`IMPLS` (the precision variants ``*_bf16``/``*_i8`` and ``auto``)
-raise and are listed in ``ROADMAP.md``.
+gather-dot (:func:`dvalues`), each computed only when asked for.
+
+The reduced-precision variants (``autotune.PRECISION_IMPLS``, DESIGN.md
+§10) are registry entries of their own: each runs its base impl's
+structure under a storage policy (:func:`_forward`). ``bf16`` casts the
+values and B to bfloat16, ``i8`` quantizes the values to int8 codes with a
+per-matrix scale; both narrow the ids to int16 on the kernel paths, sum in
+f32 and return B's dtype. Their backward classes are :data:`_VARIANT_BWD`.
+``impl="auto"`` is not ported and raises (``ROADMAP.md``).
 
 g-SpMM (:func:`batched_gspmm`) generalizes ``C[rid] += val · B[cid]`` into
 message passing ``C[r] = reduce(op(B[c], e))`` with ``op ∈``
@@ -26,22 +31,37 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import batching
+from repro_torch.autotune.cost_model import PRECISION_IMPLS, precision_of
 from repro_torch.core.formats import (
     BatchedCOO,
     coo_to_csr,
     coo_to_dense,
     coo_to_ell,
+    narrow_col_ids,
+    quantize_values_i8,
     row_degrees,
     validate_ell_k_pad,
 )
 from repro_torch.kernels import GSPMM_OPS, GSPMM_REDUCES, ref
 from repro_torch.kernels.batched_gemm import batched_gemm
-from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo, \
-    gspmm_plan
-from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
-from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
+from repro_torch.kernels.batched_spmm_coo import (
+    batched_spmm_coo,
+    batched_spmm_coo_bf16,
+    gspmm_plan,
+)
+from repro_torch.kernels.batched_spmm_csr import (
+    batched_spmm_csr,
+    batched_spmm_csr_bf16,
+    batched_spmm_csr_i8,
+)
+from repro_torch.kernels.batched_spmm_ell import (
+    batched_spmm_ell,
+    batched_spmm_ell_bf16,
+    batched_spmm_ell_i8,
+)
 from repro_torch.kernels.batched_spmm_hybrid import (
     batched_spmm_hybrid,
+    batched_spmm_hybrid_bf16,
     batched_spmm_hybrid_ref,
 )
 
@@ -61,9 +81,11 @@ from repro_torch.kernels.batched_spmm_hybrid import (
 # - loop:          the NON-batched baseline, one SpMM per sample
 # - fused:         the graph-conv LAYER kernel (graph_conv_batched only)
 # - fused_hybrid:  the LAYER kernel with the hybrid split folded in
+# - the PRECISION_IMPLS (ell_bf16, pallas_csr_i8, fused_bf16, ...): the
+#   base impl's structure with bf16 or int8 storage (see _forward)
 IMPLS = ("ref", "ell", "pallas_ell", "csr", "pallas_csr", "pallas_coo",
          "hybrid", "pallas_hybrid", "dense", "pallas_gemm", "loop", "fused",
-         "fused_hybrid")
+         "fused_hybrid") + tuple(PRECISION_IMPLS)
 
 # The impls that implement the whole g-SpMM matrix (op × reduce × edge
 # width), the reference's ``autotune.GSPMM_IMPLS``: the GEMM and hybrid
@@ -73,8 +95,10 @@ GSPMM_IMPLS = ("ref", "loop", "ell", "pallas_ell", "csr", "pallas_csr",
 
 
 def supports_gspmm(impl: str) -> bool:
-    """Whether ``impl`` can run a non-(mul, sum) or vector-edge workload."""
-    return impl in GSPMM_IMPLS
+    """Whether ``impl`` can run a non-(mul, sum) or vector-edge workload:
+    the precision variants are (mul, sum)-only, as in the reference."""
+    base, policy = precision_of(impl)
+    return base in GSPMM_IMPLS and policy == "f32"
 
 
 # impls that run a hand-written kernel on CUDA tensors (the registry keeps
@@ -84,18 +108,40 @@ KERNEL_IMPLS = ("pallas_ell", "pallas_csr", "pallas_coo", "pallas_hybrid",
 
 
 def check_impl(impl: str) -> None:
-    """Raise for ``auto`` and for registry names this port does not carry
-    (the reference's precision variants)."""
+    """Raise for ``auto`` and for names outside the registry."""
     if impl == "auto":
         raise ValueError(
             "impl='auto' is not ported: the autotune, its roofline constants "
             "and tuning cache are TPU-calibrated (ROADMAP.md, queue 1: "
             f"Autotune). Pin one of {IMPLS}")
     if impl not in IMPLS:
-        raise ValueError(
-            f"impl={impl!r} is not in the port's registry {IMPLS} (the "
-            "reduced-precision *_bf16 / *_i8 variants are not ported); "
-            "ROADMAP.md lists what is still to port")
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+
+
+def resolve_compute_dtype(a_dtype: torch.dtype,
+                          b_dtype: torch.dtype) -> torch.dtype:
+    """The GEMM class's mixed-dtype policy (DESIGN.md §10): both operands
+    meet at their promoted dtype, so a full-precision operand is never
+    cast down (bf16 with f32 computes f32)."""
+    return torch.promote_types(a_dtype, b_dtype)
+
+
+# The backward class of each precision variant, checked before the base
+# rules of bwd_impl_for. bf16 forwards keep a bf16 backward (f32 sums in
+# the kernel); the ELL class falls to the COO class as its f32 base does.
+# i8 forwards are straight-through: the residuals are the original f32
+# values, so dB runs the f32 base class's backward.
+_VARIANT_BWD = {
+    "ell_bf16": "ref",
+    "csr_bf16": "csr_bf16",
+    "pallas_ell_bf16": "pallas_coo_bf16",
+    "pallas_csr_bf16": "pallas_csr_bf16",
+    "pallas_coo_bf16": "pallas_coo_bf16",
+    "pallas_ell_i8": "pallas_coo",
+    "pallas_csr_i8": "pallas_csr",
+    "fused_bf16": "pallas_coo_bf16",
+    "pallas_hybrid_bf16": "pallas_csr_bf16",
+}
 
 
 def bwd_impl_for(impl: str) -> str:
@@ -107,7 +153,10 @@ def bwd_impl_for(impl: str) -> str:
     is the CSR row split): its inverse permutation sits inside the forward,
     so cotangents arrive in original row order and Aᵀ is not re-sorted by
     its own degrees. ``pallas_gemm`` and both fused layers (dU = Aᵀ·dZ)
-    take the COO kernel; ``dense`` stays dense."""
+    take the COO kernel; ``dense`` stays dense. A precision variant maps
+    through :data:`_VARIANT_BWD` first."""
+    if impl in _VARIANT_BWD:
+        return _VARIANT_BWD[impl]
     if impl in ("csr", "pallas_csr"):
         return impl
     if impl == "hybrid":
@@ -123,8 +172,9 @@ def _kernel_case3(impl: str, b: torch.Tensor, m_pad: int) -> None:
     """Paper case 3 (too large for the batched shared-memory strategy): the
     reference takes its plain per-sample path; off the CPU a kernel impl
     (pallas_ell, pallas_csr, pallas_coo, pallas_hybrid, pallas_gemm) must
-    run its kernel, and the large-matrix one is not written yet."""
-    if impl in KERNEL_IMPLS and b.device.type != "cpu":
+    run its kernel, and the large-matrix one is not written yet. A
+    precision variant is judged by its base impl, at its element size."""
+    if precision_of(impl)[0] in KERNEL_IMPLS and b.device.type != "cpu":
         raise ValueError(
             f"impl={impl!r}: m_pad={m_pad} is planner case 3 (the block's "
             "shared-memory working set does not fit, not even with one "
@@ -135,59 +185,120 @@ def _kernel_case3(impl: str, b: torch.Tensor, m_pad: int) -> None:
 def _forward(row_ids, col_ids, nnz, values, b, *, impl: str,
              k_pad: int | None) -> torch.Tensor:
     """One batched SpMM forward of ``impl`` on raw COO operands (no
-    autograd): shared by the forward and by :func:`backward_db`."""
+    autograd): shared by the forward and by :func:`backward_db`.
+
+    A precision variant splits into (base impl, policy), the reference's
+    policy split: ``bf16`` casts the values and B to bfloat16 (the result
+    is B's bf16, f32-summed); ``i8`` quantizes the values to int8 codes
+    and a per-matrix scale applied after the f32 sum, B staying f32. Both
+    narrow the ids to int16 on the kernel paths only, after the ELL k_pad
+    guard and the CSR sort, and the result is cast back to B's dtype."""
+    base, policy = precision_of(impl)
+    if policy == "f32":
+        return _forward_base(row_ids, col_ids, nnz, values, b, impl=impl,
+                             base=impl, k_pad=k_pad)
+    out_dtype = b.dtype
+    scale = None
+    if policy == "bf16":
+        values, b = values.to(torch.bfloat16), b.to(torch.bfloat16)
+    else:
+        values, scale = quantize_values_i8(values)
+    out = _forward_base(row_ids, col_ids, nnz, values, b.contiguous(),
+                        impl=impl, base=base, k_pad=k_pad, scale=scale,
+                        policy=policy)
+    return out.to(out_dtype)
+
+
+def _forward_base(row_ids, col_ids, nnz, values, b, *, impl: str, base: str,
+                  k_pad: int | None, scale=None,
+                  policy: str = "f32") -> torch.Tensor:
+    """The forward of ``base`` on operands already in ``policy``'s storage
+    (``scale`` the i8 codes' per-matrix scale): the plain impls run their
+    plain versions, the kernel impls their kernel's entry for the policy.
+    Paper case 3 takes the plain per-sample path on the CPU and raises on
+    the card (:func:`_kernel_case3`)."""
     batch, m_pad, n_b = b.shape
     a = BatchedCOO(row_ids, col_ids, values, nnz,
                    torch.full((batch,), m_pad, dtype=torch.int32,
                               device=b.device))
-    if impl == "ref":
-        return ref.batched_spmm_coo_ref(a, b, m_pad)
-    if impl == "loop":
+
+    def dequant(out):
+        # the i8 policy on a plain path: the kernels' epilogue scale
+        return out if scale is None else out * scale[:, None, None]
+
+    if base == "ref":
+        return dequant(ref.batched_spmm_coo_ref(a, b, m_pad))
+    if base == "loop":
         return torch.stack([
             ref.spmm_coo_single(row_ids[s], col_ids[s], values[s], b[s],
                                 m_pad) for s in range(batch)])
-    if impl in ("dense", "pallas_gemm"):
-        a_dense = coo_to_dense(a, m_pad).to(b.dtype).contiguous()
-        if impl == "dense":
-            return ref.batched_gemm_ref(a_dense, b)
+    if base in ("dense", "pallas_gemm"):
+        a_dense = coo_to_dense(a, m_pad)
+        compute = resolve_compute_dtype(a_dense.dtype, b.dtype)
+        a_dense, bb = a_dense.to(compute).contiguous(), b.to(compute)
+        if base == "dense":
+            return ref.batched_gemm_ref(a_dense, bb)
         gplan = batching.plan_batched_gemm(batch=batch, m=m_pad, n=n_b,
                                            k=m_pad)
         if gplan.case == 3:
             _kernel_case3(impl, b, m_pad)
-            return ref.batched_gemm_plain(a_dense, b)
-        return batched_gemm(a_dense, b, plan=gplan)
-    if impl in ("hybrid", "pallas_hybrid"):
+            return ref.batched_gemm_plain(a_dense, bb)
+        return batched_gemm(a_dense, bb, plan=gplan)
+    itemsize = b.element_size()
+    if base in ("hybrid", "pallas_hybrid"):
         hplan = batching.plan_hybrid(batch=batch, m_pad=m_pad, n_b=n_b,
-                                     nnz_pad=row_ids.shape[1])
-        if impl == "hybrid":
+                                     nnz_pad=row_ids.shape[1],
+                                     itemsize=itemsize)
+        if base == "hybrid":
             return batched_spmm_hybrid_ref(a, b, m_pad, plan=hplan)
         if hplan.spmm.case == 3:
             _kernel_case3(impl, b, m_pad)
             return ref.batched_spmm_coo_ref(a, b, m_pad)
-        return batched_spmm_hybrid(row_ids, col_ids, values, nnz, b,
-                                   plan=hplan)
-    plan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
-    if impl in ("csr", "pallas_csr"):
+        hybrid = (batched_spmm_hybrid_bf16 if policy == "bf16"
+                  else batched_spmm_hybrid)
+        return hybrid(row_ids, col_ids, values, nnz, b, plan=hplan)
+    plan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b,
+                                      itemsize=itemsize)
+    if base in ("csr", "pallas_csr"):
         csr = coo_to_csr(a, m_pad)
-        if impl == "csr" or plan.case == 3:
+        if base == "csr" or plan.case == 3:
             _kernel_case3(impl, b, m_pad)
-            return ref.batched_spmm_csr_ref(csr, b)
-        return batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, b,
-                                plan=plan)
-    ell = impl in ("ell", "pallas_ell")
+            return dequant(ref.batched_spmm_csr_ref(csr, b))
+        if policy == "f32":
+            return batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, b,
+                                    plan=plan)
+        cids = narrow_col_ids(csr.col_ids, m_pad)
+        if policy == "bf16":
+            return batched_spmm_csr_bf16(csr.rpt, cids, csr.values, b,
+                                         plan=plan)
+        return batched_spmm_csr_i8(csr.rpt, cids, csr.values, scale, b,
+                                   plan=plan)
+    ell = base in ("ell", "pallas_ell")
     if ell:
         if k_pad is None:
             raise ValueError(f"{impl} requires k_pad (max nnz/row)")
         validate_ell_k_pad(a, m_pad, k_pad)
+    if base == "pallas_coo":
+        # the COO kernel's shared panel is its f32 accumulator
+        plan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
     if plan.case == 3:
         _kernel_case3(impl, b, m_pad)
-        return ref.batched_spmm_coo_ref(a, b, m_pad)
+        return dequant(ref.batched_spmm_coo_ref(a, b, m_pad))
     if ell:
         e = coo_to_ell(a, m_pad, k_pad)
-        if impl == "ell":
-            return ref.batched_spmm_ell_ref(e, b)
-        return batched_spmm_ell(e.col_ids, e.values, b, plan=plan)
-    return batched_spmm_coo(row_ids, col_ids, values, b, plan=plan)
+        if base == "ell":
+            return dequant(ref.batched_spmm_ell_ref(e, b))
+        if policy == "f32":
+            return batched_spmm_ell(e.col_ids, e.values, b, plan=plan)
+        cids = narrow_col_ids(e.col_ids, m_pad)
+        if policy == "bf16":
+            return batched_spmm_ell_bf16(cids, e.values, b, plan=plan)
+        return batched_spmm_ell_i8(cids, e.values, scale, b, plan=plan)
+    if policy == "f32":
+        return batched_spmm_coo(row_ids, col_ids, values, b, plan=plan)
+    return batched_spmm_coo_bf16(narrow_col_ids(row_ids, m_pad),
+                                 narrow_col_ids(col_ids, m_pad), values, b,
+                                 plan=plan)
 
 
 def backward_db(row_ids, col_ids, nnz, values, dc, *,
@@ -247,7 +358,7 @@ def batched_spmm(a: BatchedCOO, b: torch.Tensor, *, impl: str,
     values; b: (batch, m_pad, n_b). Differentiable in ``a.values`` and
     ``b``; on CUDA tensors a kernel impl's backward runs kernels too."""
     check_impl(impl)
-    if impl.startswith("fused"):
+    if precision_of(impl)[0].startswith("fused"):
         raise ValueError(
             f"impl={impl!r} is the graph-conv LAYER kernel (it needs W and "
             "bias, not a bare dense operand) — call "

@@ -8,7 +8,10 @@ Out-of-range ids contribute nothing. The reference gets that from JAX's
 scatter, which drops an update to row ``m_pad``; ``index_add_`` would raise
 instead, and the kernels' own padding uses exactly that row-id sentinel, so
 the scatters here route every masked slot to a dump row that is cut off.
-Sums accumulate in f32.
+Sums accumulate in f32, whatever the operands' types: bf16 values and B are
+widened, their products summed in f32 and the result rounded to B's type
+once at the end, as the kernels do; int8 value codes take their per-matrix
+``scale`` on the f32 sum, before that rounding.
 """
 from __future__ import annotations
 
@@ -47,7 +50,12 @@ def _gather_rows(b: torch.Tensor, cid: torch.Tensor) -> torch.Tensor:
                                                             b.shape[-1]))
 
 
-def _coo_product(row_ids, col_ids, values, slots, b, m_out):
+def _dequant(acc: torch.Tensor, scale) -> torch.Tensor:
+    """The i8 policy's epilogue: the f32 sum times its matrix's scale."""
+    return acc if scale is None else acc * scale[:, None, None]
+
+
+def _coo_product(row_ids, col_ids, values, slots, b, m_out, scale=None):
     """The batched COO product ``C[s, rid] += val · B[s, cid]`` over the
     first ``slots[s]`` slots of each sample (all slots when None)."""
     m_in = b.shape[1]
@@ -56,7 +64,8 @@ def _coo_product(row_ids, col_ids, values, slots, b, m_out):
         slot = torch.arange(row_ids.shape[1], device=row_ids.device)
         keep &= slot[None, :] < slots[:, None]
     msg = values.float()[..., None] * _gather_rows(b, col_ids)
-    return _scatter_rows(msg, row_ids, keep, m_out).to(b.dtype)
+    return _dequant(_scatter_rows(msg, row_ids, keep, m_out),
+                    scale).to(b.dtype)
 
 
 def spmm_coo_single(row_ids, col_ids, values, b, m_out: int) -> torch.Tensor:
@@ -84,13 +93,15 @@ def batched_spmm_ell_ref(a: BatchedELL, b: torch.Tensor) -> torch.Tensor:
     return batched_spmm_ell_plain(a.col_ids, a.values, b)
 
 
-def batched_spmm_ell_plain(col_ids, values, b):
-    """Plain version of the ELL kernel, on its raw operands."""
+def batched_spmm_ell_plain(col_ids, values, b, scale=None):
+    """Plain version of the ELL kernel, on its raw operands; ``scale``
+    (batch,) f32 when ``values`` are int8 codes."""
     batch, m_pad, k_pad = col_ids.shape
     rows = _gather_rows(b, col_ids.reshape(batch, m_pad * k_pad))
     rows = rows.view(batch, m_pad, k_pad, -1)
     w = torch.where(_in_range(col_ids, b.shape[1]), values.float(), 0.0)
-    return torch.einsum("bmk,bmkn->bmn", w, rows).to(b.dtype)
+    return _dequant(torch.einsum("bmk,bmkn->bmn", w, rows),
+                    scale).to(b.dtype)
 
 
 def batched_spmm_csr_ref(a: BatchedCSR, b: torch.Tensor) -> torch.Tensor:
@@ -99,10 +110,12 @@ def batched_spmm_csr_ref(a: BatchedCSR, b: torch.Tensor) -> torch.Tensor:
     return batched_spmm_csr_plain(a.rpt, a.col_ids, a.values, b)
 
 
-def batched_spmm_csr_plain(rpt, col_ids, values, b):
-    """Plain version of the CSR kernel, on its raw operands."""
+def batched_spmm_csr_plain(rpt, col_ids, values, b, scale=None):
+    """Plain version of the CSR kernel, on its raw operands; ``scale``
+    (batch,) f32 when ``values`` are int8 codes."""
     rows = csr_slot_rows(rpt, col_ids.shape[1])
-    return _coo_product(rows, col_ids, values, rpt[:, -1], b, b.shape[1])
+    return _coo_product(rows, col_ids, values, rpt[:, -1], b, b.shape[1],
+                        scale)
 
 
 # ---------------------------------------------------------------------------
@@ -297,8 +310,9 @@ def batched_spmm_hybrid_plain(rank, start_s, rlen_sparse, cid, val, slab, b):
                            .contiguous(), right=True) - 1
     q = torch.gather(owner, 1, j.clamp(min=0))
     keep = (j >= 0) & (slot[None] < torch.gather(start_s + rlen_sparse, 1, q))
-    acc = _coo_product(torch.where(keep, q, m_pad), cid, val, None, b, m_pad)
-    acc = acc.float()
+    # f32 until the one rounding to B's type at the end
+    acc = _coo_product(torch.where(keep, q, m_pad), cid, val, None,
+                       b.float(), m_pad)
     if slab is not None:
         d_pad = slab.shape[1]
         acc[:, :d_pad] += torch.einsum("bdm,bmn->bdn", slab.float(),

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.autotune.cost_model import precision_of
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import BatchedCOO, coo_from_lists
 from repro_torch.core.gcn import GCNConfig, apply_gcn, check_config
@@ -198,7 +199,13 @@ class GraphServeEngine:
     the current CUDA device unless the caller asks for another."""
 
     def __init__(self, params, cfg: GCNConfig, *, batch: int = 32,
-                 m_pad: int = 56, nnz_pad: int = 256, device=None):
+                 m_pad: int = 56, nnz_pad: int = 256,
+                 precision: str | None = None, device=None):
+        if precision is not None:
+            # serving's storage-policy override, as in the reference: the
+            # engine's waves take it without touching the shared config
+            # (it steers impl="auto"; a pinned variant carries its own)
+            cfg = dataclasses.replace(cfg, precision=precision)
         check_config(cfg)
         check_impl(cfg.impl)
         self.cfg = cfg
@@ -208,8 +215,9 @@ class GraphServeEngine:
         # only an ELL-class impl silently drops > k_pad nnz per row; as in
         # the reference, every channel is checked, also under layer="gat",
         # whose layers read channel 0 only
-        self._ell_degree_guard = (cfg.k_pad is not None
-                                  and cfg.impl in ("ell", "pallas_ell"))
+        self._ell_degree_guard = (
+            cfg.k_pad is not None
+            and precision_of(cfg.impl)[0] in ("ell", "pallas_ell"))
 
     def layer_decision(self):
         raise NotImplementedError(

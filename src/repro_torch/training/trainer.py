@@ -24,6 +24,7 @@ from typing import Callable, Iterator
 import torch
 
 from repro_torch import resolve_device, tree
+from repro_torch.autotune.cost_model import precision_of
 from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.core.formats import validate_ell_k_pad
 from repro_torch.core.gcn import GCNConfig, check_config, gcn_loss, init_gcn
@@ -65,8 +66,9 @@ class GCNTrainer:
         self.device = resolve_device(device)
         self.manager = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep)
         # only an ELL-class impl silently drops > k_pad nnz per row
-        self._ell_degree_guard = (cfg.k_pad is not None
-                                  and cfg.impl in ("ell", "pallas_ell"))
+        self._ell_degree_guard = (
+            cfg.k_pad is not None
+            and precision_of(cfg.impl)[0] in ("ell", "pallas_ell"))
 
     def layer_decision(self, batch=None):
         raise NotImplementedError(

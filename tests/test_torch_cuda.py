@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.core.batching import plan_hybrid
 from repro_torch.core.formats import coo_from_lists, coo_to_csr, \
-    coo_to_dense, coo_to_ell, csr_transpose, max_row_degree, random_batch, \
-    random_powerlaw_batch
+    coo_to_dense, coo_to_ell, csr_transpose, max_row_degree, \
+    narrow_col_ids, quantize_values_i8, random_batch, random_powerlaw_batch
 from repro_torch.core.gcn import GCNConfig, init_gcn
 from repro_torch.core.graph_conv import stack_channels
 from repro_torch.data.graphs import GraphDatasetSpec, generate
@@ -34,6 +34,10 @@ from repro_torch.serving.engine import GraphRequest, GraphServeEngine
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1e-4, rtol=1e-5)
+# a bf16 entry against its plain version: both round the same f32 sum to
+# bf16 once, so they differ by at most one bf16 ulp (2^-7 of the value)
+# where the two f32 sums straddle a rounding boundary, plus f32 noise
+BF16_TOL = dict(atol=1e-4, rtol=8e-3)
 REGIMES = ("uniform", "skewed", "zero_nnz")
 HYBRID_REGIMES = REGIMES + ("powerlaw",)
 
@@ -619,3 +623,134 @@ def test_reduced_lm_on_the_card_matches_the_cpu(dev):
             reqs["dev"])
         assert all(r.done and len(r.out) == 5 for r in reqs["dev"])
         assert [r.out for r in reqs["dev"]] == [r.out for r in reqs["cpu"]]
+
+
+@pytest.mark.parametrize("name", HYBRID_REGIMES)
+def test_precision_kernels_match_plain(dev, name):
+    """The seven reduced-precision entries against their plain versions:
+    bf16 within one bf16 ulp, i8 at the f32 tolerance (shared codes); the
+    CSR and hybrid entries also give identical bits twice."""
+    from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo_bf16
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr_bf16, \
+        batched_spmm_csr_i8
+    from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell_bf16, \
+        batched_spmm_ell_i8
+    from repro_torch.kernels.batched_spmm_hybrid import \
+        batched_spmm_hybrid_bf16
+    from repro_torch.kernels.fused_graph_conv import fused_forward_bf16
+
+    coo, m_pad = _regime(name)
+    coo = coo.to(dev)
+    k_pad = max(1, int(max_row_degree(coo, m_pad).max()))
+    b = torch.randn((coo.batch, m_pad, 48), device=dev)
+    bh = b.to(torch.bfloat16)
+    h = coo.with_values(coo.values.to(torch.bfloat16))
+    codes, scale = quantize_values_i8(coo.values)
+    q = coo.with_values(codes)
+
+    def same(got, want, tol):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    e, eq = coo_to_ell(h, m_pad, k_pad), coo_to_ell(q, m_pad, k_pad)
+    c, cq = coo_to_csr(h, m_pad), coo_to_csr(q, m_pad)
+    ce, ceq = (narrow_col_ids(t.col_ids, m_pad) for t in (e, eq))
+    cc, ccq = (narrow_col_ids(t.col_ids, m_pad) for t in (c, cq))
+    same(batched_spmm_ell_bf16(ce, e.values, bh),
+         ref.batched_spmm_ell_plain(ce, e.values, bh), BF16_TOL)
+    same(batched_spmm_ell_i8(ceq, eq.values, scale, b),
+         ref.batched_spmm_ell_plain(ceq, eq.values, b, scale), TOL)
+    for kern, plain, tol in (
+            (lambda: batched_spmm_csr_bf16(c.rpt, cc, c.values, bh),
+             lambda: ref.batched_spmm_csr_plain(c.rpt, cc, c.values, bh),
+             BF16_TOL),
+            (lambda: batched_spmm_csr_i8(cq.rpt, ccq, cq.values, scale, b),
+             lambda: ref.batched_spmm_csr_plain(cq.rpt, ccq, cq.values, b,
+                                                scale), TOL)):
+        got = kern()
+        same(got, plain(), tol)
+        assert torch.equal(got, kern())
+    rid16, cid16 = (narrow_col_ids(t, m_pad) for t in (h.row_ids, h.col_ids))
+    same(batched_spmm_coo_bf16(rid16, cid16, h.values, bh),
+         ref.batched_spmm_coo_plain(rid16, cid16, h.values, bh), BF16_TOL)
+    m8 = -(-m_pad // 8) * 8
+    if m8 == m_pad:
+        hp = plan_hybrid(batch=coo.batch, m_pad=m_pad, n_b=48,
+                         nnz_pad=coo.nnz_pad, itemsize=2)
+        ops_ = hybrid_operands(h.row_ids, h.col_ids, h.values, h.nnz, m_pad,
+                               hp)
+        h_args = ops_[:3] + (narrow_col_ids(ops_[3], m_pad),) + ops_[4:]
+        got = hybrid_launch(*h_args, bh, plan=hp)
+        same(got, ref.batched_spmm_hybrid_plain(*h_args, bh), BF16_TOL)
+        assert torch.equal(got, hybrid_launch(*h_args, bh, plan=hp))
+        same(batched_spmm_hybrid_bf16(h.row_ids, h.col_ids, h.values, h.nnz,
+                                      bh, plan=hp), got, dict(atol=0, rtol=0))
+    perm = torch.randperm(coo.nnz_pad, device=dev)
+    adj = [h, h.__class__(h.row_ids[:, perm], h.col_ids[:, perm],
+                          h.values[:, perm], h.nnz, h.n_rows)]
+    rid, cid, val, nnz = stack_channels(adj)
+    rid, cid = narrow_col_ids(rid, m_pad), narrow_col_ids(cid, m_pad)
+    chunks = runtime_chunks(nnz)
+    # 512 wide only where the bf16 X tile fits a block (not at m_pad 256)
+    for n_in, n_out in ((12, 40), (512, 300))[:2 if m_pad <= 56 else 1]:
+        x = torch.randn((coo.batch, m_pad, n_in), device=dev).bfloat16()
+        w = (torch.randn((2, n_in, n_out), device=dev)
+             / n_in ** 0.5).bfloat16()
+        bias = torch.randn((2, n_out), device=dev).bfloat16()
+        res = torch.randn((coo.batch, m_pad, n_out), device=dev).bfloat16()
+        for epi, r in (("none", None), ("relu", res)):
+            same(fused_forward_bf16(rid, cid, val, chunks, x, w, bias, r,
+                                    epilogue=epi),
+                 ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w,
+                                            bias, r, epi), BF16_TOL)
+
+
+@pytest.mark.parametrize("name", HYBRID_REGIMES)
+@pytest.mark.parametrize("impl", ("pallas_ell_bf16", "pallas_csr_bf16",
+                                  "pallas_coo_bf16", "pallas_ell_i8",
+                                  "pallas_csr_i8", "pallas_hybrid_bf16"))
+def test_precision_impls_forward_and_backward_match_the_cpu(dev, name, impl):
+    """Each kernel variant's output and both gradients on the card against
+    the same variant on the CPU (its plain versions): the bf16 output
+    within one bf16 ulp and its gradients at tests/oracle.py's bf16
+    tolerance (a one-ulp output step moves tanh's cotangent by up to one
+    ulp of the output, and dB is rounded to bf16 again); i8 at the f32
+    tolerance and its gradients at 3x it (the gradient rule)."""
+    from repro_torch.kernels import ops
+
+    coo, m_pad = _regime(name)
+    if impl == "pallas_hybrid_bf16" and m_pad % 8:
+        pytest.skip("the hybrid split takes m_pad a multiple of 8")
+    k_pad = max(1, int(max_row_degree(coo, m_pad).max()))
+    b0 = torch.randn((coo.batch, m_pad, 48))
+    out = {}
+    for where in ("cpu", dev):
+        v = coo.values.to(where, copy=True).requires_grad_()
+        b = b0.to(where, copy=True).requires_grad_()
+        c = ops.batched_spmm(coo.to(where).with_values(v), b, impl=impl,
+                             k_pad=k_pad)
+        torch.tanh(c).sum().backward()
+        out[str(where)] = [t.cpu() for t in (c.detach(), v.grad, b.grad)]
+    bf16 = impl.endswith("bf16")
+    tols = ((BF16_TOL, dict(atol=8e-2, rtol=2e-2)) if bf16
+            else (TOL, dict(atol=3e-4, rtol=3e-5)))
+    for i, (got, want) in enumerate(zip(out[str(dev)], out["cpu"])):
+        torch.testing.assert_close(got, want, **tols[min(i, 1)])
+
+
+def test_precision_case3_raises_on_the_card(dev):
+    """Case 3 judged at the variant's element size: m_pad 3000 fits a bf16
+    B panel (planner case 1) but not an f32 one, so pallas_csr_bf16 runs
+    its kernel there while pallas_csr_i8 (f32 B) raises."""
+    from repro_torch.kernels import ops
+
+    m_pad = 3000
+    rows = np.array([0, 2999, 7], np.int32)
+    coo = coo_from_lists([(rows, rows[::-1].copy(),
+                           np.ones(3, np.float32))], [m_pad]).to(dev)
+    b = torch.randn((1, m_pad, 32), device=dev)
+    got = ops.batched_spmm(coo, b, impl="pallas_csr_bf16")
+    torch.testing.assert_close(got, ops.batched_spmm(
+        coo.to("cpu"), b.cpu(), impl="pallas_csr_bf16").to(dev), **BF16_TOL)
+    for impl in ("pallas_csr_i8", "pallas_ell_i8", "pallas_coo_bf16"):
+        with pytest.raises(ValueError, match="case 3"):
+            ops.batched_spmm(coo, b, impl=impl, k_pad=1)

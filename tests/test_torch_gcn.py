@@ -162,15 +162,25 @@ def test_unported_config_and_device_paths_raise(monkeypatch):
     cfg, np_params, _, bt = _setup("tox21")
     params = params_from_jax(np_params, _port_cfg(cfg), device="cpu")
     for kw, err in (({"impl": "auto"}, ValueError),
-                    ({"impl": "fused_bf16"}, ValueError),
                     ({"layer": "gat", "batched": False}, ValueError),
                     ({"layer": "rgcn", "batched": False}, ValueError),
                     ({"layer": "sage"}, ValueError),
-                    ({"precision": "bf16"}, NotImplementedError),
+                    ({"precision": "fp8"}, ValueError),
                     ({"bn_mode": "global"}, ValueError)):
         with pytest.raises(err):
             tgcn.apply_gcn(params, _port_cfg(cfg, **kw), bt["adj"], bt["x"],
                            bt["n_nodes"])
+    # the precision variants and policies are ported: a pinned variant runs
+    # (within TOLS["bf16"] of ref) and precision, which steers only "auto",
+    # leaves a pinned impl's logits unchanged
+    for kw in ({"impl": "fused_bf16"}, {"precision": "bf16"},
+               {"impl": "pallas_csr_i8", "precision": "i8"}):
+        got = tgcn.apply_gcn(params, _port_cfg(cfg, **kw), bt["adj"],
+                             bt["x"], bt["n_nodes"])
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), _port_logits(
+            "tox21", cfg.bn_mode, cfg.impl), atol=8e-2, rtol=2e-2,
+            err_msg=str(kw))
     # a grad-requiring input takes finite gradients that match impl="ref"
     dx = {}
     for impl in ("fused", "ref"):

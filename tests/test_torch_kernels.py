@@ -240,11 +240,18 @@ def test_dispatch_raises_for_unported_paths():
     bt = torch.from_numpy(b)
     with pytest.raises(ValueError, match="Autotune"):
         ops.batched_spmm(coo, bt, impl="auto")
-    for impl in ("pallas_hybrid_bf16", "pallas_ell_bf16", "fused_bf16"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            ops.batched_spmm(coo, bt, impl=impl, k_pad=k_pad)
-    with pytest.raises(ValueError, match="graph_conv_batched"):
-        ops.batched_spmm(coo, bt, impl="fused")
+    # the precision variants are ported: the SpMM ones run (in B's dtype,
+    # within TOLS["bf16"] of ref), the layer ones only as layers
+    for impl in ("pallas_hybrid_bf16", "pallas_ell_bf16"):
+        got = ops.batched_spmm(coo, bt, impl=impl, k_pad=k_pad)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), _jax_spmm("uniform", "ref"),
+                                   atol=TOLS["bf16"][0], rtol=TOLS["bf16"][1])
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.batched_spmm(coo, bt, impl="pallas_gemm_bf16")
+    for impl in ("fused", "fused_bf16"):
+        with pytest.raises(ValueError, match="graph_conv_batched"):
+            ops.batched_spmm(coo, bt, impl=impl)
     with pytest.raises(ValueError, match="k_pad"):
         ops.batched_spmm(coo, bt, impl="pallas_ell")
     with pytest.raises(ValueError, match="max row degree"):

@@ -141,9 +141,16 @@ def test_engine_contract_raises(monkeypatch):
     with pytest.raises(TypeError, match="mesh"):
         _port_engine("fused", mesh=object())
     eng = _port_engine("fused")
-    with pytest.raises(NotImplementedError, match="precision"):
-        GraphServeEngine(eng.params, dataclasses.replace(
-            eng.cfg, precision="bf16"), **GEOM, device="cpu")
+    # a storage policy is accepted, in the config or as the engine's
+    # override; an unknown one raises
+    for kw, cfg in (({}, dataclasses.replace(eng.cfg, precision="bf16")),
+                    ({"precision": "i8"}, eng.cfg)):
+        e2 = GraphServeEngine(eng.params, cfg, **GEOM, device="cpu", **kw)
+        assert e2.cfg.precision in ("bf16", "i8")
+    assert eng.cfg.precision == "f32"
+    with pytest.raises(ValueError, match="precision"):
+        GraphServeEngine(eng.params, eng.cfg, **GEOM, precision="fp8",
+                         device="cpu")
     with pytest.raises(NotImplementedError):
         eng.layer_decision()
     with pytest.raises(NotImplementedError):
