@@ -29,7 +29,15 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ELL and CSR) at the Tox21 serving shape (and Reaction100 layer 2 for
    the fused one), each timed beside its f32 entry on the same inputs,
    and on the three regimes: bf16 within one bf16 ulp, i8 within the f32
-   tolerance, CSR and hybrid identical bits twice;
+   tolerance, CSR and hybrid identical bits twice; then the nine
+   large-matrix entries (planner case 3: ELL, CSR f32 / bf16 / i8, COO f32
+   / bf16, the K-tiled GEMM) at m_pad 2048 (8 matrices) and 9000 (2), n_b
+   64, timed beside their bytes bound, plain versions and ``torch.bmm``
+   (ELL, CSR, GEMM identical bits twice); then the case-3 path:
+   ``ops.batched_spmm`` forward and first-step gradients with every kernel
+   impl and precision variant, and g-SpMM (copy_lhs, mean), at m_pad
+   9000 on the card with the plain per-sample paths trapped, against the
+   same impls on the CPU;
 4. powerlaw model: ChemGCN at Tox21 widths on four channels of 40
    degree-skewed 256-row graphs, ``apply_gcn`` and first-step gradients
    of ``gcn_loss`` with ``impl`` = pallas_hybrid and fused_hybrid against
@@ -68,8 +76,9 @@ Before phases 4-10, the LM zoo's serving path runs (and frees its model):
 
 - the flash-attention kernel against its plain version at the Llama-3-8B
   prefill shape (bf16 within one bf16 ulp, timed beside its bound and SDPA;
-  f32 within 2e-5) and on the five corners of ``tests/test_kernels.py`` in
-  f32 and bf16, identical bits twice;
+  f32 within 2e-5), on the five corners of ``tests/test_kernels.py`` and at
+  head widths 48, 72, 80, 112, 160 and 256 in f32 and bf16, identical bits
+  twice; the HGMMA (wgmma) instructions in its bf16 entry's SASS;
 - Llama-3-8B at full width (bf16, seed-0 random weights on the card):
   ``lm.prefill`` of 2 x 4096 tokens with ``attention_impl`` = pallas (32
   kernel launches a call), xla_packed and xla_chunked (at the default
@@ -81,8 +90,10 @@ Before phases 4-10, the LM zoo's serving path runs (and frees its model):
   device and host, and one-request waves' first tokens against prefill's
   argmax where the top-2 margin exceeds the prompt's noise floor.
 
-The line before the last is the ``{"kernels": [...]}`` record (16
-kernels); the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is the ``{"kernels": [...]}`` record (25
+kernels: the nine large-matrix entries report their m_pad 9000 row and
+the case-3 path's launches); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -106,6 +117,10 @@ POLICY_TOLS = {"f32": F32_TOL, "bf16": (8e-2, 2e-2), "i8": (0.25, 2e-2)}
 # bf16 once, so they differ by at most one bf16 ulp (2^-7 of the value)
 # where the two f32 sums straddle a rounding boundary, plus f32 noise
 BF16_KERNEL_TOL = (1e-4, 8e-3)
+# head widths the flash phase checks in both entries beside the main shape's
+# 128: zamba2's 112, StableLM's 160, the widest (256) and widths that are
+# padded (48, 72, 80 in the f32 entry; 72 in both)
+FLASH_WIDTHS = (48, 72, 80, 112, 160, 256)
 # flash attention against its plain version: the reference test's
 # tolerances (tests/test_kernels.py), as (atol, rtol), on its five corners
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
@@ -169,6 +184,19 @@ TPU_SITE = {
     "batched_spmm_hybrid_bf16":
         "src/repro/kernels/batched_spmm_hybrid.py:223",
 }
+# the large-matrix entries (planner case 3): branches of the kernels that
+# replace these pallas_calls, where the reference takes its plain
+# per-sample path (src/repro/kernels/ops.py _forward_base, _csr_forward)
+LARGE = {"batched_spmm_ell_large": "batched_spmm_ell",
+         "batched_spmm_ell_large_bf16": "batched_spmm_ell_bf16",
+         "batched_spmm_ell_large_i8": "batched_spmm_ell_i8",
+         "batched_spmm_csr_large": "batched_spmm_csr",
+         "batched_spmm_csr_large_bf16": "batched_spmm_csr_bf16",
+         "batched_spmm_csr_large_i8": "batched_spmm_csr_i8",
+         "batched_spmm_coo_large": "batched_spmm_coo",
+         "batched_spmm_coo_large_bf16": "batched_spmm_coo_bf16",
+         "batched_gemm_large": "batched_gemm"}
+TPU_SITE.update({k: TPU_SITE[v] for k, v in LARGE.items()})
 SOURCE = {"batched_spmm_ell": "batched_spmm_ell",
           "batched_spmm_coo": "batched_spmm_coo",
           "batched_spmm_csr": "batched_spmm_csr",
@@ -185,6 +213,7 @@ SOURCE = {"batched_spmm_ell": "batched_spmm_ell",
           "batched_spmm_coo_bf16": "batched_spmm_coo",
           "fused_forward_bf16": "fused_graph_conv",
           "batched_spmm_hybrid_bf16": "batched_spmm_hybrid"}
+SOURCE.update({k: SOURCE[v] for k, v in LARGE.items()})
 # the row of each kernel that its {"kernels": ...} entry reports: the shape
 # its first main path gives it (serving for ELL, COO, fused, hybrid, GEMM,
 # fused hybrid and the grouped matmul, training for CSR, the Llama-3-8B
@@ -205,7 +234,16 @@ ENTRY_ROW = {"batched_spmm_ell": "batched_spmm_ell",
                  "batched_spmm_ell_bf16", "batched_spmm_ell_i8",
                  "batched_spmm_csr_bf16", "batched_spmm_csr_i8",
                  "batched_spmm_coo_bf16", "fused_forward_bf16",
-                 "batched_spmm_hybrid_bf16")}}
+                 "batched_spmm_hybrid_bf16")},
+             **{k: f"{k}[m_pad 9000]" for k in LARGE}}
+# planner case 3: (tag, m_pad, batch) of the large-matrix kernel checks; the
+# case-3 path runs the second, past LARGE_M, where every variant is case 3
+LARGE_SHAPES = (("m_pad 2048", 2048, 8), ("m_pad 9000", 9000, 2))
+# the kernel impls and precision variants the case-3 path drives
+CASE3_IMPLS = ("pallas_ell", "pallas_csr", "pallas_coo", "pallas_hybrid",
+               "pallas_gemm", "pallas_ell_bf16", "pallas_csr_bf16",
+               "pallas_coo_bf16", "pallas_hybrid_bf16", "pallas_ell_i8",
+               "pallas_csr_i8")
 GSPMM_CORNERS = [(op, red) for op in ("mul", "add", "copy_lhs")
                  for red in ("sum", "max", "mean")]
 
@@ -243,13 +281,20 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+_CAPTURE_STREAM = []
+
+
 def graph_ms(fn, iters: int = 30, replays: int = 5) -> float:
     """Mean device time of ``fn`` in ms: ``iters`` calls captured in one
     CUDA graph and replayed ``replays`` times between CUDA events, so that
-    the host's cost of issuing each call drops out (inputs L2-warm)."""
+    the host's cost of issuing each call drops out (inputs L2-warm). Every
+    capture runs on one side stream: PyTorch keeps a cuBLAS workspace for
+    each stream that runs a cuBLAS call, and never frees it."""
     import torch
 
-    side = torch.cuda.Stream()
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    side = _CAPTURE_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -433,6 +478,44 @@ def _measure(rows, key, kernel, kern, plain, nbytes, flops, shape,
         shape=shape)
 
 
+def _fork_times(tag, a, b, m_pad, k_pad):
+    """The two branches of the ELL and GEMM kernels at a shape the batched
+    (staged) entries take: the batched and the large-matrix entry on the
+    same inputs (f32 and, for ELL, bf16) must give the same bits, and both
+    are timed by graph replay, in the order batched, large, large, batched,
+    and each time is printed on a [fork] line. (The CSR kernel has one
+    branch: it reads B through the L2 at every plan.)"""
+    import torch
+    from repro_torch.core.formats import coo_to_dense, coo_to_ell, \
+        narrow_col_ids
+    from repro_torch.kernels.batched_gemm import batched_gemm, \
+        batched_gemm_large
+    from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell, \
+        batched_spmm_ell_bf16, batched_spmm_ell_large, \
+        batched_spmm_ell_large_bf16
+
+    bf = torch.bfloat16
+    ell = coo_to_ell(a, m_pad, k_pad)
+    e16, eh, bh = narrow_col_ids(ell.col_ids, m_pad), ell.values.to(bf), \
+        b.to(bf)
+    dense = coo_to_dense(a, m_pad).contiguous()
+    pairs = [
+        ("batched_spmm_ell",
+         lambda f: f(ell.col_ids, ell.values, b),
+         batched_spmm_ell, batched_spmm_ell_large),
+        ("batched_spmm_ell_bf16", lambda f: f(e16, eh, bh),
+         batched_spmm_ell_bf16, batched_spmm_ell_large_bf16),
+        ("batched_gemm", lambda f: f(dense, b), batched_gemm,
+         batched_gemm_large)]
+    for name, call, batched, large in pairs:
+        kb, kl = (lambda: call(batched)), (lambda: call(large))
+        check(torch.equal(kb(), kl()),
+              f"fork[{tag}] {name}: the two branches differ")
+        t = [graph_ms(f) for f in (kb, kl, kl, kb)]
+        log(f"[fork] {tag} {name}: batched {t[0]} / {t[3]} ms, large "
+            f"{t[1]} / {t[2]} ms (identical bits)")
+
+
 def phase_kernels(device):
     """Each kernel against its plain version; times at the main-path shapes.
     Returns (rows, the largest error of each kernel over every check)."""
@@ -528,6 +611,16 @@ def phase_kernels(device):
            < rw.n_nodes[:, None, None])
     conv2 = r_params["convs"][1]
     fused_case("reaction100", rw.adj, x2, conv2["w"], conv2["b"], rw.n_nodes)
+
+    # both branches of ELL and GEMM at Tox21 serving and at
+    # Reaction100 layer 2's stacked SpMM (n_b 512)
+    _fork_times("tox21", a_flat, u, m_pad, cfg.k_pad)
+    r_flat = flatten_channels(rw.adj)
+    u2 = (torch.einsum("bmn,cnf->cbmf", x2, conv2["w"])
+          + conv2["b"][:, None, None, :]).reshape(-1, m_pad, 512)
+    _fork_times("reaction100 layer 2", r_flat, u2.contiguous(), m_pad,
+                r_cfg.k_pad)
+    del u2
 
     # -- the training path: the first Tox21 batch of phase 6, layer 1 ------
     tb = _on(_train_batches(GraphDatasetSpec.tox21_like(
@@ -1307,7 +1400,228 @@ def phase_precision_kernels(device, rows, errs):
                 f"{r['f32_ms']:.4f} ms, the variant {r['ms']:.4f} ms")
 
 
+def _large_coo(m_pad: int, batch: int, seed: int):
+    """``batch`` random matrices of ``m_pad`` rows for planner case 3, on
+    the CPU: each row 0-11 N(0, 1) edges (so some rows are empty) at
+    uniform columns, and row 7 of every matrix 64 more."""
+    import numpy as np
+    from repro_torch.core.formats import coo_from_lists
+
+    rng = np.random.default_rng(seed)
+    lists = []
+    for _ in range(batch):
+        deg = rng.integers(0, 12, m_pad)
+        deg[7] += 64
+        r = np.repeat(np.arange(m_pad, dtype=np.int32), deg)
+        lists.append((r, rng.integers(0, m_pad, r.size).astype(np.int32),
+                      rng.normal(size=r.size).astype(np.float32)))
+    return coo_from_lists(lists, [m_pad] * batch)
+
+
+def phase_large_kernels(device, rows, errs):
+    """The large-matrix entries (planner case 3) against their plain
+    versions at LARGE_SHAPES (n_b 64, ``_large_coo`` matrices), timed beside
+    their bytes bound, the plain versions and ``torch.bmm`` on the densified
+    adjacency: ELL, CSR and GEMM also for identical bits twice; COO (global
+    atomics) within F32_TOL, or one bf16 ulp for bf16. Adds to ``rows`` and
+    ``errs``."""
+    import torch
+    from repro_torch.core.batching import plan_batched_gemm, \
+        plan_batched_spmm
+    from repro_torch.core.formats import coo_to_csr, coo_to_dense, \
+        coo_to_ell, max_row_degree, narrow_col_ids, quantize_values_i8
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batched_gemm import batched_gemm_large
+    from repro_torch.kernels.batched_spmm_coo import \
+        batched_spmm_coo_large, batched_spmm_coo_large_bf16
+    from repro_torch.kernels.batched_spmm_csr import \
+        batched_spmm_csr_large, batched_spmm_csr_large_bf16, \
+        batched_spmm_csr_large_i8
+    from repro_torch.kernels.batched_spmm_ell import \
+        batched_spmm_ell_large, batched_spmm_ell_large_bf16, \
+        batched_spmm_ell_large_i8
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    bf = torch.bfloat16
+    before = set(rows)
+    n_b = 64
+    for tag, m_pad, batch in LARGE_SHAPES:
+        coo = _large_coo(m_pad, batch, seed=m_pad).to(device)
+        check(plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b).case == 3
+              and plan_batched_gemm(batch=batch, m=m_pad, n=n_b,
+                                    k=m_pad).case == 3,
+              f"{tag}: not planner case 3")
+        b = torch.randn((batch, m_pad, n_b), generator=gen).to(device)
+        bh = b.to(bf)
+        nnz = int(coo.nnz.sum().item())
+        k_pad = int(max_row_degree(coo, m_pad).max().item())
+        codes, scale = quantize_values_i8(coo.values)
+        q = coo.with_values(codes)
+        e, eq = coo_to_ell(coo, m_pad, k_pad), coo_to_ell(q, m_pad, k_pad)
+        c, cq = coo_to_csr(coo, m_pad), coo_to_csr(q, m_pad)
+        e16, eq16, c16, cq16 = (narrow_col_ids(t, m_pad) for t in (
+            e.col_ids, eq.col_ids, c.col_ids, cq.col_ids))
+        r16, k16 = (narrow_col_ids(t, m_pad) for t in (coo.row_ids,
+                                                        coo.col_ids))
+        eh, ch, vh = e.values.to(bf), c.values.to(bf), coo.values.to(bf)
+        dense = coo_to_dense(coo, m_pad).contiguous()
+        dense_h = dense.to(bf)
+        dense_q = coo_to_dense(q.with_values(codes.float()), m_pad) \
+            * scale[:, None, None]
+        io = 2 * b.numel() * 4               # B read once, C written once
+        rpt = c.rpt.numel() * 4
+        flops = 2 * nnz * n_b
+        shape = (f"{batch} matrices x {m_pad} rows, {nnz} real nnz (k_pad "
+                 f"{k_pad}), n_b 64")
+        # (name, kernel, plain, bytes, library, bitwise, bf16)
+        checks = [
+            ("batched_spmm_ell_large",
+             lambda: batched_spmm_ell_large(e.col_ids, e.values, b),
+             lambda: ref.batched_spmm_ell_plain(e.col_ids, e.values, b),
+             io + nnz * 8, lambda: torch.bmm(dense, b), True, False),
+            ("batched_spmm_ell_large_bf16",
+             lambda: batched_spmm_ell_large_bf16(e16, eh, bh),
+             lambda: ref.batched_spmm_ell_plain(e16, eh, bh),
+             io // 2 + nnz * 4, lambda: torch.bmm(dense_h, bh), True, True),
+            ("batched_spmm_ell_large_i8",
+             lambda: batched_spmm_ell_large_i8(eq16, eq.values, scale, b),
+             lambda: ref.batched_spmm_ell_plain(eq16, eq.values, b, scale),
+             io + nnz * 3 + batch * 4, lambda: torch.bmm(dense_q, b), True,
+             False),
+            ("batched_spmm_csr_large",
+             lambda: batched_spmm_csr_large(c.rpt, c.col_ids, c.values, b),
+             lambda: ref.batched_spmm_csr_plain(c.rpt, c.col_ids, c.values,
+                                                b),
+             rpt + io + nnz * 8, lambda: torch.bmm(dense, b), True, False),
+            ("batched_spmm_csr_large_bf16",
+             lambda: batched_spmm_csr_large_bf16(c.rpt, c16, ch, bh),
+             lambda: ref.batched_spmm_csr_plain(c.rpt, c16, ch, bh),
+             rpt + io // 2 + nnz * 4, lambda: torch.bmm(dense_h, bh), True,
+             True),
+            ("batched_spmm_csr_large_i8",
+             lambda: batched_spmm_csr_large_i8(cq.rpt, cq16, cq.values,
+                                               scale, b),
+             lambda: ref.batched_spmm_csr_plain(cq.rpt, cq16, cq.values, b,
+                                                scale),
+             rpt + io + nnz * 3 + batch * 4, lambda: torch.bmm(dense_q, b),
+             True, False),
+            ("batched_spmm_coo_large",
+             lambda: batched_spmm_coo_large(coo.row_ids, coo.col_ids,
+                                            coo.values, b),
+             lambda: ref.batched_spmm_coo_plain(coo.row_ids, coo.col_ids,
+                                                coo.values, b),
+             io + nnz * 12, lambda: torch.bmm(dense, b), False, False),
+            ("batched_spmm_coo_large_bf16",
+             lambda: batched_spmm_coo_large_bf16(r16, k16, vh, bh),
+             lambda: ref.batched_spmm_coo_plain(r16, k16, vh, bh),
+             io // 2 + nnz * 6, lambda: torch.bmm(dense_h, bh), False, True),
+            ("batched_gemm_large", lambda: batched_gemm_large(dense, b),
+             lambda: ref.batched_gemm_plain(dense, b),
+             dense.numel() * 4 + io, lambda: torch.bmm(dense, b), True,
+             False)]
+        for name, kern, plain, nbytes, library, bitwise, bf16 in checks:
+            gemm = name == "batched_gemm_large"
+            _measure(rows, f"{name}[{tag}]", name, kern, plain, nbytes,
+                     2 * dense.numel() * n_b if gemm else flops,
+                     f"{shape}{', dense A' if gemm else ''}", library,
+                     bitwise=bitwise,
+                     tol=BF16_KERNEL_TOL if bf16 else F32_TOL,
+                     flop_rate=BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S,
+                     library_tol=POLICY_TOLS["bf16"] if bf16 else F32_TOL,
+                     iters=10, replays=3)
+            errs[name] = max(errs.get(name, 0.0),
+                             rows[f"{name}[{tag}]"]["max_abs_err"])
+        del dense, dense_h, dense_q
+        torch.cuda.empty_cache()
+    log("[kernels] the nine large-matrix entries (planner case 3: ELL, CSR "
+        "f32 / bf16 / i8, COO f32 / bf16, the K-tiled GEMM) at m_pad 2048 "
+        "(8 matrices) and 9000 (2) match their plain versions: ELL, CSR and "
+        f"GEMM identical bits twice, within {F32_TOL} (f32, i8) or "
+        f"{BF16_KERNEL_TOL} (bf16); COO within the same")
+    _log_rows(r for k, r in rows.items() if k not in before)
+
+
+def phase_large_path(device):
+    """The case-3 path: ``ops.batched_spmm`` forward and first-step
+    gradients (of sum(tanh(C))) with every kernel impl and precision
+    variant (CASE3_IMPLS), and ``ops.batched_gspmm`` (copy_lhs, mean) with
+    pallas_coo, pallas_csr and pallas_ell, at m_pad 9000 (2 matrices, n_b
+    64), where every one is planner case 3. On the card the reference's
+    plain per-sample paths (``ref.batched_spmm_coo_ref``, ``_csr_ref``,
+    ``batched_gspmm_ref``, ``batched_gemm_plain``) are replaced by a trap;
+    results against the same impl on the CPU, which takes them: f32 and i8
+    within F32_TOL (gradients GRAD_TOL), bf16 within one bf16 ulp
+    (gradients POLICY_TOLS["bf16"]).
+    Returns the launches of each kernel wrapper on the card."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    tag, m_pad, batch = LARGE_SHAPES[-1]
+    coo = _large_coo(m_pad, batch, seed=21)
+    k_pad = 76                      # row 7's 64 + at most 11 more, and 1
+    b0 = torch.randn((batch, m_pad, 64),
+                     generator=torch.Generator().manual_seed(21))
+
+    def run(impl, where):
+        v = coo.values.to(where, copy=True).requires_grad_()
+        b = b0.to(where, copy=True).requires_grad_()
+        c = ops.batched_spmm(coo.to(where).with_values(v), b, impl=impl,
+                             k_pad=k_pad)
+        torch.tanh(c).sum().backward()
+        return [t.detach().float().cpu() for t in (c, v.grad, b.grad)]
+
+    def run_g(impl, where):
+        return ops.batched_gspmm(coo.to(where), b0.to(where), op="copy_lhs",
+                                 reduce="mean", impl=impl,
+                                 k_pad=k_pad).float().cpu()
+
+    def trap(*a, **k):
+        raise SmokeFailure("case 3 on the card reached a plain path")
+
+    plain = ("batched_spmm_coo_ref", "batched_spmm_csr_ref",
+             "batched_gspmm_ref", "batched_gemm_plain")
+    saved = {n: getattr(ref, n) for n in plain}
+    wrappers = _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for n in plain:
+            setattr(ref, n, trap)
+        got = {impl: run(impl, device) for impl in CASE3_IMPLS}
+        got_g = {impl: run_g(impl, device) for impl in (
+            "pallas_coo", "pallas_csr", "pallas_ell")}
+    finally:
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    batched = [k for k in counts if k not in LARGE and counts[k]]
+    check(not batched, f"case-3 path launched batched entries {batched}")
+    worst = {}
+    for impl, outs in got.items():
+        bf16 = impl.endswith("bf16")
+        want = run(impl, "cpu")
+        for i, (g, w) in enumerate(zip(outs, want)):
+            tol = ((BF16_KERNEL_TOL, POLICY_TOLS["bf16"]) if bf16
+                   else (F32_TOL, GRAD_TOL))[min(i, 1)]
+            worst[impl] = max(worst.get(impl, 0.0), max_err(
+                g, w, f"case-3 path {impl} output/grad {i}", tol))
+    for impl, out in got_g.items():
+        worst[f"{impl} (copy_lhs, mean)"] = max_err(
+            out, run_g(impl, "cpu"), f"case-3 path {impl} g-SpMM", F32_TOL)
+    log(f"[case 3] {batch} matrices x {m_pad} rows, n_b 64: forward and "
+        f"first-step gradients of {len(CASE3_IMPLS)} impls and 3 g-SpMM "
+        f"(copy_lhs, mean) calls on the card in {wall:.2f} s, no plain "
+        f"path reached, against the CPU: max abs err {worst}")
+    log(f"[case 3] launches {counts}")
+    return {"case-3 path": counts}
+
+
 def _reset_counters():
+    from repro_torch.kernels import batched_gemm as gemm_mod, \
+        batched_spmm_coo as coo_mod, batched_spmm_csr as csr_mod, \
+        batched_spmm_ell as ell_mod
     from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo, \
         batched_spmm_coo_bf16
     from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr, \
@@ -1338,6 +1652,10 @@ def _reset_counters():
                 "batched_spmm_coo_bf16": batched_spmm_coo_bf16,
                 "fused_forward_bf16": fused_forward_bf16,
                 "batched_spmm_hybrid_bf16": batched_spmm_hybrid_bf16}
+    for name in LARGE:
+        mod = next(m for m in (ell_mod, csr_mod, coo_mod, gemm_mod)
+                   if hasattr(m, name))
+        wrappers[name] = getattr(mod, name)
     for fn in wrappers.values():
         fn.launches = 0
     return wrappers
@@ -1861,8 +2179,9 @@ def _attended_pairs(tq: int, tk: int, causal: bool, window: int) -> int:
 def phase_flash_kernels(device, rows, errs):
     """The flash-attention kernel against its plain version: at the
     Llama-3-8B prefill shape (bf16, timed, with its bound and SDPA beside
-    it) and on the reference test's five corners in f32 and bf16, identical
-    bits twice everywhere. Adds to ``rows`` and ``errs``."""
+    it), on the reference test's five corners and at FLASH_WIDTHS in f32
+    and bf16, identical bits twice everywhere; then the HGMMA count of the
+    bf16 entry's SASS. Adds to ``rows`` and ``errs``."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import KV_TILE, flash_attention
@@ -1885,6 +2204,9 @@ def phase_flash_kernels(device, rows, errs):
                   (f"window 48 {dtype}", 1, 128, 4, 4, 32, True, 48, dtype),
                   (f"bidirectional {dtype}", 2, 64, 4, 2, 32, False, 0,
                    dtype)]
+        # every head width of FLASH_WIDTHS, causal GQA at a ragged length
+        cases += [(f"hd {w} {dtype}", 1, 300, 8, 2, w, True, 0, dtype)
+                  for w in FLASH_WIDTHS]
     err = main_f32 = 0.0
     for tag, b, t, h, kv, hd, causal, window, dtype in cases:
         dt = getattr(torch, dtype)
@@ -1930,13 +2252,36 @@ def phase_flash_kernels(device, rows, errs):
     errs["flash_attention"] = err
     log("[kernels] flash_attention on the five corners of "
         "tests/test_kernels.py (MHA causal, GQA, MQA with T 96, window 48, "
-        f"bidirectional) in f32 (tolerance {FLASH_TOL['float32']}) and bf16 "
+        f"bidirectional) and at head widths {FLASH_WIDTHS} (T 300, GQA 8 / "
+        f"2) in f32 (tolerance {FLASH_TOL['float32']}) and bf16 "
         f"({FLASH_TOL['bfloat16']}) and at the Llama-3-8B prefill shape in "
         f"bf16 ({FLASH_MAIN_TOL['bfloat16']}) and f32 (max abs err "
         f"{main_f32:.3e}, tolerance {FLASH_MAIN_TOL['float32']}) matches its "
         "plain version, identical bits twice")
     _log_rows([rows["flash_attention[llama3-8b prefill]"]])
     torch.cuda.empty_cache()
+    hgmma = _sass_count("flash_attention", "flash_wgmma_kernel", "HGMMA")
+    check(all(n > 0 for n in hgmma.values()) and len(hgmma) == 4,
+          f"flash_attention: HGMMA per bf16 kernel {hgmma}")
+    log(f"[kernels] flash_attention bf16 entry: HGMMA (wgmma) instructions "
+        f"in the SASS of each head-width instance (cuobjdump -sass): "
+        f"{hgmma}")
+
+
+def _sass_count(lib: str, kernel: str, opcode: str) -> dict:
+    """``opcode`` instructions in the SASS of each function of the built
+    library ``lib`` whose name holds ``kernel`` (``_build.sass_count``);
+    keyed by the function's first integer template argument."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    try:
+        counts = _build.sass_count(lib, kernel, opcode)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from e
+    return {re.search(r"ILi(\d+)E", fn.split(kernel, 1)[1]).group(1): n
+            for fn, n in counts.items()}
 
 
 def _lm_prompts(cfg):
@@ -2198,6 +2543,8 @@ def main() -> int:
     phase_gnn_kernels(device, rows, errs)
     phase_flash_kernels(device, rows, errs)
     phase_precision_kernels(device, rows, errs)
+    phase_large_kernels(device, rows, errs)
+    large_path = phase_large_path(device)
     lm_paths = phase_lm(device)
     p_launches = phase_powerlaw(device)
 
@@ -2249,6 +2596,7 @@ def main() -> int:
     paths.update(phase_gnn_paths(device))
     paths.update(phase_precision_paths(device))
     paths.update(lm_paths)
+    paths.update(large_path)
     kernels = []
     for kname, key in ENTRY_ROW.items():
         per_path = {p: c.get(kname, 0) for p, c in paths.items()}

@@ -77,10 +77,12 @@ def plan_batched_spmm(*, batch: int, m_pad: int, n_b: int,
                       fixed_bytes: int = 0, itemsize: int = 4) -> BatchPlan:
     """Column panels for the ELL, COO, CSR and hybrid kernels. A block holds
     one ``(m_pad, n_block)`` panel of ``itemsize``-byte elements in shared
-    memory: the staged B panel of the ELL, CSR and hybrid kernels (2 bytes
-    for a bf16 B), plus ``fixed_bytes`` beside it (the hybrid kernel's row
+    memory: the staged B panel of the ELL and hybrid kernels (2 bytes for a
+    bf16 B), plus ``fixed_bytes`` beside it (the hybrid kernel's row
     permutation). The COO kernel's panel is its atomic accumulator, which
     stays f32 whatever B's type, so the COO kernel is planned at 4 bytes.
+    The CSR kernel stages nothing and takes any plan; it is planned as the
+    ELL kernel is, so that case 3 names the same matrices for both.
     Unlike the reference's VMEM plan, the index stream (k_pad or nnz_pad
     slots) is read from global memory and takes no shared memory."""
     n_block = (None if m_pad > LARGE_M

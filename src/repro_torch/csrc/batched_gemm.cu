@@ -21,6 +21,20 @@
 // element is one broadcast load for the warp. K runs in order, so the sum
 // has one fixed order and the result is bitwise repeatable. The ragged
 // panel edge and the rows past m are masked.
+//
+// Large-matrix entry (batched_gemm_large_f32), where the whole A tile and a
+// 32-column B panel do not fit a block (core/batching.plan_batched_gemm's
+// case 3, from m = k ~ 226): K-tiled. A block owns a 64-row x n_block
+// (<= 128) tile of C, kept in registers as above (8 rows x 4 columns a
+// thread), over a grid of (batch, row tiles, column panels); K runs in
+// slabs of 32: the A slab (64 x 32) and the B slab (32 x n_block) pass
+// through shared memory (24 KB). K still runs in order in one fmaf chain
+// per output, so the result is the same sum as the batched entry's, and
+// bitwise repeatable. The reference's plan has no case 3 and its kernel
+// runs at every size (src/repro/core/batching.py plan_batched_gemm). The
+// batched entry stays for the shapes it takes: on one H100 (700 W) the
+// K-tiled entry took as long at Tox21 serving and 8% longer at Reaction100
+// layer 2 (chip_smoke.py's [fork] lines, PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -104,5 +118,88 @@ extern "C" int batched_gemm_f32(const float* a, const float* b, float* c,
   const dim3 grid(batch, (n + n_block - 1) / n_block);
   gemm_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       a, b, c, m, k, n, n_block);
+  return cudaGetLastError();
+}
+
+namespace {
+
+constexpr int kTileM = kRowGroups * kRows;   // rows of C per block (64)
+constexpr int kSlab = 32;                    // K per shared-memory slab
+
+__global__ void __launch_bounds__(kThreads)
+gemm_large_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ c, int m, int k, int n, int n_block) {
+  __shared__ float as[kTileM][kSlab];        // A slab, rows x K
+  __shared__ float bs[kSlab][kLanes * kCols];   // B slab, K x panel
+  const int s = blockIdx.x;
+  const int r0 = blockIdx.y * kTileM;
+  const int col0 = blockIdx.z * n_block;
+  const int nbw = min(n_block, n - col0);
+  const int tid = threadIdx.x, tx = tid % kLanes, ty = tid / kLanes;
+  const float* asrc = a + (static_cast<size_t>(s) * m + r0) * k;
+  const float* bsrc = b + static_cast<size_t>(s) * k * n + col0;
+
+  float acc[kRows][kCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) acc[i][q] = 0.f;
+  for (int k0 = 0; k0 < k; k0 += kSlab) {
+    const int kn = min(kSlab, k - k0);
+    for (int i = tid; i < kTileM * kSlab; i += kThreads) {
+      const int r = i / kSlab, kk = i - r * kSlab;
+      as[r][kk] = r0 + r < m && kk < kn
+                      ? asrc[static_cast<size_t>(r) * k + k0 + kk]
+                      : 0.f;
+    }
+    for (int i = tid; i < kSlab * nbw; i += kThreads) {
+      const int kk = i / nbw, cc = i - kk * nbw;
+      bs[kk][cc] =
+          kk < kn ? bsrc[static_cast<size_t>(k0 + kk) * n + cc] : 0.f;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kn; ++kk) {
+      float bv[kCols];
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        const int cc = tx + kLanes * q;
+        bv[q] = cc < nbw ? bs[kk][cc] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float av = as[ty + kRowGroups * i][kk];
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) acc[i][q] = fmaf(av, bv[q], acc[i][q]);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* cdst = c + static_cast<size_t>(s) * m * n + col0;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = r0 + ty + kRowGroups * i;
+    if (r >= m) continue;
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) {
+      const int cc = tx + kLanes * q;
+      if (cc < nbw) cdst[static_cast<size_t>(r) * n + cc] = acc[i][q];
+    }
+  }
+}
+
+}  // namespace
+
+// n_block is capped at 128; m and k are unbounded (grid.y = ceil(m / 64)
+// up to 65535 row tiles)
+extern "C" int batched_gemm_large_f32(const float* a, const float* b,
+                                      float* c, int batch, int m, int k,
+                                      int n, int n_block, void* stream) {
+  const int panel = min(n_block, kLanes * kCols);
+  if (panel < 1 || m < 1 || k < 1 || (m + kTileM - 1) / kTileM > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid(batch, (m + kTileM - 1) / kTileM, (n + panel - 1) / panel);
+  gemm_large_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, c, m, k, n, panel);
   return cudaGetLastError();
 }

@@ -47,6 +47,21 @@
 // slot, the row id clipped into [0, m_pad) as the reference's wrapper
 // does); the write-out divides by max(deg, 1) for mean and writes 0.0 into
 // rows of degree 0 for max (the accumulator starts at the finite -3e38).
+//
+// Large-matrix entries (batched_spmm_coo_large_{f32,bf16},
+// batched_gspmm_coo_large_f32), for paper case 3, where the reference takes
+// its plain per-sample path (src/repro/kernels/ops.py _forward_base) and
+// the (m_pad x n_block) f32 panel does not fit a block's shared memory:
+// the output accumulates in global memory instead, in an f32 buffer the
+// wrapper zeroes (torch.zeros; -3e38 for max), with global atomicAdd (sum,
+// mean) or the compare-and-swap float max, over a grid of (batch, slot
+// blocks, column panels of at most 128 columns). The degrees of the g-SpMM
+// entry count into a zeroed global (batch, m_pad) int32 buffer, once per
+// slot (panel 0 only). A second pass then finishes each element as the
+// batched kernel's write-out does: the mean / empty-max fix-up, and the
+// one rounding to bf16 for the bf16 entry (whose ids may also be int32,
+// ids32, past int16's range). Like the batched entries, the sums are not
+// bitwise repeatable.
 #include "common.cuh"
 
 namespace {
@@ -163,6 +178,146 @@ extern "C" int batched_gspmm_coo_f32(const int* rid, const int* cid,
 
 namespace {
 
+// The large-matrix branch. Slots per sub-warp and block: a block takes
+// the slots [y chunk, (y + 1) chunk) of its matrix, chunk = 256 / sub * 8,
+// and strides by the grid past 65535 blocks.
+constexpr int kSlotsPerGroup = 8;
+
+template <typename V, typename D, typename I>
+__global__ void __launch_bounds__(kThreads)
+coo_large_kernel(const I* __restrict__ rid, const I* __restrict__ cid,
+                 const V* __restrict__ val, const D* __restrict__ b,
+                 float* __restrict__ acc, int nnz_pad, int m_pad, int n_b,
+                 int n_block, int sub) {
+  const int s = blockIdx.x;
+  const int col0 = blockIdx.z * n_block;
+  const int nbw = min(n_block, n_b - col0);
+  const size_t off = static_cast<size_t>(s) * nnz_pad;
+  const size_t mat = static_cast<size_t>(s) * m_pad;
+  const D* bsrc = b + mat * n_b + col0;
+  float* asrc = acc + mat * n_b + col0;
+  const int lane = threadIdx.x % sub, groups = kThreads / sub;
+  const int chunk = groups * kSlotsPerGroup;
+  for (int i0 = blockIdx.y * chunk; i0 < nnz_pad; i0 += gridDim.y * chunk) {
+    const int i1 = min(i0 + chunk, nnz_pad);
+    for (int i = i0 + threadIdx.x / sub; i < i1; i += groups) {
+      const float v = repro::ldf(val + off + i);
+      const int r = repro::ldi(rid + off + i), j = repro::ldi(cid + off + i);
+      if (v == 0.f ||
+          static_cast<unsigned>(r) >= static_cast<unsigned>(m_pad) ||
+          static_cast<unsigned>(j) >= static_cast<unsigned>(m_pad))
+        continue;
+      const D* brow = bsrc + static_cast<size_t>(j) * n_b;
+      float* arow = asrc + static_cast<size_t>(r) * n_b;
+      for (int cc = lane; cc < nbw; cc += sub)
+        atomicAdd(arow + cc, v * repro::ldf(brow + cc));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+coo_gspmm_large_kernel(const int* __restrict__ rid,
+                       const int* __restrict__ cid,
+                       const float* __restrict__ val,
+                       const int* __restrict__ nnz,
+                       const float* __restrict__ b, float* __restrict__ acc,
+                       int* __restrict__ deg, int nnz_pad, int m_pad, int n_b,
+                       int n_block, int sub, int op, int reduce, int vec) {
+  const int s = blockIdx.x;
+  const int col0 = blockIdx.z * n_block;
+  const int nbw = min(n_block, n_b - col0);
+  const int n = min(__ldg(nnz + s), nnz_pad);
+  const size_t off = static_cast<size_t>(s) * nnz_pad;
+  const size_t mat = static_cast<size_t>(s) * m_pad;
+  const float* bsrc = b + mat * n_b + col0;
+  float* asrc = acc + mat * n_b + col0;
+  int* dsrc = deg + mat;
+  const int lane = threadIdx.x % sub, groups = kThreads / sub;
+  const int chunk = groups * kSlotsPerGroup;
+  for (int i0 = blockIdx.y * chunk; i0 < n; i0 += gridDim.y * chunk) {
+    const int i1 = min(i0 + chunk, n);
+    for (int i = i0 + threadIdx.x / sub; i < i1; i += groups) {
+      const int r = __ldg(rid + off + i), j = __ldg(cid + off + i);
+      if (lane == 0 && blockIdx.z == 0)
+        atomicAdd(dsrc + min(max(r, 0), m_pad - 1), 1);
+      if (static_cast<unsigned>(r) >= static_cast<unsigned>(m_pad) ||
+          static_cast<unsigned>(j) >= static_cast<unsigned>(m_pad))
+        continue;
+      const float* brow = bsrc + static_cast<size_t>(j) * n_b;
+      const float* erow =
+          val + (off + i) * (vec ? n_b : 1) + (vec ? col0 : 0);
+      const float es =
+          (op == repro::kOpCopyLhs || vec) ? 0.f : __ldg(erow);
+      float* arow = asrc + static_cast<size_t>(r) * n_b;
+      for (int cc = lane; cc < nbw; cc += sub) {
+        const float e =
+            (vec && op != repro::kOpCopyLhs) ? __ldg(erow + cc) : es;
+        const float m = repro::combine(__ldg(brow + cc), e, op);
+        if (reduce == repro::kMax)
+          repro::atomic_max_f32(arow + cc, m);
+        else
+          atomicAdd(arow + cc, m);
+      }
+    }
+  }
+}
+
+// The write-out of the large branch, one element per thread: out =
+// finish(acc, deg) (deg null: the plain sum), rounded to D once; out may
+// be acc itself.
+template <typename D>
+__global__ void __launch_bounds__(kThreads)
+coo_finish_kernel(const float* acc, const int* __restrict__ deg, D* out,
+                  size_t rows, int n_b, int reduce) {
+  const size_t total = rows * n_b;
+  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x;
+       i < total; i += static_cast<size_t>(gridDim.x) * kThreads) {
+    const float x = acc[i];
+    out[i] = repro::from_f32<D>(
+        deg == nullptr ? x : repro::finish(x, deg[i / n_b], reduce));
+  }
+}
+
+template <typename D>
+cudaError_t finish_launch(const float* acc, const int* deg, D* out,
+                          size_t rows, int n_b, int reduce,
+                          cudaStream_t stream) {
+  const size_t blocks = (rows * n_b + kThreads - 1) / kThreads;
+  coo_finish_kernel<D><<<static_cast<unsigned>(blocks < 65535 ? blocks
+                                                              : 65535),
+                         kThreads, 0, stream>>>(acc, deg, out, rows, n_b,
+                                                reduce);
+  return cudaGetLastError();
+}
+
+// grid of the large scatter: (batch, slot blocks, panels)
+dim3 large_grid(int batch, int slots, int n_b, int panel) {
+  return dim3(batch,
+              repro::large_blocks(slots, kThreads / repro::sub_warp(panel) *
+                                             kSlotsPerGroup),
+              (n_b + panel - 1) / panel);
+}
+
+// acc is the zeroed f32 output for f32, a zeroed f32 buffer beside the
+// bf16 output c otherwise.
+template <typename V, typename D, typename I>
+int large_launch(const void* rid, const void* cid, const void* val,
+                 const void* b, float* acc, void* c, int batch, int nnz_pad,
+                 int m_pad, int n_b, int n_block, void* stream_ptr) {
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  const int panel = min(n_block, repro::kPanelMax);
+  coo_large_kernel<V, D, I>
+      <<<large_grid(batch, nnz_pad, n_b, panel), kThreads, 0, stream>>>(
+          static_cast<const I*>(rid), static_cast<const I*>(cid),
+          static_cast<const V*>(val), static_cast<const D*>(b), acc, nnz_pad,
+          m_pad, n_b, panel, repro::sub_warp(panel));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || static_cast<void*>(acc) == c) return e;
+  return finish_launch(acc, nullptr, static_cast<D*>(c),
+                       static_cast<size_t>(batch) * m_pad, n_b, repro::kSum,
+                       stream);
+}
+
 template <typename V, typename D, typename I>
 int launch(const void* rid, const void* cid, const void* val, const void* b,
            void* c, int batch, int nnz_pad, int m_pad, int n_b, int n_block,
@@ -199,4 +354,49 @@ extern "C" int batched_spmm_coo_bf16(const void* rid, const void* cid,
                                      int n_b, int n_block, void* stream) {
   return launch<__nv_bfloat16, __nv_bfloat16, short>(
       rid, cid, val, b, c, batch, nnz_pad, m_pad, n_b, n_block, stream);
+}
+
+// The large-matrix entries. acc (batch, m_pad, n_b) f32 zeroed by the
+// caller: for f32 it is c itself; for bf16 the kernel rounds it into c.
+extern "C" int batched_spmm_coo_large_f32(const int* rid, const int* cid,
+                                          const float* val, const float* b,
+                                          float* c, int batch, int nnz_pad,
+                                          int m_pad, int n_b, int n_block,
+                                          void* stream) {
+  return large_launch<float, float, int>(rid, cid, val, b, c, c, batch,
+                                         nnz_pad, m_pad, n_b, n_block,
+                                         stream);
+}
+
+extern "C" int batched_spmm_coo_large_bf16(const void* rid, const void* cid,
+                                           const void* val, const void* b,
+                                           float* acc, void* c, int batch,
+                                           int nnz_pad, int m_pad, int n_b,
+                                           int n_block, int ids32,
+                                           void* stream) {
+  using B = __nv_bfloat16;
+  return ids32 ? large_launch<B, B, int>(rid, cid, val, b, acc, c, batch,
+                                         nnz_pad, m_pad, n_b, n_block,
+                                         stream)
+               : large_launch<B, B, short>(rid, cid, val, b, acc, c, batch,
+                                           nnz_pad, m_pad, n_b, n_block,
+                                           stream);
+}
+
+// c (batch, m_pad, n_b) f32 filled by the caller with 0.0 (-3e38 for max),
+// deg (batch, m_pad) int32 zeroed by the caller; c is finished in place.
+extern "C" int batched_gspmm_coo_large_f32(
+    const int* rid, const int* cid, const float* val, const int* nnz,
+    const float* b, float* c, int* deg, int batch, int nnz_pad, int m_pad,
+    int n_b, int n_block, int op, int reduce, int vec, void* stream_ptr) {
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  const int panel = min(n_block, repro::kPanelMax);
+  coo_gspmm_large_kernel<<<large_grid(batch, nnz_pad, n_b, panel), kThreads,
+                           0, stream>>>(
+      rid, cid, val, nnz, b, c, deg, nnz_pad, m_pad, n_b, panel,
+      repro::sub_warp(panel), op, reduce, vec);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return finish_launch(c, deg, c, static_cast<size_t>(batch) * m_pad, n_b,
+                       reduce, stream);
 }

@@ -12,16 +12,23 @@
 // pointers, each real slot's id and value, B read once and C written once
 // (nnz_pad in place of nnz for a batch whose slots are all real).
 //
-// Design: the paper's SWA-CSR. One block per (matrix x column panel), grid
-// (batch, p). The block first stages its B panel (m_pad x n_block f32) in
-// shared memory with coalesced loads, as the ELL kernel does, because each
-// B row is gathered once per incoming edge. A sub-warp of next_pow2(n_block)
-// <= 32 lanes then owns one output row at a time and walks that row's own
-// slots rpt[r]..rpt[r+1]: the trip count is per row, where the TPU kernel's
-// was the per-matrix maximum. The lanes stride the panel's columns, the sum
-// stays in a register and is stored once. Slots past rpt[m_pad] are never
-// visited, so the padding at the tail costs nothing. Column ids outside
-// [0, m_pad) are skipped, as in the COO kernel.
+// Design: the paper's SWA-CSR row split, with B read where it lies. A
+// sub-warp of next_pow2(n_block) <= 32 lanes owns one output row at a time
+// and walks that row's own slots rpt[r]..rpt[r+1]: the trip count is per
+// row, where the TPU kernel's was the per-matrix maximum. The lanes stride
+// the panel's columns and gather each B element through the read-only
+// cache (__ldg; B is L2-resident at every size the port runs), the sum
+// stays in a register and is stored once. The grid is (batch, row blocks
+// of 256 / sub rows, column panels of at most 128 columns), so a matrix is
+// as many blocks as its rows need: at m_pad 9,000 over a thousand, not
+// one. Slots past rpt[m_pad] are never visited, so the padding at the tail
+// costs nothing. Column ids outside [0, m_pad) are skipped, as in the COO
+// kernel. The paper's design stages each block's B panel (m_pad x n_block)
+// in shared memory first, as the ELL kernel does; on one H100 (700 W) that
+// took 23% longer at the Tox21 serving shape and 21% longer at Reaction100
+// layer 2 than this one (chip_smoke.py's [fork] lines, PERF.md), and it
+// does not fit a block past ~1,800 rows at n_b 32, so the kernel has only
+// this design, at every plan, planner case 3 included.
 //
 // No atomics: every output element is one fixed-order sum, so the result is
 // bitwise the same from run to run.
@@ -31,11 +38,12 @@
 // int8 codes with a per-matrix f32 scale applied once to the accumulator,
 // :101-105): one template over the value type V, the dense type D, the
 // column-id type I and kScale (rpt stays int32, as in the reference).
-// batched_spmm_csr_bf16 stages the B panel as bf16, sums the widened
-// products in an f32 register and rounds each output once
+// batched_spmm_csr_bf16 gathers a bf16 B, sums the widened products in an
+// f32 register and rounds each output once
 // (__float2bfloat16_rn); batched_spmm_csr_i8 reads int8 codes against an
 // f32 B and multiplies the f32 sum by scale[s] before the store. Still no
-// atomics: both give identical bits from run to run.
+// atomics: both give identical bits from run to run. Both take int16
+// column ids, or int32 ones (ids32) for m_pad past int16's range.
 //
 // g-SpMM entry (batched_gspmm_csr_f32), the reference kernel's (op, reduce)
 // branches: C[s, r] = reduce_{rpt[r] <= k < rpt[r+1]} op(B[s, cid[k]], e_k),
@@ -46,6 +54,12 @@
 // finite -3e38 for max, and the store writes 0.0 into an empty row for max
 // and divides by max(rlen, 1) for mean. Still no atomics, still bitwise
 // repeatable.
+//
+// The same entries run paper case 3, where the reference takes its plain
+// per-sample path (src/repro/kernels/ops.py _csr_forward): the wrappers
+// batched_spmm_csr_large* launch them and count the launch apart. They
+// also run the pallas_hybrid and pallas_hybrid_bf16 impls at case 3 (the
+// reference's plain COO sum there) and the CSR-class backward of both.
 #include "common.cuh"
 
 namespace {
@@ -58,26 +72,18 @@ csr_kernel(const int* __restrict__ rpt, const I* __restrict__ cid,
            const V* __restrict__ val, const float* __restrict__ scale,
            const D* __restrict__ b, D* __restrict__ c, int m_pad,
            int nnz_pad, int n_b, int n_block, int sub) {
-  extern __shared__ float csr_smem[];
-  D* bs = reinterpret_cast<D*>(csr_smem);  // (m_pad, nbw) panel of B
   const int s = blockIdx.x;
-  const int col0 = blockIdx.y * n_block;
+  const int col0 = blockIdx.z * n_block;
   const int nbw = min(n_block, n_b - col0);
   const size_t mat = static_cast<size_t>(s) * m_pad;
-
   const D* bsrc = b + mat * n_b + col0;
-  for (int i = threadIdx.x; i < m_pad * nbw; i += kThreads) {
-    const int r = i / nbw, cc = i - r * nbw;
-    bs[i] = bsrc[static_cast<size_t>(r) * n_b + cc];
-  }
-  __syncthreads();
-
   const int* rp = rpt + static_cast<size_t>(s) * (m_pad + 1);
   const I* sc = cid + static_cast<size_t>(s) * nnz_pad;
   const V* sv = val + static_cast<size_t>(s) * nnz_pad;
   const int lane = threadIdx.x % sub, groups = kThreads / sub;
   D* dst = c + mat * n_b + col0;
-  for (int r = threadIdx.x / sub; r < m_pad; r += groups) {
+  for (int r = blockIdx.y * groups + threadIdx.x / sub; r < m_pad;
+       r += gridDim.y * groups) {
     const int lo = max(__ldg(rp + r), 0);
     const int hi = min(__ldg(rp + r + 1), nnz_pad);
     for (int cc = lane; cc < nbw; cc += sub) {
@@ -85,7 +91,8 @@ csr_kernel(const int* __restrict__ rpt, const I* __restrict__ cid,
       for (int k = lo; k < hi; ++k) {
         const int j = repro::ldi(sc + k);
         if (static_cast<unsigned>(j) < static_cast<unsigned>(m_pad))
-          acc = fmaf(repro::ldf(sv + k), repro::to_f32(bs[j * nbw + cc]),
+          acc = fmaf(repro::ldf(sv + k),
+                     repro::ldf(bsrc + static_cast<size_t>(j) * n_b + cc),
                      acc);
       }
       if constexpr (kScale) acc *= __ldg(scale + s);
@@ -99,28 +106,21 @@ csr_gspmm_kernel(const int* __restrict__ rpt, const int* __restrict__ cid,
                  const float* __restrict__ val, const float* __restrict__ b,
                  float* __restrict__ c, int m_pad, int nnz_pad, int n_b,
                  int n_block, int sub, int op, int reduce, int vec) {
-  extern __shared__ float bs[];  // (m_pad, nbw) panel of B
   const int s = blockIdx.x;
-  const int col0 = blockIdx.y * n_block;
+  const int col0 = blockIdx.z * n_block;
   const int nbw = min(n_block, n_b - col0);
   const size_t mat = static_cast<size_t>(s) * m_pad;
-
   const float* bsrc = b + mat * n_b + col0;
-  for (int i = threadIdx.x; i < m_pad * nbw; i += kThreads) {
-    const int r = i / nbw, cc = i - r * nbw;
-    bs[i] = bsrc[static_cast<size_t>(r) * n_b + cc];
-  }
-  __syncthreads();
-
   const int* rp = rpt + static_cast<size_t>(s) * (m_pad + 1);
   const int* sc = cid + static_cast<size_t>(s) * nnz_pad;
   const size_t voff = static_cast<size_t>(s) * nnz_pad;
   const float init = reduce == repro::kMax ? repro::kNegInf : 0.f;
   const int lane = threadIdx.x % sub, groups = kThreads / sub;
   float* dst = c + mat * n_b + col0;
-  for (int r = threadIdx.x / sub; r < m_pad; r += groups) {
-    const int r0 = __ldg(rp + r), r1 = __ldg(rp + r + 1);
-    const int lo = max(r0, 0), hi = min(r1, nnz_pad);
+  for (int r = blockIdx.y * groups + threadIdx.x / sub; r < m_pad;
+       r += gridDim.y * groups) {
+    const int rb = __ldg(rp + r), re = __ldg(rp + r + 1);
+    const int lo = max(rb, 0), hi = min(re, nnz_pad);
     for (int cc = lane; cc < nbw; cc += sub) {
       float acc = init;
       for (int k = lo; k < hi; ++k) {
@@ -131,53 +131,48 @@ csr_gspmm_kernel(const int* __restrict__ rpt, const int* __restrict__ cid,
         if (op != repro::kOpCopyLhs)
           e = vec ? __ldg(val + (voff + k) * n_b + col0 + cc)
                   : __ldg(val + voff + k);
-        const float m = repro::combine(bs[j * nbw + cc], e, op);
+        const float m = repro::combine(
+            __ldg(bsrc + static_cast<size_t>(j) * n_b + cc), e, op);
         acc = reduce == repro::kMax ? fmaxf(acc, m) : acc + m;
       }
       dst[static_cast<size_t>(r) * n_b + cc] =
-          repro::finish(acc, r1 - r0, reduce);
+          repro::finish(acc, re - rb, reduce);
     }
   }
 }
 
+template <typename V, typename D, typename I, bool kScale>
+int launch(const int* rpt, const void* cid, const void* val,
+           const float* scale, const void* b, void* c, int batch, int m_pad,
+           int nnz_pad, int n_b, int n_block, void* stream) {
+  dim3 grid;
+  const int panel =
+      repro::gather_grid<kThreads>(batch, m_pad, n_b, n_block, &grid);
+  csr_kernel<V, D, I, kScale>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          rpt, static_cast<const I*>(cid), static_cast<const V*>(val), scale,
+          static_cast<const D*>(b), static_cast<D*>(c), m_pad, nnz_pad, n_b,
+          panel, repro::sub_warp(panel));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// n_block is capped at 128 columns a block.
 extern "C" int batched_gspmm_csr_f32(const int* rpt, const int* cid,
                                      const float* val, const float* b,
                                      float* c, int batch, int m_pad,
                                      int nnz_pad, int n_b, int n_block,
                                      int op, int reduce, int vec,
                                      void* stream) {
-  const size_t smem = static_cast<size_t>(m_pad) * n_block * sizeof(float);
-  cudaError_t e = repro::allow_smem(csr_gspmm_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
-  csr_gspmm_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      rpt, cid, val, b, c, m_pad, nnz_pad, n_b, n_block,
-      repro::sub_warp(n_block), op, reduce, vec);
+  dim3 grid;
+  const int panel =
+      repro::gather_grid<kThreads>(batch, m_pad, n_b, n_block, &grid);
+  csr_gspmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rpt, cid, val, b, c, m_pad, nnz_pad, n_b, panel,
+      repro::sub_warp(panel), op, reduce, vec);
   return cudaGetLastError();
 }
-
-namespace {
-
-template <typename V, typename D, typename I, bool kScale>
-int launch(const int* rpt, const void* cid, const void* val,
-           const float* scale, const void* b, void* c, int batch, int m_pad,
-           int nnz_pad, int n_b, int n_block, void* stream) {
-  const size_t smem = static_cast<size_t>(m_pad) * n_block * sizeof(D);
-  cudaError_t e = repro::allow_smem(csr_kernel<V, D, I, kScale>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(batch, (n_b + n_block - 1) / n_block);
-  csr_kernel<V, D, I, kScale>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          rpt, static_cast<const I*>(cid), static_cast<const V*>(val), scale,
-          static_cast<const D*>(b), static_cast<D*>(c), m_pad, nnz_pad, n_b,
-          n_block, repro::sub_warp(n_block));
-  return cudaGetLastError();
-}
-
-}  // namespace
 
 extern "C" int batched_spmm_csr_f32(const int* rpt, const int* cid,
                                     const float* val, const float* b,
@@ -185,27 +180,38 @@ extern "C" int batched_spmm_csr_f32(const int* rpt, const int* cid,
                                     int nnz_pad, int n_b, int n_block,
                                     void* stream) {
   return launch<float, float, int, false>(rpt, cid, val, nullptr, b, c,
-                                          batch, m_pad, nnz_pad, n_b, n_block,
-                                          stream);
+                                          batch, m_pad, nnz_pad, n_b,
+                                          n_block, stream);
 }
 
-// cid (batch, nnz_pad) int16, val bf16, b and c (batch, m_pad, n_b) bf16
+// cid (batch, nnz_pad) int16 (int32 with ids32 = 1), val bf16, b and c
+// (batch, m_pad, n_b) bf16
 extern "C" int batched_spmm_csr_bf16(const int* rpt, const void* cid,
                                      const void* val, const void* b, void* c,
                                      int batch, int m_pad, int nnz_pad,
-                                     int n_b, int n_block, void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16, short, false>(
-      rpt, cid, val, nullptr, b, c, batch, m_pad, nnz_pad, n_b, n_block,
-      stream);
+                                     int n_b, int n_block, int ids32,
+                                     void* stream) {
+  using B = __nv_bfloat16;
+  return ids32 ? launch<B, B, int, false>(rpt, cid, val, nullptr, b, c,
+                                          batch, m_pad, nnz_pad, n_b,
+                                          n_block, stream)
+               : launch<B, B, short, false>(rpt, cid, val, nullptr, b, c,
+                                            batch, m_pad, nnz_pad, n_b,
+                                            n_block, stream);
 }
 
-// cid int16, val int8 codes, scale (batch,) f32, b and c f32
+// cid int16 (int32 with ids32 = 1), val int8 codes, scale (batch,) f32, b
+// and c f32
 extern "C" int batched_spmm_csr_i8(const int* rpt, const void* cid,
                                    const void* val, const float* scale,
                                    const float* b, float* c, int batch,
                                    int m_pad, int nnz_pad, int n_b,
-                                   int n_block, void* stream) {
-  return launch<signed char, float, short, true>(
-      rpt, cid, val, scale, b, c, batch, m_pad, nnz_pad, n_b, n_block,
-      stream);
+                                   int n_block, int ids32, void* stream) {
+  using S = signed char;
+  return ids32 ? launch<S, float, int, true>(rpt, cid, val, scale, b, c,
+                                             batch, m_pad, nnz_pad, n_b,
+                                             n_block, stream)
+               : launch<S, float, short, true>(rpt, cid, val, scale, b, c,
+                                               batch, m_pad, nnz_pad, n_b,
+                                               n_block, stream);
 }

@@ -18,7 +18,7 @@
 // read once and C written once.
 //
 // Design: one block per (matrix x column panel), grid (batch, p), as the
-// CSR kernel. The block stages its B panel (m_pad x n_block f32) in shared
+// ELL kernel. The block stages its B panel (m_pad x n_block f32) in shared
 // memory and turns rank into its inverse, perm[rank[r]] = r (m_pad ints).
 // A sub-warp of next_pow2(n_block) <= 32 lanes then owns one SORTED row q
 // at a time (q = group, group + groups, ...: the hub rows [0, d_pad) are

@@ -6,7 +6,8 @@
 // wrappers pass, the per-edge combine and a shared-memory float max), and
 // the element types of the reduced-precision entries: loads that widen
 // f32, bf16 and int8 to f32 and int32 or int16 ids to int, and the one
-// rounding of an f32 sum to the output type.
+// rounding of an f32 sum to the output type, and the panel and grid sizes of
+// the kernels that read B through the L2.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,10 +45,11 @@ __device__ __forceinline__ float combine(float u, float e, int op) {
   return u;
 }
 
-// *addr = max(*addr, v) for a float in shared memory: a compare-and-swap
-// loop on its bits (there is no native float atomic max). It only ever
-// replaces a smaller value, so -0.0 and 0.0, being equal, never swap, and
-// the result is the exact maximum whatever the order of the calls.
+// *addr = max(*addr, v) for a float in shared or global memory: a
+// compare-and-swap loop on its bits (there is no native float atomic max).
+// It only ever replaces a smaller value, so -0.0 and 0.0, being equal,
+// never swap, and the result is the exact maximum whatever the order of
+// the calls.
 __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
   int* bits = reinterpret_cast<int*>(addr);
   int old = *reinterpret_cast<volatile int*>(bits);
@@ -115,6 +117,29 @@ template <typename T>
 __host__ __device__ constexpr int pad4(int n) {
   constexpr int k = sizeof(T) >= 4 ? 1 : 4 / static_cast<int>(sizeof(T));
   return (n + k - 1) / k * k;
+}
+
+// Large-matrix entries (paper case 3, matrices whose panel does not fit a
+// block's shared memory): column panels of at most kPanelMax columns, and
+// grid.y blocks of ``per_block`` rows (or slots) each, at most 65535 of
+// them; a kernel strides over whatever lies past that.
+constexpr int kPanelMax = 128;
+inline int large_blocks(long long items, int per_block) {
+  const long long n = (items + per_block - 1) / per_block;
+  return static_cast<int>(n < 1 ? 1 : (n > 65535 ? 65535 : n));
+}
+
+// The launch shape of a row-split kernel that reads B where it lies, through
+// the read-only cache (CSR always, ELL's large-matrix entries): grid (batch,
+// row blocks of kThreads / sub rows, column panels of at most kPanelMax
+// columns). Returns the panel width.
+template <int kThreads>
+inline int gather_grid(int batch, int m_pad, int n_b, int n_block,
+                       dim3* grid) {
+  const int panel = n_block < kPanelMax ? n_block : kPanelMax;
+  *grid = dim3(batch, large_blocks(m_pad, kThreads / sub_warp(panel)),
+               (n_b + panel - 1) / panel);
+  return panel;
 }
 
 template <typename Kernel>

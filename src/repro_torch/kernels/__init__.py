@@ -38,13 +38,18 @@ def check_operand(name: str, t: torch.Tensor, shape, dtype) -> None:
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
-def check_plan(plan, *, batch: int, m_pad: int, n_b: int) -> None:
+def check_plan(plan, *, batch: int, m_pad: int, n_b: int,
+               large: bool = False) -> None:
+    """Raise unless ``plan`` is for these shapes; a planner case-3 plan
+    passes only to a large-matrix entry (``large``), which streams through
+    global memory what the batched entries keep in shared memory."""
     if (plan.batch, plan.m_pad, plan.n_b) != (batch, m_pad, n_b):
         raise ValueError(f"{plan} does not match batch={batch}, "
                          f"m_pad={m_pad}, n_b={n_b}")
-    if plan.case == 3:
+    if plan.case == 3 and not large:
         raise ValueError(f"{plan} is planner case 3: the batched kernel does "
-                         "not take matrices this large")
+                         "not take matrices this large (its large-matrix "
+                         "entry does)")
 
 
 # The static g-SpMM axes, in the order of the kernels' codes

@@ -89,6 +89,29 @@ def build(names=SOURCES) -> dict[str, float]:
     return seconds
 
 
+def sass_count(name: str, kernel: str, opcode: str) -> dict[str, int]:
+    """How many ``opcode`` instructions (e.g. ``HGMMA``) the SASS of
+    library ``name`` holds in each function whose mangled name contains
+    ``kernel``, by ``cuobjdump -sass`` from ``nvcc``'s toolkit; keyed by
+    the mangled name. Builds the library first."""
+    load(name)
+    exe = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    sass = subprocess.run([exe, "-sass", str(_library_path(name))],
+                          capture_output=True, text=True, timeout=120)
+    if sass.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {sass.stderr[-500:]}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if kernel in fn else None
+            if fn is not None:
+                counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building every missing
     library first."""

@@ -23,6 +23,17 @@ memory.
 row and column ids, bf16 values and B, an f32 accumulator, bf16 out. Its
 plain version is :func:`ref.batched_spmm_coo_plain`; it counts its own
 launches.
+
+Large-matrix entries (paper case 3, where the reference takes its plain
+per-sample path): :func:`batched_spmm_coo_large` (f32 and g-SpMM) and
+:func:`batched_spmm_coo_large_bf16` take the same operands and any plan,
+case 3 included. The kernel's large-matrix branch accumulates into an f32
+buffer in global memory that the wrapper fills first (``torch.zeros``,
+-3e38 for max; the g-SpMM degrees in a zeroed int32 buffer), with global
+atomics, then finishes it in a second pass (mean, empty max, bf16
+rounding). The bf16 one also takes int32 ids, for ``m_pad`` past int16's
+range. Not bitwise repeatable, like the batched entries; same plain
+versions, own counters.
 """
 from __future__ import annotations
 
@@ -47,6 +58,10 @@ _GSPMM_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    _P)
 
 
+_LARGE_GSPMM_ARGTYPES = (_P,) * 7 + (_I,) * 8 + (_P,)
+_LARGE_BF16_ARGTYPES = (_P,) * 6 + (_I,) * 6 + (_P,)
+
+
 def gspmm_plan(*, batch: int, m_pad: int, n_b: int) -> BatchPlan:
     """The g-SpMM entry's plan: the output panel plus ``m_pad`` int32 row
     degrees in one block's shared memory."""
@@ -63,6 +78,25 @@ def batched_spmm_coo(row_ids: torch.Tensor, col_ids: torch.Tensor,
     b (batch, m_pad, n_b) f32 → (batch, m_pad, n_b) f32. For g-SpMM also
     ``nnz`` (batch,) int32, which any ``(op, reduce)`` other than (mul,
     sum) and vector values (batch, nnz_pad, n_b) need."""
+    return _f32(batched_spmm_coo, False, row_ids, col_ids, values, b, plan,
+                nnz, op, reduce)
+
+
+def batched_spmm_coo_large(row_ids: torch.Tensor, col_ids: torch.Tensor,
+                           values: torch.Tensor, b: torch.Tensor, *,
+                           plan: BatchPlan | None = None,
+                           nnz: torch.Tensor | None = None, op: str = "mul",
+                           reduce: str = "sum") -> torch.Tensor:
+    """:func:`batched_spmm_coo` through the large-matrix branch (global
+    accumulator), at any plan, planner case 3 included."""
+    return _f32(batched_spmm_coo_large, True, row_ids, col_ids, values, b,
+                plan, nnz, op, reduce)
+
+
+def _f32(counted, large: bool, row_ids, col_ids, values, b, plan, nnz, op,
+         reduce):
+    """The f32 and g-SpMM entries of either branch: checks, then the plain
+    version on CPU tensors or the kernel, counted in ``counted``."""
     if b.dim() != 3 or row_ids.dim() != 2:
         raise ValueError("batched_spmm_coo takes 2-D ids and a 3-D b")
     batch, nnz_pad = row_ids.shape
@@ -81,34 +115,47 @@ def batched_spmm_coo(row_ids: torch.Tensor, col_ids: torch.Tensor,
         check_operand("nnz", nnz, (batch,), torch.int32)
         plan = plan or gspmm_plan(batch=batch, m_pad=m_pad, n_b=n_b)
     plan = plan or plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
-    check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_b)
+    check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_b, large=large)
     if on_cpu(row_ids, col_ids, values, b, nnz):
         if gspmm:
             return ref.batched_gspmm_coo_plain(row_ids, col_ids, values, nnz,
                                                b, op=op, reduce=reduce)
         return ref.batched_spmm_coo_plain(row_ids, col_ids, values, b)
-    out = torch.empty_like(b)
+    if large:
+        # the accumulator is the output, filled with the reduce's identity
+        out = torch.full_like(b, ref.NEG_INF if reduce == "max" else 0.0)
+    else:
+        out = torch.empty_like(b)
     if out.numel() == 0:
         return out
-    if gspmm:
+    ids = (row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr())
+    if gspmm and large:
+        deg = torch.zeros((batch, m_pad), dtype=torch.int32, device=b.device)
+        fn = _build.entry("batched_spmm_coo", "batched_gspmm_coo_large_f32",
+                          _LARGE_GSPMM_ARGTYPES)
+        code = fn(*ids, nnz.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  deg.data_ptr(), batch, nnz_pad, m_pad, n_b, plan.n_block,
+                  *gspmm_codes(op, reduce), int(values.dim() == 3),
+                  stream_handle())
+    elif gspmm:
         fn = _build.entry("batched_spmm_coo", "batched_gspmm_coo_f32",
                           _GSPMM_ARGTYPES)
-        code = fn(row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
-                  nnz.data_ptr(), b.data_ptr(), out.data_ptr(), batch,
+        code = fn(*ids, nnz.data_ptr(), b.data_ptr(), out.data_ptr(), batch,
                   nnz_pad, m_pad, n_b, plan.n_block, *gspmm_codes(op, reduce),
                   int(values.dim() == 3), stream_handle())
     else:
-        fn = _build.entry("batched_spmm_coo", "batched_spmm_coo_f32",
-                          _ARGTYPES)
-        code = fn(row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
-                  b.data_ptr(), out.data_ptr(), batch, nnz_pad, m_pad, n_b,
-                  plan.n_block, stream_handle())
+        entry = "batched_spmm_coo_large_f32" if large \
+            else "batched_spmm_coo_f32"
+        fn = _build.entry("batched_spmm_coo", entry, _ARGTYPES)
+        code = fn(*ids, b.data_ptr(), out.data_ptr(), batch, nnz_pad, m_pad,
+                  n_b, plan.n_block, stream_handle())
     _build.check("batched_spmm_coo", code)
-    batched_spmm_coo.launches += 1
+    counted.launches += 1
     return out
 
 
 batched_spmm_coo.launches = 0
+batched_spmm_coo_large.launches = 0
 
 
 def batched_spmm_coo_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
@@ -117,28 +164,59 @@ def batched_spmm_coo_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
     """row_ids/col_ids (batch, nnz_pad) int16, values bf16, b (batch, m_pad,
     n_b) bf16 → bf16: f32 sums in shared memory rounded to bf16 once. The
     plan is the f32 one: the shared accumulator stays f32."""
+    return _bf16(batched_spmm_coo_bf16, False, row_ids, col_ids, values, b,
+                 plan)
+
+
+def batched_spmm_coo_large_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
+                                values: torch.Tensor, b: torch.Tensor, *,
+                                plan: BatchPlan | None = None
+                                ) -> torch.Tensor:
+    """:func:`batched_spmm_coo_bf16` through the large-matrix branch: an f32
+    accumulator in global memory (zeroed here), rounded to bf16 once by the
+    kernel's second pass; int16 or int32 row and column ids."""
+    return _bf16(batched_spmm_coo_large_bf16, True, row_ids, col_ids, values,
+                 b, plan)
+
+
+def _bf16(counted, large: bool, row_ids, col_ids, values, b, plan):
+    """The bf16 entry of either branch: checks, then the plain version on
+    CPU tensors or the kernel, counted in ``counted``. The large branch
+    also takes int32 ids."""
     if b.dim() != 3 or row_ids.dim() != 2:
         raise ValueError("batched_spmm_coo_bf16 takes 2-D ids and a 3-D b")
     batch, nnz_pad = row_ids.shape
     m_pad, n_b = b.shape[1], b.shape[2]
-    check_operand("row_ids", row_ids, (batch, nnz_pad), torch.int16)
-    check_operand("col_ids", col_ids, (batch, nnz_pad), torch.int16)
+    ids32 = large and row_ids.dtype == torch.int32
+    id_type = torch.int32 if ids32 else torch.int16
+    check_operand("row_ids", row_ids, (batch, nnz_pad), id_type)
+    check_operand("col_ids", col_ids, (batch, nnz_pad), id_type)
     check_operand("values", values, (batch, nnz_pad), torch.bfloat16)
     check_operand("b", b, (batch, m_pad, n_b), torch.bfloat16)
     plan = plan or plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
-    check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_b)
+    check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_b, large=large)
     if on_cpu(row_ids, col_ids, values, b):
         return ref.batched_spmm_coo_plain(row_ids, col_ids, values, b)
     out = torch.empty_like(b)
     if out.numel() == 0:
         return out
-    fn = _build.entry("batched_spmm_coo", "batched_spmm_coo_bf16", _ARGTYPES)
-    code = fn(row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
-              b.data_ptr(), out.data_ptr(), batch, nnz_pad, m_pad, n_b,
-              plan.n_block, stream_handle())
+    ids = (row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
+           b.data_ptr())
+    shape = (batch, nnz_pad, m_pad, n_b, plan.n_block)
+    if large:
+        acc = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+        fn = _build.entry("batched_spmm_coo", "batched_spmm_coo_large_bf16",
+                          _LARGE_BF16_ARGTYPES)
+        code = fn(*ids, acc.data_ptr(), out.data_ptr(), *shape, int(ids32),
+                  stream_handle())
+    else:
+        fn = _build.entry("batched_spmm_coo", "batched_spmm_coo_bf16",
+                          _ARGTYPES)
+        code = fn(*ids, out.data_ptr(), *shape, stream_handle())
     _build.check("batched_spmm_coo", code)
-    batched_spmm_coo_bf16.launches += 1
+    counted.launches += 1
     return out
 
 
 batched_spmm_coo_bf16.launches = 0
+batched_spmm_coo_large_bf16.launches = 0

@@ -33,6 +33,7 @@ import torch
 from repro_torch.core import batching
 from repro_torch.autotune.cost_model import PRECISION_IMPLS, precision_of
 from repro_torch.core.formats import (
+    INT16_MAX,
     BatchedCOO,
     coo_to_csr,
     coo_to_dense,
@@ -43,21 +44,29 @@ from repro_torch.core.formats import (
     validate_ell_k_pad,
 )
 from repro_torch.kernels import GSPMM_OPS, GSPMM_REDUCES, ref
-from repro_torch.kernels.batched_gemm import batched_gemm
+from repro_torch.kernels.batched_gemm import batched_gemm, batched_gemm_large
 from repro_torch.kernels.batched_spmm_coo import (
     batched_spmm_coo,
     batched_spmm_coo_bf16,
+    batched_spmm_coo_large,
+    batched_spmm_coo_large_bf16,
     gspmm_plan,
 )
 from repro_torch.kernels.batched_spmm_csr import (
     batched_spmm_csr,
     batched_spmm_csr_bf16,
     batched_spmm_csr_i8,
+    batched_spmm_csr_large,
+    batched_spmm_csr_large_bf16,
+    batched_spmm_csr_large_i8,
 )
 from repro_torch.kernels.batched_spmm_ell import (
     batched_spmm_ell,
     batched_spmm_ell_bf16,
     batched_spmm_ell_i8,
+    batched_spmm_ell_large,
+    batched_spmm_ell_large_bf16,
+    batched_spmm_ell_large_i8,
 )
 from repro_torch.kernels.batched_spmm_hybrid import (
     batched_spmm_hybrid,
@@ -168,18 +177,24 @@ def bwd_impl_for(impl: str) -> str:
     return impl if impl in ("ref", "loop", "dense") else "ref"
 
 
-def _kernel_case3(impl: str, b: torch.Tensor, m_pad: int) -> None:
-    """Paper case 3 (too large for the batched shared-memory strategy): the
-    reference takes its plain per-sample path; off the CPU a kernel impl
-    (pallas_ell, pallas_csr, pallas_coo, pallas_hybrid, pallas_gemm) must
-    run its kernel, and the large-matrix one is not written yet. A
-    precision variant is judged by its base impl, at its element size."""
-    if precision_of(impl)[0] in KERNEL_IMPLS and b.device.type != "cpu":
-        raise ValueError(
-            f"impl={impl!r}: m_pad={m_pad} is planner case 3 (the block's "
-            "shared-memory working set does not fit, not even with one "
-            "32-lane panel); the large-matrix kernel is not written yet "
-            "(ROADMAP.md §2, 'Large-matrix kernel')")
+def _kernel_on_card(impl: str, b: torch.Tensor) -> bool:
+    """Whether ``impl`` launches a kernel here: a kernel impl (pallas_ell,
+    pallas_csr, pallas_coo, pallas_hybrid, pallas_gemm, and their precision
+    variants) on a tensor off the CPU. At paper case 3 (too large for the
+    batched shared-memory strategy) the reference takes its plain
+    per-sample path, and so does the port on the CPU; on the card a kernel
+    impl runs its kernel's large-matrix entry instead. Whether case 3
+    applies is the plan's, decided by shapes and the variant's element
+    size alone."""
+    return precision_of(impl)[0] in KERNEL_IMPLS and b.device.type != "cpu"
+
+
+def _kernel_ids(ids: torch.Tensor, m_pad: int, large: bool) -> torch.Tensor:
+    """Ids for a reduced-precision kernel entry: int16; a large-matrix
+    entry keeps int32 ids where ``m_pad`` is past int16's range."""
+    if large and m_pad > INT16_MAX:
+        return ids
+    return narrow_col_ids(ids, m_pad)
 
 
 def _forward(row_ids, col_ids, nnz, values, b, *, impl: str,
@@ -215,8 +230,9 @@ def _forward_base(row_ids, col_ids, nnz, values, b, *, impl: str, base: str,
     """The forward of ``base`` on operands already in ``policy``'s storage
     (``scale`` the i8 codes' per-matrix scale): the plain impls run their
     plain versions, the kernel impls their kernel's entry for the policy.
-    Paper case 3 takes the plain per-sample path on the CPU and raises on
-    the card (:func:`_kernel_case3`)."""
+    Paper case 3 takes the plain per-sample path on the CPU and the
+    kernel's large-matrix entry on the card (:func:`_kernel_on_card`); the
+    hybrid impls take the CSR one there, their backward class."""
     batch, m_pad, n_b = b.shape
     a = BatchedCOO(row_ids, col_ids, values, nnz,
                    torch.full((batch,), m_pad, dtype=torch.int32,
@@ -240,10 +256,10 @@ def _forward_base(row_ids, col_ids, nnz, values, b, *, impl: str, base: str,
             return ref.batched_gemm_ref(a_dense, bb)
         gplan = batching.plan_batched_gemm(batch=batch, m=m_pad, n=n_b,
                                            k=m_pad)
-        if gplan.case == 3:
-            _kernel_case3(impl, b, m_pad)
+        if gplan.case == 3 and not _kernel_on_card(impl, b):
             return ref.batched_gemm_plain(a_dense, bb)
-        return batched_gemm(a_dense, bb, plan=gplan)
+        gemm = batched_gemm_large if gplan.case == 3 else batched_gemm
+        return gemm(a_dense, bb, plan=gplan)
     itemsize = b.element_size()
     if base in ("hybrid", "pallas_hybrid"):
         hplan = batching.plan_hybrid(batch=batch, m_pad=m_pad, n_b=n_b,
@@ -252,27 +268,40 @@ def _forward_base(row_ids, col_ids, nnz, values, b, *, impl: str, base: str,
         if base == "hybrid":
             return batched_spmm_hybrid_ref(a, b, m_pad, plan=hplan)
         if hplan.spmm.case == 3:
-            _kernel_case3(impl, b, m_pad)
-            return ref.batched_spmm_coo_ref(a, b, m_pad)
+            if not _kernel_on_card(impl, b):
+                return ref.batched_spmm_coo_ref(a, b, m_pad)
+            # the whole matrix through the CSR large-matrix entry of the
+            # policy: the reference's plain COO sum there, and the hybrid's
+            # backward class
+            csr = coo_to_csr(a, m_pad)
+            cplan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad,
+                                               n_b=n_b, itemsize=itemsize)
+            if policy == "bf16":
+                return batched_spmm_csr_large_bf16(
+                    csr.rpt, _kernel_ids(csr.col_ids, m_pad, True),
+                    csr.values, b, plan=cplan)
+            return batched_spmm_csr_large(csr.rpt, csr.col_ids, csr.values,
+                                          b, plan=cplan)
         hybrid = (batched_spmm_hybrid_bf16 if policy == "bf16"
                   else batched_spmm_hybrid)
         return hybrid(row_ids, col_ids, values, nnz, b, plan=hplan)
     plan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b,
                                       itemsize=itemsize)
+    large = plan.case == 3
     if base in ("csr", "pallas_csr"):
         csr = coo_to_csr(a, m_pad)
-        if base == "csr" or plan.case == 3:
-            _kernel_case3(impl, b, m_pad)
+        if base == "csr" or (large and not _kernel_on_card(impl, b)):
             return dequant(ref.batched_spmm_csr_ref(csr, b))
         if policy == "f32":
-            return batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, b,
-                                    plan=plan)
-        cids = narrow_col_ids(csr.col_ids, m_pad)
+            csr_f32 = batched_spmm_csr_large if large else batched_spmm_csr
+            return csr_f32(csr.rpt, csr.col_ids, csr.values, b, plan=plan)
+        cids = _kernel_ids(csr.col_ids, m_pad, large)
         if policy == "bf16":
-            return batched_spmm_csr_bf16(csr.rpt, cids, csr.values, b,
-                                         plan=plan)
-        return batched_spmm_csr_i8(csr.rpt, cids, csr.values, scale, b,
-                                   plan=plan)
+            csr_bf16 = (batched_spmm_csr_large_bf16 if large
+                        else batched_spmm_csr_bf16)
+            return csr_bf16(csr.rpt, cids, csr.values, b, plan=plan)
+        csr_i8 = batched_spmm_csr_large_i8 if large else batched_spmm_csr_i8
+        return csr_i8(csr.rpt, cids, csr.values, scale, b, plan=plan)
     ell = base in ("ell", "pallas_ell")
     if ell:
         if k_pad is None:
@@ -281,24 +310,29 @@ def _forward_base(row_ids, col_ids, nnz, values, b, *, impl: str, base: str,
     if base == "pallas_coo":
         # the COO kernel's shared panel is its f32 accumulator
         plan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
-    if plan.case == 3:
-        _kernel_case3(impl, b, m_pad)
+        large = plan.case == 3
+    if large and not _kernel_on_card(impl, b):
         return dequant(ref.batched_spmm_coo_ref(a, b, m_pad))
     if ell:
         e = coo_to_ell(a, m_pad, k_pad)
         if base == "ell":
             return dequant(ref.batched_spmm_ell_ref(e, b))
         if policy == "f32":
-            return batched_spmm_ell(e.col_ids, e.values, b, plan=plan)
-        cids = narrow_col_ids(e.col_ids, m_pad)
+            ell_f32 = batched_spmm_ell_large if large else batched_spmm_ell
+            return ell_f32(e.col_ids, e.values, b, plan=plan)
+        cids = _kernel_ids(e.col_ids, m_pad, large)
         if policy == "bf16":
-            return batched_spmm_ell_bf16(cids, e.values, b, plan=plan)
-        return batched_spmm_ell_i8(cids, e.values, scale, b, plan=plan)
+            ell_bf16 = (batched_spmm_ell_large_bf16 if large
+                        else batched_spmm_ell_bf16)
+            return ell_bf16(cids, e.values, b, plan=plan)
+        ell_i8 = batched_spmm_ell_large_i8 if large else batched_spmm_ell_i8
+        return ell_i8(cids, e.values, scale, b, plan=plan)
     if policy == "f32":
-        return batched_spmm_coo(row_ids, col_ids, values, b, plan=plan)
-    return batched_spmm_coo_bf16(narrow_col_ids(row_ids, m_pad),
-                                 narrow_col_ids(col_ids, m_pad), values, b,
-                                 plan=plan)
+        coo_f32 = batched_spmm_coo_large if large else batched_spmm_coo
+        return coo_f32(row_ids, col_ids, values, b, plan=plan)
+    coo_bf16 = batched_spmm_coo_large_bf16 if large else batched_spmm_coo_bf16
+    return coo_bf16(_kernel_ids(row_ids, m_pad, large),
+                    _kernel_ids(col_ids, m_pad, large), values, b, plan=plan)
 
 
 def backward_db(row_ids, col_ids, nnz, values, dc, *,
@@ -373,8 +407,9 @@ def _gspmm_forward(row_ids, col_ids, nnz, values, b, *, impl: str,
                    k_pad: int | None, op: str, reduce: str) -> torch.Tensor:
     """One batched g-SpMM forward of ``impl`` (no autograd). Every path
     masks padding from the true ``nnz`` or the row degrees: the 0.0-valued
-    padding is inert only under (mul, sum). At paper case 3 the plain impls
-    take the oracle, and a kernel impl on the card raises."""
+    padding is inert only under (mul, sum). At paper case 3 a kernel impl
+    takes the oracle on the CPU and its kernel's large-matrix entry on the
+    card."""
     batch, m_pad, n_b = b.shape
     a = BatchedCOO(row_ids, col_ids, values, nnz,
                    torch.full((batch,), m_pad, dtype=torch.int32,
@@ -387,19 +422,21 @@ def _gspmm_forward(row_ids, col_ids, nnz, values, b, *, impl: str,
                                  m_pad, nnz[s], op=op, reduce=reduce)
             for s in range(batch)])
 
-    def case3():
-        _kernel_case3(impl, b, m_pad)
-        return ref.batched_gspmm_ref(a, b, m_pad, op=op, reduce=reduce)
-
-    plan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
+    plan = (gspmm_plan if impl == "pallas_coo"
+            else batching.plan_batched_spmm)(batch=batch, m_pad=m_pad,
+                                             n_b=n_b)
+    large = plan.case == 3
+    # paper case 3 on the CPU: the batched oracle, as in the reference
+    oracle = large and not _kernel_on_card(impl, b)
     if impl in ("csr", "pallas_csr"):
         csr = coo_to_csr(a, m_pad)
         if impl == "csr":
             return ref.batched_gspmm_csr_ref(csr, b, op=op, reduce=reduce)
-        if plan.case == 3:
-            return case3()
-        return batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, b,
-                                plan=plan, op=op, reduce=reduce)
+        if oracle:
+            return ref.batched_gspmm_ref(a, b, m_pad, op=op, reduce=reduce)
+        csr_f32 = batched_spmm_csr_large if large else batched_spmm_csr
+        return csr_f32(csr.rpt, csr.col_ids, csr.values, b, plan=plan,
+                       op=op, reduce=reduce)
     if impl in ("ell", "pallas_ell"):
         if k_pad is None:
             raise ValueError(f"{impl} requires k_pad (max nnz/row)")
@@ -411,16 +448,17 @@ def _gspmm_forward(row_ids, col_ids, nnz, values, b, *, impl: str,
         if impl == "ell":
             return ref.batched_gspmm_ell_ref(ell, rlen, b, op=op,
                                              reduce=reduce)
-        if plan.case == 3:
-            return case3()
-        return batched_spmm_ell(ell.col_ids, ell.values, b, plan=plan,
-                                rlen=rlen, op=op, reduce=reduce)
+        if oracle:
+            return ref.batched_gspmm_ref(a, b, m_pad, op=op, reduce=reduce)
+        ell_f32 = batched_spmm_ell_large if large else batched_spmm_ell
+        return ell_f32(ell.col_ids, ell.values, b, plan=plan, rlen=rlen,
+                       op=op, reduce=reduce)
     if impl == "pallas_coo":
-        plan = gspmm_plan(batch=batch, m_pad=m_pad, n_b=n_b)
-        if plan.case == 3:
-            return case3()
-        return batched_spmm_coo(row_ids, col_ids, values, b, plan=plan,
-                                nnz=nnz, op=op, reduce=reduce)
+        if oracle:
+            return ref.batched_gspmm_ref(a, b, m_pad, op=op, reduce=reduce)
+        coo_f32 = batched_spmm_coo_large if large else batched_spmm_coo
+        return coo_f32(row_ids, col_ids, values, b, plan=plan, nnz=nnz,
+                       op=op, reduce=reduce)
     raise ValueError(f"unknown g-SpMM impl {impl!r}; expected one of "
                      f"{GSPMM_IMPLS}")
 
@@ -547,10 +585,9 @@ def batched_gspmm(a: BatchedCOO, b: torch.Tensor, *, op: str = "mul",
 def dense_batched_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``C[s] = A[s] · B[s]`` through the batched GEMM kernel (the
     reference's standalone entry point, benchmark use): a (batch, m, k),
-    b (batch, k, n) f32."""
+    b (batch, k, n) f32. Like the reference, it runs at every size: where
+    the A tile does not fit a block, through the K-tiled entry."""
     plan = batching.plan_batched_gemm(batch=a.shape[0], m=a.shape[1],
                                       n=b.shape[-1], k=a.shape[2])
-    if plan.case == 3:
-        raise ValueError(f"{plan}: the A tile does not fit one block's "
-                         "shared memory")
-    return batched_gemm(a, b, plan=plan)
+    gemm = batched_gemm_large if plan.case == 3 else batched_gemm
+    return gemm(a, b, plan=plan)

@@ -196,22 +196,143 @@ def test_engine_kernels_match_ref_on_gpu(dev):
         np.testing.assert_allclose(logits[impl], logits["ref"], atol=1e-4)
 
 
-def test_case3_kernel_impls_raise_on_the_card(dev):
-    """Planner case 3: the kernel impls raise on the card instead of taking
-    the reference's plain per-sample path."""
+# each kernel impl and precision variant, the large-matrix wrapper it
+# reaches at planner case 3, and whether it is case 3 already at m_pad
+# 2000, n_b 32 (f32 B or the COO class's f32 accumulator; a bf16 B panel
+# of 2000 rows still fits a block)
+CASE3_ENTRIES = {
+    "pallas_coo": ("batched_spmm_coo", "batched_spmm_coo_large", True),
+    "pallas_ell": ("batched_spmm_ell", "batched_spmm_ell_large", True),
+    "pallas_csr": ("batched_spmm_csr", "batched_spmm_csr_large", True),
+    "pallas_hybrid": ("batched_spmm_csr", "batched_spmm_csr_large", True),
+    "pallas_gemm": ("batched_gemm", "batched_gemm_large", True),
+    "pallas_coo_bf16": ("batched_spmm_coo", "batched_spmm_coo_large_bf16",
+                        True),
+    "pallas_ell_i8": ("batched_spmm_ell", "batched_spmm_ell_large_i8", True),
+    "pallas_csr_i8": ("batched_spmm_csr", "batched_spmm_csr_large_i8", True),
+    "pallas_ell_bf16": ("batched_spmm_ell", "batched_spmm_ell_large_bf16",
+                        False),
+    "pallas_csr_bf16": ("batched_spmm_csr", "batched_spmm_csr_large_bf16",
+                        False),
+    "pallas_hybrid_bf16": ("batched_spmm_csr",
+                           "batched_spmm_csr_large_bf16", False),
+}
+# (impl, m_pad, batch): m_pad 9000 is past LARGE_M, case 3 for every
+# variant; the dense adjacency of pallas_gemm is held to m_pad 2000; at
+# m_pad 33,792, past int16's range, the bf16 and i8 variants keep int32
+# ids, which only their large-matrix entries take
+CASE3_RUNS = [(i, 2000, 1) for i, e in sorted(CASE3_ENTRIES.items())
+              if e[2]] + [(i, 9000, 2) for i in sorted(CASE3_ENTRIES)
+                          if i != "pallas_gemm"] + [
+    (i, 33_792, 1) for i in ("pallas_coo_bf16", "pallas_csr_bf16",
+                             "pallas_ell_i8", "pallas_hybrid_bf16")]
+
+
+def _large_wrapper(module: str, name: str):
+    import importlib
+
+    return getattr(importlib.import_module(f"repro_torch.kernels.{module}"),
+                   name)
+
+
+def _case3_coo(m_pad, batch, seed=0):
+    """``batch`` matrices of m_pad rows, 3 N(0, 1) edges a row and a hub
+    row of 64, as numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    lists = []
+    for _ in range(batch):
+        r = np.concatenate([np.repeat(np.arange(m_pad, dtype=np.int32), 3),
+                            np.full(64, 7, np.int32)])
+        lists.append((r, rng.integers(0, m_pad, r.size).astype(np.int32),
+                      rng.normal(size=r.size).astype(np.float32)))
+    return coo_from_lists(lists, [m_pad] * batch)
+
+
+def _forward_and_grads(coo, b0, impl, where, **kw):
     from repro_torch.kernels import ops
 
-    m_pad = 2000
-    rows = np.array([0, 1999, 7], np.int32)
-    coo = coo_from_lists([(rows, rows[::-1].copy(),
-                           np.ones(3, np.float32))], [m_pad]).to(dev)
-    b = torch.randn((1, m_pad, 32), device=dev)
-    for impl in ("pallas_coo", "pallas_ell", "pallas_csr"):
-        with pytest.raises(ValueError, match="case 3"):
-            ops.batched_spmm(coo, b, impl=impl, k_pad=1)
-        with pytest.raises(ValueError, match="case 3"):
-            ops.batched_gspmm(coo, b, op="copy_lhs", reduce="mean",
-                              impl=impl, k_pad=1)
+    v = coo.values.to(where, copy=True).requires_grad_()
+    b = b0.to(where, copy=True).requires_grad_()
+    c = ops.batched_spmm(coo.to(where).with_values(v), b, impl=impl, **kw)
+    torch.tanh(c).sum().backward()
+    return [t.detach().float().cpu() for t in (c, v.grad, b.grad)]
+
+
+@pytest.mark.parametrize("impl,m_pad,batch", CASE3_RUNS)
+def test_case3_kernel_impls_run_their_large_entries_on_the_card(
+        dev, impl, m_pad, batch):
+    """Planner case 3 on the card: each kernel impl (and the precision
+    variants that are case 3 at their element size) runs its kernel's
+    large-matrix entry, forward and first-step gradients, against the same
+    impl on the CPU, where it takes the reference's plain per-sample path.
+    f32 and i8 at (1e-4, 1e-5) and gradients at 3x (atomics in the COO
+    class's dB and in the CPU's scatter-add change the order of the sums),
+    bf16 at tests/oracle.py's bf16 tolerance."""
+    coo = _case3_coo(m_pad, batch)
+    b0 = torch.randn((batch, m_pad, 32))
+    module, name, _ = CASE3_ENTRIES[impl]
+    large = _large_wrapper(module, name)
+    before = large.launches
+    got = _forward_and_grads(coo, b0, impl, dev, k_pad=80)
+    assert large.launches > before, f"{impl}: {name} did not launch"
+    want = _forward_and_grads(coo, b0, impl, "cpu", k_pad=80)
+    bf16 = impl.endswith("bf16")
+    tols = ((BF16_TOL, dict(atol=8e-2, rtol=2e-2)) if bf16
+            else (TOL, dict(atol=3e-4, rtol=3e-5)))
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w, **tols[min(i, 1)],
+                                   msg=f"{impl} output/grad {i}")
+
+
+@pytest.mark.parametrize("impl", ("pallas_coo", "pallas_ell", "pallas_csr"))
+def test_case3_gspmm_runs_the_large_entries_on_the_card(dev, impl):
+    """g-SpMM (copy_lhs, mean) and (mul, max) with vector edges at case 3
+    (m_pad 2000, then 9000 x 2): the large-matrix entries against the CPU's
+    oracle; max bitwise (an exact maximum in any order)."""
+    from repro_torch.kernels import ops
+
+    module, name, _ = CASE3_ENTRIES[impl]
+    large = _large_wrapper(module, name)
+    for m_pad, batch in ((2000, 1), (9000, 2)):
+        coo = _case3_coo(m_pad, batch, seed=1)
+        b = torch.randn((batch, m_pad, 32))
+        vec = coo.with_values(torch.randn(coo.values.shape + (32,)))
+        for a, op, red in ((coo, "copy_lhs", "mean"), (vec, "mul", "max")):
+            before = large.launches
+            got = ops.batched_gspmm(a.to(dev), b.to(dev), op=op, reduce=red,
+                                    impl=impl, k_pad=80)
+            assert large.launches == before + 1
+            want = ops.batched_gspmm(a, b, op=op, reduce=red, impl=impl,
+                                     k_pad=80)
+            if red == "max":
+                assert torch.equal(got.cpu(), want), (impl, m_pad)
+            else:
+                torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_case3_large_entries_match_their_batched_entries(dev):
+    """A large-matrix entry is the same function as its batched entry: at a
+    shape both take (Tox21-like, 64 x 56), ELL, CSR and GEMM give the same
+    bits (one fixed-order sum per output) and COO agrees at (1e-4, 1e-5)."""
+    from repro_torch.kernels.batched_gemm import batched_gemm_large
+    from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo_large
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr_large
+    from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell_large
+
+    coo, m_pad = _regime("uniform")
+    coo = coo.to(dev)
+    b = torch.randn((coo.batch, m_pad, 200), device=dev)
+    e = coo_to_ell(coo, m_pad, 3)
+    c = coo_to_csr(coo, m_pad)
+    assert torch.equal(batched_spmm_ell_large(e.col_ids, e.values, b),
+                       batched_spmm_ell(e.col_ids, e.values, b))
+    assert torch.equal(batched_spmm_csr_large(c.rpt, c.col_ids, c.values, b),
+                       batched_spmm_csr(c.rpt, c.col_ids, c.values, b))
+    torch.testing.assert_close(
+        batched_spmm_coo_large(coo.row_ids, coo.col_ids, coo.values, b),
+        batched_spmm_coo(coo.row_ids, coo.col_ids, coo.values, b), **TOL)
+    a = coo_to_dense(coo, m_pad).contiguous()
+    assert torch.equal(batched_gemm_large(a, b), batched_gemm(a, b))
 
 
 def test_trainer_steps_on_the_card_match_ref(dev, tmp_path):
@@ -326,11 +447,8 @@ def test_new_spmm_impls_backward_match_ref(dev, name, impl):
     coo, m_pad = _regime(name)
     coo = coo.to(dev)
     b0 = torch.randn((coo.batch, m_pad, 48), device=dev)
-    if impl == "pallas_gemm" and m_pad == 256:
-        # the dense 256 x 256 A tile does not fit a block: case 3 raises
-        with pytest.raises(ValueError, match="case 3"):
-            ops.batched_spmm(coo, b0, impl=impl)
-        return
+    # (the dense 256 x 256 powerlaw A tile does not fit a block: pallas_gemm
+    # runs the K-tiled entry there)
     grads = {}
     for i in (impl, "ref"):
         v = coo.values.clone().requires_grad_()
@@ -541,13 +659,17 @@ def test_coo_gspmm_max_is_bitwise(dev, name):
 
 # (b, tq, tk, h, kv, hd, causal, window): the reference test's five corners,
 # then Llama-3 heads at a ragged length, StableLM's hd 160, a bidirectional
-# window and a query shorter than the keys
+# window and a query shorter than the keys; then head widths the f32 entry
+# runs padded (48, 80, zamba2's 112), 72 (padded in both entries, to 96 /
+# 80) and the widest, 256
 FLASH_SHAPES = [
     (2, 64, 64, 4, 4, 32, True, 0), (1, 128, 128, 8, 2, 16, True, 0),
     (2, 96, 96, 4, 1, 32, True, 0), (1, 128, 128, 4, 4, 32, True, 48),
     (2, 64, 64, 4, 2, 32, False, 0), (1, 300, 300, 32, 8, 128, True, 0),
     (1, 200, 200, 4, 4, 160, True, 0), (2, 130, 130, 4, 2, 64, False, 70),
-    (1, 50, 120, 4, 2, 64, False, 0)]
+    (1, 50, 120, 4, 2, 64, False, 0), (1, 150, 150, 4, 2, 48, True, 0),
+    (1, 150, 150, 4, 2, 72, True, 0), (1, 150, 150, 4, 2, 80, True, 0),
+    (1, 150, 150, 4, 2, 112, True, 0), (1, 150, 150, 4, 2, 256, True, 0)]
 
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
@@ -573,12 +695,13 @@ def test_flash_attention_kernel_matches_plain_and_is_bitwise(dev, shape,
                                             window=window))
 
 
-def test_flash_attention_kernel_raises_on_an_unbuilt_head_dim(dev):
-    from repro_torch.kernels.flash_attention import flash_attention
+def test_flash_attention_bf16_entry_runs_on_wgmma(dev):
+    """The bf16 entry's SASS holds HGMMA (warpgroup MMA) instructions."""
+    from repro_torch.kernels import _build
 
-    q = torch.randn((1, 8, 2, 48), device=dev)
-    with pytest.raises(ValueError, match="head_dim 48"):
-        flash_attention(q, q, q)
+    counts = _build.sass_count("flash_attention", "flash_wgmma_kernel",
+                               "HGMMA")
+    assert counts and all(n > 0 for n in counts.values()), counts
 
 
 def test_reduced_lm_on_the_card_matches_the_cpu(dev):
@@ -737,20 +860,31 @@ def test_precision_impls_forward_and_backward_match_the_cpu(dev, name, impl):
         torch.testing.assert_close(got, want, **tols[min(i, 1)])
 
 
-def test_precision_case3_raises_on_the_card(dev):
+def test_precision_case3_runs_the_large_entries_on_the_card(dev):
     """Case 3 judged at the variant's element size: m_pad 3000 fits a bf16
     B panel (planner case 1) but not an f32 one, so pallas_csr_bf16 runs
-    its kernel there while pallas_csr_i8 (f32 B) raises."""
+    its batched entry there while pallas_csr_i8 (f32 B), pallas_ell_i8 and
+    pallas_coo_bf16 (f32 accumulator) run their large-matrix entries; each
+    against the same variant on the CPU."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr_bf16
 
     m_pad = 3000
     rows = np.array([0, 2999, 7], np.int32)
     coo = coo_from_lists([(rows, rows[::-1].copy(),
                            np.ones(3, np.float32))], [m_pad]).to(dev)
     b = torch.randn((1, m_pad, 32), device=dev)
+    before = batched_spmm_csr_bf16.launches
     got = ops.batched_spmm(coo, b, impl="pallas_csr_bf16")
+    assert batched_spmm_csr_bf16.launches == before + 1
     torch.testing.assert_close(got, ops.batched_spmm(
         coo.to("cpu"), b.cpu(), impl="pallas_csr_bf16").to(dev), **BF16_TOL)
     for impl in ("pallas_csr_i8", "pallas_ell_i8", "pallas_coo_bf16"):
-        with pytest.raises(ValueError, match="case 3"):
-            ops.batched_spmm(coo, b, impl=impl, k_pad=1)
+        module, name, _ = CASE3_ENTRIES[impl]
+        large = _large_wrapper(module, name)
+        before = large.launches
+        got = ops.batched_spmm(coo, b, impl=impl, k_pad=1)
+        assert large.launches == before + 1, impl
+        want = ops.batched_spmm(coo.to("cpu"), b.cpu(), impl=impl, k_pad=1)
+        torch.testing.assert_close(
+            got.cpu(), want, **(BF16_TOL if impl.endswith("bf16") else TOL))

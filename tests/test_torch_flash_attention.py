@@ -16,7 +16,14 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import KV_TILE, flash_attention
+from repro_torch.kernels.flash_attention import (
+    F32_WIDTHS,
+    KV_TILE,
+    MAX_HEAD_DIM,
+    flash_attention,
+    kernel_width,
+    pad_head_dim,
+)
 
 # (b, t, h, kv, hd, causal, window, the reference's q_block, kv_block)
 CORNERS = {
@@ -103,3 +110,38 @@ def test_wrapper_checks_and_launch_counter():
     assert flash_attention.launches == before
     assert "flash_attention" in _build.SOURCES
     assert (_build.CSRC / "flash_attention.cu").is_file()
+
+
+@pytest.mark.parametrize("hd", (48, 72, 80, 112, 256))
+def test_head_widths_match_reference_and_pad_to_a_built_width(hd):
+    """Every head width the reference takes (zamba2's 112 among them): the
+    wrapper against the reference in f32 and bf16; and the zero columns the
+    wrapper appends on the card up to ``kernel_width`` change nothing (here
+    through the plain version, the scale kept at hd ** -0.5 by scaling q)."""
+    rng = np.random.default_rng(hd)
+    q = rng.normal(size=(1, 64, 2, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 64, 1, hd)).astype(np.float32)
+            for _ in range(2))
+    for dtype, (jdt, tdt, tol) in DTYPES.items():
+        want = jflash(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                      jnp.asarray(v, jdt), causal=True, q_block=32,
+                      kv_block=32, interpret=True)
+        got = flash_attention(*(_to_torch(a, tdt) for a in (q, k, v)))
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), atol=tol,
+                                   rtol=tol, err_msg=f"hd {hd} {dtype}")
+        width = kernel_width(hd, tdt)
+        assert width >= hd and width % 16 == 0
+        assert tdt == torch.bfloat16 or width in F32_WIDTHS
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    width = kernel_width(hd, torch.float32)
+    padded = ref.flash_attention_plain(
+        pad_head_dim(qt * (width / hd) ** 0.5, width),
+        pad_head_dim(kt, width), pad_head_dim(vt, width), kv_block=KV_TILE)
+    assert padded.shape[-1] == width
+    assert not padded[..., hd:].any()
+    torch.testing.assert_close(padded[..., :hd].contiguous(),
+                               ref.flash_attention_plain(qt, kt, vt),
+                               atol=2e-5, rtol=2e-5)
+    with pytest.raises(ValueError, match="up to 256"):
+        kernel_width(MAX_HEAD_DIM + 8, torch.float32)

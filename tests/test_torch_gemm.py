@@ -22,7 +22,7 @@ from repro.kernels.ops import dense_batched_matmul as j_dbm
 from repro_torch.core import batching as tb
 from repro_torch.core import formats as tf
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.batched_gemm import batched_gemm
+from repro_torch.kernels.batched_gemm import batched_gemm, batched_gemm_large
 from test_torch_formats import CASE_NAMES, to_np
 from test_torch_hybrid import (
     _case,
@@ -170,9 +170,12 @@ def test_gemm_wrapper_rejects_what_the_kernel_does_not_take():
             tb.plan_batched_gemm(batch=2, m=16, n=8, k=16), case=3))
 
 
-def test_pallas_gemm_case3_raises_off_the_cpu():
+def test_pallas_gemm_case3_raises_off_the_cpu(monkeypatch):
     """m_pad whose A tile does not fit a block: the plain product on the
-    CPU, and a raise, not a plain path, for tensors off the CPU."""
+    CPU (``pallas_gemm`` and ``dense_batched_matmul``, which the reference
+    runs at every size), and for tensors off the CPU the K-tiled large
+    entry, whose device check raises here (no card), never the plain
+    product."""
     m_pad = 300
     rows = np.array([0, 299, 7], np.int32)
     coo = tf.coo_from_lists([(rows, rows[::-1].copy(),
@@ -182,8 +185,26 @@ def test_pallas_gemm_case3_raises_off_the_cpu():
     torch.testing.assert_close(ops.batched_spmm(coo, b, impl="pallas_gemm"),
                                ops.batched_spmm(coo, b, impl="ref"),
                                atol=ATOL, rtol=RTOL)
-    with pytest.raises(ValueError, match="case 3"):
+    a = tf.coo_to_dense(coo, m_pad)
+    torch.testing.assert_close(ops.dense_batched_matmul(a, b),
+                               ref.batched_gemm_plain(a, b), rtol=0, atol=0)
+
+    def boom(*a, **k):
+        raise AssertionError("fell back to the plain product")
+
+    monkeypatch.setattr(ref, "batched_gemm_plain", boom)
+    reached = []
+
+    def spy(*a, **k):
+        reached.append(1)
+        return batched_gemm_large(*a, **k)
+
+    monkeypatch.setattr(ops, "batched_gemm_large", spy)
+    with pytest.raises(ValueError, match="CUDA"):
         ops.batched_spmm(coo.to("meta"), b.to("meta"), impl="pallas_gemm")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.dense_batched_matmul(a.to("meta"), b.to("meta"))
+    assert reached == [1, 1]
 
 
 def test_gemm_launch_counter_and_source_present():

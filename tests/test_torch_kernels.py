@@ -68,6 +68,77 @@ def test_spmm_plain_versions_match_pallas_interpret(impl, name):
                                atol=ATOL, rtol=RTOL, err_msg=f"{impl} {name}")
 
 
+CASE3_IMPLS = ("ref", "ell", "pallas_ell", "csr", "pallas_csr", "pallas_coo",
+               "pallas_hybrid", "pallas_gemm", "pallas_csr_i8",
+               "pallas_coo_bf16")
+
+
+@functools.lru_cache(maxsize=None)
+def _case3_inputs(name: str):
+    """The oracle's uniform or skewed regime at m_pad 2048, where the port's
+    plan is paper case 3 at n_b 64 (the reference's VMEM plan is not):
+    (coo_jax, coo_torch, b, k_pad, the reference's ref output and grads of
+    sum(tanh(C)) in values and b). N(0, 1) values, numpy from a seed."""
+    from repro.core import formats as jf
+    from repro_torch.core import formats as tf
+
+    rng = np.random.default_rng(11)
+    m = 2048
+    empty = (np.zeros(0, np.int32),) * 2 + (np.zeros(0, np.float32),)
+    if name == "uniform":      # every row the same degree
+        lists = []
+        for _ in range(2):
+            r = np.repeat(np.arange(m, dtype=np.int32), 3)
+            lists.append((r, rng.integers(0, m, r.size).astype(np.int32),
+                          rng.normal(size=r.size).astype(np.float32)))
+    else:                      # heavy rows, a light sample, an empty one
+        r = np.repeat(np.arange(0, m, 16, dtype=np.int32), 8)
+        lists = [(r, rng.integers(0, m, r.size).astype(np.int32),
+                  rng.normal(size=r.size).astype(np.float32)),
+                 (np.array([0, 5, m - 1], np.int32),
+                  np.array([1, m - 2, 2], np.int32),
+                  rng.normal(size=3).astype(np.float32)), empty]
+    cj = jf.coo_from_lists(lists, [m] * len(lists))
+    b = rng.normal(size=(len(lists), m, 64)).astype(np.float32)
+    k_pad = 8
+
+    def loss(values, bb):
+        c = j_batched_spmm(cj.__class__(cj.row_ids, cj.col_ids, values,
+                                        cj.nnz, cj.n_rows), bb, impl="ref")
+        return jnp.tanh(c).sum(), c
+
+    (_, c), grads = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        cj.values, jnp.asarray(b))
+    return (cj, torch_coo(cj), b, k_pad, to_np(c),
+            tuple(to_np(g) for g in grads))
+
+
+@pytest.mark.parametrize("name", ("uniform", "skewed"))
+def test_case3_batched_spmm_matches_reference(name):
+    """At a paper case-3 shape (m_pad 2048, n_b 64) every impl the port
+    plans as case 3 there (f32, i8 B, the COO class's f32 accumulator) and
+    the plain impls, forward and both gradients, against the reference's
+    ``ref`` at f32 TOLS (gradients at 3x, the gradient rule); the
+    reduced-precision ones at their policy's TOLS."""
+    from repro_torch.autotune import precision_of
+
+    _, coo, b, k_pad, want, (dv_want, db_want) = _case3_inputs(name)
+    assert tb.plan_batched_spmm(batch=coo.batch, m_pad=2048,
+                                n_b=64).case == 3
+    for impl in CASE3_IMPLS:
+        atol, rtol = TOLS[precision_of(impl)[1]]
+        v = coo.values.clone().requires_grad_()
+        bt = torch.from_numpy(b).requires_grad_()
+        c = ops.batched_spmm(coo.with_values(v), bt, impl=impl, k_pad=k_pad)
+        torch.tanh(c).sum().backward()
+        np.testing.assert_allclose(c.detach().numpy(), want, atol=atol,
+                                   rtol=rtol, err_msg=f"{impl} {name}")
+        for got, g in ((v.grad, dv_want), (bt.grad, db_want)):
+            np.testing.assert_allclose(got.numpy(), g, atol=3 * atol,
+                                       rtol=3 * rtol,
+                                       err_msg=f"{impl} {name} grad")
+
+
 def _layer_inputs(name: str, channels: int = 2, n_in: int = 12,
                   n_out: int = 40):
     """The oracle's layer regime: channel 0 is the case's COO, the other
@@ -157,10 +228,24 @@ def test_non_cpu_tensors_never_fall_back(monkeypatch):
             coo.nnz[:, None], bt, torch.zeros(1, 48, 8), torch.zeros(1, 8)))
 
 
+def _spy_on(monkeypatch, module, names):
+    """Replace ``module.<name>`` for each name by a wrapper that records the
+    name, then calls the original; returns the record."""
+    reached = []
+    for name in names:
+        def spy(*a, _real=getattr(module, name), _name=name, **k):
+            reached.append(_name)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(module, name, spy)
+    return reached
+
+
 def test_case3_kernel_impls_raise_off_the_cpu(monkeypatch):
     """Planner case 3 (m_pad too large for one 32-lane panel): on the CPU
-    every impl takes the reference's plain per-sample path; off the CPU a
-    kernel impl raises instead of running that plain path."""
+    every impl takes the reference's plain per-sample path, bit for bit;
+    off the CPU a kernel impl reaches its kernel's large-matrix entry, whose
+    device check raises here (no card), and never that plain path."""
     m_pad = 2000
     rows = np.array([0, 1999, 7], np.int32)
     coo = coo_from_lists([(rows, rows[::-1].copy(),
@@ -173,13 +258,36 @@ def test_case3_kernel_impls_raise_off_the_cpu(monkeypatch):
         torch.testing.assert_close(
             ops.batched_spmm(coo, b, impl=impl, k_pad=1), want,
             rtol=0, atol=0)
+    want_g = ref.batched_gspmm_ref(coo, b, m_pad, op="copy_lhs",
+                                   reduce="mean")
+    for impl in ("pallas_coo", "pallas_ell", "pallas_csr"):
+        torch.testing.assert_close(
+            ops.batched_gspmm(coo, b, op="copy_lhs", reduce="mean",
+                              impl=impl, k_pad=1), want_g, rtol=0, atol=0)
 
     def boom(*a, **k):
         raise AssertionError("fell back to the plain per-sample path")
 
-    monkeypatch.setattr(ref, "batched_spmm_coo_ref", boom)
-    with pytest.raises(ValueError, match="case 3"):
-        ops.batched_spmm(coo.to("meta"), b.to("meta"), impl="pallas_coo")
+    for fn in ("batched_spmm_coo_ref", "batched_spmm_csr_ref",
+               "batched_gspmm_ref"):
+        monkeypatch.setattr(ref, fn, boom)
+    # the ELL guard reads the row degrees, which meta tensors do not hold
+    monkeypatch.setattr(ops, "validate_ell_k_pad", lambda *a: None)
+    entries = {"pallas_coo": "batched_spmm_coo_large",
+               "pallas_ell": "batched_spmm_ell_large",
+               "pallas_csr": "batched_spmm_csr_large"}
+    reached = _spy_on(monkeypatch, ops, entries.values())
+    mc, mb = coo.to("meta"), b.to("meta")
+    for impl, entry in entries.items():
+        for gspmm in (False, True):
+            reached.clear()
+            with pytest.raises(ValueError, match="CUDA"):
+                if gspmm:
+                    ops.batched_gspmm(mc, mb, op="copy_lhs", reduce="mean",
+                                      impl=impl, k_pad=1)
+                else:
+                    ops.batched_spmm(mc, mb, impl=impl, k_pad=1)
+            assert reached == [entry], (impl, gspmm, reached)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -394,7 +394,8 @@ def test_gnn_layers_with_a_variant_raise_as_in_reference(layer):
 def test_precision_entries_check_operands_and_never_fall_back(monkeypatch):
     """The entries take only their own types; a tensor off the CPU launches
     or raises, never runs the plain version; the ELL guard runs before the
-    narrowing; case 3 and m_pad > 32767 raise before any launch."""
+    narrowing; case 3 takes the plain path on the CPU and the large-matrix
+    entries off it, with int32 ids past m_pad 32767."""
     _, coo, m_pad, b, k_pad = case("uniform")
     bt = torch.from_numpy(b)
     e = tf.coo_to_ell(coo, m_pad, k_pad)
@@ -412,6 +413,25 @@ def test_precision_entries_check_operands_and_never_fall_back(monkeypatch):
     with pytest.raises(TypeError, match="dtype"):
         batched_spmm_coo_bf16(r16, coo.col_ids, coo.values.bfloat16(),
                               bt.bfloat16())
+    # case 3, judged at the variant's element size: an m_pad whose f32 B
+    # panel does not fit a block is case 3 for the i8 variants (f32 B) and
+    # the COO class (f32 accumulator), not for the bf16 row splits. On the
+    # CPU they take the reference's plain per-sample path, bit for bit.
+    big = 3000
+    rows = np.array([0, big - 1, 7], np.int32)
+    one = tf.coo_from_lists([(rows, rows[::-1].copy(),
+                              np.array([1.0, -2.0, 0.5], np.float32))], [big])
+    bb = torch.randn((1, big, 32), generator=torch.Generator().manual_seed(5))
+    q_codes, q_scale = tf.quantize_values_i8(one.values)
+    want_i8 = ref.batched_spmm_csr_ref(
+        tf.coo_to_csr(one.with_values(q_codes), big), bb) * q_scale
+    torch.testing.assert_close(ops.batched_spmm(one, bb, impl="pallas_csr_i8"),
+                               want_i8, rtol=0, atol=0)
+    h = one.with_values(one.values.bfloat16())
+    torch.testing.assert_close(
+        ops.batched_spmm(one, bb, impl="pallas_coo_bf16"),
+        ref.batched_spmm_coo_ref(h, bb.bfloat16(), big).float(),
+        rtol=0, atol=0)
 
     def boom(*a, **k):
         raise AssertionError("fell back to the plain version")
@@ -429,28 +449,42 @@ def test_precision_entries_check_operands_and_never_fall_back(monkeypatch):
             torch.zeros(1, 8).bfloat16())))
     with pytest.raises(ValueError, match="max row degree"):
         ops.batched_spmm(coo, bt, impl="pallas_ell_bf16", k_pad=k_pad - 1)
-    # case 3 on the card, judged at the variant's element size: an m_pad
-    # whose f32 B panel does not fit a block raises for the i8 variants
-    # (f32 B) and the COO class (f32 accumulator) ...
-    big = 3000
-    rows = np.array([0, big - 1, 7], np.int32)
-    one = tf.coo_from_lists([(rows, rows[::-1].copy(),
-                              np.ones(3, np.float32))], [big])
-    bb = torch.zeros((1, big, 32))
-    for impl in ("pallas_csr_i8", "pallas_coo_bf16"):
-        with pytest.raises(ValueError, match="case 3"):
-            ops.batched_spmm(one.to("meta"), bb.to("meta"), impl=impl)
-    # ... past LARGE_M every variant is case 3, and past INT16_MAX the
-    # fused_bf16 layer's narrowing refuses the ids before any launch
+    # off the CPU, case 3 reaches the kernel's large-matrix entry (whose
+    # device check raises here, with no card), never the plain path ...
+    monkeypatch.setattr(ref, "batched_spmm_csr_ref", boom)
+    entries = ("batched_spmm_csr_large_i8", "batched_spmm_coo_large_bf16",
+               "batched_spmm_csr_large_bf16", "batched_spmm_csr_bf16")
+    reached = []
+    for name in entries:
+        def spy(*a, _real=getattr(ops, name), _name=name, **k):
+            reached.append((_name, a[1].dtype))
+            return _real(*a, **k)
+
+        monkeypatch.setattr(ops, name, spy)
+    mb = bb.to("meta")
+    for impl, want in (
+            ("pallas_csr_i8", ("batched_spmm_csr_large_i8", torch.int16)),
+            ("pallas_coo_bf16", ("batched_spmm_coo_large_bf16",
+                                 torch.int16)),
+            ("pallas_csr_bf16", ("batched_spmm_csr_bf16", torch.int16))):
+        reached.clear()
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.batched_spmm(one.to("meta"), mb, impl=impl)
+        assert reached == [want], (impl, reached)
+    # ... past LARGE_M every variant is case 3, and past INT16_MAX the large
+    # entries take int32 ids, where the fused_bf16 layer's narrowing
+    # refuses the ids before any launch (the reference raises at case 3)
     huge = tf.INT16_MAX + 1
     hrows = np.array([0, huge - 1], np.int32)
     wide = tf.coo_from_lists([(hrows, hrows.copy(), np.ones(2, np.float32))],
                              [huge])
     for impl in ("pallas_csr_bf16", "pallas_hybrid_bf16"):
-        with pytest.raises(ValueError, match="case 3"):
+        reached.clear()
+        with pytest.raises(ValueError, match="CUDA"):
             ops.batched_spmm(wide.to("meta"),
                              torch.zeros((1, huge, 8), device="meta"),
                              impl=impl)
+        assert reached == [("batched_spmm_csr_large_bf16", torch.int32)]
     with pytest.raises(ValueError, match="int16"):
         graph_conv_batched({"w": torch.zeros((1, 4, 8)),
                             "b": torch.zeros((1, 8))}, [wide],
