@@ -29,7 +29,14 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ELL and CSR) at the Tox21 serving shape (and Reaction100 layer 2 for
    the fused one), each timed beside its f32 entry on the same inputs,
    and on the three regimes: bf16 within one bf16 ulp, i8 within the f32
-   tolerance, CSR and hybrid identical bits twice; then the nine
+   tolerance, CSR and hybrid identical bits twice; the fused entries also
+   at every other panel width ([panels] lines), the hybrid one also with
+   its head over all d_pad slab rows instead of each sample's hub rows
+   ([hubs] lines: the same result, one launch each), and the HMMA
+   (mma.sync) count of each instance of the fused kernel (bf16: some; f32:
+   none); then the fused layer's large-matrix branch (f32, hybrid, bf16)
+   at m_pad 1024 (8 samples, n_in 512: the row fused_forward[large]) and
+   3072 (2, n_in 62) against the plain versions; then the nine
    large-matrix entries (planner case 3: ELL, CSR f32 / bf16 / i8, COO f32
    / bf16, the K-tiled GEMM) at m_pad 2048 (8 matrices) and 9000 (2), n_b
    64, timed beside their bytes bound, plain versions and ``torch.bmm``
@@ -239,6 +246,11 @@ ENTRY_ROW = {"batched_spmm_ell": "batched_spmm_ell",
 # planner case 3: (tag, m_pad, batch) of the large-matrix kernel checks; the
 # case-3 path runs the second, past LARGE_M, where every variant is case 3
 LARGE_SHAPES = (("m_pad 2048", 2048, 8), ("m_pad 9000", 9000, 2))
+# the fused layer past a block's panels (the kernel's large-matrix branch):
+# (tag, m_pad, batch, n_in, n_out); m_pad 1024 x n_in 512 is a shape the
+# port's planner used to refuse, 3072 the giant-graph tier's block size
+FUSED_LARGE = (("m_pad 1024", 1024, 8, 512, 64),
+               ("m_pad 3072", 3072, 2, 62, 64))
 # the kernel impls and precision variants the case-3 path drives
 CASE3_IMPLS = ("pallas_ell", "pallas_csr", "pallas_coo", "pallas_hybrid",
                "pallas_gemm", "pallas_ell_bf16", "pallas_csr_bf16",
@@ -516,6 +528,48 @@ def _fork_times(tag, a, b, m_pad, k_pad):
             f"{t[1]} / {t[2]} ms (identical bits)")
 
 
+def _panel_times(key, call, want, tol, plan):
+    """The fused kernel at its planner's panel width and the other widths
+    it could take (16 to 128 columns, at most the layer's width): each
+    checked against ``want`` within ``tol`` and timed by graph replay; one
+    [panels] line."""
+    import dataclasses
+
+    times = {}
+    for nb in (16, 32, 64, 128):
+        if nb > max(plan.n_b, 16):
+            break
+        p = -(-plan.n_b // nb)
+        pl = dataclasses.replace(plan, n_block=nb, p=p,
+                                 case=1 if p == 1 else 2)
+        max_err(call(pl), want, f"{key} at n_block {nb}", tol)
+        times[nb] = graph_ms(lambda pl=pl: call(pl))
+    log(f"[panels] {key}: " + ", ".join(
+        f"n_block {nb} {ms:.4f} ms" for nb, ms in times.items())
+        + f" (the planner's: {plan.n_block})")
+
+
+def _fused_hmma() -> dict:
+    """HMMA (mma.sync) instructions in the SASS of each instance of the
+    fused kernel, keyed by (entry, tile columns, tile rows, large)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    try:
+        counts = _build.sass_count("fused_graph_conv", "fused_kernel", "HMMA")
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from e
+    out = {}
+    for fn, n in counts.items():
+        tn, tm, hybrid, large = re.search(
+            r"Li(\d+)ELi(\d+)ELb([01])ELb([01])E", fn).groups()
+        entry = ("bf16" if "bfloat16" in fn else
+                 "hybrid f32" if hybrid == "1" else "f32")
+        out[(entry, int(tn), int(tm), large == "1")] = n
+    return out
+
+
 def phase_kernels(device):
     """Each kernel against its plain version; times at the main-path shapes.
     Returns (rows, the largest error of each kernel over every check)."""
@@ -535,6 +589,7 @@ def phase_kernels(device):
     from repro_torch.kernels.batched_gemm import batched_gemm
     from repro_torch.kernels.batched_spmm_hybrid import \
         batched_spmm_hybrid, hybrid_launch, hybrid_operands
+    from repro_torch.core.batching import plan_fused_graph_conv
     from repro_torch.kernels.fused_graph_conv import fused_forward, \
         fused_hybrid_forward, fused_hybrid_operands, runtime_chunks
     from repro_torch.serving.engine import GraphServeEngine
@@ -590,6 +645,7 @@ def phase_kernels(device):
         nbytes = (real * 12 + chunks.numel() * 4 + x.numel() * 4
                   + w.numel() * 4 + bias.numel() * 4 + x.shape[0] * m_pad
                   * n_out * 4)
+        plain = ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w, bias)
         _measure(rows, f"fused_forward[{tag}]", "fused_forward",
                  lambda: fused_forward(rid, cid, val, chunks, x, w, bias),
                  lambda: ref.fused_graph_conv_plain(rid, cid, val, chunks, x,
@@ -598,6 +654,10 @@ def phase_kernels(device):
                  f"{x.shape[0]} samples x {w.shape[0]} channels, m_pad "
                  f"{m_pad}, n_in {n_in} -> n_out {n_out}, {real} real nnz, "
                  f"{live} live (sample, channel) pairs", library)
+        _panel_times(f"fused_forward[{tag}]", lambda plan: fused_forward(
+            rid, cid, val, chunks, x, w, bias, plan=plan), plain,
+            F32_TOL, plan_fused_graph_conv(
+                batch=x.shape[0], m_pad=m_pad, n_in=n_in, n_out=n_out))
 
     fused_case("tox21", wave.adj, wave.x, conv["w"], conv["b"], wave.n_nodes)
     # Reaction100 layer 2 (512 -> 512): a real wave's adjacency and layer
@@ -735,7 +795,7 @@ def phase_kernels(device):
         hp = plan_hybrid(batch=batch, m_pad=m, n_b=n_out,
                          nnz_pad=channels * nnz_pad)
         ops_ = fused_hybrid_operands(rid, cid, val, m, hp)
-        rid_s, cid_s, val_s, chunks, rank, slab = ops_
+        rid_s, cid_s, val_s, chunks, rank, slab, hub_n = ops_
         sparse = int(((val_s != 0) & (rid_s < m)).sum().item())
         real = int(nnz_sc.sum().item())
         # the transform this data needs: real rows of each channel with a
@@ -757,7 +817,7 @@ def phase_kernels(device):
         key = f"fused_hybrid_forward[{tag}]"
         _measure(rows, key, "fused_hybrid_forward",
                  lambda: fused_forward(rid_s, cid_s, val_s, chunks, x, w,
-                                       bias, None, rank, slab),
+                                       bias, None, rank, slab, hubs=hub_n),
                  lambda: ref.fused_graph_conv_plain(
                      rid_s, cid_s, val_s, chunks, x, w, bias, None, "none",
                      rank, slab),
@@ -768,11 +828,34 @@ def phase_kernels(device):
                  f"{hubs / batch:.3f} hub rows per sample", library)
         rows[key]["prep_ms"] = cuda_ms(
             lambda: fused_hybrid_operands(rid, cid, val, m, hp))
+        plain = ref.fused_graph_conv_plain(rid, cid, val,
+                                           runtime_chunks(nnz_sc), x, w, bias)
         max_err(fused_hybrid_forward(rid, cid, val, nnz_sc, x, w, bias,
-                                     hplan=hp),
-                ref.fused_graph_conv_plain(rid, cid, val,
-                                           runtime_chunks(nnz_sc), x, w,
-                                           bias), f"{key} layer vs fused")
+                                     hplan=hp), plain, f"{key} layer vs fused")
+        # the head bounded by each sample's hub count against the head over
+        # all d_pad slab rows: one launch each, the same result
+        n0 = fused_hybrid_forward.launches
+
+        def full():
+            return fused_forward(rid_s, cid_s, val_s, chunks, x, w, bias,
+                                 None, rank, slab)
+
+        bounded = fused_forward(rid_s, cid_s, val_s, chunks, x, w, bias,
+                                None, rank, slab, hubs=hub_n)
+        whole = full()
+        check(fused_hybrid_forward.launches == n0 + 2,
+              f"{key}: {fused_hybrid_forward.launches - n0} launches for two "
+              "calls")
+        max_err(bounded, whole, f"{key} head bounded by hubs vs all d_pad "
+                                "rows")
+        log(f"[hubs] {key}: head over {int(hub_n.sum().item())} hub rows "
+            f"of {batch * hp.d_pad} slab rows: {rows[key]['ms']:.4f} ms, "
+            f"over all d_pad rows {graph_ms(full):.4f} ms (same result, one "
+            "launch each)")
+        _panel_times(key, lambda plan: fused_forward(
+            rid_s, cid_s, val_s, chunks, x, w, bias, None, rank, slab,
+            plan=plan, hubs=hub_n), plain, F32_TOL, plan_fused_graph_conv(
+                batch=batch, m_pad=m, n_in=n_in, n_out=n_out))
 
     fused_hybrid_case("tox21", wave.adj, wave.x, conv["w"], conv["b"],
                       wave.n_nodes)
@@ -852,8 +935,8 @@ def phase_kernels(device):
                          nnz_pad=2 * coo.nnz_pad)
         if fh.d_pad:
             f_ops = fused_hybrid_operands(rid, cid, val, mp, fh)
-            got = fused_forward(*f_ops[:4], x, w, bias, res, *f_ops[4:],
-                                epilogue="relu")
+            got = fused_forward(*f_ops[:4], x, w, bias, res, *f_ops[4:6],
+                                epilogue="relu", hubs=f_ops[6])
             want = ref.fused_graph_conv_plain(*f_ops[:4], x, w, bias, res,
                                               "relu", *f_ops[4:])
             errs["fused_hybrid_forward"] = max(
@@ -1151,7 +1234,7 @@ def phase_precision_kernels(device, rows, errs):
     hybrid entries give identical bits twice. Adds to ``rows`` and
     ``errs``."""
     import torch
-    from repro_torch.core.batching import plan_hybrid
+    from repro_torch.core.batching import plan_fused_graph_conv, plan_hybrid
     from repro_torch.core.formats import coo_to_csr, coo_to_dense, \
         coo_to_ell, max_row_degree, narrow_col_ids, quantize_values_i8, \
         row_degrees
@@ -1303,6 +1386,14 @@ def phase_precision_kernels(device, rows, errs):
             flops=2 * real * n_out + 2 * live_rows * n_in * n_out,
             shape=f"{x.shape[0]} samples x {w.shape[0]} channels, m_pad "
                   f"{m_pad}, n_in {n_in} -> n_out {n_out}, {real} real nnz")
+        _panel_times(f"fused_forward_bf16[{tag}]",
+                     lambda plan: fused_forward_bf16(
+                         rid16, cid16, valh, chunks, xh, wh, bh, plan=plan),
+                     ref.fused_graph_conv_plain(rid16, cid16, valh, chunks,
+                                                xh, wh, bh), BF16_KERNEL_TOL,
+                     plan_fused_graph_conv(batch=x.shape[0], m_pad=m_pad,
+                                           n_in=n_in, n_out=n_out,
+                                           itemsize=2))
 
     fused_row("tox21", wave.adj, wave.x, conv["w"], conv["b"], wave.n_nodes)
     r_cfg = GCNConfig.reaction100(impl="fused", bn_mode="sample")
@@ -1314,6 +1405,16 @@ def phase_precision_kernels(device, rows, errs):
            < rw.n_nodes[:, None, None])
     conv2 = r_params["convs"][1]
     fused_row("reaction100", rw.adj, x2, conv2["w"], conv2["b"], rw.n_nodes)
+    hmma = _fused_hmma()
+    check(all(n > 0 for k, n in hmma.items() if k[0] == "bf16")
+          and not any(n for k, n in hmma.items() if k[0] != "bf16")
+          and len(hmma) == 28,
+          f"fused_graph_conv: HMMA per instance {hmma}")
+    log("[kernels] fused_graph_conv: HMMA (mma.sync) instructions per "
+        "(entry, tile columns, tile rows, large) instance (cuobjdump "
+        "-sass): "
+        + ", ".join(f"{k}: {n}" for k, n in sorted(hmma.items()))
+        + " (the f32 entries: none, so no TF32)")
     for r in rows.values():
         if r["name"] not in before:
             errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0),
@@ -1538,6 +1639,97 @@ def phase_large_kernels(device, rows, errs):
         "(8 matrices) and 9000 (2) match their plain versions: ELL, CSR and "
         f"GEMM identical bits twice, within {F32_TOL} (f32, i8) or "
         f"{BF16_KERNEL_TOL} (bf16); COO within the same")
+    _log_rows(r for k, r in rows.items() if k not in before)
+
+
+def phase_fused_large(device, rows, errs):
+    """The fused layer's large-matrix branch (``plan.large``: each block's
+    U_ch and accumulator panels in a global scratch, where the port's
+    planner used to refuse the layer) at FUSED_LARGE, four channels of
+    ``_large_coo`` matrices: the f32, hybrid (its head bounded by each
+    sample's hub count) and bf16 entries against their plain versions; at
+    m_pad 1024 the f32 entry is timed beside its bound, the plain version
+    and the library's einsum + matmul on the dense adjacency (the row
+    fused_forward[large]). Adds to ``rows`` and ``errs``."""
+    import torch
+    from repro_torch.core.batching import plan_fused_graph_conv, plan_hybrid
+    from repro_torch.core.formats import coo_to_dense, narrow_col_ids
+    from repro_torch.core.graph_conv import stack_channels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_graph_conv import fused_forward, \
+        fused_forward_bf16, fused_hybrid_operands, runtime_chunks
+
+    gen = torch.Generator().manual_seed(4)
+    before = set(rows)
+    bf = torch.bfloat16
+    for tag, m_pad, batch, n_in, n_out in FUSED_LARGE:
+        adj = [_large_coo(m_pad, batch, 20 + c).to(device) for c in range(4)]
+        rid, cid, val, nnz = stack_channels(adj)
+        chunks = runtime_chunks(nnz)
+        x = torch.randn((batch, m_pad, n_in), generator=gen).to(device)
+        w = (torch.randn((4, n_in, n_out), generator=gen)
+             / n_in ** 0.5).to(device)
+        bias = torch.randn((4, n_out), generator=gen).to(device)
+        plan = plan_fused_graph_conv(batch=batch, m_pad=m_pad, n_in=n_in,
+                                     n_out=n_out)
+        check(plan.large and plan.case != 3,
+              f"fused layer {tag}: {plan} is not the large-matrix branch")
+
+        def kern():
+            return fused_forward(rid, cid, val, chunks, x, w, bias)
+
+        def plain():
+            return ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w,
+                                              bias)
+
+        if tag == "m_pad 1024":
+            real = int(nnz.sum().item())
+            live_rows = int((chunks > 0).sum().item()) * m_pad
+            dense = torch.stack([coo_to_dense(a, m_pad) for a in adj])
+
+            def library():
+                uu = (torch.einsum("bmn,cnf->cbmf", x, w)
+                      + bias[:, None, None, :])
+                return torch.matmul(dense, uu).sum(dim=0)
+
+            _measure(rows, "fused_forward[large]", "fused_forward", kern,
+                     plain, real * 12 + chunks.numel() * 4
+                     + (x.numel() + w.numel() + bias.numel()
+                        + batch * m_pad * n_out) * 4,
+                     2 * real * n_out + 2 * live_rows * n_in * n_out,
+                     f"{batch} samples x 4 channels, m_pad {m_pad}, n_in "
+                     f"{n_in} -> n_out {n_out}, {real} real nnz, panels of "
+                     f"{plan.n_block} columns in global scratch", library,
+                     iters=10, replays=3)
+            errs["fused_forward"] = max(
+                errs["fused_forward"],
+                rows["fused_forward[large]"]["max_abs_err"])
+            del dense
+        else:
+            errs["fused_forward"] = max(errs["fused_forward"], max_err(
+                kern(), plain(), f"fused_forward {tag}"))
+        hp = plan_hybrid(batch=batch, m_pad=m_pad, n_b=n_out,
+                         nnz_pad=4 * rid.shape[2])
+        ops_ = fused_hybrid_operands(rid, cid, val, m_pad, hp)
+        errs["fused_hybrid_forward"] = max(
+            errs["fused_hybrid_forward"], max_err(
+                fused_forward(*ops_[:4], x, w, bias, None, *ops_[4:6],
+                              hubs=ops_[6]),
+                ref.fused_graph_conv_plain(*ops_[:4], x, w, bias, None,
+                                           "none", *ops_[4:]),
+                f"fused_hybrid_forward {tag}"))
+        a16 = (narrow_col_ids(rid, m_pad), narrow_col_ids(cid, m_pad),
+               val.to(bf), chunks, x.to(bf), w.to(bf), bias.to(bf))
+        errs["fused_forward_bf16"] = max(
+            errs["fused_forward_bf16"], max_err(
+                fused_forward_bf16(*a16), ref.fused_graph_conv_plain(*a16),
+                f"fused_forward_bf16 {tag}", BF16_KERNEL_TOL))
+        log(f"[kernels] fused layer {tag} ({batch} x {m_pad} rows, n_in "
+            f"{n_in} -> {n_out}, panels of {plan.n_block} in global "
+            f"scratch): the f32, hybrid (d_pad {hp.d_pad}, hub rows "
+            f"{ops_[6].tolist()}) and bf16 entries match their plain "
+            "versions")
+        torch.cuda.empty_cache()
     _log_rows(r for k, r in rows.items() if k not in before)
 
 
@@ -2544,6 +2736,7 @@ def main() -> int:
     phase_flash_kernels(device, rows, errs)
     phase_precision_kernels(device, rows, errs)
     phase_large_kernels(device, rows, errs)
+    phase_fused_large(device, rows, errs)
     large_path = phase_large_path(device)
     lm_paths = phase_lm(device)
     p_launches = phase_powerlaw(device)

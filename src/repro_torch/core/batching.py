@@ -49,7 +49,8 @@ class BatchPlan:
     """Static blocking decision for one batched SpMM or fused-layer call.
 
     ``smem_bytes`` is the dynamic shared memory one block of the kernel
-    takes.
+    takes. ``large`` (fused kernel only) keeps each block's panels in a
+    global scratch, where they do not fit shared memory.
     """
 
     batch: int
@@ -59,6 +60,7 @@ class BatchPlan:
     p: int              # number of column panels = ceil(n_b / n_block)
     case: int           # 1, 2 or 3 (paper Fig. 5)
     smem_bytes: int
+    large: bool = False  # fused kernel: panels in global scratch, not smem
 
 
 def _panel(n: int, fixed_bytes: int, bytes_per_col: int) -> int | None:
@@ -170,19 +172,87 @@ def chunk_counts(nnz_per_sample) -> tuple[int, ...]:
     return tuple(one(n) for n in nnz_per_sample)
 
 
+# The fused kernel's blocks (csrc/fused_graph_conv.cu): row tiles of 64
+# rows, k-tiles 32 deep through a ring of shared memory, panels kept at a
+# tile width of 16, 32, 64 or 128 columns.
+FUSED_TM = 64
+FUSED_TK = 32
+# narrow the fused kernel's panels until the grid has a block for each of
+# the H100's 132 SMs, or the panels are 16 columns wide (32 in bf16, where
+# a 16-column panel leaves the tensor cores two products a k-step): the
+# widths that ran fastest on an H100 at Tox21, Reaction100 and the powerlaw
+# batch (chip_smoke.py's [panels] lines)
+FUSED_FILL_BLOCKS = 132
+
+
+def fused_tile_cols(n_block: int) -> int:
+    """The tile width the fused kernel keeps a panel of ``n_block``
+    columns at: the narrowest of 16, 32, 64 and 128 that holds it."""
+    return next(t for t in (16, 32, 64, PANEL_MAX) if n_block <= t)
+
+
+def fused_tile_rows(m_pad: int, tile_cols: int, itemsize: int) -> int:
+    """The fused kernel's row tile: 64 rows, or 56 for f32 at 128 columns
+    where 56-row tiles pad ``m_pad`` less (m_pad 56)."""
+    rows56 = -(-m_pad // 56) * 56 < -(-m_pad // FUSED_TM) * FUSED_TM
+    return 56 if itemsize == 4 and tile_cols == PANEL_MAX and rows56 \
+        else FUSED_TM
+
+
+def fused_ring_bytes(tile_cols: int, itemsize: int,
+                     rows: int = FUSED_TM) -> int:
+    """Shared memory of the fused kernel's ring: stages (three for bf16 or
+    at most 32 columns, else two) of an X (or slab) tile of ``rows`` x 32
+    and a W tile of 32 x ``tile_cols``, rows padded by 4 f32 (X) or 8 bf16
+    elements (X and W)."""
+    bf16 = itemsize == 2
+    stages = 3 if bf16 or tile_cols <= 32 else 2
+    pad = 8 if bf16 else 4
+    return stages * (rows * (FUSED_TK + pad)
+                     + FUSED_TK * (tile_cols + (pad if bf16 else 0))
+                     ) * itemsize
+
+
+def fused_panel_floats(m_pad: int, tile_cols: int) -> int:
+    """f32 elements of one block's U_ch panel (``m_pad`` rounded up to 32
+    rows) and accumulator (``m_pad`` rows), ``tile_cols`` wide: in shared
+    memory, or in the large-matrix scratch."""
+    return (_round_up(m_pad, FUSED_TK) + m_pad) * tile_cols
+
+
 def plan_fused_graph_conv(*, batch: int, m_pad: int, n_in: int,
                           n_out: int, itemsize: int = 4) -> BatchPlan:
-    """Blocking plan for the fused graph-conv kernel. One block keeps in
-    shared memory the sample's X tile ``(m_pad, n_in)`` of ``itemsize``-byte
-    elements (2 for bf16 X), one channel's ``U_ch`` panel ``(m_pad,
-    n_block)`` and the accumulator ``(m_pad, n_block)``, both f32 whatever
-    X's type (padded to 16 bytes, where the f32 panels start); W and the
-    index stream are read from global memory (L2)."""
-    x_tile = _round_up(m_pad * n_in * itemsize, 16)
-    n_block = (None if m_pad > LARGE_M
-               else _panel(n_out, x_tile, 2 * m_pad * 4))
-    if n_block is None:
+    """Blocking plan for the fused graph-conv kernel, case 3 exactly where
+    the reference's is (m_pad > LARGE_M). A block stages X and W k-tiles of
+    ``itemsize``-byte elements (2 for bf16) through its ring and keeps one
+    channel's ``U_ch`` panel and the accumulator, both f32, in shared
+    memory; ``smem_bytes`` is that working set. The widest panel (≤
+    PANEL_MAX) that fits is taken; where not even a 32-column panel fits
+    (m_pad past ~750 in f32), the plan is ``large``: the panels live in a
+    global scratch and shared memory holds the ring alone. Then the panels
+    narrow, down to 16 columns (32 in bf16), until the grid (batch × p)
+    reaches FUSED_FILL_BLOCKS. ``n_in`` does not enter: X streams through
+    the ring."""
+    if m_pad > LARGE_M:
         return BatchPlan(batch, m_pad, n_out, n_out, 1, 3, 0)
+
+    def ring(nb: int) -> int:
+        tc = fused_tile_cols(nb)
+        return fused_ring_bytes(tc, itemsize,
+                                fused_tile_rows(m_pad, tc, itemsize))
+
+    def smem(nb: int) -> int:
+        return ring(nb) + 4 * fused_panel_floats(m_pad, fused_tile_cols(nb))
+
+    n_block = min(_round_up(n_out, WARP), PANEL_MAX) if n_out >= WARP \
+        else n_out
+    while smem(n_block) > SMEM_BYTES and n_block > WARP:
+        n_block = _round_up(n_block // 2, WARP)
+    large = smem(n_block) > SMEM_BYTES
+    narrowest = 32 if itemsize == 2 else 16
+    while (batch * -(-n_out // n_block) < FUSED_FILL_BLOCKS
+           and n_block > narrowest):
+        n_block = _round_up(n_block // 2, narrowest)
     p = -(-n_out // n_block)
     return BatchPlan(batch, m_pad, n_out, n_block, p, 1 if p == 1 else 2,
-                     x_tile + 2 * m_pad * n_block * 4)
+                     ring(n_block) if large else smem(n_block), large)

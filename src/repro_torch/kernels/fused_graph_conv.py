@@ -2,10 +2,13 @@
 ONE kernel launch per layer (paper Fig. 7 taken to one op).
 
 The kernel is ``csrc/fused_graph_conv.cu``: one block per (sample ×
-output-column panel) keeps the X tile, one channel's ``U_ch`` panel and the
-accumulator in shared memory; ``U_ch`` never reaches device memory, and each
-(sample × channel) scatter visits only its real ``ceil(nnz / CHUNK)`` chunks
-(the reference's skew-aware bound). The plain version is
+output-column panel) streams X and W through shared memory in k-tiles and
+keeps one channel's ``U_ch`` panel and the accumulator there; ``U_ch``
+never reaches device memory (but for matrices whose panels do not fit a
+block, ``plan.large``, where they sit in a scratch the wrapper allocates),
+and each (sample × channel) scatter visits only its real
+``ceil(nnz / CHUNK)`` chunks (the reference's skew-aware bound). The plain
+version is
 :func:`repro_torch.kernels.ref.fused_graph_conv_plain`. The backward
 (:func:`fused_bwd`) is the reference's: dU = Aᵀ·dZ through the COO kernel,
 then dense contractions. f32.
@@ -14,15 +17,16 @@ then dense contractions. f32.
 degree-binned hybrid split into the same kernel: rows whose degree over
 all channels reaches the hub threshold leave the scatter for per-channel
 dense slabs, the accumulator is kept in degree-sorted row order and the
-epilogue restores the original order. The backward runs on the original
-arrays, unchanged.
+epilogue restores the original order; the head runs over each sample's
+hub rows only (``hubs``). The backward runs on the original arrays,
+unchanged.
 
 ``impl="fused_bf16"`` (:func:`fused_forward_bf16`) is the reference
 kernel's bf16 branch: int16 ids, bf16 values, X, W, bias and Y. The
-transform ``U = X·W + b`` is computed in f32 from the widened operands and
-never rounded; only Y is stored as bf16. Its backward takes dU through the
-bf16 COO kernel (``bwd_impl_for``) and returns each gradient in its
-operand's bf16 dtype, as the reference's does.
+transform ``U = X·W + b`` runs on the tensor cores (bf16 products summed in
+f32) and is never rounded; only Y is stored as bf16. Its backward takes dU
+through the bf16 COO kernel (``bwd_impl_for``) and returns each gradient in
+its operand's bf16 dtype, as the reference's does.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ from repro_torch.core.batching import (
     CHUNK,
     BatchPlan,
     HybridPlan,
+    fused_panel_floats,
+    fused_tile_cols,
     plan_fused_graph_conv,
     plan_hybrid,
 )
@@ -51,9 +57,9 @@ from repro_torch.kernels.ops import _forward, bwd_impl_for, dvalues
 EPILOGUES = ("none", "relu")
 FUSED_IMPLS = ("fused", "fused_hybrid", "fused_bf16")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 9 + (_I,) * 9 + (_P,)
-_HYBRID_ARGTYPES = (_P,) * 11 + (_I,) * 10 + (_P,)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = (_P,) * 10 + (_L,) + (_I,) * 10 + (_P,)
+_HYBRID_ARGTYPES = (_P,) * 13 + (_L,) + (_I,) * 11 + (_P,)
 
 
 def fused_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
@@ -63,7 +69,8 @@ def fused_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
                   rank: torch.Tensor | None = None,
                   slab: torch.Tensor | None = None, *,
                   plan: BatchPlan | None = None,
-                  epilogue: str = "none") -> torch.Tensor:
+                  epilogue: str = "none",
+                  hubs: torch.Tensor | None = None) -> torch.Tensor:
     """Raw fused forward. ids/values (batch, channels, nnz_pad) int32/f32,
     chunks (batch, channels) int32 CHUNK counts (:func:`runtime_chunks`;
     0.0-valued slots inside them add nothing), x (batch, m_pad, n_in),
@@ -73,9 +80,12 @@ def fused_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
     ``rank`` (batch, m_pad) int32 and ``slab`` (batch, channels, d_pad,
     m_pad) f32, set together by :func:`fused_hybrid_forward`, switch on the
     hybrid branch (the row ids are then degree-sorted positions); its
-    launches count in ``fused_hybrid_forward.launches``."""
+    launches count in ``fused_hybrid_forward.launches``. ``hubs`` (batch,)
+    int32 bounds each sample's head to its first ``hubs[s]`` slab rows (the
+    rest taken as zero, as :func:`fused_hybrid_operands` builds them);
+    None runs all ``d_pad``."""
     return _fused(row_ids, col_ids, values, chunks, x, w, bias, residual,
-                  rank, slab, plan, epilogue, bf16=False)
+                  rank, slab, hubs, plan, epilogue, bf16=False)
 
 
 def fused_forward_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
@@ -86,17 +96,19 @@ def fused_forward_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
                        epilogue: str = "none") -> torch.Tensor:
     """The bf16 entry: ids (batch, channels, nnz_pad) int16, values, x, w,
     bias and residual bf16 → Y (batch, m_pad, n_out) bf16, rounded once
-    from the f32 accumulator; the plan sized for a bf16 X tile."""
+    from the f32 accumulator; the plan sized for bf16 k-tiles."""
     return _fused(row_ids, col_ids, values, chunks, x, w, bias, residual,
-                  None, None, plan, epilogue, bf16=True)
+                  None, None, None, plan, epilogue, bf16=True)
 
 
 def _fused(row_ids, col_ids, values, chunks, x, w, bias, residual, rank,
-           slab, plan, epilogue, *, bf16: bool) -> torch.Tensor:
+           slab, hubs, plan, epilogue, *, bf16: bool) -> torch.Tensor:
     """Checks, then the plain version on CPU tensors or the f32, hybrid or
     bf16 entry of the kernel, each counted in its own wrapper."""
     if (rank is None) != (slab is None):
         raise ValueError("rank and slab are set together")
+    if hubs is not None and slab is None:
+        raise ValueError("hubs bounds the hybrid branch: it needs the slab")
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue={epilogue!r}; expected one of {EPILOGUES}")
     if row_ids.dim() != 3 or x.dim() != 3 or w.dim() != 3:
@@ -125,33 +137,42 @@ def _fused(row_ids, col_ids, values, chunks, x, w, bias, residual, rank,
         check_operand("rank", rank, (batch, m_pad), torch.int32)
         check_operand("slab", slab, (batch, channels, d_pad, m_pad),
                       torch.float32)
+        if hubs is not None:
+            check_operand("hubs", hubs, (batch,), torch.int32)
     plan = plan or plan_fused_graph_conv(batch=batch, m_pad=m_pad, n_in=n_in,
                                          n_out=n_out,
                                          itemsize=x.element_size())
     check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_out)
     if on_cpu(row_ids, col_ids, values, chunks, x, w, bias, residual, rank,
-              slab):
+              slab, hubs):
         return ref.fused_graph_conv_plain(row_ids, col_ids, values, chunks,
                                           x, w, bias, residual, epilogue,
-                                          rank, slab)
+                                          rank, slab, hubs)
     out = torch.empty((batch, m_pad, n_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    scratch, floats = None, 0
+    if plan.large:
+        floats = batch * plan.p * fused_panel_floats(
+            m_pad, fused_tile_cols(plan.n_block))
+        scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
     head = (row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
             chunks.data_ptr(), x.data_ptr(), w.data_ptr(), bias.data_ptr(),
             None if residual is None else residual.data_ptr())
-    dims = (batch, channels, nnz_pad, CHUNK, m_pad, n_in, n_out, plan.n_block)
-    relu = int(epilogue == "relu")
+    tail = (None if scratch is None else scratch.data_ptr(), floats, batch,
+            channels, nnz_pad, CHUNK, m_pad, n_in, n_out, plan.n_block)
+    relu, large = int(epilogue == "relu"), int(plan.large)
     if slab is None:
         entry = "fused_graph_conv_bf16" if bf16 else "fused_graph_conv_f32"
         fn = _build.entry("fused_graph_conv", entry, _ARGTYPES)
-        code = fn(*head, out.data_ptr(), *dims, relu, stream_handle())
+        code = fn(*head, out.data_ptr(), *tail, relu, large, stream_handle())
         counted = fused_forward_bf16 if bf16 else fused_forward
     else:
         fn = _build.entry("fused_graph_conv", "fused_graph_conv_hybrid_f32",
                           _HYBRID_ARGTYPES)
-        code = fn(*head, rank.data_ptr(), slab.data_ptr(), out.data_ptr(),
-                  *dims, slab.shape[2], relu, stream_handle())
+        code = fn(*head, rank.data_ptr(), slab.data_ptr(),
+                  None if hubs is None else hubs.data_ptr(), out.data_ptr(),
+                  *tail, slab.shape[2], relu, large, stream_handle())
         counted = fused_hybrid_forward
     _build.check("fused_graph_conv", code)
     counted.launches += 1
@@ -173,16 +194,18 @@ def fused_hybrid_operands(row_ids: torch.Tensor, col_ids: torch.Tensor,
                           hplan: HybridPlan):
     """The prep of :func:`fused_hybrid_forward`, on the tensors' device and
     without reading anything back to the host: ``(rid_s, cid_s, val_s,
-    chunks, rank, slab)`` for :func:`fused_forward`.
+    chunks, rank, slab, hubs)`` for :func:`fused_forward` (``hubs`` by
+    keyword).
 
     A row's degree is summed over the channels, counting the slots whose
     value is non-zero (padding carries 0.0 and may sit anywhere in the
     visited chunks). Rows are stably sorted by descending degree; every
     slot targets its row's sorted position, and the slots of the first
-    ``n_dense`` sorted rows (the hubs) leave the scatter for per-channel
-    ``(d_pad, m_pad)`` slabs through the ``m_pad`` sentinel. The live
-    sparse slots are compacted to the front of each channel, so the chunk
-    counts shrink by what the slabs took. Needs ``hplan.d_pad > 0``."""
+    ``n_dense`` sorted rows (the hubs, ``hubs`` per sample, int32) leave the
+    scatter for per-channel ``(d_pad, m_pad)`` slabs through the ``m_pad``
+    sentinel; slab rows at or past ``hubs`` stay zero. The live sparse slots
+    are compacted to the front of each channel, so the chunk counts shrink
+    by what the slabs took. Needs ``hplan.d_pad > 0``."""
     batch, channels, nnz_pad = row_ids.shape
     live = values != 0
     rid_c = row_ids.long().clamp(0, m_pad - 1)
@@ -212,7 +235,8 @@ def fused_hybrid_operands(row_ids: torch.Tensor, col_ids: torch.Tensor,
                     is_hub.reshape(flat), cid_c.reshape(flat),
                     values.reshape(flat))
     return (rid_s, cid_s, val_s, chunks, rank,
-            slab.view(batch, channels, hplan.d_pad, m_pad))
+            slab.view(batch, channels, hplan.d_pad, m_pad),
+            n_dense.to(torch.int32))
 
 
 def fused_hybrid_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
@@ -226,7 +250,8 @@ def fused_hybrid_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
     then one :func:`fused_forward` launch whose accumulator is in sorted
     row order and whose epilogue restores the original order. With
     ``hplan.d_pad == 0`` no row can be a hub and the plain fused kernel
-    runs, as in the reference."""
+    runs, as in the reference. The kernel's head runs over each sample's
+    hub rows only."""
     m_pad = x.shape[1]
     if hplan.spmm.m_pad != m_pad:
         raise ValueError(f"{hplan} does not match m_pad={m_pad} (the hybrid "
@@ -235,10 +260,10 @@ def fused_hybrid_forward(row_ids: torch.Tensor, col_ids: torch.Tensor,
         return fused_forward(row_ids, col_ids, values, runtime_chunks(nnz),
                              x, w, bias, residual, plan=plan,
                              epilogue=epilogue)
-    rid_s, cid_s, val_s, chunks, rank, slab = fused_hybrid_operands(
+    rid_s, cid_s, val_s, chunks, rank, slab, hubs = fused_hybrid_operands(
         row_ids, col_ids, values, m_pad, hplan)
     return fused_forward(rid_s, cid_s, val_s, chunks, x, w, bias, residual,
-                         rank, slab, plan=plan, epilogue=epilogue)
+                         rank, slab, plan=plan, epilogue=epilogue, hubs=hubs)
 
 
 fused_hybrid_forward.launches = 0
@@ -348,8 +373,8 @@ def fused_graph_conv(row_ids: torch.Tensor, col_ids: torch.Tensor,
                                  itemsize=x.element_size())
     if plan.case == 3:
         raise ValueError(
-            f"m_pad={plan.m_pad} is planner case 3: the fused kernel does "
-            "not batch matrices this large — use the stacked "
+            f"m_pad={plan.m_pad} is planner case 3 (> LARGE_M): the fused "
+            "kernel does not batch matrices this large — use the stacked "
             "graph_conv_batched fallback")
     hplan = None
     if impl == "fused_hybrid":

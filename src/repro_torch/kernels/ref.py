@@ -324,7 +324,7 @@ def batched_spmm_hybrid_plain(rank, start_s, rlen_sparse, cid, val, slab, b):
 
 def fused_graph_conv_plain(row_ids, col_ids, values, chunks, x, w, bias,
                            residual=None, epilogue: str = "none", rank=None,
-                           slab=None):
+                           slab=None, hubs=None):
     """Plain version of the fused layer kernel:
     ``Y = epi(Σ_ch A_ch·(X·W_ch + b_ch) [+ residual])``, each channel's
     scatter over its first ``chunks[s, ch] · CHUNK`` slots (the reference's
@@ -335,7 +335,8 @@ def fused_graph_conv_plain(row_ids, col_ids, values, chunks, x, w, bias,
     the scatter lands in degree-sorted rows (the row ids are sorted
     positions), the head ``Σ_ch slab_ch·U_ch`` is added to rows
     ``[0, d_pad)``, ``acc[rank[r]]`` restores the original row order, then
-    the residual and ReLU."""
+    the residual and ReLU. ``hubs`` (batch,), when given, keeps each
+    sample's first ``hubs[s]`` slab rows only (the kernel's head bound)."""
     if (rank is None) != (slab is None):
         raise ValueError("rank and slab are set together")
     batch, channels, nnz_pad = row_ids.shape
@@ -354,8 +355,12 @@ def fused_graph_conv_plain(row_ids, col_ids, values, chunks, x, w, bias,
     if slab is not None:
         y = y.float()
         d_pad = slab.shape[2]
+        sl = slab.float()
+        if hubs is not None:
+            keep = torch.arange(d_pad, device=sl.device) < hubs[:, None]
+            sl = sl * keep[:, None, :, None]
         y[:, :d_pad] += torch.einsum(
-            "bcdm,bcmf->bdf", slab.float(),
+            "bcdm,bcmf->bdf", sl,
             u.view(batch, channels, m_pad, n_out))
         y = torch.gather(y, 1, rank.long()[..., None].expand(-1, -1, n_out))
     if residual is not None:

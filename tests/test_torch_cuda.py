@@ -21,7 +21,7 @@ from repro_torch.core.formats import coo_from_lists, coo_to_csr, \
 from repro_torch.core.gcn import GCNConfig, init_gcn
 from repro_torch.core.graph_conv import stack_channels
 from repro_torch.data.graphs import GraphDatasetSpec, generate
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.batched_gemm import batched_gemm
 from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
 from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
@@ -407,9 +407,7 @@ def test_gemm_kernel_matches_plain_and_library(dev, batch, m, k, n):
 
 @pytest.mark.parametrize("name,n_in,n_out", [
     (name, n_in, n_out) for name in HYBRID_REGIMES
-    for n_in, n_out in ((12, 40), (512, 300))
-    # an X tile of 256 x 512 does not fit a block (fused planner case 3)
-    if (name, n_in) != ("powerlaw", 512)])
+    for n_in, n_out in ((12, 40), (512, 300))])
 def test_fused_hybrid_kernel_matches_plain(dev, name, n_in, n_out):
     """fused_hybrid_forward on the card (the kernel's hybrid branch) against
     the same call on the CPU (the plain version), with ReLU and a
@@ -437,6 +435,141 @@ def test_fused_hybrid_kernel_matches_plain(dev, name, n_in, n_out):
                            runtime_chunks(nnz).to(dev),
                            *(t.to(dev) for t in (x, w, bias, res)),
                            epilogue="relu"), **TOL)
+
+
+@pytest.mark.parametrize("entry", ("f32", "hybrid", "bf16"))
+@pytest.mark.parametrize("m_pad", (1024, 3072))
+def test_fused_large_entries_match_plain(dev, m_pad, entry):
+    """Matrices whose U_ch and accumulator panels do not fit a block (the
+    kernel's kLarge branch: the panels in a global scratch) against the
+    plain version on the same card, each entry counted once: four
+    channels of the case-3 matrices above (row 7 a hub of the hybrid
+    split at m_pad 1024)."""
+    from repro_torch.core.batching import plan_fused_graph_conv
+    from repro_torch.kernels.fused_graph_conv import fused_forward_bf16, \
+        fused_hybrid_operands
+
+    rid, cid, val, nnz = stack_channels(
+        [_case3_coo(m_pad, 2, seed=c).to(dev) for c in range(4)])
+    x = torch.randn((2, m_pad, 62), device=dev)
+    w = torch.randn((4, 62, 40), device=dev) / 62 ** 0.5
+    bias = torch.randn((4, 40), device=dev)
+    res = torch.randn((2, m_pad, 40), device=dev)
+    plan = plan_fused_graph_conv(batch=2, m_pad=m_pad, n_in=62, n_out=40,
+                                 itemsize=2 if entry == "bf16" else 4)
+    assert plan.large and plan.case != 3
+    chunks = runtime_chunks(nnz)
+    if entry == "bf16":
+        bf = torch.bfloat16
+        args = (narrow_col_ids(rid, m_pad), narrow_col_ids(cid, m_pad),
+                val.to(bf), chunks, x.to(bf), w.to(bf), bias.to(bf),
+                res.to(bf))
+        before = fused_forward_bf16.launches
+        got = fused_forward_bf16(*args, epilogue="relu")
+        assert fused_forward_bf16.launches == before + 1
+        torch.testing.assert_close(
+            got, ref.fused_graph_conv_plain(*args, "relu"), **BF16_TOL)
+        return
+    if entry == "hybrid":
+        hp = plan_hybrid(batch=2, m_pad=m_pad, n_b=40,
+                         nnz_pad=4 * rid.shape[2])
+        rid, cid, val, chunks, rank, slab, hubs = fused_hybrid_operands(
+            rid, cid, val, m_pad, hp)
+        assert hubs.tolist() == ([1, 1] if m_pad == 1024 else [0, 0])
+        extra, counted = (rank, slab), fused_hybrid_forward
+    else:
+        extra, hubs, counted = (), None, fused_forward
+    before = counted.launches
+    got = fused_forward(rid, cid, val, chunks, x, w, bias, res, *extra,
+                        epilogue="relu", hubs=hubs)
+    assert counted.launches == before + 1
+    torch.testing.assert_close(
+        got, ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w, bias,
+                                        res, "relu", *extra, hubs), **TOL)
+
+
+def test_fused_hybrid_hub_bound_on_the_card(dev):
+    """A batch in which one sample has hub rows and the others none (one
+    empty): the head bounded by each sample's hub count gives the result
+    of the head over all d_pad rows, in one launch each, and both match
+    the plain version."""
+    from repro_torch.kernels.fused_graph_conv import fused_hybrid_operands
+
+    m_pad, rng = 64, np.random.default_rng(5)
+    hub_r = np.repeat(np.arange(3, dtype=np.int32), 24)      # 3 hub rows
+    hub_c = rng.integers(0, m_pad, hub_r.size).astype(np.int32)
+    tail_r = rng.integers(0, m_pad, 40).astype(np.int32)
+    tail_c = rng.integers(0, m_pad, 40).astype(np.int32)
+    empty = (np.zeros(0, np.int32),) * 2 + (np.zeros(0, np.float32),)
+    adj = []
+    for _ in range(2):
+        samples = [(np.concatenate([hub_r, tail_r]),
+                    np.concatenate([hub_c, tail_c]),
+                    rng.normal(size=hub_r.size + 40).astype(np.float32)),
+                   (tail_r, tail_c, rng.normal(size=40).astype(np.float32)),
+                   empty]
+        adj.append(coo_from_lists(samples, [m_pad] * 3).to(dev))
+    rid, cid, val, nnz = stack_channels(adj)
+    hp = plan_hybrid(batch=3, m_pad=m_pad, n_b=48, nnz_pad=2 * rid.shape[2])
+    ops_ = fused_hybrid_operands(rid, cid, val, m_pad, hp)
+    hubs = ops_[6]
+    assert hubs.tolist()[1:] == [0, 0] and 0 < hubs[0] < hp.d_pad
+    x = torch.randn((3, m_pad, 12), device=dev)
+    w = torch.randn((2, 12, 48), device=dev) / 12 ** 0.5
+    bias = torch.randn((2, 48), device=dev)
+    before = fused_hybrid_forward.launches
+    bounded = fused_forward(*ops_[:4], x, w, bias, None, *ops_[4:6],
+                            hubs=hubs)
+    full = fused_forward(*ops_[:4], x, w, bias, None, *ops_[4:6])
+    assert fused_hybrid_forward.launches == before + 2
+    torch.testing.assert_close(bounded, full, **TOL)
+    torch.testing.assert_close(
+        bounded, ref.fused_graph_conv_plain(rid, cid, val,
+                                            runtime_chunks(nnz), x, w, bias),
+        **TOL)
+
+
+def test_fused_bf16_entry_at_reaction100_width(dev):
+    """The bf16 entry at Reaction100 layer-2 width (512 -> 512, 56 rows)
+    runs its transform on the tensor cores (HMMA in every bf16 instance's
+    SASS, none in the f32 ones): within one bf16 ulp of its plain version
+    on N(0, 1) edge values, bias and features, and within TOLS["bf16"] of
+    the f32 plain layer on the Reaction100 model's own layer-2 parameters
+    and unit edge values, as the model runs it. (On the N(0, 1) data the
+    bf16 storage itself moves a rare output whose ~10-sized terms cancel
+    by more than TOLS["bf16"], in the plain version as much as in the
+    kernel.)"""
+    from repro_torch.kernels.fused_graph_conv import fused_forward_bf16
+
+    coo, m_pad = random_batch(np.random.default_rng(9), batch=32, dim=56,
+                              nnz_per_row=2)
+    adj = [coo.with_values(torch.where(coo.values != 0,
+                                       torch.randn(coo.values.shape),
+                                       0.0)).to(dev) for _ in range(4)]
+    rid, cid, val, nnz = stack_channels(adj)
+    chunks = runtime_chunks(nnz)
+    x = torch.randn((32, m_pad, 512), device=dev)
+    w = torch.randn((4, 512, 512), device=dev) / 512 ** 0.5
+    bias = torch.randn((4, 512), device=dev)
+    bf = torch.bfloat16
+    r16, c16 = narrow_col_ids(rid, m_pad), narrow_col_ids(cid, m_pad)
+    args = (r16, c16, val.to(bf), chunks, x.to(bf), w.to(bf), bias.to(bf))
+    torch.testing.assert_close(
+        fused_forward_bf16(*args, epilogue="relu"),
+        ref.fused_graph_conv_plain(*args, None, "relu"), **BF16_TOL)
+    conv = init_gcn(GCNConfig.reaction100(), generator=torch.Generator()
+                    .manual_seed(0), device=dev)["convs"][1]
+    unit = (val != 0).float()
+    got = fused_forward_bf16(r16, c16, unit.to(bf), chunks, x.to(bf),
+                             conv["w"].to(bf), conv["b"].to(bf),
+                             epilogue="relu")
+    want = ref.fused_graph_conv_plain(rid, cid, unit, chunks, x, conv["w"],
+                                      conv["b"], None, "relu")
+    torch.testing.assert_close(got.float(), want, atol=8e-2, rtol=2e-2)
+    hmma = _build.sass_count("fused_graph_conv", "fused_kernel", "HMMA")
+    bf16 = {k: v for k, v in hmma.items() if "bfloat16" in k}
+    assert bf16 and all(v > 0 for v in bf16.values())
+    assert not any(v for k, v in hmma.items() if "bfloat16" not in k)
 
 
 @pytest.mark.parametrize("impl", ("pallas_hybrid", "pallas_gemm"))

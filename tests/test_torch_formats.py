@@ -118,15 +118,27 @@ def test_plan_batched_spmm_cases(m_pad, n_b, case_, n_block):
 
 
 def test_plan_fused_graph_conv_hopper_smem():
+    # smem_bytes: the ring (stages of a 64 x 32 X tile, rows padded to 36
+    # f32, and a 32 x tile-width W tile), U_ch (m_pad rounded up to 32
+    # rows) and the accumulator (m_pad rows), tile-width columns of f32;
+    # the 128 Tox21 samples fill the 132 SMs at two 32-column panels
     tox = tb.plan_fused_graph_conv(batch=128, m_pad=56, n_in=62, n_out=64)
-    assert (tox.case, tox.n_block, tox.p) == (1, 64, 1)
-    assert tox.smem_bytes == (56 * 62 + 2 * 56 * 64) * 4          # ~42 KB
+    assert (tox.case, tox.n_block, tox.p, tox.large) == (2, 32, 2, False)
+    assert tox.smem_bytes == 3 * (64 * 36 + 32 * 32) * 4 + (64 + 56) * 32 * 4
     r100 = tb.plan_fused_graph_conv(batch=128, m_pad=56, n_in=512,
                                     n_out=512)
-    assert (r100.case, r100.n_block, r100.p) == (2, 128, 4)
-    assert r100.smem_bytes == (56 * 512 + 2 * 56 * 128) * 4       # ~172 KB
+    assert (r100.case, r100.n_block, r100.p, r100.large) == (2, 128, 4, False)
+    # row tiles of 56 rows at 128 columns in f32 (m_pad 56)
+    assert r100.smem_bytes == (2 * (56 * 36 + 32 * 128) * 4
+                               + (64 + 56) * 128 * 4)             # 108 KB
+    assert 2 * (r100.smem_bytes + 1024) <= 233_472     # two blocks an SM
+    # the reference's case at m_pad 1024 (not 3): the panels leave shared
+    # memory for a global scratch, which holds the ring alone
     big = tb.plan_fused_graph_conv(batch=1, m_pad=1024, n_in=512, n_out=64)
-    assert big.case == 3
+    assert (big.case, big.large, big.n_block) == (2, True, 16)
+    assert big.smem_bytes == 3 * (64 * 36 + 32 * 16) * 4
+    assert tb.plan_fused_graph_conv(batch=1, m_pad=8193, n_in=4,
+                                    n_out=4).case == 3
 
 
 def test_chunk_counts_and_sub_warp_match_reference():

@@ -443,7 +443,7 @@ def test_fused_hybrid_dpad_zero_takes_plain_fused_kernel(monkeypatch):
     monkeypatch.setattr(ref, "fused_graph_conv_plain", spy)
     got = fused_hybrid_forward(rt, ct, vt, nt, x, w, bias, res, hplan=hp,
                                epilogue="relu")
-    assert seen == [(None, None)]
+    assert seen == [(None, None, None)]     # rank, slab, hubs
     want = real(rt, ct, vt, (nt + 127) // 128, x, w, bias, res, "relu")
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
