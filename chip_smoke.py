@@ -13,8 +13,10 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    batch, and the degree-skewed powerlaw batch) and on the uniform /
    skewed / zero-nnz regimes, with kernel, plain, library-call and bound
    times (device times by CUDA-graph replay; the kernel's back-to-back
-   call time beside it, and the PyTorch prep of the hybrid kernels); the
-   CSR, hybrid and GEMM kernels also twice for identical bits, the hybrid
+   call time beside it, and the PyTorch prep of the hybrid kernels; the
+   hybrid rows' bound counts the slab rows up to each sample's hub count,
+   and a [bound] line gives it over all d_pad rows too); the CSR, hybrid
+   and GEMM kernels also twice for identical bits, the hybrid
    kernel also without a slab, and the COO and CSR kernels in their
    backward roles (dU of the fused layer, dB of ``pallas_csr`` on the
    transposed CSR); then the g-SpMM entries of the ELL, CSR and COO
@@ -27,7 +29,8 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    group's rows come out 0 as in the reference); then the seven
    reduced-precision entries (bf16 ELL, CSR, COO, hybrid and fused, i8
    ELL and CSR) at the Tox21 serving shape (and Reaction100 layer 2 for
-   the fused one), each timed beside its f32 entry on the same inputs,
+   the fused one, the powerlaw batch for the hybrid one), each timed
+   beside its f32 entry on the same inputs,
    and on the three regimes: bf16 within one bf16 ulp, i8 within the f32
    tolerance, CSR and hybrid identical bits twice; the fused entries also
    at every other panel width ([panels] lines), the hybrid one also with
@@ -38,7 +41,7 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    at m_pad 1024 (8 samples, n_in 512: the row fused_forward[large]) and
    3072 (2, n_in 62) against the plain versions; then the nine
    large-matrix entries (planner case 3: ELL, CSR f32 / bf16 / i8, COO f32
-   / bf16, the K-tiled GEMM) at m_pad 2048 (8 matrices) and 9000 (2), n_b
+   / bf16, the GEMM) at m_pad 2048 (8 matrices) and 9000 (2), n_b
    64, timed beside their bytes bound, plain versions and ``torch.bmm``
    (ELL, CSR, GEMM identical bits twice); then the case-3 path:
    ``ops.batched_spmm`` forward and first-step gradients with every kernel
@@ -491,12 +494,13 @@ def _measure(rows, key, kernel, kern, plain, nbytes, flops, shape,
 
 
 def _fork_times(tag, a, b, m_pad, k_pad):
-    """The two branches of the ELL and GEMM kernels at a shape the batched
-    (staged) entries take: the batched and the large-matrix entry on the
-    same inputs (f32 and, for ELL, bf16) must give the same bits, and both
-    are timed by graph replay, in the order batched, large, large, batched,
-    and each time is printed on a [fork] line. (The CSR kernel has one
-    branch: it reads B through the L2 at every plan.)"""
+    """The two entries of the ELL and GEMM kernels at a shape the batched
+    entries take: the batched and the large-matrix entry on the same inputs
+    (f32 and, for ELL, bf16) must give the same bits, and both are timed by
+    graph replay, in the order batched, large, large, batched, and each
+    time is printed on a [fork] line. (The CSR kernel has one branch: it
+    reads B through the L2 at every plan; the GEMM's two entries launch
+    one K-streaming kernel, counted apart.)"""
     import torch
     from repro_torch.core.formats import coo_to_dense, coo_to_ell, \
         narrow_col_ids
@@ -526,6 +530,25 @@ def _fork_times(tag, a, b, m_pad, k_pad):
         t = [graph_ms(f) for f in (kb, kl, kl, kb)]
         log(f"[fork] {tag} {name}: batched {t[0]} / {t[3]} ms, large "
             f"{t[1]} / {t[2]} ms (identical bits)")
+
+
+def _hybrid_work(ops, b, d_pad):
+    """What the hybrid kernel must move and compute on prepared operands
+    ``ops`` (those of ``hybrid_operands``) and B: (bytes, operations,
+    sparse slots, hub rows, bytes over the whole d_pad slab). Bytes: the
+    hub counts, rank, start and rlen, each sparse slot's id and value, the
+    slab rows up to each sample's hub count, B read once and C written
+    once; operations: the sparse slots' and the hub rows' products."""
+    rank, _, rl, cid, val, slab, hubs = ops
+    m_pad, n_b = b.shape[1], b.shape[2]
+    sparse = int(rl.sum().item())
+    hub_rows = 0 if slab is None else int(hubs.sum().item())
+    fixed = (hubs.numel() * 4 + 3 * rank.numel() * 4
+             + sparse * (cid.element_size() + val.element_size())
+             + 2 * b.numel() * b.element_size())
+    slab_row = m_pad * val.element_size()
+    return (fixed + hub_rows * slab_row, 2 * (sparse + hub_rows * m_pad) * n_b,
+            sparse, hub_rows, fixed + rank.shape[0] * d_pad * slab_row)
 
 
 def _panel_times(key, call, want, tol, plan):
@@ -743,28 +766,26 @@ def phase_kernels(device):
     def hybrid_row(tag, a, b, m):
         hp = plan_hybrid(batch=a.batch, m_pad=m, n_b=b.shape[-1],
                          nnz_pad=a.nnz_pad)
-        rank, st, rl, cid, val, slab = hybrid_operands(
-            a.row_ids, a.col_ids, a.values, a.nnz, m, hp)
-        sparse = int(rl.sum().item())
+        h_ops = hybrid_operands(a.row_ids, a.col_ids, a.values, a.nnz, m,
+                                hp)
+        nbytes, flops, sparse, hubs, whole = _hybrid_work(h_ops, b, hp.d_pad)
         real = int(a.nnz.sum().item())
-        hubs = int((row_degrees(a, m) >= hp.dmin).sum().item())
-        # the slab is read whole; its products count where it holds a value
-        slab_n = 0 if slab is None else slab.numel()
-        slab_nz = 0 if slab is None else int((slab != 0).sum().item())
         dense = coo_to_dense(a, m)
         key = f"batched_spmm_hybrid[{tag}]"
         _measure(rows, key, "batched_spmm_hybrid",
-                 lambda: hybrid_launch(rank, st, rl, cid, val, slab, b,
-                                       plan=hp),
-                 lambda: ref.batched_spmm_hybrid_plain(rank, st, rl, cid,
-                                                       val, slab, b),
-                 3 * rank.numel() * 4 + sparse * 8 + slab_n * 4
-                 + 2 * b.numel() * 4, 2 * (sparse + slab_nz) * b.shape[-1],
+                 lambda: hybrid_launch(*h_ops, b, plan=hp),
+                 lambda: ref.batched_spmm_hybrid_plain(*h_ops, b),
+                 nbytes, flops,
                  f"{a.batch} matrices x {m} rows, nnz_pad {a.nnz_pad}, n_b "
                  f"{b.shape[-1]}, {real} real nnz ({sparse} in the CSR "
                  f"remainder), dmin {hp.dmin}, d_pad {hp.d_pad}, "
-                 f"{hubs / a.batch:.3f} hub rows per matrix",
+                 f"{hubs / a.batch:.3f} hub rows per matrix, n_block "
+                 f"{hp.spmm.n_block}",
                  lambda: torch.bmm(dense, b), bitwise=True)
+        log(f"[bound] {key}: {rows[key]['bound_ms']:.4f} ms over the slab "
+            f"rows up to each hub count ({hubs} rows), "
+            f"{bound(whole, flops)[0]:.4f} ms by bytes over all "
+            f"{a.batch * hp.d_pad} d_pad rows")
         rows[key]["prep_ms"] = cuda_ms(lambda: hybrid_operands(
             a.row_ids, a.col_ids, a.values, a.nnz, m, hp))
         max_err(batched_spmm_hybrid(a.row_ids, a.col_ids, a.values, a.nnz, b,
@@ -955,7 +976,7 @@ def phase_kernels(device):
     b = torch.randn((2, 64, 16), generator=gen).to(device)
     h_ops = hybrid_operands(small.row_ids, small.col_ids, small.values,
                             small.nnz, 64, hp)
-    check(h_ops[-1] is None, "d_pad 0 built a slab")
+    check(h_ops[5] is None, "d_pad 0 built a slab")
     errs["batched_spmm_hybrid"] = max(
         errs["batched_spmm_hybrid"],
         max_err(hybrid_launch(*h_ops, b, plan=hp),
@@ -1226,7 +1247,8 @@ def phase_precision_kernels(device, rows, errs):
     """The seven reduced-precision entries against their plain versions:
     timed at the Tox21 serving shape (the first wave of the serving phase,
     512 matrices x 56 rows, k_pad 8, nnz_pad 256, n_b 64) and, for the
-    fused entry, also at Reaction100 layer 2, each beside its f32 entry's
+    fused entry, also at Reaction100 layer 2, for the hybrid entry also at
+    the powerlaw batch (hub rows), each beside its f32 entry's
     time on the same inputs, its bound at the narrowed widths and its
     library call (``torch.bmm`` on the densified bf16 adjacency; for i8
     the f32 ``torch.bmm`` on the dequantized one); then on the three
@@ -1236,8 +1258,7 @@ def phase_precision_kernels(device, rows, errs):
     import torch
     from repro_torch.core.batching import plan_fused_graph_conv, plan_hybrid
     from repro_torch.core.formats import coo_to_csr, coo_to_dense, \
-        coo_to_ell, max_row_degree, narrow_col_ids, quantize_values_i8, \
-        row_degrees
+        coo_to_ell, max_row_degree, narrow_col_ids, quantize_values_i8
     from repro_torch.core.gcn import GCNConfig
     from repro_torch.core.graph_conv import flatten_channels, stack_channels
     from repro_torch.data.graphs import GraphDatasetSpec
@@ -1333,28 +1354,42 @@ def phase_precision_kernels(device, rows, errs):
         lambda: ref.batched_spmm_coo_plain(r16, k16, vh, uh),
         lambda: batched_spmm_coo(a.row_ids, a.col_ids, a.values, u),
         io // 2 + nnz * 6, lib_bf16, True, BF16_FLOP_PER_S)
-    hp = plan_hybrid(batch=batch, m_pad=m_pad, n_b=64, nnz_pad=a.nnz_pad,
-                     itemsize=2)
-    hp32 = plan_hybrid(batch=batch, m_pad=m_pad, n_b=64, nnz_pad=a.nnz_pad)
-    h32 = hybrid_operands(a.row_ids, a.col_ids, a.values, a.nnz, m_pad,
-                          hp32)
-    hh = hybrid_operands(a.row_ids, a.col_ids, vh, a.nnz, m_pad, hp)
-    hh = hh[:3] + (narrow_col_ids(hh[3], m_pad),) + hh[4:]
-    rank, _, rl, _, _, slab = hh
-    sparse = int(rl.sum().item())
-    slab_n = 0 if slab is None else slab.numel()
-    slab_nz = 0 if slab is None else int((slab != 0).sum().item())
-    hubs = int((row_degrees(a, m_pad) >= hp.dmin).sum().item())
-    precision_row(
-        "batched_spmm_hybrid_bf16[tox21]", "batched_spmm_hybrid_bf16",
-        lambda: hybrid_launch(*hh, uh, plan=hp),
-        lambda: ref.batched_spmm_hybrid_plain(*hh, uh),
-        lambda: hybrid_launch(*h32, u, plan=hp32),
-        3 * rank.numel() * 4 + sparse * 4 + slab_n * 2 + io // 2, lib_bf16,
-        True, BF16_FLOP_PER_S, bitwise=True,
-        flops=2 * (sparse + slab_nz) * 64,
-        shape=f"{shape} ({sparse} in the CSR remainder), dmin {hp.dmin}, "
-              f"d_pad {hp.d_pad}, {hubs / batch:.3f} hub rows per matrix")
+    # the bf16 hybrid entry at Tox21 (no hub) and at the powerlaw batch (its
+    # first channel: 40 x 256, about 5 hub rows a matrix), beside the f32
+    # entry on the same inputs
+    def hybrid_bf16_row(tag, coo, b, mp, library):
+        hp = plan_hybrid(batch=coo.batch, m_pad=mp, n_b=b.shape[-1],
+                         nnz_pad=coo.nnz_pad, itemsize=2)
+        hp32 = plan_hybrid(batch=coo.batch, m_pad=mp, n_b=b.shape[-1],
+                           nnz_pad=coo.nnz_pad)
+        h32 = hybrid_operands(coo.row_ids, coo.col_ids, coo.values, coo.nnz,
+                              mp, hp32)
+        hh = hybrid_operands(coo.row_ids, coo.col_ids, coo.values.to(bf),
+                             coo.nnz, mp, hp)
+        hh = hh[:3] + (narrow_col_ids(hh[3], mp),) + hh[4:]
+        bh = b.to(bf)
+        nbytes, h_flops, sparse, hubs, _ = _hybrid_work(hh, bh, hp.d_pad)
+        precision_row(
+            f"batched_spmm_hybrid_bf16[{tag}]", "batched_spmm_hybrid_bf16",
+            lambda: hybrid_launch(*hh, bh, plan=hp),
+            lambda: ref.batched_spmm_hybrid_plain(*hh, bh),
+            lambda: hybrid_launch(*h32, b, plan=hp32),
+            nbytes, library, True, BF16_FLOP_PER_S, bitwise=True,
+            flops=h_flops,
+            shape=f"{coo.batch} matrices x {mp} rows, nnz_pad "
+                  f"{coo.nnz_pad}, n_b {b.shape[-1]} ({sparse} in the CSR "
+                  f"remainder), dmin {hp.dmin}, d_pad {hp.d_pad}, "
+                  f"{hubs / coo.batch:.3f} hub rows per matrix, n_block "
+                  f"{hp.spmm.n_block}")
+
+    hybrid_bf16_row("tox21", a, u, m_pad, lib_bf16)
+    pl_adj, pl_m = _powerlaw_channels(device)
+    pl = pl_adj[0]
+    pl_b = torch.randn((pl.batch, pl_m, 64), generator=gen).to(device)
+    pl_dense = coo_to_dense(pl, pl_m).to(bf)
+    hybrid_bf16_row("powerlaw", pl, pl_b, pl_m,
+                    lambda: torch.bmm(pl_dense, pl_b.to(bf)))
+    del pl_adj
 
     # the fused entry: Tox21 layer 1, and Reaction100 layer 2 (n_in 512)
     def fused_row(tag, adj, x, w, bias, n_nodes):

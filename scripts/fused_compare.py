@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Time the fused graph-conv kernel's main-path rows in one checkout.
+"""Time the main-path rows of the fused, batched GEMM and hybrid kernels in
+one checkout.
 
     python3 scripts/fused_compare.py [--root DIR]
 
 Imports ``repro_torch`` and ``chip_smoke.py`` from the checkout at DIR (by
 default the one this script lies in) and times, by CUDA-graph replay on
-the card, the fused rows of ``chip_smoke.py`` at their main-path shapes
-and inputs: ``fused_forward`` at Tox21 serving layer 1 and Reaction100
-layer 2, ``fused_hybrid_forward`` at both and at the powerlaw batch, and
-``fused_forward_bf16`` at both. Each row is checked against its plain
-version first. Prints one JSON line ``{"root", "card", "ms": {row: ms}}``.
+the card, rows of ``chip_smoke.py`` at their main-path shapes and inputs:
+``fused_forward`` at Tox21 serving layer 1 and Reaction100 layer 2,
+``fused_hybrid_forward`` at both and at the powerlaw batch,
+``fused_forward_bf16`` at both; ``batched_gemm`` at Tox21 serving and
+Reaction100 layer 2 (n_b 512), ``batched_gemm_large`` at m_pad 2048 x 8
+and 9000 x 2; ``batched_spmm_hybrid`` and ``batched_spmm_hybrid_bf16`` at
+Tox21 serving and at the powerlaw batch's first channel. Each row is
+checked against its plain version first. Prints one JSON line ``{"root",
+"card", "ms": {row: ms}}``.
 
 To compare two trees on one card, unpack the other (``git archive``) into
 a directory that ``.gitignore`` lists and run this script on both in one
@@ -102,12 +107,74 @@ def main() -> int:
 
         cs.max_err(hybrid(), plain, f"fused_hybrid_forward[{tag}]")
         ms[f"fused_hybrid_forward[{tag}]"] = cs.graph_ms(hybrid)
+    ms.update(_gemm_hybrid_rows(cs, dev, gen, wave, conv, x2, conv2, rw,
+                                pl_adj, pl_m))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({"root": str(root), "card": card, "ms": ms}), flush=True)
     return 0
+
+
+def _gemm_hybrid_rows(cs, dev, gen, wave, conv, x2, conv2, rw, pl_adj,
+                      pl_m):
+    """The GEMM and hybrid rows, {row: ms}."""
+    import torch
+    from repro_torch.core.batching import plan_hybrid
+    from repro_torch.core.formats import coo_to_dense, narrow_col_ids
+    from repro_torch.core.graph_conv import flatten_channels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batched_gemm import batched_gemm, \
+        batched_gemm_large
+    from repro_torch.kernels.batched_spmm_hybrid import hybrid_launch, \
+        hybrid_operands
+
+    ms = {}
+    m_pad = cs.TOX21["m_pad"]
+    a = flatten_channels(wave.adj)
+    u = (torch.einsum("bmn,cnf->cbmf", wave.x, conv["w"])
+         + conv["b"][:, None, None, :]).reshape(-1, m_pad, 64).contiguous()
+    u2 = (torch.einsum("bmn,cnf->cbmf", x2, conv2["w"])
+          + conv2["b"][:, None, None, :]).reshape(-1, m_pad, 512).contiguous()
+    gemms = {"tox21": (coo_to_dense(a, m_pad).contiguous(), u),
+             "reaction100 layer 2": (coo_to_dense(
+                 flatten_channels(rw.adj), m_pad).contiguous(), u2)}
+    for tag, (dense, b) in gemms.items():
+        cs.max_err(batched_gemm(dense, b), ref.batched_gemm_plain(dense, b),
+                   f"batched_gemm[{tag}]")
+        ms[f"batched_gemm[{tag}]"] = cs.graph_ms(
+            lambda: batched_gemm(dense, b))
+    for m, batch in ((2048, 8), (9000, 2)):
+        dense = coo_to_dense(cs._large_coo(m, batch, 0), m).to(dev)
+        b = torch.randn((batch, m, 64), generator=gen).to(dev)
+        got = batched_gemm_large(dense, b)
+        cs.max_err(got, torch.bmm(dense, b), f"batched_gemm_large[{m}]",
+                   (1e-3, 1e-4))
+        ms[f"batched_gemm_large[m_pad {m}]"] = cs.graph_ms(
+            lambda: batched_gemm_large(dense, b), iters=10, replays=3)
+        del dense, b, got
+    bf = torch.bfloat16
+    pl = pl_adj[0]
+    pl_b = torch.randn((pl.batch, pl_m, 64), generator=gen).to(dev)
+    for tag, coo, b, m in (("tox21", a, u, m_pad),
+                           ("powerlaw", pl, pl_b, pl_m)):
+        for dt, suffix in ((torch.float32, ""), (bf, "_bf16")):
+            hp = plan_hybrid(batch=coo.batch, m_pad=m, n_b=64,
+                             nnz_pad=coo.nnz_pad,
+                             itemsize=2 if dt == bf else 4)
+            ops_ = hybrid_operands(coo.row_ids, coo.col_ids,
+                                   coo.values.to(dt), coo.nnz, m, hp)
+            if dt == bf:
+                ops_ = ops_[:3] + (narrow_col_ids(ops_[3], m),) + ops_[4:]
+            key = f"batched_spmm_hybrid{suffix}[{tag}]"
+            bt = b.to(dt)
+            # ops_ carries the hub counts in a tree whose kernel takes them
+            cs.max_err(hybrid_launch(*ops_, bt, plan=hp),
+                       ref.batched_spmm_hybrid_plain(*ops_, bt), key,
+                       cs.BF16_KERNEL_TOL if dt == bf else cs.F32_TOL)
+            ms[key] = cs.graph_ms(lambda: hybrid_launch(*ops_, bt, plan=hp))
+    return ms
 
 
 if __name__ == "__main__":

@@ -5,201 +5,244 @@
 // _kernel, the pallas_gemm registry entry and dense_batched_matmul), one
 // MXU dot per (matrix x column panel) with the whole K dimension in VMEM.
 //
-// What bounds it on an H100: bytes at the paper's sizes. A (m x k), B
+// What bounds it on an H100: at the paper's sizes, bytes. A (m x k), B
 // (k x n) and C (m x n) per matrix are each touched once: at Tox21 (512
 // stacked 56 x 56 adjacencies, n 64) 21 MB, 6.3 us at 3.35 TB/s, against
-// 2 m k n = 205 MFLOP, 3.1 us at the 67 TFLOP/s f32 peak. The product runs
-// in f32 FMAs (no TF32), because the reference accumulates in f32 and is
-// held to the f32 tolerance.
+// 2 m k n = 205 MFLOP, 3.1 us at the 67 TFLOP/s f32 peak. Past a few
+// hundred rows, operations: 2 x 9000 x 9000 x 64 is 20.7 GFLOP, 0.31 ms,
+// against 0.19 ms for reading A once. The product runs in f32 FMAs (no
+// TF32), because the reference accumulates in f32 and is held to the f32
+// tolerance. What held the first design back (about 6 of 67 TFLOP/s on one
+// H100 80GB HBM3 at 700 W): a 128-column thread tile half masked at n 64,
+// scalar staging with an integer division per element, and one
+// shared-memory load for every two FMAs.
 //
-// Design: one block per (matrix x column panel), grid (batch, p), the
-// paper's batching. The block stages the whole A tile (m x k) and its B
-// panel (k x n_block) in shared memory with coalesced loads (27 KB at
-// Tox21), then each thread keeps an 8-row x 4-column tile of C in
-// registers: a warp spans 32 columns (neighbouring lanes on neighbouring
-// B addresses, no bank conflict) and the 8 warps 8 row groups; each A
-// element is one broadcast load for the warp. K runs in order, so the sum
-// has one fixed order and the result is bitwise repeatable. The ragged
-// panel edge and the rows past m are masked.
+// Design, one kernel at every size: a block owns a row tile of BM = TM x R
+// rows of one matrix and a 64-column panel of C, kept in registers as TM
+// rows x 4 columns a thread (16 threads along the panel, R <= 16 along the
+// rows). K streams through a ring of kStages slabs of 16 in shared memory,
+// filled by cp.async (16-byte copies where A's or B's rows are 16-byte
+// aligned, 4-byte ones otherwise, zero-filled past the matrix), so three
+// slabs are in flight while one is computed. A stays row-major in the ring
+// (cp.async copies 16 bytes as they lie), its 16-byte chunks XOR-swizzled by
+// row group so that the two row groups of a warp hit other banks; a thread
+// reads 4 k of each of its rows as one float4 and B's 4 columns of each k as
+// one float4: TM x 16 FMAs for TM + 4 shared-memory loads (TM 8: 32 FMAs
+// for every 3). The caller picks the tile (kernels/batched_gemm.gemm_tile):
+// for m <= 128 one tile of ceil(m / TM) row groups, TM 4 up to 64 rows (14
+// groups at m 56: more warps to hide the loads' latency) and 8 past it, so
+// no row past m is computed but the last group's spare ones; past 128 rows
+// TM 8 or 9 and R 8 or 16, whichever leaves the fewest rows on the busiest
+// of the card's SMs (2 x 9000: 126 tiles of 144 rows, not 142 of 128 on
+// 132 SMs). A warp whose rows all lie past m skips the FMAs.
 //
-// Large-matrix entry (batched_gemm_large_f32), where the whole A tile and a
-// 32-column B panel do not fit a block (core/batching.plan_batched_gemm's
-// case 3, from m = k ~ 226): K-tiled. A block owns a 64-row x n_block
-// (<= 128) tile of C, kept in registers as above (8 rows x 4 columns a
-// thread), over a grid of (batch, row tiles, column panels); K runs in
-// slabs of 32: the A slab (64 x 32) and the B slab (32 x n_block) pass
-// through shared memory (24 KB). K still runs in order in one fmaf chain
-// per output, so the result is the same sum as the batched entry's, and
-// bitwise repeatable. The reference's plan has no case 3 and its kernel
-// runs at every size (src/repro/core/batching.py plan_batched_gemm). The
-// batched entry stays for the shapes it takes: on one H100 (700 W) the
-// K-tiled entry took as long at Tox21 serving and 8% longer at Reaction100
-// layer 2 (chip_smoke.py's [fork] lines, PERF.md).
+// Every output is one fmaf chain over k in increasing order from 0.0, the
+// same whatever the tile (a zero-filled k adds fmaf(0, 0, acc) == acc, and
+// acc is never -0.0): the result is bitwise repeatable, and the batched and
+// large-matrix entries (the same kernel since this design, counted apart by
+// their wrappers) give the same bits.
 #include "common.cuh"
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLanes = 32;                     // threads along the columns
-constexpr int kRowGroups = kThreads / kLanes;  // threads along the rows
-constexpr int kCols = 4;                       // columns per thread
-constexpr int kRows = 8;                       // rows per thread and pass
+constexpr int kLanes = 16;               // threads along a panel's columns
+constexpr int kCols = 4;                 // columns a thread holds (a float4)
+constexpr int kPanel = kLanes * kCols;   // columns of C a block owns
+constexpr int kMaxGroups = 16;           // row groups: at most 256 threads
+constexpr int kSlab = 16;                // K per ring stage
+constexpr int kStages = 4;               // ring depth
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from global to shared memory; src_bytes 0 zero-fills.
+__device__ __forceinline__ void cp16(void* dst, const void* src,
+                                     int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src,
+                                    int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The 16-byte chunk (of a row's four) where k-chunk ch of tile row `row`
+// lies: swizzled by the row's row group, so that rows TM apart (the two
+// row groups of a warp) read other banks.
+template <int TM>
+__device__ __forceinline__ int chunk(int row, int ch) {
+  return ch ^ ((row / TM) & 3);
+}
+
+template <int TM>
+__global__ void __launch_bounds__(kLanes * kMaxGroups)
 gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-            float* __restrict__ c, int m, int k, int n, int n_block) {
-  extern __shared__ float smem[];
-  float* as = smem;          // (m, k) A tile
-  float* bs = as + m * k;    // (k, nbw) B panel
+            float* __restrict__ c, int m, int k, int n, int vec_a, int vec_b,
+            int vec_c) {
+  extern __shared__ __align__(16) float gemm_smem[];
+  const int groups = blockDim.x / kLanes;
+  const int bm = TM * groups;
+  float* as = gemm_smem;                       // kStages x (bm, kSlab)
+  float* bs = as + kStages * bm * kSlab;       // kStages x (kSlab, kPanel)
   const int s = blockIdx.x;
-  const int col0 = blockIdx.y * n_block;
-  const int nbw = min(n_block, n - col0);
-  const int tid = threadIdx.x;
-
-  const float* asrc = a + static_cast<size_t>(s) * m * k;
-  for (int i = tid; i < m * k; i += kThreads) as[i] = asrc[i];
-  const float* bsrc = b + static_cast<size_t>(s) * k * n + col0;
-  for (int i = tid; i < k * nbw; i += kThreads) {
-    const int kk = i / nbw, cc = i - kk * nbw;
-    bs[i] = bsrc[static_cast<size_t>(kk) * n + cc];
-  }
-  __syncthreads();
-
-  const int tx = tid % kLanes, ty = tid / kLanes;
-  float* cdst = c + static_cast<size_t>(s) * m * n + col0;
-  for (int r0 = 0; r0 < m; r0 += kRowGroups * kRows) {
-    float acc[kRows][kCols];
-    const float* ar[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      ar[i] = as + min(r0 + ty + kRowGroups * i, m - 1) * k;
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) acc[i][q] = 0.f;
-    }
-    for (int kk = 0; kk < k; ++kk) {
-      float bv[kCols];
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        const int cc = tx + kLanes * q;
-        bv[q] = cc < nbw ? bs[kk * nbw + cc] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float av = ar[i][kk];
-#pragma unroll
-        for (int q = 0; q < kCols; ++q) acc[i][q] = fmaf(av, bv[q], acc[i][q]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = r0 + ty + kRowGroups * i;
-      if (r >= m) continue;
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        const int cc = tx + kLanes * q;
-        if (cc < nbw) cdst[static_cast<size_t>(r) * n + cc] = acc[i][q];
-      }
-    }
-  }
-}
-
-}  // namespace
-
-extern "C" int batched_gemm_f32(const float* a, const float* b, float* c,
-                                int batch, int m, int k, int n, int n_block,
-                                void* stream) {
-  if (n_block < 1 || n_block > kLanes * kCols || m < 1 || k < 1)
-    return cudaErrorInvalidValue;
-  const size_t smem =
-      (static_cast<size_t>(m) * k + static_cast<size_t>(k) * n_block) *
-      sizeof(float);
-  cudaError_t e = repro::allow_smem(gemm_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(batch, (n + n_block - 1) / n_block);
-  gemm_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, m, k, n, n_block);
-  return cudaGetLastError();
-}
-
-namespace {
-
-constexpr int kTileM = kRowGroups * kRows;   // rows of C per block (64)
-constexpr int kSlab = 32;                    // K per shared-memory slab
-
-__global__ void __launch_bounds__(kThreads)
-gemm_large_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  float* __restrict__ c, int m, int k, int n, int n_block) {
-  __shared__ float as[kTileM][kSlab];        // A slab, rows x K
-  __shared__ float bs[kSlab][kLanes * kCols];   // B slab, K x panel
-  const int s = blockIdx.x;
-  const int r0 = blockIdx.y * kTileM;
-  const int col0 = blockIdx.z * n_block;
-  const int nbw = min(n_block, n - col0);
+  const int r0 = blockIdx.y * bm;
+  const int col0 = blockIdx.z * kPanel;
   const int tid = threadIdx.x, tx = tid % kLanes, ty = tid / kLanes;
-  const float* asrc = a + (static_cast<size_t>(s) * m + r0) * k;
-  const float* bsrc = b + static_cast<size_t>(s) * k * n + col0;
+  const float* asrc = a + static_cast<size_t>(s) * m * k;
+  const float* bsrc = b + static_cast<size_t>(s) * k * n;
 
-  float acc[kRows][kCols];
+  // slab t into ring stage t % kStages: every element written, past the
+  // matrix as zeros
+  auto load = [&](int t) {
+    const int k0 = t * kSlab;
+    float* ad = as + (t % kStages) * bm * kSlab;
+    float* bd = bs + (t % kStages) * kSlab * kPanel;
+    for (int i = tid; i < bm * (kSlab / 4); i += blockDim.x) {
+      const int row = i / (kSlab / 4), ch = i % (kSlab / 4);
+      const int gr = r0 + row, gk = k0 + ch * 4;
+      float* d = ad + row * kSlab + chunk<TM>(row, ch) * 4;
+      const float* src = asrc + static_cast<size_t>(gr) * k + gk;
+      if (vec_a) {
+        const bool ok = gr < m && gk < k;
+        cp16(d, ok ? src : asrc, ok ? 16 : 0);
+      } else {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) acc[i][q] = 0.f;
-  for (int k0 = 0; k0 < k; k0 += kSlab) {
-    const int kn = min(kSlab, k - k0);
-    for (int i = tid; i < kTileM * kSlab; i += kThreads) {
-      const int r = i / kSlab, kk = i - r * kSlab;
-      as[r][kk] = r0 + r < m && kk < kn
-                      ? asrc[static_cast<size_t>(r) * k + k0 + kk]
-                      : 0.f;
-    }
-    for (int i = tid; i < kSlab * nbw; i += kThreads) {
-      const int kk = i / nbw, cc = i - kk * nbw;
-      bs[kk][cc] =
-          kk < kn ? bsrc[static_cast<size_t>(k0 + kk) * n + cc] : 0.f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kn; ++kk) {
-      float bv[kCols];
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        const int cc = tx + kLanes * q;
-        bv[q] = cc < nbw ? bs[kk][cc] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float av = as[ty + kRowGroups * i][kk];
-#pragma unroll
-        for (int q = 0; q < kCols; ++q) acc[i][q] = fmaf(av, bv[q], acc[i][q]);
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = gr < m && gk + e < k;
+          cp4(d + e, ok ? src + e : asrc, ok ? 4 : 0);
+        }
       }
     }
-    __syncthreads();
+    for (int i = tid; i < kSlab * (kPanel / 4); i += blockDim.x) {
+      const int kr = i / (kPanel / 4), ch = i % (kPanel / 4);
+      const int gk = k0 + kr, gc = col0 + ch * 4;
+      float* d = bd + kr * kPanel + ch * 4;
+      const float* src = bsrc + static_cast<size_t>(gk) * n + gc;
+      if (vec_b) {
+        const bool ok = gk < k && gc < n;
+        cp16(d, ok ? src : bsrc, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = gk < k && gc + e < n;
+          cp4(d + e, ok ? src + e : bsrc, ok ? 4 : 0);
+        }
+      }
+    }
+  };
+
+  float acc[TM][kCols];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+  // the warp's first row: its two row groups lie past m together or not
+  const bool live = r0 + (ty & ~1) * TM < m;
+
+  const int nslab = (k + kSlab - 1) / kSlab;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nslab) load(t);
+    cp_commit();
   }
+  for (int t = 0; t < nslab; ++t) {
+    cp_wait<kStages - 2>();   // this thread's copies of slab t have landed
+    __syncthreads();          // everyone's, and slab t - 1 is computed
+    if (t + kStages - 1 < nslab) load(t + kStages - 1);
+    cp_commit();
+    if (!live) continue;
+    const float* ad = as + (t % kStages) * bm * kSlab;
+    const float* bd = bs + (t % kStages) * kSlab * kPanel;
+#pragma unroll
+    for (int ch = 0; ch < kSlab / 4; ++ch) {
+      float4 av[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int row = ty * TM + i;
+        av[i] = *reinterpret_cast<const float4*>(
+            ad + row * kSlab + chunk<TM>(row, ch) * 4);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 bv = *reinterpret_cast<const float4*>(
+            bd + (ch * 4 + kk) * kPanel + tx * kCols);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av_k = reinterpret_cast<const float*>(&av[i])[kk];
+          acc[i][0] = fmaf(av_k, bv.x, acc[i][0]);
+          acc[i][1] = fmaf(av_k, bv.y, acc[i][1]);
+          acc[i][2] = fmaf(av_k, bv.z, acc[i][2]);
+          acc[i][3] = fmaf(av_k, bv.w, acc[i][3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
 
-  float* cdst = c + static_cast<size_t>(s) * m * n + col0;
+  const int col = col0 + tx * kCols;
+  float* cdst = c + static_cast<size_t>(s) * m * n;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = r0 + ty + kRowGroups * i;
-    if (r >= m) continue;
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + ty * TM + i;
+    if (r >= m) break;
+    float* dst = cdst + static_cast<size_t>(r) * n + col;
+    if (vec_c && col + kCols <= n) {
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
 #pragma unroll
-    for (int q = 0; q < kCols; ++q) {
-      const int cc = tx + kLanes * q;
-      if (cc < nbw) cdst[static_cast<size_t>(r) * n + cc] = acc[i][q];
+      for (int j = 0; j < kCols; ++j)
+        if (col + j < n) dst[j] = acc[i][j];
     }
   }
 }
 
+template <int TM>
+int launch(const float* a, const float* b, float* c, int batch, int m, int k,
+           int n, int groups, void* stream) {
+  const int bm = TM * groups;
+  const int tiles = (m + bm - 1) / bm;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  const size_t smem =
+      static_cast<size_t>(kStages) * (bm + kPanel) * kSlab * sizeof(float);
+  cudaError_t e = repro::allow_smem(gemm_kernel<TM>, smem);
+  if (e != cudaSuccess) return e;
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  };
+  const dim3 grid(batch, tiles, (n + kPanel - 1) / kPanel);
+  gemm_kernel<TM><<<grid, kLanes * groups, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      a, b, c, m, k, n, k % 4 == 0 && aligned(a), n % 4 == 0 && aligned(b),
+      n % 4 == 0 && aligned(c));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// n_block is capped at 128; m and k are unbounded (grid.y = ceil(m / 64)
-// up to 65535 row tiles)
-extern "C" int batched_gemm_large_f32(const float* a, const float* b,
-                                      float* c, int batch, int m, int k,
-                                      int n, int n_block, void* stream) {
-  const int panel = min(n_block, kLanes * kCols);
-  if (panel < 1 || m < 1 || k < 1 || (m + kTileM - 1) / kTileM > 65535)
+// tm (4, 8 or 9) rows a thread, groups (1-16) row groups of 16 threads: the
+// row tile kernels/batched_gemm.gemm_tile chooses. m, k and n are
+// unbounded but for ceil(m / (tm * groups)) <= 65535 row tiles.
+extern "C" int batched_gemm_f32(const float* a, const float* b, float* c,
+                                int batch, int m, int k, int n, int tm,
+                                int groups, void* stream) {
+  if (m < 1 || k < 1 || n < 1 || groups < 1 || groups > kMaxGroups)
     return cudaErrorInvalidValue;
-  const dim3 grid(batch, (m + kTileM - 1) / kTileM, (n + panel - 1) / panel);
-  gemm_large_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, m, k, n, panel);
-  return cudaGetLastError();
+  if (tm == 4) return launch<4>(a, b, c, batch, m, k, n, groups, stream);
+  if (tm == 8) return launch<8>(a, b, c, batch, m, k, n, groups, stream);
+  if (tm == 9) return launch<9>(a, b, c, batch, m, k, n, groups, stream);
+  return cudaErrorInvalidValue;
 }

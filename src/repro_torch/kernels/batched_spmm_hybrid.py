@@ -9,9 +9,11 @@ row order; only the per-row ``start``/``rlen`` pointers are permuted, and
 hub rows get ``rlen = 0``, so no non-zero is counted twice.
 ``out[r] = acc[rank[r]]`` returns the rows in their original order.
 
-The kernel is ``csrc/batched_spmm_hybrid.cu``; the operands are prepared
-by :func:`hybrid_operands` in PyTorch ops on the tensors' device (the
-reference leaves that prep to XLA), and the plain version is
+The kernel is ``csrc/batched_spmm_hybrid.cu`` (B read through the L2, a
+matrix's rows split over blocks, the dense head bounded by each sample's
+hub count); the operands are prepared by :func:`hybrid_operands` in
+PyTorch ops on the tensors' device (the reference leaves that prep to
+XLA), and the plain version is
 :func:`repro_torch.kernels.ref.batched_spmm_hybrid_plain`.
 :func:`batched_spmm_hybrid_ref` is the registry's plain ``hybrid`` entry:
 the same split as a slab product plus an ELL remainder of width
@@ -47,7 +49,7 @@ from repro_torch.kernels import (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 8 + (_I,) * 6 + (_P,)
+_ARGTYPES = (_P,) * 9 + (_I,) * 6 + (_P,)
 
 
 def hub_slab(d_pad: int, m_pad: int, pos, hub, cid, val) -> torch.Tensor:
@@ -70,15 +72,19 @@ def hybrid_operands(row_ids, col_ids, values, nnz, m_pad: int,
     """Sort and classify one batch, on the tensors' device and without
     reading anything back to the host. Returns the reference's operands
     less its per-bin loop bounds ``rowmax_bins``, which the CUDA kernel
-    does not need (it bounds each row by its own length):
-    ``(rank, start_s, rlen_sparse, cid_flat, val_flat, slab)``:
+    does not need (it bounds each row by its own length), and with each
+    sample's hub count: ``(rank, start_s, rlen_sparse, cid_flat, val_flat,
+    slab, hubs)``:
 
     - ``rank[b, r]``: row r's position in matrix b's descending-degree order;
     - ``start_s``/``rlen_sparse``: the CSR row pointers in sorted order, hub
       rows' lengths zeroed;
     - ``cid_flat``/``val_flat``: the CSR arrays in row order;
     - ``slab``: the ``(batch, d_pad, m_pad)`` hub rows, or None when
-      ``plan.d_pad == 0``.
+      ``plan.d_pad == 0``;
+    - ``hubs[b]``: int32, matrix b's hub count (rows with ``deg >= dmin``,
+      clamped to ``d_pad``): the hubs are its first sorted rows, and its
+      slab rows at or past it stay zero, so the head stops there.
     """
     batch = row_ids.shape[0]
     a = BatchedCOO(row_ids, col_ids, values, nnz,
@@ -102,7 +108,8 @@ def hybrid_operands(row_ids, col_ids, values, nnz, m_pad: int,
         slot = torch.arange(row_ids.shape[1], device=row_ids.device)
         hub = (slot[None, :] < nnz[:, None]) & (pos < n_dense[:, None])
         slab = hub_slab(plan.d_pad, m_pad, pos, hub, col_ids, values)
-    return rank, start_s, rlen_sparse, csr.col_ids, csr.values, slab
+    return (rank, start_s, rlen_sparse, csr.col_ids, csr.values, slab,
+            n_dense.to(torch.int32))
 
 
 def _hybrid(row_ids, col_ids, values, nnz, b, plan: HybridPlan,
@@ -122,14 +129,14 @@ def _hybrid(row_ids, col_ids, values, nnz, b, plan: HybridPlan,
     check_operand("b", b, (batch, m_pad, n_b), dt)
     check_plan(plan.spmm, batch=batch, m_pad=m_pad, n_b=n_b)
     cpu = on_cpu(row_ids, col_ids, values, nnz, b)
-    rank, start_s, rlen_sp, cid, val, slab = hybrid_operands(
+    rank, start_s, rlen_sp, cid, val, slab, hubs = hybrid_operands(
         row_ids, col_ids, values, nnz, m_pad, plan)
     if bf16:
         cid = narrow_col_ids(cid, m_pad)
     if cpu:
         return ref.batched_spmm_hybrid_plain(rank, start_s, rlen_sp, cid, val,
-                                             slab, b)
-    return hybrid_launch(rank, start_s, rlen_sp, cid, val, slab, b,
+                                             slab, hubs, b)
+    return hybrid_launch(rank, start_s, rlen_sp, cid, val, slab, hubs, b,
                          plan=plan)
 
 
@@ -151,7 +158,7 @@ def batched_spmm_hybrid_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
     return _hybrid(row_ids, col_ids, values, nnz, b, plan, bf16=True)
 
 
-def hybrid_launch(rank, start_s, rlen_sparse, cid, val, slab, b, *,
+def hybrid_launch(rank, start_s, rlen_sparse, cid, val, slab, hubs, b, *,
                   plan: HybridPlan) -> torch.Tensor:
     """Launch the hybrid kernel on prepared operands (those of
     :func:`hybrid_operands`, all on the current CUDA device): the f32 entry
@@ -172,8 +179,9 @@ def hybrid_launch(rank, start_s, rlen_sparse, cid, val, slab, b, *,
         raise ValueError(f"slab must be given exactly when d_pad > 0 ({plan})")
     if slab is not None:
         check_operand("slab", slab, (batch, plan.d_pad, m_pad), dt)
+    check_operand("hubs", hubs, (batch,), torch.int32)
     check_plan(plan.spmm, batch=batch, m_pad=m_pad, n_b=n_b)
-    if on_cpu(rank, start_s, rlen_sparse, cid, val, slab, b):
+    if on_cpu(rank, start_s, rlen_sparse, cid, val, slab, hubs, b):
         raise ValueError("hybrid_launch takes CUDA tensors")
     out = torch.empty_like(b)
     if out.numel() == 0:
@@ -182,9 +190,9 @@ def hybrid_launch(rank, start_s, rlen_sparse, cid, val, slab, b, *,
     fn = _build.entry("batched_spmm_hybrid", entry, _ARGTYPES)
     code = fn(rank.data_ptr(), start_s.data_ptr(), rlen_sparse.data_ptr(),
               cid.data_ptr(), val.data_ptr(),
-              None if slab is None else slab.data_ptr(), b.data_ptr(),
-              out.data_ptr(), batch, m_pad, nnz_pad, n_b, plan.spmm.n_block,
-              plan.d_pad, stream_handle())
+              None if slab is None else slab.data_ptr(), hubs.data_ptr(),
+              b.data_ptr(), out.data_ptr(), batch, m_pad, nnz_pad, n_b,
+              plan.spmm.n_block, plan.d_pad, stream_handle())
     _build.check("batched_spmm_hybrid", code)
     counted = batched_spmm_hybrid_bf16 if bf16 else batched_spmm_hybrid
     counted.launches += 1

@@ -291,13 +291,14 @@ def batched_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return c.to(b.dtype)
 
 
-def batched_spmm_hybrid_plain(rank, start_s, rlen_sparse, cid, val, slab, b):
+def batched_spmm_hybrid_plain(rank, start_s, rlen_sparse, cid, val, slab,
+                              hubs, b):
     """Plain version of the hybrid kernel on its prepared operands
     (``batched_spmm_hybrid.hybrid_operands``): in degree-sorted row order,
     row q sums ``val · B[cid]`` over its ``rlen_sparse[q]`` CSR slots from
-    ``start_s[q]``, the hub rows ``[0, d_pad)`` add ``slab · B``, and
-    ``out[r] = acc[rank[r]]`` puts the rows back in their original order.
-    ``slab`` is None when the plan has no hub slab."""
+    ``start_s[q]``, the hub rows ``q < hubs[s]`` (at most d_pad) add
+    ``slab · B``, and ``out[r] = acc[rank[r]]`` puts the rows back in their
+    original order. ``slab`` is None when the plan has no hub slab."""
     batch, m_pad, _ = b.shape
     nnz_pad = cid.shape[1]
     # the sorted row that owns each slot: a search over the starts of the
@@ -315,8 +316,9 @@ def batched_spmm_hybrid_plain(rank, start_s, rlen_sparse, cid, val, slab, b):
                        b.float(), m_pad)
     if slab is not None:
         d_pad = slab.shape[1]
-        acc[:, :d_pad] += torch.einsum("bdm,bmn->bdn", slab.float(),
-                                       b.float())
+        head = torch.einsum("bdm,bmn->bdn", slab.float(), b.float())
+        hub = torch.arange(d_pad, device=b.device)[None, :] < hubs[:, None]
+        acc[:, :d_pad] += torch.where(hub[..., None], head, 0.0)
     out = torch.gather(acc, 1, rank.long()[..., None].expand(-1, -1,
                                                              acc.shape[-1]))
     return out.to(b.dtype)

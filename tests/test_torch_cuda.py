@@ -366,18 +366,61 @@ def test_hybrid_kernel_matches_plain_and_is_bitwise_repeatable(dev, name,
     b = torch.randn((coo.batch, m_pad, n_b), device=dev)
     hp = plan_hybrid(batch=coo.batch, m_pad=m_pad, n_b=n_b,
                      nnz_pad=coo.nnz_pad)
-    rank, st, rl, cid, val, slab = hybrid_operands(
-        coo.row_ids, coo.col_ids, coo.values, coo.nnz, m_pad, hp)
-    got = hybrid_launch(rank, st, rl, cid, val, slab, b, plan=hp)
-    torch.testing.assert_close(
-        got, ref.batched_spmm_hybrid_plain(rank, st, rl, cid, val, slab, b),
-        **TOL)
-    assert torch.equal(got, hybrid_launch(rank, st, rl, cid, val, slab, b,
-                                          plan=hp))
+    ops_ = hybrid_operands(coo.row_ids, coo.col_ids, coo.values, coo.nnz,
+                           m_pad, hp)
+    got = hybrid_launch(*ops_, b, plan=hp)
+    torch.testing.assert_close(got, ref.batched_spmm_hybrid_plain(*ops_, b),
+                               **TOL)
+    assert torch.equal(got, hybrid_launch(*ops_, b, plan=hp))
     torch.testing.assert_close(
         batched_spmm_hybrid(coo.row_ids, coo.col_ids, coo.values, coo.nnz, b,
                             plan=hp),
         ref.batched_spmm_coo_ref(coo, b, m_pad), **TOL)
+
+
+def _hub_batch():
+    """Three 64-row matrices (dmin 16, nnz_pad 128, so d_pad 8) with 0, 1
+    and d_pad hub rows: light rows of 1-3 N(0, 1) slots, a hub of 20 slots,
+    eight hubs of 16 slots."""
+    rng = np.random.default_rng(5)
+
+    def rows(degs):
+        r = np.repeat(np.asarray(list(degs), np.int32)[:, 0],
+                      [d for _, d in degs])
+        return (r, rng.integers(0, 64, r.size).astype(np.int32),
+                rng.normal(size=r.size).astype(np.float32))
+
+    light = [(r, 1 + r % 3) for r in range(0, 64, 2)]
+    one = [(5, 20)] + [(r, 2) for r in range(10, 60, 3)]
+    full = [(r, 16) for r in range(3, 64, 8)]
+    return coo_from_lists([rows(light), rows(one), rows(full)], [64] * 3,
+                          nnz_pad=128)
+
+
+@pytest.mark.parametrize("n_b", (7, 16, 30, 48, 64, 200))
+@pytest.mark.parametrize("bf16", (False, True))
+def test_hybrid_kernel_hub_counts_in_one_batch(dev, n_b, bf16):
+    """Hub counts 0, 1 and d_pad (the whole slab) in one batch, at the
+    planner's panel widths for n_b 7-200 (2 to 32 lanes a row, one or two
+    panels; n_b 7 and 30 load a column at a time), f32 and bf16: the head,
+    bounded by each sample's count, against the plain version, and
+    identical bits twice."""
+    coo = _hub_batch().to(dev)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    hp = plan_hybrid(batch=3, m_pad=64, n_b=n_b, nnz_pad=coo.nnz_pad,
+                     itemsize=2 if bf16 else 4)
+    assert (hp.dmin, hp.d_pad) == (16, 8)
+    ops_ = hybrid_operands(coo.row_ids, coo.col_ids, coo.values.to(dt),
+                           coo.nnz, 64, hp)
+    assert ops_[6].tolist() == [0, 1, hp.d_pad]
+    if bf16:
+        ops_ = ops_[:3] + (narrow_col_ids(ops_[3], 64),) + ops_[4:]
+    b = torch.randn((3, 64, n_b), device=dev).to(dt)
+    got = hybrid_launch(*ops_, b, plan=hp)
+    torch.testing.assert_close(
+        got.float(), ref.batched_spmm_hybrid_plain(*ops_, b).float(),
+        **(BF16_TOL if bf16 else TOL))
+    assert torch.equal(got, hybrid_launch(*ops_, b, plan=hp))
 
 
 def test_hybrid_kernel_without_slab(dev):
@@ -403,6 +446,26 @@ def test_gemm_kernel_matches_plain_and_library(dev, batch, m, k, n):
     torch.testing.assert_close(got, ref.batched_gemm_plain(a, b), **TOL)
     torch.testing.assert_close(got, torch.bmm(a, b), atol=1e-4, rtol=1e-4)
     assert torch.equal(got, batched_gemm(a, b))
+
+
+@pytest.mark.parametrize("m", (55, 56, 57, 63, 64, 65, 127, 128, 129, 143, 144,
+                               145))
+@pytest.mark.parametrize("k", (3, 5, 9))
+def test_gemm_tile_edges_match_plain_and_the_large_entry(dev, m, k):
+    """m just below, at and above the row tiles (56, 64, 128, 144 rows), k 3, 5
+    and 9 (A's rows not 16-byte aligned: 4-byte copies), n 70 (a ragged
+    second panel), and 150 matrices (more tiles than the card has SMs):
+    against the plain version and torch.bmm; the large-matrix entry gives
+    the same bits, and a second call too."""
+    from repro_torch.kernels.batched_gemm import batched_gemm_large
+
+    a = torch.randn((150, m, k), device=dev)
+    b = torch.randn((150, k, 70), device=dev)
+    got = batched_gemm(a, b)
+    torch.testing.assert_close(got, ref.batched_gemm_plain(a, b), **TOL)
+    torch.testing.assert_close(got, torch.bmm(a, b), atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, batched_gemm(a, b))
+    assert torch.equal(got, batched_gemm_large(a, b))
 
 
 @pytest.mark.parametrize("name,n_in,n_out", [

@@ -22,6 +22,7 @@ from repro.kernels.ops import dense_batched_matmul as j_dbm
 from repro_torch.core import batching as tb
 from repro_torch.core import formats as tf
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import batched_gemm as gemm_mod
 from repro_torch.kernels.batched_gemm import batched_gemm, batched_gemm_large
 from test_torch_formats import CASE_NAMES, to_np
 from test_torch_hybrid import (
@@ -65,6 +66,36 @@ def test_plan_batched_gemm_matches_reference_and_fits(batch, m, n, k):
 def test_plan_batched_gemm_case3_when_the_a_tile_does_not_fit():
     assert tb.plan_batched_gemm(batch=1, m=200, n=64, k=200).case == 1
     assert tb.plan_batched_gemm(batch=1, m=300, n=64, k=300).case == 3
+
+
+@pytest.mark.parametrize("batch,m,n", [
+    (512, 56, 64), (512, 56, 512), (200, 56, 64), (2, 9000, 64),
+    (8, 2048, 64), (7, 24, 300), (3, 200, 33), (2, 5, 1), (1, 33_792, 64),
+    (150, 129, 70), (4, 128, 64)])
+def test_gemm_tile_spreads_the_rows_over_the_card(batch, m, n):
+    """The kernel's row tile: up to 128 rows one tile of row groups of 4
+    (up to 64 rows) or 8 rows a thread, with fewer spare rows than a group
+    holds (none at m 56); past it, no other tile leaves fewer rows on the
+    busiest of 132 SMs, so 2 x 9000 is one wave of 126 tiles and 8 x 2048
+    one of 128; every grid fits 65535 row tiles."""
+    tm, groups = gemm_mod.gemm_tile(batch, m, n, 132)
+    assert tm in gemm_mod.TILE_THREAD_ROWS
+    assert 1 <= groups <= gemm_mod.MAX_ROW_GROUPS
+    bm = tm * groups
+
+    def busiest(bm_):
+        return -(-batch * -(-m // bm_) * -(-n // gemm_mod.PANEL) // 132) * bm_
+
+    if m <= 128:
+        assert tm == (4 if m <= 64 else 8) and 0 <= bm - m < tm
+    else:
+        assert busiest(bm) == min(busiest(t * g) for t in (8, 9)
+                                  for g in (8, 16))
+    assert -(-m // bm) <= 65535
+    if (batch, m) in ((2, 9000), (8, 2048)):
+        assert batch * -(-m // bm) <= 132
+    if m == 56:
+        assert bm == 56
 
 
 @pytest.mark.parametrize("batch,m,k,n", SHAPES)

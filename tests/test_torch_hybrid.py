@@ -75,17 +75,31 @@ def _case(name):
 # the plan and the generator
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("batch,m_pad,n_b,nnz_pad", [
+PLAN_HYBRID_F32 = [
     (4, 64, 32, 512), (2, 64, 32, 8), (512, 56, 64, 256), (128, 56, 64, 1024),
     (40, 256, 64, 2048), (160, 56, 64, 352), (3, 50, 16, 100), (1, 8, 8, 8),
-    (5, 24, 16, 40), (2, 300, 512, 64), (7, 17, 8, 5)])
-def test_plan_hybrid_matches_reference(batch, m_pad, n_b, nnz_pad):
-    """dmin, d_pad and the bins equal the reference's at its defaults,
+    (5, 24, 16, 40), (2, 300, 512, 64), (7, 17, 8, 5)]
+PLAN_HYBRID_BF16 = [
+    (40, 256, 64, 2048), (512, 56, 64, 256), (160, 256, 512, 2048),
+    (4, 64, 48, 512), (2, 300, 512, 64), (3, 8, 8, 8), (1, 2048, 64, 9000),
+    (2, 1024, 200, 4096)]
+
+
+@pytest.mark.parametrize("batch,m_pad,n_b,nnz_pad,itemsize", [
+    pytest.param(*c, 4, id="-".join(map(str, c))) for c in PLAN_HYBRID_F32
+] + [pytest.param(*c, 2, id="-".join(map(str, c)) + "-bf16")
+     for c in PLAN_HYBRID_BF16])
+def test_plan_hybrid_matches_reference(batch, m_pad, n_b, nnz_pad, itemsize):
+    """dmin, d_pad and the bins equal the reference's at its defaults, at
+    either element size of B (f32, or bf16 for ``pallas_hybrid_bf16``),
     d_pad == 0 included (nnz_pad < dmin), and m_pad is rounded to 8 as the
-    reference rounds it; the panels are the Hopper planner's, with room
-    for the row permutation beside the B panel."""
+    reference rounds it; the panel is the Hopper planner's one formula: the
+    widest (at most PANEL_MAX, a multiple of WARP unless n_b is narrower)
+    whose B panel fits one block's shared memory with the row permutation
+    beside it."""
     want = jb.plan_hybrid(batch=batch, m_pad=m_pad, n_b=n_b, nnz_pad=nnz_pad)
-    got = tb.plan_hybrid(batch=batch, m_pad=m_pad, n_b=n_b, nnz_pad=nnz_pad)
+    got = tb.plan_hybrid(batch=batch, m_pad=m_pad, n_b=n_b, nnz_pad=nnz_pad,
+                         itemsize=itemsize)
     assert (got.dmin, got.d_pad, got.bins) == (want.dmin, want.d_pad,
                                                want.bins)
     assert (tb.HYBRID_TAU, tb.HYBRID_NBINS) == (jb.HYBRID_TAU,
@@ -94,8 +108,14 @@ def test_plan_hybrid_matches_reference(batch, m_pad, n_b, nnz_pad):
         want.spmm.batch, want.spmm.m_pad, want.spmm.n_b)
     assert got.d_pad == 0 or nnz_pad >= got.dmin
     s = got.spmm
-    assert s.case in (1, 2) and s.n_block * s.p >= n_b
-    assert s.smem_bytes == 4 * s.m_pad * (s.n_block + 1) <= tb.SMEM_BYTES
+    n_block = (min(-(-n_b // tb.WARP) * tb.WARP, tb.PANEL_MAX)
+               if n_b >= tb.WARP else n_b)
+    while 4 * s.m_pad + itemsize * s.m_pad * n_block > tb.SMEM_BYTES:
+        n_block = -(-(n_block // 2) // tb.WARP) * tb.WARP
+    assert s.case in (1, 2) and s.n_block == n_block
+    assert s.p == -(-n_b // n_block)
+    assert s.smem_bytes == s.m_pad * (4 + itemsize * s.n_block) \
+        <= tb.SMEM_BYTES
 
 
 @pytest.mark.parametrize("seed,dim,avg_deg", [(0, 256, 8), (9, 64, 4),
@@ -151,10 +171,10 @@ def test_hybrid_operands_match_reference(name):
                         nnz_pad=coo_t.nnz_pad)
     rank, st, rl, rowmax, cid, val, slab = j_operands(
         coo_j.row_ids, coo_j.col_ids, coo_j.values, coo_j.nnz, m_pad, hj)
-    want = rank, st, rl, cid, val, slab
+    want = rank, st, rl, cid, val, slab, _j_hub_count(coo_j, m_pad, hj)
     got = hybrid_operands(coo_t.row_ids, coo_t.col_ids, coo_t.values,
                           coo_t.nnz, m_pad, ht)
-    names = ("rank", "start_s", "rlen_sparse", "cid", "val", "slab")
+    names = ("rank", "start_s", "rlen_sparse", "cid", "val", "slab", "hubs")
     assert len(got) == len(names)
     for n, g, w in zip(names, got, want):
         if w is None:
@@ -167,7 +187,59 @@ def test_hybrid_operands_match_reference(name):
     np.testing.assert_array_equal(_rowmax_bins(got[2], ht).numpy(),
                                   to_np(rowmax))
     if name in ("skewed", "powerlaw"):
-        assert got[-1] is not None and bool(got[-1].any())
+        assert got[5] is not None and bool(got[5].any())
+
+
+def _j_hub_count(coo_j, m_pad, plan):
+    """The reference's classification: rows with ``deg >= dmin``, at most
+    ``d_pad`` of them, per sample (int32)."""
+    deg = to_np(jf.row_degrees(coo_j, m_pad))
+    return np.minimum((deg >= plan.dmin).sum(axis=1), plan.d_pad).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_hybrid_operands_hub_count_matches_reference_classification(name):
+    """``hubs`` is the reference's hub count (``deg >= dmin`` clamped to
+    ``d_pad``); the hubs are exactly the first sorted rows, hub rows carry
+    no CSR slot, and every slab row at or past a sample's count is zero,
+    which is what makes the kernel's bounded head exact."""
+    coo_j, coo_t, m_pad, b = _case(name)
+    hj = jb.plan_hybrid(batch=coo_j.batch, m_pad=m_pad, n_b=b.shape[-1],
+                        nnz_pad=coo_j.values.shape[1])
+    ht = tb.plan_hybrid(batch=coo_t.batch, m_pad=m_pad, n_b=b.shape[-1],
+                        nnz_pad=coo_t.nnz_pad)
+    rank, _, rl, _, _, slab, hubs = hybrid_operands(
+        coo_t.row_ids, coo_t.col_ids, coo_t.values, coo_t.nnz, m_pad, ht)
+    assert hubs.dtype == torch.int32 and hubs.shape == (coo_t.batch,)
+    np.testing.assert_array_equal(hubs.numpy(),
+                                  _j_hub_count(coo_j, m_pad, hj))
+    deg = tf.row_degrees(coo_t, m_pad)
+    for s in range(coo_t.batch):
+        n = int(hubs[s])
+        is_hub = (rank[s] < n).numpy()
+        assert is_hub.sum() == n
+        assert (deg[s].numpy()[is_hub] >= ht.dmin).all()
+        assert not rl[s, :n].any()
+        if slab is not None:
+            assert not slab[s, n:].any()
+    if name in ("skewed", "powerlaw"):
+        assert int(hubs.sum()) > 0
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_hybrid_plain_head_bound_is_bitwise_exact(name):
+    """The plain version with the head bounded by each sample's hub count
+    equals the one over all d_pad slab rows, bit for bit."""
+    _, coo_t, m_pad, b = _case(name)
+    ht = tb.plan_hybrid(batch=coo_t.batch, m_pad=m_pad, n_b=b.shape[-1],
+                        nnz_pad=coo_t.nnz_pad)
+    ops_ = hybrid_operands(coo_t.row_ids, coo_t.col_ids, coo_t.values,
+                           coo_t.nnz, m_pad, ht)
+    bt = torch.from_numpy(b)
+    whole = torch.full_like(ops_[6], ht.d_pad)
+    assert torch.equal(ref.batched_spmm_hybrid_plain(*ops_, bt),
+                       ref.batched_spmm_hybrid_plain(*ops_[:6], whole, bt))
 
 
 # ---------------------------------------------------------------------------
@@ -223,10 +295,9 @@ def test_hybrid_plain_version_matches_reference_oracle(name):
     want = to_np(j_batched_spmm(coo_j, jnp.asarray(b), impl="ref"))
     hp = tb.plan_hybrid(batch=coo_t.batch, m_pad=m_pad, n_b=b.shape[-1],
                         nnz_pad=coo_t.nnz_pad)
-    rank, st, rl, cid, val, slab = hybrid_operands(
-        coo_t.row_ids, coo_t.col_ids, coo_t.values, coo_t.nnz, m_pad, hp)
-    got = ref.batched_spmm_hybrid_plain(rank, st, rl, cid, val, slab,
-                                        torch.from_numpy(b))
+    ops_ = hybrid_operands(coo_t.row_ids, coo_t.col_ids, coo_t.values,
+                           coo_t.nnz, m_pad, hp)
+    got = ref.batched_spmm_hybrid_plain(*ops_, torch.from_numpy(b))
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
 
 
@@ -245,7 +316,7 @@ def test_hybrid_dpad_zero_route_matches_ref():
     hp = tb.plan_hybrid(batch=2, m_pad=64, n_b=16, nnz_pad=coo.nnz_pad)
     assert coo.nnz_pad < hp.dmin and hp.d_pad == 0
     assert hybrid_operands(coo.row_ids, coo.col_ids, coo.values, coo.nnz, 64,
-                           hp)[-1] is None
+                           hp)[5] is None
     b = torch.from_numpy(rng.normal(size=(2, 64, 16)).astype(np.float32))
     want = ops.batched_spmm(coo, b, impl="ref")
     for impl in HYBRID_IMPLS:
@@ -273,12 +344,13 @@ def test_hybrid_exact_threshold_row_classifies_dense():
                            np.asarray([1, 2], np.int32)])
     coo = tf.coo_from_lists([(rows, cols, np.ones(rows.size, np.float32))],
                             [m_pad], nnz_pad=16)
-    _, _, rlen_sparse, _, _, slab = hybrid_operands(
+    _, _, rlen_sparse, _, _, slab, hubs = hybrid_operands(
         coo.row_ids, coo.col_ids, coo.values, coo.nnz, m_pad, hp)
     assert int(tf.row_degrees(coo, m_pad)[0, 0]) == dmin
     assert int(rlen_sparse[0, 0]) == 0
     assert float(slab[0, 0].sum()) == float(dmin)
     assert int(rlen_sparse[0].sum()) == 2
+    assert int(hubs[0]) == 1
     b = torch.from_numpy(np.random.default_rng(5).normal(
         size=(1, m_pad, 16)).astype(np.float32))
     want = ops.batched_spmm(coo, b, impl="ref")
