@@ -7,7 +7,8 @@ Runs from the root of a checkout, needs one CUDA device and ``nvcc``, and
 imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
 
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build: the CUDA kernels from ``src/repro_torch/csrc`` (``build/kernels``);
+2. build: the CUDA kernels from ``src/repro_torch/csrc`` (``build/kernels``),
+   with each kernel's registers and spill bytes;
 3. kernels: each kernel against its plain PyTorch version, at the main
    paths' shapes (taken from a real Tox21 / Reaction100 wave and training
    batch, and the degree-skewed powerlaw batch) and on the uniform /
@@ -23,10 +24,13 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    kernels at the R-GCN ((copy_lhs, mean), n_b 64) and GAT ((mul, sum),
    vector edges, n_b 16) Tox21 serving shapes and on every (op, reduce)
    corner of the three regimes (max corners bitwise), and the grouped
-   matmul at R-GCN's Tox21 serving and training and Reaction100 layer-2
-   shapes (ELL, CSR and grouped matmul twice for identical bits; the
-   grouped matmul also with 5 groups in one 128-row tile, whose fifth
-   group's rows come out 0 as in the reference); then the seven
+   matmul at R-GCN's Tox21 serving and training layer-1 shapes, the
+   training step's dx at layer 2 and Reaction100 layers 1 and 2 (ELL, CSR
+   and grouped matmul twice for identical bits; the grouped matmul also
+   with 5 groups in one 128-row tile, whose fifth group's rows come out 0
+   as in the reference); the batched and large-matrix entries of ELL (f32,
+   bf16, i8) and GEMM at Tox21 serving and Reaction100 layer 2 for the
+   same bits, timed ([fork] lines: one kernel each); then the seven
    reduced-precision entries (bf16 ELL, CSR, COO, hybrid and fused, i8
    ELL and CSR) at the Tox21 serving shape (and Reaction100 layer 2 for
    the fused one, the powerlaw batch for the hybrid one), each timed
@@ -391,9 +395,40 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s ({per})")
     for name in _build.SOURCES:
         log_file = _build._library_path(name).with_suffix(".log")
-        regs = [ln.strip() for ln in log_file.read_text().splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: {' | '.join(regs)}")
+        log(f"[build] {name}: " + "; ".join(
+            f"{fn}: {regs} registers, spill {spill} bytes (stores / loads)"
+            for fn, regs, spill in _ptxas(log_file.read_text())))
+
+
+def _ptxas(text: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spill stores / loads) of each entry function in
+    a ``ptxas -v`` log, the kernel's name demangled without its parameters
+    (by the toolkit's ``cu++filt`` where it runs)."""
+    import os
+    import re
+
+    from repro_torch.kernels import _build
+
+    out, fn, spill = [], None, "?"
+    for ln in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            fn, spill = m.group(1), "?"
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", ln):
+            spill = f"{m.group(1)} / {m.group(2)}"
+        elif (m := re.search(r"Used (\d+) registers", ln)) and fn:
+            out.append((fn, m.group(1), spill))
+            fn = None
+    filt = os.path.join(os.path.dirname(_build.nvcc()), "cu++filt")
+    try:
+        names = subprocess.run([filt, "-p"] + [f for f, _, _ in out],
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) == len(out):
+        out = [(n.strip(), r, sp) for n, (_, r, sp) in zip(names, out)]
+    return out
 
 
 def _requests(spec):
@@ -496,24 +531,29 @@ def _measure(rows, key, kernel, kern, plain, nbytes, flops, shape,
 def _fork_times(tag, a, b, m_pad, k_pad):
     """The two entries of the ELL and GEMM kernels at a shape the batched
     entries take: the batched and the large-matrix entry on the same inputs
-    (f32 and, for ELL, bf16) must give the same bits, and both are timed by
-    graph replay, in the order batched, large, large, batched, and each
-    time is printed on a [fork] line. (The CSR kernel has one branch: it
-    reads B through the L2 at every plan; the GEMM's two entries launch
-    one K-streaming kernel, counted apart.)"""
+    (f32 and, for ELL, bf16 and i8) must give the same bits, and both are
+    timed by graph replay, in the order batched, large, large, batched, and
+    each time is printed on a [fork] line, the GEMM's beside its library
+    call (``torch.bmm`` on the same inputs). (Each kernel has one design at
+    every plan: the ELL and CSR kernels read B through the L2, the GEMM
+    streams K, so the two entries launch the same kernel, counted apart;
+    the lines show that they stay one function and one time.)"""
     import torch
     from repro_torch.core.formats import coo_to_dense, coo_to_ell, \
-        narrow_col_ids
+        narrow_col_ids, quantize_values_i8
     from repro_torch.kernels.batched_gemm import batched_gemm, \
         batched_gemm_large
     from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell, \
-        batched_spmm_ell_bf16, batched_spmm_ell_large, \
-        batched_spmm_ell_large_bf16
+        batched_spmm_ell_bf16, batched_spmm_ell_i8, batched_spmm_ell_large, \
+        batched_spmm_ell_large_bf16, batched_spmm_ell_large_i8
 
     bf = torch.bfloat16
     ell = coo_to_ell(a, m_pad, k_pad)
-    e16, eh, bh = narrow_col_ids(ell.col_ids, m_pad), ell.values.to(bf), \
-        b.to(bf)
+    codes, scale = quantize_values_i8(a.values)
+    ell_q = coo_to_ell(a.with_values(codes), m_pad, k_pad)
+    e16, eq16 = (narrow_col_ids(t, m_pad) for t in (ell.col_ids,
+                                                     ell_q.col_ids))
+    eh, bh = ell.values.to(bf), b.to(bf)
     dense = coo_to_dense(a, m_pad).contiguous()
     pairs = [
         ("batched_spmm_ell",
@@ -521,6 +561,8 @@ def _fork_times(tag, a, b, m_pad, k_pad):
          batched_spmm_ell, batched_spmm_ell_large),
         ("batched_spmm_ell_bf16", lambda f: f(e16, eh, bh),
          batched_spmm_ell_bf16, batched_spmm_ell_large_bf16),
+        ("batched_spmm_ell_i8", lambda f: f(eq16, ell_q.values, scale, b),
+         batched_spmm_ell_i8, batched_spmm_ell_large_i8),
         ("batched_gemm", lambda f: f(dense, b), batched_gemm,
          batched_gemm_large)]
     for name, call, batched, large in pairs:
@@ -528,8 +570,10 @@ def _fork_times(tag, a, b, m_pad, k_pad):
         check(torch.equal(kb(), kl()),
               f"fork[{tag}] {name}: the two branches differ")
         t = [graph_ms(f) for f in (kb, kl, kl, kb)]
+        lib = (f", library (torch.bmm) {graph_ms(lambda: torch.bmm(dense, b))}"
+               " ms" if name == "batched_gemm" else "")
         log(f"[fork] {tag} {name}: batched {t[0]} / {t[3]} ms, large "
-            f"{t[1]} / {t[2]} ms (identical bits)")
+            f"{t[1]} / {t[2]} ms (identical bits){lib}")
 
 
 def _hybrid_work(ops, b, d_pad):
@@ -1057,7 +1101,7 @@ def phase_gnn_kernels(device, rows, errs):
     from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
     from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
     from repro_torch.kernels.grouped_matmul import _gmm, _row_groups, \
-        _visited_groups
+        _visited_groups, gmm_tile, THREAD_ROWS
     from repro_torch.kernels.segment_softmax import segment_softmax
     from repro_torch.serving.engine import GraphServeEngine
 
@@ -1132,18 +1176,24 @@ def phase_gnn_kernels(device, rows, errs):
         device)
     gspmm_rows("gat tox21 serving", a_gat, hg, e_vec, "mul", "sum")
 
-    # the grouped matmul of R-GCN: Tox21 serving layer 1 (4 relations x
-    # 7,168 tokens, aligned tiles), Tox21 training layer 1 (groups of
-    # 2,800 rows: tiles straddle), Reaction100 layer 2 (512 -> 512)
-    def gmm_row(tag, x, w):
+    # the grouped matmul of R-GCN over relation-major tokens (each node
+    # block repeated per relation, as rgcn_layer): Tox21 serving layer 1
+    # (4 relations x 7,168 tokens), Tox21 training layer 1 (groups of
+    # 2,800 rows: tiles straddle) and its step's dx at layer 2 (dout @
+    # W_r^T), Reaction100 layers 1 (62 -> 512) and 2 (512 -> 512)
+    def tokens(x, e):
+        t = x.shape[0] * x.shape[1]
+        return x.reshape(1, t, -1).expand(e, t, x.shape[-1]) \
+            .reshape(e * t, -1).contiguous()
+
+    def gmm_row(tag, xt, w):
         e, k, n = w.shape
-        tokens = x.shape[0] * x.shape[1]
-        xt = x.reshape(1, tokens, k).expand(e, tokens, k).reshape(-1, k) \
-            .contiguous()
-        rg = _row_groups(torch.full((e,), tokens, dtype=torch.int32,
-                                    device=device), xt.shape[0], e)
         m = xt.shape[0]
-        straddle = tokens % 64 != 0
+        size = m // e
+        rg = _row_groups(torch.full((e,), size, dtype=torch.int32,
+                                    device=device), m, e)
+        groups, cols = gmm_tile(m, n)
+        bm = THREAD_ROWS * groups
         check(bool((_visited_groups(rg, 128, 4) >= 0).all()),
               f"grouped_matmul {tag}: a 128-row tile holds more than 4 "
               "groups")
@@ -1151,20 +1201,30 @@ def phase_gnn_kernels(device, rows, errs):
                  lambda: _gmm(xt, w, rg),
                  lambda: ref.grouped_matmul_ref(xt, rg, w),
                  (xt.numel() + w.numel() + m * n + m) * 4, 2 * m * k * n,
-                 f"M {m} ({e} groups of {tokens} rows, 64-row tiles "
-                 f"{'straddle' if straddle else 'aligned'}), K {k}, N {n}",
-                 lambda: torch.bmm(xt.view(e, tokens, k), w).view(m, n),
+                 f"M {m} ({e} groups of {size} rows, {bm} x {16 * cols} "
+                 f"tiles {'straddle' if size % bm else 'aligned'}), K {k}, "
+                 f"N {n}",
+                 lambda: torch.bmm(xt.view(e, size, k), w).view(m, n),
                  bitwise=True)
 
-    gmm_row("rgcn tox21 serving layer 1", wave.x, params["convs"][0]["w_rel"])
+    w1 = params["convs"][0]["w_rel"]
+    gmm_row("rgcn tox21 serving layer 1", tokens(wave.x, 4), w1)
     tb = _on(_train_batches(GraphDatasetSpec.tox21_like(
         TRAIN_TOX21["n_samples"], seed=0), TRAIN_TOX21["batch"])[0], device)
-    gmm_row("rgcn tox21 training layer 1", tb["x"],
-            params["convs"][0]["w_rel"])
+    gmm_row("rgcn tox21 training layer 1", tokens(tb["x"], 4), w1)
+    t_rows = 4 * tb["x"].shape[0] * tb["x"].shape[1]
+    gmm_row("rgcn tox21 training layer 2 dx",
+            torch.randn((t_rows, 64), generator=gen).to(device),
+            params["convs"][1]["w_rel"].transpose(1, 2).contiguous())
     r_cfg = GCNConfig.reaction100(layer="rgcn", impl="ref")
     r_params = _params(r_cfg, 0, device)
+    rw = GraphServeEngine(r_params, r_cfg, device=device, **TOX21).assemble(
+        _requests(GraphDatasetSpec.reaction100_like(TOX21["batch"], seed=0)))
+    gmm_row("rgcn reaction100 layer 1", tokens(rw.x, 4),
+            r_params["convs"][0]["w_rel"])
     x2 = torch.randn((TOX21["batch"], m_pad, 512), generator=gen).to(device)
-    gmm_row("rgcn reaction100 layer 2", x2, r_params["convs"][1]["w_rel"])
+    gmm_row("rgcn reaction100 layer 2", tokens(x2, 4),
+            r_params["convs"][1]["w_rel"])
     for k, r in rows.items():
         if k not in before:
             errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0),

@@ -60,7 +60,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kW = 4;  // neighbouring columns a lane holds: 32 lanes x 4 >= a panel
+using repro::kW;
+using repro::ldv;
+using repro::load_cols;
+using repro::store_cols;
 // How deep the slot and slab loops unroll, the same in every instance: left
 // to itself nvcc unrolls the f32 instance's loops this deep but the bf16
 // one's half as deep (31 FFMAs in its SASS against 63), which kept fewer
@@ -68,73 +71,6 @@ constexpr int kW = 4;  // neighbouring columns a lane holds: 32 lanes x 4 >= a p
 // H100 80GB HBM3 at 700 W (scripts/hybrid_types.py; the f32 SASS is the
 // same either way).
 constexpr int kUnroll = 4;
-
-// The kW columns of a row of B at p (through the read-only cache), widened
-// to f32 into x: one 16-byte (f32) or 8-byte (bf16) load where `vec`
-// (aligned and whole), else one at a time for the n of them in the panel,
-// the rest 0. (bf16: 64 bits widened by shifts, not the __nv_bfloat162
-// __ldg: that one is inline asm the compiler may hoist out of the `vec`
-// branch, where the address is not aligned.)
-__device__ __forceinline__ void load_cols(const float* p, bool vec, int n,
-                                          float* x) {
-  if (vec) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < kW; ++i) x[i] = i < n ? __ldg(p + i) : 0.f;
-}
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, bool vec,
-                                          int n, float* x) {
-  if (vec) {
-    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
-    x[0] = __uint_as_float(w.x << 16), x[1] = __uint_as_float(w.x & ~0xffffu);
-    x[2] = __uint_as_float(w.y << 16), x[3] = __uint_as_float(w.y & ~0xffffu);
-    return;
-  }
-  const auto* u = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-  for (int i = 0; i < kW; ++i)
-    x[i] = i < n ? __uint_as_float(static_cast<unsigned>(__ldg(u + i)) << 16)
-                 : 0.f;
-}
-
-// A value or slab element widened to f32 through the read-only cache (bf16:
-// a 16-bit load shifted into place, not the inline-asm bf16 __ldg, so that
-// the compiler schedules it as freely as the f32 one)
-__device__ __forceinline__ float ldv(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldv(const __nv_bfloat16* p) {
-  return __uint_as_float(
-      static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
-      << 16);
-}
-
-// x (kW sums) to the n columns of C at p, each rounded once to C's type
-__device__ __forceinline__ void store_cols(float* p, const float* x,
-                                           bool vec, int n) {
-  if (vec) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < kW; ++i)
-    if (i < n) p[i] = x[i];
-}
-__device__ __forceinline__ void store_cols(__nv_bfloat16* p, const float* x,
-                                           bool vec, int n) {
-  if (vec) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
-    *reinterpret_cast<uint2*>(p) =
-        make_uint2(*reinterpret_cast<const unsigned*>(&lo),
-                   *reinterpret_cast<const unsigned*>(&hi));
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < kW; ++i)
-    if (i < n) p[i] = __float2bfloat16_rn(x[i]);
-}
 
 // (at most 64 registers a thread, so that four blocks fit an SM: left
 // unbounded, nvcc gives the f32 instance enough more that only two do, and

@@ -7,7 +7,8 @@
 // the element types of the reduced-precision entries: loads that widen
 // f32, bf16 and int8 to f32 and int32 or int16 ids to int, and the one
 // rounding of an f32 sum to the output type, and the panel and grid sizes of
-// the kernels that read B through the L2.
+// the kernels that read B through the L2 and their loads and stores of a
+// lane's four neighbouring columns.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -130,9 +131,9 @@ inline int large_blocks(long long items, int per_block) {
 }
 
 // The launch shape of a row-split kernel that reads B where it lies, through
-// the read-only cache (CSR always, ELL's large-matrix entries): grid (batch,
-// row blocks of kThreads / sub rows, column panels of at most kPanelMax
-// columns). Returns the panel width.
+// the read-only cache, one column a lane (CSR): grid (batch, row blocks of
+// kThreads / sub rows, column panels of at most kPanelMax columns). Returns
+// the panel width.
 template <int kThreads>
 inline int gather_grid(int batch, int m_pad, int n_b, int n_block,
                        dim3* grid) {
@@ -140,6 +141,81 @@ inline int gather_grid(int batch, int m_pad, int n_b, int n_block,
   *grid = dim3(batch, large_blocks(m_pad, kThreads / sub_warp(panel)),
                (n_b + panel - 1) / panel);
   return panel;
+}
+
+// Columns a lane of the kernels that read B through the L2 holds (hybrid,
+// ELL): four neighbours, one 16-byte f32 or 8-byte bf16 access; 32 lanes x
+// 4 cover a panel of kPanelMax columns.
+constexpr int kW = 4;
+
+// The kW columns of a row of B at p (through the read-only cache), widened
+// to f32 into x: one 16-byte (f32) or 8-byte (bf16) load where `vec`
+// (aligned and whole), else one at a time for the n of them in the panel,
+// the rest 0. (bf16: 64 bits widened by shifts, not the __nv_bfloat162
+// __ldg: that one is inline asm the compiler may hoist out of the `vec`
+// branch, where the address is not aligned.)
+__device__ __forceinline__ void load_cols(const float* p, bool vec, int n,
+                                          float* x) {
+  if (vec) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kW; ++i) x[i] = i < n ? __ldg(p + i) : 0.f;
+}
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, bool vec,
+                                          int n, float* x) {
+  if (vec) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = __uint_as_float(w.x << 16), x[1] = __uint_as_float(w.x & ~0xffffu);
+    x[2] = __uint_as_float(w.y << 16), x[3] = __uint_as_float(w.y & ~0xffffu);
+    return;
+  }
+  const auto* u = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+  for (int i = 0; i < kW; ++i)
+    x[i] = i < n ? __uint_as_float(static_cast<unsigned>(__ldg(u + i)) << 16)
+                 : 0.f;
+}
+
+// A value or slab element widened to f32 through the read-only cache (bf16:
+// a 16-bit load shifted into place, not the inline-asm bf16 __ldg, so that
+// the compiler schedules it as freely as the f32 one; int8: a code)
+__device__ __forceinline__ float ldv(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldv(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+      << 16);
+}
+__device__ __forceinline__ float ldv(const signed char* p) {
+  return static_cast<float>(__ldg(p));
+}
+
+// x (kW sums) to the n columns of C at p, each rounded once to C's type
+__device__ __forceinline__ void store_cols(float* p, const float* x,
+                                           bool vec, int n) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kW; ++i)
+    if (i < n) p[i] = x[i];
+}
+__device__ __forceinline__ void store_cols(__nv_bfloat16* p, const float* x,
+                                           bool vec, int n) {
+  if (vec) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                   *reinterpret_cast<const unsigned*>(&hi));
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kW; ++i)
+    if (i < n) p[i] = __float2bfloat16_rn(x[i]);
 }
 
 template <typename Kernel>

@@ -1,9 +1,10 @@
 """Batched ELL SpMM — the paper's batched SWA-SpMM for CSR (row split, no
 atomics): ``C[s, r, :] = Σ_k val[s, r, k] · B[s, cid[s, r, k], :]``.
 
-The kernel is ``csrc/batched_spmm_ell.cu`` (one block per matrix × column
-panel, the B panel staged in shared memory, a sub-warp per output row); the
-plain version is :func:`repro_torch.kernels.ref.batched_spmm_ell_plain`.
+The kernel is ``csrc/batched_spmm_ell.cu`` (each matrix's rows split over
+blocks, B read through the L2, a sub-warp per output row, four columns a
+lane); the plain version is
+:func:`repro_torch.kernels.ref.batched_spmm_ell_plain`.
 f32, (mul, sum). It runs forwards only: Aᵀ has no per-row bound, so the
 backward of ``pallas_ell`` runs the COO kernel.
 
@@ -23,10 +24,11 @@ Each entry counts its own launches.
 Large-matrix entries (paper case 3, where the reference takes its plain
 per-sample path): :func:`batched_spmm_ell_large` (f32 and g-SpMM),
 :func:`batched_spmm_ell_large_bf16` and :func:`batched_spmm_ell_large_i8`
-take the same operands and any plan, case 3 included, and launch the
-kernel's large-matrix branch, which gathers B through the L2 instead of
-staging a panel of ``m_pad`` rows; the bf16 and i8 ones also take int32
-ids, for ``m_pad`` past int16's range. Same plain versions, own counters.
+take the same operands and any plan, case 3 included; the bf16 and i8 ones
+also take int32 ids, for ``m_pad`` past int16's range. Since the kernel
+reads B through the L2 at every plan, they launch the same kernel entries
+as the batched ones (the same bits) and count their launches apart. Same
+plain versions.
 """
 from __future__ import annotations
 
@@ -48,7 +50,10 @@ from repro_torch.kernels import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _GSPMM_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
-_I8_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+# the bf16 and i8 entries: (cid, val[, scale], b, c, batch, m_pad, k_pad,
+# n_b, n_block, ids32, stream)
+_BF16_ARGTYPES = (_P,) * 4 + (_I,) * 6 + (_P,)
+_I8_ARGTYPES = (_P,) * 5 + (_I,) * 6 + (_P,)
 
 
 def batched_spmm_ell(col_ids: torch.Tensor, values: torch.Tensor,
@@ -67,8 +72,8 @@ def batched_spmm_ell_large(col_ids: torch.Tensor, values: torch.Tensor,
                            b: torch.Tensor, *, plan: BatchPlan | None = None,
                            rlen: torch.Tensor | None = None, op: str = "mul",
                            reduce: str = "sum") -> torch.Tensor:
-    """:func:`batched_spmm_ell` through the large-matrix branch (B read
-    through the L2), at any plan, planner case 3 included."""
+    """:func:`batched_spmm_ell` at any plan, planner case 3 included: the
+    same kernel, counted apart."""
     return _f32(batched_spmm_ell_large, True, col_ids, values, b, plan, rlen,
                 op, reduce)
 
@@ -101,16 +106,15 @@ def _f32(counted, large: bool, col_ids, values, b, plan, rlen, op, reduce):
     out = torch.empty_like(b)
     if out.numel() == 0:
         return out
-    branch = "_large" if large else ""
     if gspmm:
-        fn = _build.entry("batched_spmm_ell", f"batched_gspmm_ell{branch}_f32",
+        fn = _build.entry("batched_spmm_ell", "batched_gspmm_ell_f32",
                           _GSPMM_ARGTYPES)
         code = fn(col_ids.data_ptr(), values.data_ptr(), rlen.data_ptr(),
                   b.data_ptr(), out.data_ptr(), batch, m_pad, k_pad, n_b,
                   plan.n_block, *gspmm_codes(op, reduce),
                   int(values.dim() == 4), stream_handle())
     else:
-        fn = _build.entry("batched_spmm_ell", f"batched_spmm_ell{branch}_f32",
+        fn = _build.entry("batched_spmm_ell", "batched_spmm_ell_f32",
                           _ARGTYPES)
         code = fn(col_ids.data_ptr(), values.data_ptr(), b.data_ptr(),
                   out.data_ptr(), batch, m_pad, k_pad, n_b, plan.n_block,
@@ -128,9 +132,9 @@ def _reduced(counted, entry: str, col_ids: torch.Tensor,
              values: torch.Tensor, scale: torch.Tensor | None,
              b: torch.Tensor, plan: BatchPlan | None,
              large: bool = False) -> torch.Tensor:
-    """The bf16 (``scale`` None) or i8 entry of either branch: checks, then
-    the plain version on CPU tensors or the kernel, counted in
-    ``counted``. The large branch also takes int32 ids."""
+    """The bf16 (``scale`` None) or i8 entry ``entry`` (counted in
+    ``counted``): checks, then the plain version on CPU tensors or the
+    kernel. The large-matrix entries also take int32 ids."""
     if b.dim() != 3 or col_ids.dim() != 3:
         raise ValueError(f"{entry} takes 3-D col_ids and b")
     batch, m_pad, k_pad = col_ids.shape
@@ -153,15 +157,12 @@ def _reduced(counted, entry: str, col_ids: torch.Tensor,
     out = torch.empty_like(b)
     if out.numel() == 0:
         return out
-    # the large entries take ids32 before the stream
-    argtypes = _I8_ARGTYPES if i8 else _ARGTYPES
     args = [col_ids.data_ptr(), values.data_ptr()] \
         + ([scale.data_ptr()] if i8 else []) \
         + [b.data_ptr(), out.data_ptr(), batch, m_pad, k_pad, n_b,
-           plan.n_block]
-    if large:
-        argtypes, args = argtypes[:-1] + (_I, _P), args + [int(ids32)]
-    fn = _build.entry("batched_spmm_ell", entry, argtypes)
+           plan.n_block, int(ids32)]
+    fn = _build.entry("batched_spmm_ell", entry,
+                      _I8_ARGTYPES if i8 else _BF16_ARGTYPES)
     code = fn(*args, stream_handle())
     _build.check("batched_spmm_ell", code)
     counted.launches += 1
@@ -191,19 +192,18 @@ def batched_spmm_ell_large_bf16(col_ids: torch.Tensor, values: torch.Tensor,
                                 b: torch.Tensor, *,
                                 plan: BatchPlan | None = None
                                 ) -> torch.Tensor:
-    """:func:`batched_spmm_ell_bf16` through the large-matrix branch; int16
-    or int32 ids."""
-    return _reduced(batched_spmm_ell_large_bf16,
-                    "batched_spmm_ell_large_bf16", col_ids, values, None, b,
-                    plan, large=True)
+    """:func:`batched_spmm_ell_bf16` at any plan, case 3 included; int16
+    or int32 ids. The same kernel entry, counted apart."""
+    return _reduced(batched_spmm_ell_large_bf16, "batched_spmm_ell_bf16",
+                    col_ids, values, None, b, plan, large=True)
 
 
 def batched_spmm_ell_large_i8(col_ids: torch.Tensor, codes: torch.Tensor,
                               scale: torch.Tensor, b: torch.Tensor, *,
                               plan: BatchPlan | None = None) -> torch.Tensor:
-    """:func:`batched_spmm_ell_i8` through the large-matrix branch; int16
-    or int32 ids."""
-    return _reduced(batched_spmm_ell_large_i8, "batched_spmm_ell_large_i8",
+    """:func:`batched_spmm_ell_i8` at any plan, case 3 included; int16 or
+    int32 ids. The same kernel entry, counted apart."""
+    return _reduced(batched_spmm_ell_large_i8, "batched_spmm_ell_i8",
                     col_ids, codes, scale, b, plan, large=True)
 
 

@@ -3,8 +3,9 @@ group, with ragged group sizes — the batch of small matmuls of differing
 sizes that the paper batches into one kernel, here R-GCN's per-relation
 transforms (``models/gnn.rgcn_layer``).
 
-The kernel is ``csrc/grouped_matmul.cu`` (a tiled f32 SGEMM whose 64-row
-tiles loop over the groups they hold); the plain version is
+The kernel is ``csrc/grouped_matmul.cu`` (the batched GEMM's f32 mainloop,
+K through a ``cp.async`` ring, whose row tiles make one pass per group they
+hold; :func:`gmm_tile` picks the tile); the plain version is
 :func:`repro_torch.kernels.ref.grouped_matmul_ref`. :func:`grouped_matmul`
 is differentiable in ``x`` and ``w`` with the reference's VJP: ``dx`` is the
 same kernel against the transposed weights, ``dw[g] = Σ_{i∈g} x[i]ᵀ ·
@@ -27,7 +28,21 @@ from repro_torch.kernels import _build, check_operand, on_cpu, ref, \
     stream_handle
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_ARGTYPES = (_P,) * 4 + (_I,) * 8 + (_P,)
+
+THREAD_ROWS = 8         # rows a thread holds
+TILE_GROUPS = 8         # row groups of 16 threads: 64-row tiles
+
+
+def gmm_tile(m: int, n: int) -> tuple[int, int]:
+    """The kernel's tile ``(row groups, columns a thread)``, 8 rows a
+    thread: 8 row groups (64-row tiles), or ``ceil(m / 8)`` below 64 rows;
+    4 columns a thread (64-column panels) up to n 64, 8 past it
+    (128-column panels). Of the tiles the kernel takes (4, 8 or 16 row
+    groups; 4 or 8 columns), 64 x 64 was the fastest at N 64 (M 11,200 and
+    28,672) in every run; at N 512 the fastest tile moved from card to
+    card, this one within 10% of it (``scripts/gmm_tiles.py``, PERF.md)."""
+    return min(TILE_GROUPS, -(-m // THREAD_ROWS)), 4 if n <= 64 else 8
 
 
 def _row_groups(group_sizes: torch.Tensor, m: int, e: int) -> torch.Tensor:
@@ -72,12 +87,12 @@ def _gmm(x: torch.Tensor, w: torch.Tensor, row_group: torch.Tensor, *,
         return ref.grouped_matmul_ref(
             x, _visited_groups(row_group, tm, max_groups_per_tile), w)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if out.numel() == 0 or e == 0:
+    if out.numel() == 0 or e == 0 or k == 0:
         return out.zero_()
     fn = _build.entry("grouped_matmul", "grouped_matmul_f32", _ARGTYPES)
     code = fn(x.data_ptr(), w.data_ptr(), row_group.data_ptr(),
               out.data_ptr(), m, k, n, e, tm, max_groups_per_tile,
-              stream_handle())
+              *gmm_tile(m, n), stream_handle())
     _build.check("grouped_matmul", code)
     _gmm.launches += 1
     return out

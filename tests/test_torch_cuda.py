@@ -763,32 +763,99 @@ def test_gspmm_kernels_match_plain(dev, name, edges):
 @pytest.mark.parametrize("sizes,k,n", [
     ((7168,) * 4, 62, 64),          # R-GCN Tox21 serving: aligned tiles
     ((2800,) * 4, 64, 64),          # Tox21 training: straddling tiles
+    ((2800,) * 4, 64, 62),          # a dx at N 62: 8-byte rows of w and out
     ((5, 70, 1, 0, 300), 33, 20),   # ragged, an empty group, rows past sum
+    ((10,) * 5 + (28_622,), 33, 64),  # 6 groups in one 64-row kernel tile
+    ((2, 3), 33, 20),               # M below one tile (5 rows)
+    ((1024,) * 4, 62, 512),         # R-GCN Reaction100 layer 1 (K 62)
     ((1024,) * 4, 512, 512),        # R-GCN at Reaction100 width
 ])
 def test_grouped_matmul_kernel_matches_plain_and_is_bitwise(dev, sizes, k,
                                                             n):
+    """The kernel against its plain version and twice for identical bits,
+    and its dx role (the same kernel on the transposed weights). K 33 and
+    62 copy x 4 or 8 bytes at a time, N 20 and 62 copy w and store out so;
+    the 6-group case puts groups 0-4 and the start of group 5 in the first
+    64-row tile of the kernel itself, whose rows past group 3 come out 0,
+    as in the reference."""
     from repro_torch.kernels.grouped_matmul import _gmm, _row_groups, \
-        _visited_groups
+        _visited_groups, gmm_tile
 
     m = sum(sizes) + (17 if sizes[0] == 5 else 0)
+    if len(sizes) == 6:
+        assert gmm_tile(m, n)[0] == 8
     x = torch.randn((m, k), device=dev)
     w = torch.randn((len(sizes), k, n), device=dev) / k ** 0.5
     rg = _row_groups(torch.tensor(sizes, dtype=torch.int32, device=dev), m,
                      len(sizes))
-    # the ragged case has 5 groups in its first 128-row tile: the fifth
-    # group's rows there come out 0, as in the reference
+    # a 128-row tile of the reference visits at most 4 groups: the rows of
+    # a fifth group there come out 0
     visited = _visited_groups(rg, 128, 4)
-    assert bool((visited < 0).any()) == (sizes[0] == 5)
+    assert bool((visited < 0).any()) == (len(sizes) > 4)
     got = _gmm(x, w, rg)
     torch.testing.assert_close(got, ref.grouped_matmul_ref(x, visited, w),
                                **TOL)
+    assert bool((got[visited < 0] == 0).all())
     assert torch.equal(got, _gmm(x, w, rg))
     # dx: the same kernel on the transposed weights
     wt = w.transpose(1, 2).contiguous()
     d = torch.randn((m, n), device=dev)
-    torch.testing.assert_close(_gmm(d, wt, rg), ref.grouped_matmul_ref(
-        d, visited, wt), **TOL)
+    dx = _gmm(d, wt, rg)
+    torch.testing.assert_close(dx, ref.grouped_matmul_ref(d, visited, wt),
+                               **TOL)
+    assert torch.equal(dx, _gmm(d, wt, rg))
+
+
+@pytest.mark.parametrize("k_pad", (1, 3, 8, 16))
+@pytest.mark.parametrize("n_b", (1, 7, 48, 64, 65, 512))
+def test_ell_kernel_entries_match_plain_and_are_bitwise(dev, k_pad, n_b):
+    """The f32, bf16 (int16 ids) and i8 (int16 ids, per-matrix scale)
+    entries of the ELL kernel against their plain versions, on 6 matrices
+    of 40 rows: a third of the slots padding (id 0, value 0.0), a tenth
+    out-of-range ids (-1, m_pad, 1000: skipped), one matrix with no
+    non-zero. k_pad 1 and 3 read the slots one at a time, 8 and 16 as
+    vectors; n_b 1, 7 and 65 read B one column at a time, 48, 64 and 512
+    four (512: four 128-column panels). Each entry gives identical bits
+    twice, and its large-matrix entry the same bits (with int16 and int32
+    ids)."""
+    from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell_bf16, \
+        batched_spmm_ell_i8, batched_spmm_ell_large, \
+        batched_spmm_ell_large_bf16, batched_spmm_ell_large_i8
+
+    batch, m_pad = 6, 40
+    shape = (batch, m_pad, k_pad)
+    cid = torch.randint(0, m_pad, shape, dtype=torch.int32)
+    val = torch.randn(shape)
+    pad = torch.rand(shape) < 1 / 3
+    cid[pad], val[pad] = 0, 0.0
+    oob = torch.rand(shape) < 0.1
+    cid[oob] = torch.tensor([-1, m_pad, 1000], dtype=torch.int32)[
+        torch.randint(0, 3, (int(oob.sum()),))]
+    cid[2], val[2] = 0, 0.0
+    codes, scale = quantize_values_i8(val)
+    cid, val, codes, scale = (t.to(dev) for t in (cid, val, codes, scale))
+    c16 = cid.to(torch.int16)
+    b = torch.randn((batch, m_pad, n_b), device=dev)
+    bh, vh = b.to(torch.bfloat16), val.to(torch.bfloat16)
+    checks = [
+        (lambda: batched_spmm_ell(cid, val, b),
+         ref.batched_spmm_ell_plain(cid, val, b), TOL,
+         [lambda: batched_spmm_ell_large(cid, val, b)]),
+        (lambda: batched_spmm_ell_bf16(c16, vh, bh),
+         ref.batched_spmm_ell_plain(c16, vh, bh), BF16_TOL,
+         [lambda: batched_spmm_ell_large_bf16(c16, vh, bh),
+          lambda: batched_spmm_ell_large_bf16(cid, vh, bh)]),
+        (lambda: batched_spmm_ell_i8(c16, codes, scale, b),
+         ref.batched_spmm_ell_plain(c16, codes, b, scale), TOL,
+         [lambda: batched_spmm_ell_large_i8(c16, codes, scale, b),
+          lambda: batched_spmm_ell_large_i8(cid, codes, scale, b)])]
+    for kern, want, tol, large in checks:
+        got = kern()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert bool((got[2] == 0).all())
+        assert torch.equal(got, kern())
+        for other in large:
+            assert torch.equal(got, other())
 
 
 def test_gnn_layers_on_the_card_match_the_cpu(dev):

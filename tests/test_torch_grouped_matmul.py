@@ -143,3 +143,27 @@ def test_gradients_only_when_asked_and_wrapper_checks(monkeypatch):
         tgmm._gmm(torch.from_numpy(x), torch.from_numpy(w), rg).numpy(),
         ref.grouped_matmul_ref(torch.from_numpy(x), rg.long(),
                                torch.from_numpy(w)).numpy(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m,n,tile", [
+    (28_672, 64, (8, 4)),      # R-GCN Tox21 serving: 448 tiles of 64 rows
+    (11_200, 64, (8, 4)),      # Tox21 training: 175 tiles for 132 SMs
+    (11_200, 62, (8, 4)),      # a dx at N 62
+    (28_672, 512, (8, 8)),     # Reaction100: 64 x 128 tiles
+    (5, 20, (1, 4)),           # below one tile
+    (64, 64, (8, 4)),
+    (65, 65, (8, 8)),
+    (1_000_000, 64, (8, 4))])
+def test_gmm_tile_covers_the_rows_in_64_row_tiles(m, n, tile):
+    """The kernel's tile: 8 rows a thread in 64-row tiles, or one tile of
+    ceil(m / 8) row groups below 64 rows (fewer than 8 spare rows); 4
+    columns a thread up to n 64, 8 past it; every grid fits 65535 row
+    tiles, and the main paths' M (11,200 and 28,672) make more tiles than
+    an H100 has SMs (132)."""
+    got = tgmm.gmm_tile(m, n)
+    assert got == tile
+    bm = tgmm.THREAD_ROWS * got[0]
+    assert -(-m // bm) <= 65535
+    assert bm == 64 or (m < 64 and 0 <= bm - m < tgmm.THREAD_ROWS)
+    if m >= 11_200:
+        assert -(-m // bm) > 132
