@@ -17,10 +17,11 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    call time beside it, and the PyTorch prep of the hybrid kernels; the
    hybrid rows' bound counts the slab rows up to each sample's hub count,
    and a [bound] line gives it over all d_pad rows too); the CSR, hybrid
-   and GEMM kernels also twice for identical bits, the hybrid
+   GEMM and batched COO kernels also twice for identical bits, the hybrid
    kernel also without a slab, and the COO and CSR kernels in their
    backward roles (dU of the fused layer, dB of ``pallas_csr`` on the
-   transposed CSR); then the g-SpMM entries of the ELL, CSR and COO
+   transposed CSR), the COO kernel also at the powerlaw batch (hub rows);
+   then the g-SpMM entries of the ELL, CSR and COO
    kernels at the R-GCN ((copy_lhs, mean), n_b 64) and GAT ((mul, sum),
    vector edges, n_b 16) Tox21 serving shapes and on every (op, reduce)
    corner of the three regimes (max corners bitwise), and the grouped
@@ -28,7 +29,10 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    training step's dx at layer 2 and Reaction100 layers 1 and 2 (ELL, CSR
    and grouped matmul twice for identical bits; the grouped matmul also
    with 5 groups in one 128-row tile, whose fifth group's rows come out 0
-   as in the reference); the batched and large-matrix entries of ELL (f32,
+   as in the reference, and with an inf in one group's W and a NaN in
+   another's: every other row within the f32 tolerance of the plain
+   version and finite, the bad groups' non-finite values where the plain
+   version has them); the batched and large-matrix entries of ELL (f32,
    bf16, i8) and GEMM at Tox21 serving and Reaction100 layer 2 for the
    same bits, timed ([fork] lines: one kernel each); then the seven
    reduced-precision entries (bf16 ELL, CSR, COO, hybrid and fused, i8
@@ -36,7 +40,7 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    the fused one, the powerlaw batch for the hybrid one), each timed
    beside its f32 entry on the same inputs,
    and on the three regimes: bf16 within one bf16 ulp, i8 within the f32
-   tolerance, CSR and hybrid identical bits twice; the fused entries also
+   tolerance, CSR, COO and hybrid identical bits twice; the fused entries also
    at every other panel width ([panels] lines), the hybrid one also with
    its head over all d_pad slab rows instead of each sample's hub rows
    ([hubs] lines: the same result, one launch each), and the HMMA
@@ -692,7 +696,8 @@ def phase_kernels(device):
                                       a_flat.values, u),
              lambda: ref.batched_spmm_coo_plain(a_flat.row_ids, a_flat.col_ids,
                                                 a_flat.values, u),
-             io + nnz * 12, flops, shape, lambda: torch.bmm(a_dense, u))
+             io + nnz * 12, flops, shape, lambda: torch.bmm(a_dense, u),
+             bitwise=True)
 
     # fused layers: Tox21 layer 1 and Reaction100 layer 2 (n_in 512)
     def fused_case(tag, adj, x, w, bias, n_nodes):
@@ -796,7 +801,8 @@ def phase_kernels(device):
                                                     at.values, dz),
                  2 * dz.numel() * 4 + real * 12, 2 * real * n_b,
                  f"{a.batch} matrices x {m} rows, nnz_pad {a.nnz_pad}, n_b "
-                 f"{n_b}, {real} real nnz", lambda: torch.bmm(dense, dz))
+                 f"{n_b}, {real} real nnz", lambda: torch.bmm(dense, dz),
+                 bitwise=True)
 
     coo_du("batched_spmm_coo[dU, tox21 training]", t_flat, 64, t_m)
     rb = _on(_train_batches(GraphDatasetSpec.reaction100_like(
@@ -840,6 +846,23 @@ def phase_kernels(device):
     pl_b = torch.randn((POWERLAW["batch"], pl_m, 64), generator=gen).to(
         device)
     hybrid_row("powerlaw", pl_adj[0], pl_b, pl_m)
+    # the COO kernel at the powerlaw batch's first channel: hub rows, each
+    # summed by one sub-warp
+    pl = pl_adj[0]
+    pl_real = int(pl.nnz.sum().item())
+    pl_dense = coo_to_dense(pl, pl_m)
+    pl_deg = row_degrees(pl, pl_m)
+    _measure(rows, "batched_spmm_coo[powerlaw]", "batched_spmm_coo",
+             lambda: batched_spmm_coo(pl.row_ids, pl.col_ids, pl.values,
+                                      pl_b),
+             lambda: ref.batched_spmm_coo_plain(pl.row_ids, pl.col_ids,
+                                                pl.values, pl_b),
+             2 * pl_b.numel() * 4 + pl_real * 12, 2 * pl_real * 64,
+             f"{pl.batch} matrices x {pl_m} rows, nnz_pad {pl.nnz_pad}, n_b "
+             f"64, {pl_real} real nnz, longest row {int(pl_deg.max())} "
+             f"slots, {int((pl_deg >= 64).sum()) / pl.batch:.3f} rows of 64 "
+             "or more a matrix", lambda: torch.bmm(pl_dense, pl_b),
+             bitwise=True)
     hybrid_row("tox21", a_flat, u, m_pad)
     a_dense_c = a_dense.contiguous()
     _measure(rows, "batched_gemm[tox21]", "batched_gemm",
@@ -1144,7 +1167,8 @@ def phase_gnn_kernels(device, rows, errs):
                                           nnz=a.nnz, **kw),
                  lambda: ref.batched_gspmm_coo_plain(a.row_ids, a.col_ids,
                                                      values, a.nnz, b, **kw),
-                 io + a.nnz.numel() * 4 + real * 8, flops, shape, library)
+                 io + a.nnz.numel() * 4 + real * 8, flops, shape, library,
+                 bitwise=True)
 
     # R-GCN, Tox21 serving: the first wave's 4 relations x 128 graphs,
     # the (copy_lhs, mean) aggregation of layer 1 (n_b 64)
@@ -1207,15 +1231,42 @@ def phase_gnn_kernels(device, rows, errs):
                  lambda: torch.bmm(xt.view(e, size, k), w).view(m, n),
                  bitwise=True)
 
+    def gmm_non_finite(tag, xt, w):
+        """An inf in relation 1's W and a NaN in relation 2's, in tiles
+        that straddle their boundaries: the kernel's non-finite outputs lie
+        where the plain version's do, the rest within the f32 tolerance,
+        and every row of the other relations stays finite."""
+        e, m = w.shape[0], xt.shape[0]
+        rg = _row_groups(torch.full((e,), m // e, dtype=torch.int32,
+                                    device=device), m, e)
+        wb = w.clone()
+        wb[1, 0, 3] = float("inf")
+        wb[2, -1, -1] = float("nan")
+        key = f"grouped_matmul[{tag}, non-finite W]"
+        got, want = _gmm(xt, wb, rg), ref.grouped_matmul_ref(xt, rg, wb)
+        fin = torch.isfinite(want)
+        check(bool((~fin).any()), f"{key}: the plain version is finite")
+        check(torch.equal(torch.isnan(got), torch.isnan(want))
+              and torch.equal(torch.isinf(got), torch.isinf(want)),
+              f"{key}: non-finite outputs where the plain version has none")
+        check(bool(torch.isfinite(got[(rg != 1) & (rg != 2)]).all()),
+              f"{key}: a row of another relation is not finite")
+        err = max_err(got[fin], want[fin], key)
+        log(f"[gmm non-finite W] {key}: {int((~fin).sum())} non-finite "
+            f"outputs in relations 1-2 as in the plain version; the other "
+            f"{int(fin.sum())} within {err:.3e}")
+
     w1 = params["convs"][0]["w_rel"]
     gmm_row("rgcn tox21 serving layer 1", tokens(wave.x, 4), w1)
     tb = _on(_train_batches(GraphDatasetSpec.tox21_like(
         TRAIN_TOX21["n_samples"], seed=0), TRAIN_TOX21["batch"])[0], device)
     gmm_row("rgcn tox21 training layer 1", tokens(tb["x"], 4), w1)
+    gmm_non_finite("rgcn tox21 training layer 1", tokens(tb["x"], 4), w1)
     t_rows = 4 * tb["x"].shape[0] * tb["x"].shape[1]
-    gmm_row("rgcn tox21 training layer 2 dx",
-            torch.randn((t_rows, 64), generator=gen).to(device),
-            params["convs"][1]["w_rel"].transpose(1, 2).contiguous())
+    dout = torch.randn((t_rows, 64), generator=gen).to(device)
+    w2t = params["convs"][1]["w_rel"].transpose(1, 2).contiguous()
+    gmm_row("rgcn tox21 training layer 2 dx", dout, w2t)
+    gmm_non_finite("rgcn tox21 training layer 2 dx", dout, w2t)
     r_cfg = GCNConfig.reaction100(layer="rgcn", impl="ref")
     r_params = _params(r_cfg, 0, device)
     rw = GraphServeEngine(r_params, r_cfg, device=device, **TOX21).assemble(
@@ -1413,7 +1464,7 @@ def phase_precision_kernels(device, rows, errs):
         lambda: batched_spmm_coo_bf16(r16, k16, vh, uh),
         lambda: ref.batched_spmm_coo_plain(r16, k16, vh, uh),
         lambda: batched_spmm_coo(a.row_ids, a.col_ids, a.values, u),
-        io // 2 + nnz * 6, lib_bf16, True, BF16_FLOP_PER_S)
+        io // 2 + nnz * 6, lib_bf16, True, BF16_FLOP_PER_S, bitwise=True)
     # the bf16 hybrid entry at Tox21 (no hub) and at the powerlaw batch (its
     # first channel: 40 x 256, about 5 hub rows a matrix), beside the f32
     # entry on the same inputs

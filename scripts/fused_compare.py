@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the main-path rows of the fused, batched GEMM and hybrid kernels in
-one checkout.
+"""Time the main-path rows of the fused, batched GEMM, hybrid, grouped
+matmul, ELL and COO kernels in one checkout.
 
-    python3 scripts/fused_compare.py [--root DIR]
+    python3 scripts/fused_compare.py [--root DIR] [--only GROUP]
+                                     [--save FILE | --check FILE]
 
 Imports ``repro_torch`` and ``chip_smoke.py`` from the checkout at DIR (by
 default the one this script lies in) and times, by CUDA-graph replay on
@@ -17,14 +18,22 @@ matmul (``grouped_matmul[...]``) at R-GCN Tox21 serving and training layer
 1, the training step's ``dx`` at layer 2 and Reaction100 layers 1 and 2;
 the batched ELL entries (f32, bf16, i8) at Tox21 serving, f32 and bf16 at
 Reaction100 layer 2 (n_b 512), the large-matrix entries at m_pad 9000 x 2
-and the g-SpMM entry at the R-GCN and GAT Tox21 serving shapes. Each row
-is checked against its plain version first. Prints one JSON line
-``{"root", "card", "ms": {row: ms}}``.
+and the g-SpMM entry at the R-GCN and GAT Tox21 serving shapes; the
+batched COO entries at Tox21 serving (f32, bf16 with int16 ids), as dU of
+the fused backward at Tox21 and Reaction100 training (n_b 64, 512), at the
+powerlaw batch's first channel, and in the g-SpMM entry at the R-GCN and
+GAT Tox21 serving shapes, and its large-matrix entries (f32, bf16) at
+m_pad 9000 x 2. Each row is checked against its plain version first.
+Prints one JSON line ``{"root", "card", "ms": {row: ms}}``.
 
 To compare two trees on one card, unpack the other (``git archive``) into
 a directory that ``.gitignore`` lists and run this script on both in one
 call, in turns: other, this, this, other. The kernels build into each
-tree's own ``build/kernels``.
+tree's own ``build/kernels``. ``--save FILE`` keeps the outputs of the
+grouped matmul and batched GEMM rows; ``--check FILE`` (on the other
+tree, same inputs) prints for each of them whether this tree's output has
+the same bits. ``--only GROUP`` (fused, gemm — with the hybrid rows —,
+gmm, ell, coo; repeatable) times only those rows.
 """
 from __future__ import annotations
 
@@ -34,11 +43,22 @@ import subprocess
 import sys
 from pathlib import Path
 
+# the outputs that --save keeps and --check compares, {row: tensor}
+OUTS = {}
+# the groups of rows, in the order they run
+GROUPS = ("fused", "gemm", "gmm", "ell", "coo")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    root = Path(ap.parse_args().root).resolve()
+    ap.add_argument("--save", help="keep the GEMM and _gmm outputs here")
+    ap.add_argument("--check", help="compare those outputs with a --save")
+    ap.add_argument("--only", action="append", choices=GROUPS,
+                    help="time only these groups of rows (repeatable)")
+    args = ap.parse_args()
+    only = set(args.only or GROUPS)
+    root = Path(args.root).resolve()
     sys.path[:0] = [str(root), str(root / "src")]
     import torch
 
@@ -83,7 +103,8 @@ def main() -> int:
              "powerlaw": (pl_adj, pl_x, conv["w"], conv["b"])}
     ms = {}
     bf = torch.bfloat16
-    for tag, (adj, x, w, bias) in cases.items():
+    for tag, (adj, x, w, bias) in (cases.items() if "fused" in only
+                                   else ()):
         rid, cid, val, nnz = stack_channels(adj)
         chunks = runtime_chunks(nnz)
         m = x.shape[1]
@@ -112,10 +133,22 @@ def main() -> int:
 
         cs.max_err(hybrid(), plain, f"fused_hybrid_forward[{tag}]")
         ms[f"fused_hybrid_forward[{tag}]"] = cs.graph_ms(hybrid)
-    ms.update(_gemm_hybrid_rows(cs, dev, gen, wave, conv, x2, conv2, rw,
-                                pl_adj, pl_m))
-    ms.update(_gmm_rows(cs, dev, gen, wave, rw))
-    ms.update(_ell_rows(cs, dev, gen, wave, conv, x2, conv2, rw))
+    if "gemm" in only:
+        ms.update(_gemm_hybrid_rows(cs, dev, gen, wave, conv, x2, conv2, rw,
+                                    pl_adj, pl_m))
+    if "gmm" in only:
+        ms.update(_gmm_rows(cs, dev, gen, wave, rw))
+    if "ell" in only:
+        ms.update(_ell_rows(cs, dev, gen, wave, conv, x2, conv2, rw))
+    if "coo" in only:
+        ms.update(_coo_rows(cs, dev, gen, wave, conv, pl_adj, pl_m))
+    if args.save:
+        torch.save({k: v.cpu() for k, v in OUTS.items()}, args.save)
+    if args.check:
+        kept = torch.load(args.check)
+        for k, v in OUTS.items():
+            same = k in kept and torch.equal(kept[k], v.cpu())
+            print(f"[bits] {k}: {'same' if same else 'differ'}", flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -148,7 +181,8 @@ def _gemm_hybrid_rows(cs, dev, gen, wave, conv, x2, conv2, rw, pl_adj,
              "reaction100 layer 2": (coo_to_dense(
                  flatten_channels(rw.adj), m_pad).contiguous(), u2)}
     for tag, (dense, b) in gemms.items():
-        cs.max_err(batched_gemm(dense, b), ref.batched_gemm_plain(dense, b),
+        OUTS[f"batched_gemm[{tag}]"] = got = batched_gemm(dense, b)
+        cs.max_err(got, ref.batched_gemm_plain(dense, b),
                    f"batched_gemm[{tag}]")
         ms[f"batched_gemm[{tag}]"] = cs.graph_ms(
             lambda: batched_gemm(dense, b))
@@ -158,6 +192,7 @@ def _gemm_hybrid_rows(cs, dev, gen, wave, conv, x2, conv2, rw, pl_adj,
         got = batched_gemm_large(dense, b)
         cs.max_err(got, torch.bmm(dense, b), f"batched_gemm_large[{m}]",
                    (1e-3, 1e-4))
+        OUTS[f"batched_gemm_large[m_pad {m}]"] = got
         ms[f"batched_gemm_large[m_pad {m}]"] = cs.graph_ms(
             lambda: batched_gemm_large(dense, b), iters=10, replays=3)
         del dense, b, got
@@ -229,7 +264,8 @@ def _gmm_rows(cs, dev, gen, wave, rw):
                                     dtype=torch.int32, device=dev),
                          xt.shape[0], e)
         key = f"grouped_matmul[{tag}]"
-        cs.max_err(_gmm(xt, w, rg), ref.grouped_matmul_ref(xt, rg, w), key)
+        OUTS[key] = got = _gmm(xt, w, rg)
+        cs.max_err(got, ref.grouped_matmul_ref(xt, rg, w), key)
         ms[key] = cs.graph_ms(lambda: _gmm(xt, w, rg))
     return ms
 
@@ -325,6 +361,104 @@ def _ell_rows(cs, dev, gen, wave, conv, x2, conv2, rw):
         lambda: batched_spmm_ell(eg.col_ids, eg.values, hg, rlen=rg, **kw),
         lambda: ref.batched_gspmm_ell_plain(eg.col_ids, eg.values, rg, hg,
                                             **kw))
+    return ms
+
+
+def _coo_rows(cs, dev, gen, wave, conv, pl_adj, pl_m):
+    """The COO rows of ``chip_smoke.py``, {row: ms}: the stacked SpMM of
+    Tox21 serving layer 1 (f32; bf16 with int16 ids), dU = Aᵀ·dZ of the
+    fused backward (ids swapped) at the first Tox21 (n_b 64) and
+    Reaction100 (n_b 512) training batches, the powerlaw batch's first
+    channel (hub rows), the g-SpMM entry at the R-GCN (copy_lhs, mean) and
+    GAT (mul, sum, vector edges) Tox21 serving shapes, and the
+    large-matrix entries (f32, bf16) at m_pad 9000 x 2."""
+    import torch
+    from repro_torch.core.formats import BatchedCOO, narrow_col_ids
+    from repro_torch.core.graph_conv import flatten_channels
+    from repro_torch.data.graphs import GraphDatasetSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo, \
+        batched_spmm_coo_bf16, batched_spmm_coo_large, \
+        batched_spmm_coo_large_bf16
+    from repro_torch.kernels.segment_softmax import segment_softmax
+
+    bf = torch.bfloat16
+    m_pad = cs.TOX21["m_pad"]
+    ms = {}
+
+    def row(key, kern, plain, tol=cs.F32_TOL, **timed):
+        cs.max_err(kern(), plain(), key, tol)
+        ms[key] = cs.graph_ms(kern, **timed)
+
+    def coo(key, a, b, **kw):
+        row(key, lambda: batched_spmm_coo(a.row_ids, a.col_ids, a.values, b,
+                                          **kw),
+            (lambda: ref.batched_gspmm_coo_plain(
+                a.row_ids, a.col_ids, a.values, a.nnz, b, op=kw["op"],
+                reduce=kw["reduce"])) if kw else
+            (lambda: ref.batched_spmm_coo_plain(a.row_ids, a.col_ids,
+                                                a.values, b)))
+
+    a = flatten_channels(wave.adj)
+    u = (torch.einsum("bmn,cnf->cbmf", wave.x, conv["w"])
+         + conv["b"][:, None, None, :]).reshape(-1, m_pad, 64).contiguous()
+    coo("batched_spmm_coo[tox21]", a, u)
+    r16, k16 = (narrow_col_ids(t, m_pad) for t in (a.row_ids, a.col_ids))
+    vh, uh = a.values.to(bf), u.to(bf)
+    row("batched_spmm_coo_bf16[tox21]",
+        lambda: batched_spmm_coo_bf16(r16, k16, vh, uh),
+        lambda: ref.batched_spmm_coo_plain(r16, k16, vh, uh),
+        cs.BF16_KERNEL_TOL)
+    for tag, spec, train in (
+            ("tox21", GraphDatasetSpec.tox21_like(
+                cs.TRAIN_TOX21["n_samples"], seed=0), cs.TRAIN_TOX21),
+            ("reaction100", GraphDatasetSpec.reaction100_like(
+                cs.TRAIN_R100["batch"] * cs.TRAIN_R100["steps"], seed=0),
+             cs.TRAIN_R100)):
+        tb = cs._on(cs._train_batches(spec, train["batch"])[0], dev)
+        t = flatten_channels(tb["adj"])
+        at = BatchedCOO(t.col_ids, t.row_ids, t.values, t.nnz, t.n_rows)
+        dz = torch.randn((t.batch, tb["x"].shape[1],
+                          64 if tag == "tox21" else 512),
+                         generator=gen).to(dev)
+        coo(f"batched_spmm_coo[dU, {tag} training]", at, dz)
+    pl = pl_adj[0]
+    coo("batched_spmm_coo[powerlaw]", pl,
+        torch.randn((pl.batch, pl_m, 64), generator=gen).to(dev))
+    h = torch.randn((a.batch, m_pad, 64), generator=gen).to(dev)
+    coo("batched_spmm_coo[g-SpMM, rgcn tox21 serving]", a, h,
+        nnz=a.nnz, op="copy_lhs", reduce="mean")
+    heads, d_head = 4, 16
+    a0 = wave.adj[0]
+    alpha = segment_softmax(torch.randn((a0.batch, a0.nnz_pad, heads),
+                                        generator=gen).to(dev), a0.row_ids,
+                            nnz=a0.nnz, m_pad=m_pad)
+
+    def flat(t):
+        return t.expand((heads,) + t.shape).reshape((heads * a0.batch,)
+                                                    + t.shape[1:])
+
+    e_vec = alpha.permute(2, 0, 1).reshape(heads * a0.batch, a0.nnz_pad, 1) \
+        .expand(-1, -1, d_head).contiguous()
+    a_gat = BatchedCOO(flat(a0.row_ids), flat(a0.col_ids), e_vec,
+                       flat(a0.nnz), flat(a0.n_rows))
+    coo("batched_spmm_coo[g-SpMM, gat tox21 serving]", a_gat,
+        torch.randn((heads * a0.batch, m_pad, d_head), generator=gen).to(dev),
+        nnz=a_gat.nnz, op="mul", reduce="sum")
+    big = cs._large_coo(9000, 2, seed=9000).to(dev)
+    bb = torch.randn((2, 9000, 64), generator=gen).to(dev)
+    row("batched_spmm_coo_large[m_pad 9000]",
+        lambda: batched_spmm_coo_large(big.row_ids, big.col_ids, big.values,
+                                       bb),
+        lambda: ref.batched_spmm_coo_plain(big.row_ids, big.col_ids,
+                                           big.values, bb),
+        iters=10, replays=3)
+    b16, c16 = (narrow_col_ids(t, 9000) for t in (big.row_ids, big.col_ids))
+    vbh, bbh = big.values.to(bf), bb.to(bf)
+    row("batched_spmm_coo_large_bf16[m_pad 9000]",
+        lambda: batched_spmm_coo_large_bf16(b16, c16, vbh, bbh),
+        lambda: ref.batched_spmm_coo_plain(b16, c16, vbh, bbh),
+        cs.BF16_KERNEL_TOL, iters=10, replays=3)
     return ms
 
 

@@ -81,8 +81,9 @@ def plan_batched_spmm(*, batch: int, m_pad: int, n_b: int,
     one ``(m_pad, n_block)`` panel of ``itemsize``-byte elements in shared
     memory: the staged B panel of the ELL and hybrid kernels (2 bytes for a
     bf16 B), plus ``fixed_bytes`` beside it (the hybrid kernel's row
-    permutation). The COO kernel's panel is its atomic accumulator, which
-    stays f32 whatever B's type, so the COO kernel is planned at 4 bytes.
+    permutation). The COO kernels are planned at 4 bytes whatever B's
+    type: for them the plan decides case 3 (the large entries, whose
+    accumulator is f32) and the column panel width.
     The CSR kernel stages nothing and takes any plan; it is planned as the
     ELL kernel is, so that case 3 names the same matrices for both.
     Unlike the reference's VMEM plan, the index stream (k_pad or nnz_pad

@@ -218,6 +218,36 @@ __device__ __forceinline__ void store_cols(__nv_bfloat16* p, const float* x,
     if (i < n) p[i] = __float2bfloat16_rn(x[i]);
 }
 
+// Exclusive prefix sum of the n ints at a (shared memory), by the block:
+// each thread sums a contiguous share, the warps scan the shares with
+// shuffles, and each warp adds the totals of the warps before it (ws: one
+// int per warp). Barriers before and after are the caller's. kThreads is
+// the block's size.
+template <int kThreads>
+__device__ __forceinline__ void exclusive_scan(int* a, int n, int* ws) {
+  const int share = (n + kThreads - 1) / kThreads;
+  const int lo = min(n, static_cast<int>(threadIdx.x) * share);
+  const int hi = min(n, lo + share);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += a[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += t;
+  }
+  if (lane == 31) ws[warp] = inc;
+  __syncthreads();
+  int off = inc - sum;
+  for (int w = 0; w < warp; ++w) off += ws[w];
+  for (int i = lo; i < hi; ++i) {
+    const int t = a[i];
+    a[i] = off;
+    off += t;
+  }
+}
+
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

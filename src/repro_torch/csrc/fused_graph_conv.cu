@@ -551,34 +551,6 @@ __device__ __forceinline__ void stage_run(I* rs, I* cs, V* vs, const I* rid,
   cp_commit();
 }
 
-// Exclusive prefix sum of the n ints at a (shared memory), by the block:
-// each thread sums a contiguous share, the warps scan the shares with
-// shuffles, and each warp adds the totals of the warps before it (ws: one
-// int per warp). Barriers before and after are the caller's.
-__device__ __forceinline__ void exclusive_scan(int* a, int n, int* ws) {
-  const int share = (n + kThreads - 1) / kThreads;
-  const int lo = min(n, static_cast<int>(threadIdx.x) * share);
-  const int hi = min(n, lo + share);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += a[i];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = sum;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, inc, d);
-    if (lane >= d) inc += t;
-  }
-  if (lane == 31) ws[warp] = inc;
-  __syncthreads();
-  int off = inc - sum;
-  for (int w = 0; w < warp; ++w) off += ws[w];
-  for (int i = lo; i < hi; ++i) {
-    const int t = a[i];
-    a[i] = off;
-    off += t;
-  }
-}
-
 // acc[r] += sum_j v U[j] over the n slots of one (sample x channel), the
 // accumulator in shared memory. The index stream is copied through the
 // ring in runs of what it holds, and each run is bucketed by row: a count
@@ -615,7 +587,7 @@ __device__ __forceinline__ void scatter_rows(float* acc, const float* us,
     for (int i = threadIdx.x; i < cnt; i += kThreads)
       if (live(rs, cs, vs, i, m_pad)) atomicAdd(ends + rs[i], 1);
     __syncthreads();
-    exclusive_scan(ends, m_pad, ws);  // ends[r]: where row r starts
+    repro::exclusive_scan<kThreads>(ends, m_pad, ws);  // row starts
     __syncthreads();
     for (int i = threadIdx.x; i < cnt; i += kThreads)
       if (live(rs, cs, vs, i, m_pad)) perm[atomicAdd(ends + rs[i], 1)] = i;

@@ -19,8 +19,12 @@
 // for 16 at CW 2).
 //
 // Every output is one fmaf chain over k in increasing order from 0.0: a
-// zero-filled k or row adds fmaf(0, b, acc) == acc (b finite; acc is never
-// -0.0), so the result is the same bits whatever the tile.
+// zero-filled k adds fmaf(0, 0, acc) == acc (B is zero-filled past k as
+// well; acc is never -0.0), so the result is the same bits whatever the
+// tile. A caller whose tile mixes rows of several products (the grouped
+// matmul's groups) passes a mask of the thread's rows that belong to this
+// product: the FMAs of the other rows are predicated off, so that their
+// sums keep their bits whatever B holds (0 * inf would be NaN).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -131,20 +135,81 @@ __device__ __forceinline__ int chunk(int row, int ch) {
   return ch ^ ((row / TM) & 3);
 }
 
+// `own` for a thread all of whose rows take the FMAs unpredicated; a
+// caller passes it to a whole warp or to none of its threads, so that the
+// warp does not diverge
+constexpr unsigned kAllRows = ~0u;
+
+// One ring slab's FMAs of the grouped matmul: acc[i] += A-slab row
+// (ty TM + i) . B-slab columns of this thread, one fmaf per (row, k,
+// column) in increasing k, as the mainloop's own loop (which the batched
+// GEMM runs) does; with kPred, only for the rows whose bit is set in `own`.
+// The predicated copy runs only in the few warps that straddle a group
+// boundary, but where it is there at all the code around it moves, and
+// the unpredicated copy's time with it. Measured against the grouped
+// matmul without it (parent and this in turns on one H100 80GB HBM3 at
+// 700 W, scripts/fused_compare.py): with this pair of copies, and the
+// predicated copy's k-chunk loop rolled at 4 columns a thread (unrolled:
+// 2-5% slower there) and unrolled at 8 (rolled: 4-5% slower there), the
+// rows took 0.995-1.024x the parent's time; with the predicated copy alone
+// beside the mainloop's own loop, 1.03-1.05x at 4 columns a thread. The
+// batched GEMM keeps the mainloop's loop, and its parent's SASS: run
+// through fma_slab instead (the same fmaf chains, the same bits), its
+// SASS changed in each of the three layouts tried, and in the first its
+// m_pad 2048 row took 0.1677-0.1678 ms against the parent's 0.1612-0.1614.
+template <int TM, int CW, bool kPred>
+__device__ __forceinline__ void fma_slab(float (&acc)[TM][4 * CW],
+                                         const float* ad, const float* bd,
+                                         unsigned own) {
+  constexpr int kPanel = Tile<TM, CW>::kPanel;
+  constexpr int kUnroll = kPred && CW == 1 ? 1 : kSlab / 4;
+  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
+#pragma unroll(kUnroll)
+  for (int ch = 0; ch < kSlab / 4; ++ch) {
+    float4 av[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = ty * TM + i;
+      av[i] = *reinterpret_cast<const float4*>(
+          ad + row * kSlab + chunk<TM>(row, ch) * 4);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const float4 bv = *reinterpret_cast<const float4*>(
+            bd + (ch * 4 + kk) * kPanel + c * kLanes * 4 + tx * 4);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          if (kPred && !((own >> i) & 1u)) continue;
+          const float av_k = reinterpret_cast<const float*>(&av[i])[kk];
+          float* o = acc[i] + 4 * c;
+          o[0] = fmaf(av_k, bv.x, o[0]);
+          o[1] = fmaf(av_k, bv.y, o[1]);
+          o[2] = fmaf(av_k, bv.z, o[2]);
+          o[3] = fmaf(av_k, bv.w, o[3]);
+        }
+      }
+    }
+  }
+}
+
 // acc += A[r0 + row, :] . B[:, col0 + this thread's columns] for the
 // thread's TM rows, A (rows x k) and B (k x n) row-major, copied `wa` and
 // `wb` floats at a time (copy_width). A tile row is read where
 // row_ok(row) and zero-filled elsewhere (rows past the matrix, or another
-// group's); a warp that is not `live` copies its share but skips the FMAs,
-// which would add only zeros. Ends with the ring free (a barrier), so it
-// may be called again.
-template <int TM, int CW, typename RowOk>
+// group's); a warp that is not `live` copies its share but skips the FMAs.
+// With kMasked, only the thread's rows set in `own` (bit i: row ty TM + i)
+// take FMAs, unless `own` is kAllRows. Ends with the ring free (a
+// barrier), so it may be called again.
+template <int TM, int CW, bool kMasked = false, typename RowOk>
 __device__ __forceinline__ void mainloop(float (&acc)[TM][4 * CW],
                                          float* smem, int bm,
                                          const float* a, const float* b,
                                          int k, int n, int r0, int col0,
                                          int wa, int wb, RowOk row_ok,
-                                         bool live) {
+                                         bool live,
+                                         unsigned own = kAllRows) {
   constexpr int kPanel = Tile<TM, CW>::kPanel;
   float* as = smem;                          // kStages x (bm, kSlab)
   float* bs = as + kStages * bm * kSlab;     // kStages x (kSlab, kPanel)
@@ -192,6 +257,15 @@ __device__ __forceinline__ void mainloop(float (&acc)[TM][4 * CW],
     if (!live) continue;
     const float* ad = as + (t % kStages) * bm * kSlab;
     const float* bd = bs + (t % kStages) * kSlab * kPanel;
+    if constexpr (kMasked) {
+      if (own != kAllRows)
+        fma_slab<TM, CW, true>(acc, ad, bd, own);
+      else
+        fma_slab<TM, CW, false>(acc, ad, bd, own);
+      continue;
+    }
+    // fma_slab<TM, CW, false> written out: the batched GEMM's SASS and
+    // time depend on it (see fma_slab)
 #pragma unroll
     for (int ch = 0; ch < kSlab / 4; ++ch) {
       float4 av[TM];

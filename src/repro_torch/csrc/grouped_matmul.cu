@@ -42,10 +42,14 @@
 // no row in the tile is skipped), reading w[g]'s pointer per pass; in the
 // pass of group g the x rows of other groups, and the rows the reference
 // does not visit, are zero-filled as they are copied (cp.async with
-// src_bytes 0), not masked in the FMAs, and a warp with no row in g skips
-// its FMAs. Against the first design on one H100 80GB HBM3 at 700 W
-// (scripts/fused_compare.py, parent and this design in turns on one card;
-// torch.bmm over the groups in parentheses, chip_smoke.py):
+// src_bytes 0), a warp with no row in g skips its FMAs, and a warp that
+// holds rows of g and of another group (or of none) predicates each
+// thread row's FMAs on its group, so that those rows keep their sums
+// through g's pass; a warp whose rows all lie in g (every warp of a tile
+// inside one group) runs them unpredicated. Against the first design on
+// one H100 80GB HBM3 at 700 W (scripts/fused_compare.py, parent and this
+// design in turns on one card; torch.bmm over the groups in parentheses,
+// chip_smoke.py):
 // 0.0120 ms against 0.0200 at M 28,672 x K 62 x N 64 (torch.bmm 0.0104),
 // 0.0097 against 0.0188 at M 11,200 (0.0068), 0.0811 against 0.1142 at K
 // 62 x N 512 (0.0659), 0.473 against 0.856 at K = N = 512 (0.331, ~32
@@ -53,11 +57,11 @@
 // torch.bmm: the batched GEMM, the same mainloop without group passes,
 // takes 0.0114 and 0.0074 ms at those shapes (scripts/gmm_tiles.py).
 //
-// Exact only because a zero-filled x row adds fmaf(0, w, acc) == acc: a
-// NaN or inf in W would break it (0 * inf is NaN), in a tile that
-// straddles that group's boundary. Every output is one fmaf chain over k in
-// increasing order from 0.0, whatever tile holds it: no atomics, bitwise
-// repeatable.
+// Every output is one fmaf chain over k in increasing order from 0.0 over
+// its own group's w alone, whatever tile holds it: no atomics, bitwise
+// repeatable, and an inf or NaN in one group's w reaches no row of another
+// group, as in the reference's per-group select (jnp.where): unpredicated,
+// a zero-filled row of another group would take fmaf(0, inf, acc) = NaN.
 #include "common.cuh"
 #include "gemm_tile.cuh"
 
@@ -138,14 +142,16 @@ gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < 4 * CW; ++j) acc[i][j] = 0.f;
 
   for (int p = lo; p <= hi; ++p) {
-    bool mine = false;
+    unsigned own = 0;   // bit i: this thread's row ty TM + i is in group p
 #pragma unroll
-    for (int i = 0; i < TM; ++i) mine |= rg[ty * TM + i] == p;
-    if (!__syncthreads_or(mine)) continue;   // no row of group p here
-    repro::gemm::mainloop<TM, CW>(
+    for (int i = 0; i < TM; ++i) own |= (rg[ty * TM + i] == p ? 1u : 0u) << i;
+    if (!__syncthreads_or(own != 0)) continue;   // no row of group p here
+    // a warp whose rows all lie in group p takes the FMAs unpredicated
+    if (__all_sync(lanes, own == (1u << TM) - 1)) own = repro::gemm::kAllRows;
+    repro::gemm::mainloop<TM, CW, true>(
         acc, gmm_smem, bm, x, w + static_cast<size_t>(p) * k * n, k, n, r0,
         col0, wx, ww, [&](int row) { return rg[row] == p; },
-        __any_sync(lanes, mine));
+        __any_sync(lanes, own != 0), own);
   }
   repro::gemm::store<TM, CW>(acc, out, m, n, r0, col0, wo);
 }

@@ -1,39 +1,46 @@
-"""Batched COO SpMM — the paper's batched SWA-SpMM for SparseTensor (split by
-non-zero, shared-memory atomics): ``C[s, rid] += val · B[s, cid, :]``.
+"""Batched COO SpMM — the paper's batched SWA-SpMM for SparseTensor (the
+slots of a matrix in any order): ``C[s, rid] += val · B[s, cid, :]``.
 
-The kernel is ``csrc/batched_spmm_coo.cu`` (one block per matrix × column
-panel, the output panel in shared memory, a sub-warp per non-zero with
-``atomicAdd``); the plain version is
+The kernel is ``csrc/batched_spmm_coo.cu``: a block owns rows of one
+matrix (the whole matrix at the main-path shapes), buckets the matrix's
+slots by row in shared memory (per-(row, warp) counts, a prefix sum, a
+stable placement: each row's slots in increasing slot index), then each
+sub-warp walks its rows' slots, gathers B rows through the L2, four
+columns a lane, and sums them in registers in slot order, one ``fmaf``
+chain an output stored once. No float atomics: the same bits from run to
+run and under any block split. The plain version is
 :func:`repro_torch.kernels.ref.batched_spmm_coo_plain`. f32, (mul, sum).
-It also runs dB = Aᵀ·dC (ids swapped) for the ``pallas_coo``,
-``pallas_ell`` and ``fused`` backwards. Every slot is visited, as in the reference: padded slots carry
-0.0 and cost the kernel no atomic. Row ids outside ``[0, m_pad)`` — the
-``m_pad`` sentinel — add nothing.
+It also runs dB = Aᵀ·dC (ids swapped, so the row ids arrive in column
+order) for the ``pallas_coo``, ``pallas_ell`` and ``fused`` backwards.
+Every slot is visited, as in the reference: a slot whose value is 0.0
+(padding) adds nothing, and neither does a row or column id outside
+``[0, m_pad)`` (the ``m_pad`` sentinel).
 
 g-SpMM (the reference kernel's ``nnz``/``op``/``reduce`` operands): given
 the per-matrix true ``nnz``, another ``(op, reduce)`` or vector edges
 ``(batch, nnz_pad, n_b)``, the wrapper launches the kernel's g-SpMM entry,
-which masks slots past ``nnz[s]`` and finishes ``mean`` and the empty rows
-of ``max`` itself; its plain version is
-:func:`repro_torch.kernels.ref.batched_gspmm_coo_plain`. The g-SpMM plan
-takes :func:`gspmm_plan`: the block also counts row degrees in shared
-memory.
+which masks each matrix's slots at or past ``nnz[s]``, counts each row's
+degree (every slot below ``nnz[s]`` whose row id, clipped into
+``[0, m_pad)``, is that row) and finishes ``mean`` and the empty rows of
+``max`` itself; its
+plain version is :func:`repro_torch.kernels.ref.batched_gspmm_coo_plain`.
+It is planned as the (mul, sum) entries are.
 
 :func:`batched_spmm_coo_bf16` is the reference kernel's bf16 branch: int16
-row and column ids, bf16 values and B, an f32 accumulator, bf16 out. Its
-plain version is :func:`ref.batched_spmm_coo_plain`; it counts its own
+row and column ids, bf16 values and B, f32 sums, bf16 out (rounded once).
+Its plain version is :func:`ref.batched_spmm_coo_plain`; it counts its own
 launches.
 
 Large-matrix entries (paper case 3, where the reference takes its plain
 per-sample path): :func:`batched_spmm_coo_large` (f32 and g-SpMM) and
 :func:`batched_spmm_coo_large_bf16` take the same operands and any plan,
-case 3 included. The kernel's large-matrix branch accumulates into an f32
-buffer in global memory that the wrapper fills first (``torch.zeros``,
+case 3 included. A matrix's stream there is far larger than a block
+buckets at a time, so the kernel's large-matrix branch accumulates into an
+f32 buffer in global memory that the wrapper fills first (``torch.zeros``,
 -3e38 for max; the g-SpMM degrees in a zeroed int32 buffer), with global
 atomics, then finishes it in a second pass (mean, empty max, bf16
 rounding). The bf16 one also takes int32 ids, for ``m_pad`` past int16's
-range. Not bitwise repeatable, like the batched entries; same plain
-versions, own counters.
+range. Not bitwise repeatable; same plain versions, own counters.
 """
 from __future__ import annotations
 
@@ -60,13 +67,6 @@ _GSPMM_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
 
 _LARGE_GSPMM_ARGTYPES = (_P,) * 7 + (_I,) * 8 + (_P,)
 _LARGE_BF16_ARGTYPES = (_P,) * 6 + (_I,) * 6 + (_P,)
-
-
-def gspmm_plan(*, batch: int, m_pad: int, n_b: int) -> BatchPlan:
-    """The g-SpMM entry's plan: the output panel plus ``m_pad`` int32 row
-    degrees in one block's shared memory."""
-    return plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b,
-                             fixed_bytes=4 * m_pad)
 
 
 def batched_spmm_coo(row_ids: torch.Tensor, col_ids: torch.Tensor,
@@ -113,7 +113,6 @@ def _f32(counted, large: bool, row_ids, col_ids, values, b, plan, nnz, op,
     check_operand("b", b, (batch, m_pad, n_b), torch.float32)
     if gspmm:
         check_operand("nnz", nnz, (batch,), torch.int32)
-        plan = plan or gspmm_plan(batch=batch, m_pad=m_pad, n_b=n_b)
     plan = plan or plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
     check_plan(plan, batch=batch, m_pad=m_pad, n_b=n_b, large=large)
     if on_cpu(row_ids, col_ids, values, b, nnz):
@@ -162,8 +161,8 @@ def batched_spmm_coo_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
                           values: torch.Tensor, b: torch.Tensor, *,
                           plan: BatchPlan | None = None) -> torch.Tensor:
     """row_ids/col_ids (batch, nnz_pad) int16, values bf16, b (batch, m_pad,
-    n_b) bf16 → bf16: f32 sums in shared memory rounded to bf16 once. The
-    plan is the f32 one: the shared accumulator stays f32."""
+    n_b) bf16 → bf16: f32 sums in registers rounded to bf16 once. The
+    plan is the f32 one, as ``ops`` plans every COO entry."""
     return _bf16(batched_spmm_coo_bf16, False, row_ids, col_ids, values, b,
                  plan)
 

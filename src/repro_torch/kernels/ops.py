@@ -50,7 +50,6 @@ from repro_torch.kernels.batched_spmm_coo import (
     batched_spmm_coo_bf16,
     batched_spmm_coo_large,
     batched_spmm_coo_large_bf16,
-    gspmm_plan,
 )
 from repro_torch.kernels.batched_spmm_csr import (
     batched_spmm_csr,
@@ -80,7 +79,7 @@ from repro_torch.kernels.batched_spmm_hybrid import (
 # - csr:        plain CSR row split (rpt search + scatter-add)
 # - pallas_csr: batched SWA-CSR on flat CSR arrays, the row-split CSR CUDA
 #               kernel (no atomics; its own CSR-class backward)
-# - pallas_coo:    batched SWA-SparseTensor, the nnz-split COO CUDA kernel
+# - pallas_coo:    batched SWA-SparseTensor, the COO CUDA kernel
 # - hybrid:        plain degree split: hub-row slab product + ELL remainder
 #                  of width dmin - 1
 # - pallas_hybrid: the degree-sorted hybrid CUDA kernel (hub slab + CSR
@@ -308,7 +307,7 @@ def _forward_base(row_ids, col_ids, nnz, values, b, *, impl: str, base: str,
             raise ValueError(f"{impl} requires k_pad (max nnz/row)")
         validate_ell_k_pad(a, m_pad, k_pad)
     if base == "pallas_coo":
-        # the COO kernel's shared panel is its f32 accumulator
+        # every COO entry takes the f32 plan (its sums are f32)
         plan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
         large = plan.case == 3
     if large and not _kernel_on_card(impl, b):
@@ -422,9 +421,7 @@ def _gspmm_forward(row_ids, col_ids, nnz, values, b, *, impl: str,
                                  m_pad, nnz[s], op=op, reduce=reduce)
             for s in range(batch)])
 
-    plan = (gspmm_plan if impl == "pallas_coo"
-            else batching.plan_batched_spmm)(batch=batch, m_pad=m_pad,
-                                             n_b=n_b)
+    plan = batching.plan_batched_spmm(batch=batch, m_pad=m_pad, n_b=n_b)
     large = plan.case == 3
     # paper case 3 on the CPU: the batched oracle, as in the reference
     oracle = large and not _kernel_on_card(impl, b)

@@ -4,9 +4,11 @@ Marked ``cuda``: they need an NVIDIA card and ``nvcc`` and skip without
 them. On the card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Each test seeds torch's generators with a fresh seed and prints it (shown
 with a failure); ``REPRO_TEST_SEED=<seed>`` replays those inputs.
-Atomics in the COO and fused kernels add in a run-dependent order, so the
-kernels are held to the f32 tolerance (1e-4, 1e-5), not bitwise; the CSR,
-hybrid and GEMM kernels have no atomics and give identical bits twice.
+Atomics in the fused kernel's row buckets and in the COO kernel's
+large-matrix entries add in a run-dependent order, so those are held to
+the f32 tolerance (1e-4, 1e-5), not bitwise; the batched COO, CSR, ELL,
+hybrid and GEMM kernels and the grouped matmul have no float atomics and
+give identical bits twice.
 """
 import os
 
@@ -904,9 +906,9 @@ def test_pallas_ell_gspmm_raises_past_k_pad_on_the_card(dev):
 
 @pytest.mark.parametrize("name", HYBRID_REGIMES)
 def test_coo_gspmm_max_is_bitwise(dev, name):
-    """The COO kernel's max corners (a compare-and-swap float max in shared
-    memory) equal the plain version bitwise, also where many slots of a hub
-    row contend (the powerlaw regime)."""
+    """The COO kernel's max corners (fmaxf over a row's slots) equal the
+    plain version bitwise, also over the long rows of hubs (the powerlaw
+    regime)."""
     coo, m_pad = _regime(name)
     coo = coo.to(dev)
     b = torch.randn((coo.batch, m_pad, 64), device=dev)
@@ -918,6 +920,219 @@ def test_coo_gspmm_max_is_bitwise(dev, name):
                                                values, coo.nnz, b, op=op,
                                                reduce="max")
             assert torch.equal(got, want), f"({op}, max) {values.dim()}-D"
+
+
+def _coo_contract_slots(name):
+    """The regime's COO operands (on the CPU) with every case the COO
+    kernel's contracts name: each matrix's first nnz[s] slots shuffled (the
+    dB / dU calls swap the ids, so the rows arrive in any order), a tenth
+    of them with an out-of-range row or column id (-1, m_pad: the
+    sentinel, 1000), a tenth real 0.0-valued edges, and half the padding
+    slots (value 0.0) on the m_pad sentinel row, the rest on row 0."""
+    coo, m_pad = _regime(name)
+    rid, cid, val = (t.clone() for t in (coo.row_ids, coo.col_ids,
+                                         coo.values))
+    for s in range(coo.batch):
+        k = int(coo.nnz[s])
+        p = torch.randperm(k)
+        rid[s, :k], cid[s, :k], val[s, :k] = rid[s, p], cid[s, p], val[s, p]
+    slot = torch.arange(coo.nnz_pad)
+    valid = slot[None, :] < coo.nnz[:, None]
+    oob = (torch.rand(rid.shape) < 0.1) & valid
+    bad = torch.tensor([-1, m_pad, 1000], dtype=torch.int32)[
+        torch.randint(0, 3, rid.shape)]
+    on_row = torch.rand(rid.shape) < 0.5
+    rid = torch.where(oob & on_row, bad, rid)
+    cid = torch.where(oob & ~on_row, bad, cid)
+    val = torch.where((torch.rand(rid.shape) < 0.1) & valid & ~oob, 0.0, val)
+    rid = torch.where(~valid & (slot[None, :] % 2 == 0), m_pad, rid)
+    return rid, cid, val, coo.nnz, m_pad
+
+
+def _narrow_plan(batch, m_pad, n_b):
+    """A plan of 8-column panels: the COO kernel then splits a block's
+    rows over 128 sub-warps of 2 lanes instead of 8-64 (and, where the
+    stream is longer than one run, takes 128 rows a block), another split
+    of the same sums."""
+    from repro_torch.core.batching import BatchPlan
+
+    n_block = min(n_b, 8)
+    p = -(-n_b // n_block)
+    return BatchPlan(batch, m_pad, n_b, n_block, p, 1 if p == 1 else 2, 0)
+
+
+def _coo_entries_hold(rid, cid, val, nnz, m_pad, n_b, dev, corners):
+    """Every COO entry against its plain version on these operands; the
+    batched entries twice for identical bits and under another block
+    split for the same bits; max corners bitwise against the plain
+    version; the g-SpMM entries on ``corners`` with scalar and vector
+    edges."""
+    from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo_bf16, \
+        batched_spmm_coo_large, batched_spmm_coo_large_bf16
+
+    rid, cid, val, nnz = (t.to(dev) for t in (rid, cid, val, nnz))
+    batch = rid.shape[0]
+    b = torch.randn((batch, m_pad, n_b), device=dev)
+    narrow = _narrow_plan(batch, m_pad, n_b)
+    got = batched_spmm_coo(rid, cid, val, b)
+    torch.testing.assert_close(
+        got, ref.batched_spmm_coo_plain(rid, cid, val, b), **TOL)
+    assert torch.equal(got, batched_spmm_coo(rid, cid, val, b))
+    assert torch.equal(got, batched_spmm_coo(rid, cid, val, b, plan=narrow))
+    torch.testing.assert_close(batched_spmm_coo_large(rid, cid, val, b), got,
+                               **TOL)
+    r16, c16 = rid.to(torch.int16), cid.to(torch.int16)
+    vh, bh = val.to(torch.bfloat16), b.to(torch.bfloat16)
+    want16 = ref.batched_spmm_coo_plain(r16, c16, vh, bh).float()
+    got16 = batched_spmm_coo_bf16(r16, c16, vh, bh)
+    torch.testing.assert_close(got16.float(), want16, **BF16_TOL)
+    assert torch.equal(got16, batched_spmm_coo_bf16(r16, c16, vh, bh))
+    assert torch.equal(got16, batched_spmm_coo_bf16(r16, c16, vh, bh,
+                                                    plan=narrow))
+    for ids in ((r16, c16), (rid, cid)):
+        torch.testing.assert_close(
+            batched_spmm_coo_large_bf16(*ids, vh, bh).float(), want16,
+            **BF16_TOL)
+    slot = torch.arange(rid.shape[1], device=dev)
+    vec = torch.randn(tuple(rid.shape) + (n_b,), device=dev) * (
+        slot[None, :] < nnz[:, None])[..., None]
+    for values in (val, vec):
+        for op, red in corners:
+            kw = dict(nnz=nnz, op=op, reduce=red)
+            what = f"({op}, {red}) {values.dim()}-D edges"
+            want = ref.batched_gspmm_coo_plain(rid, cid, values, nnz, b,
+                                               op=op, reduce=red)
+            g = batched_spmm_coo(rid, cid, values, b, **kw)
+            if red == "max":
+                assert torch.equal(g, want), what
+            else:
+                torch.testing.assert_close(g, want, **TOL, msg=what)
+            assert torch.equal(g, batched_spmm_coo(rid, cid, values, b,
+                                                   **kw)), what
+            assert torch.equal(g, batched_spmm_coo(rid, cid, values, b,
+                                                   plan=narrow, **kw)), what
+            torch.testing.assert_close(
+                batched_spmm_coo_large(rid, cid, values, b, **kw), want,
+                **TOL, msg=what)
+    return got
+
+
+@pytest.mark.parametrize("n_b", (1, 7, 48, 64, 65, 512))
+@pytest.mark.parametrize("name", HYBRID_REGIMES)
+def test_coo_kernel_entries_match_plain_and_are_bitwise(dev, name, n_b):
+    """The six COO entries (f32, bf16 with int16 ids, g-SpMM, and their
+    large-matrix entries, bf16 there with int16 and int32 ids) against
+    their plain versions on the regimes with shuffled slots, out-of-range
+    ids, sentinel rows and real 0.0 edges, every (op, reduce) corner with
+    scalar and vector edges. n_b 1, 7 and 65 read B one column at a time,
+    48, 64 and 512 four (512: four 128-column panels); the batched entries
+    give identical bits twice and under another block split, and store
+    0.0 in rows with no live slot."""
+    from repro_torch.kernels.ops import GSPMM_OPS, GSPMM_REDUCES
+
+    rid, cid, val, nnz, m_pad = _coo_contract_slots(name)
+    corners = [(op, red) for op in GSPMM_OPS for red in GSPMM_REDUCES]
+    got = _coo_entries_hold(rid, cid, val, nnz, m_pad, n_b, dev, corners)
+    live = ((val != 0) & (rid >= 0) & (rid < m_pad) & (cid >= 0)
+            & (cid < m_pad))
+    has = torch.zeros((rid.shape[0], m_pad + 1), dtype=torch.bool)
+    has[torch.arange(rid.shape[0])[:, None].expand_as(rid),
+        torch.where(live, rid, m_pad).long()] = True
+    assert bool((got[~has[:, :m_pad].to(dev)] == 0).all())
+
+
+@pytest.mark.parametrize("n_b", (64, 512))
+def test_coo_kernel_streams_past_one_run(dev, n_b):
+    """Streams longer than the 4,096 slots the COO kernel buckets at a
+    time: 3 matrices of 384 rows, 4,100-9,000 slots each in random order
+    (a third of them on 8 hub rows), so that a row's sum runs through two
+    or three runs of the stream (each block takes one column panel at n_b
+    512), with the contracts' out-of-range ids, sentinel padding and 0.0
+    edges."""
+    rng = np.random.default_rng(7)
+    lists = []
+    for nnz in (4_100, 9_000, 6_500):
+        hub = rng.integers(0, 8, nnz // 3)
+        rows = np.concatenate([hub, rng.integers(0, 384, nnz - hub.size)])
+        perm = rng.permutation(nnz)
+        lists.append((rows[perm].astype(np.int32),
+                      rng.integers(0, 384, nnz).astype(np.int32),
+                      rng.normal(size=nnz).astype(np.float32)))
+    coo = coo_from_lists(lists, [384] * 3)
+    rid, cid, val = coo.row_ids, coo.col_ids, coo.values
+    oob = torch.rand(rid.shape) < 0.05
+    rid = torch.where(oob, 1000, rid)
+    val = torch.where(torch.rand(rid.shape) < 0.05, 0.0, val)
+    slot = torch.arange(coo.nnz_pad)
+    rid = torch.where(slot[None, :] >= coo.nnz[:, None], 384, rid)
+    _coo_entries_hold(rid, cid, val, coo.nnz, 384, n_b, dev,
+                      [("mul", "sum"), ("copy_lhs", "mean"), ("add", "max")])
+
+
+def test_coo_kernel_entries_hold_on_wide_matrices_in_one_run(dev):
+    """140 matrices of 500 rows, up to 4,096 slots each (one run of the
+    stream): a batch large enough that the COO kernel would take a whole
+    matrix a block, whose buckets (500 rows) would outgrow a block's
+    default 48 KB of shared memory; it splits such a matrix into row
+    blocks of at most 256 rows. Every entry against its plain version, with
+    the contracts' out-of-range ids, sentinel padding and 0.0 edges."""
+    rng = np.random.default_rng(11)
+    m_pad, lists = 500, []
+    for s in range(140):
+        nnz = 4_096 if s == 0 else int(rng.integers(3_000, 4_097))
+        lists.append((rng.integers(0, m_pad, nnz).astype(np.int32),
+                      rng.integers(0, m_pad, nnz).astype(np.int32),
+                      rng.normal(size=nnz).astype(np.float32)))
+    coo = coo_from_lists(lists, [m_pad] * len(lists))
+    assert coo.nnz_pad == 4_096
+    rid, cid, val = coo.row_ids, coo.col_ids, coo.values
+    oob = torch.rand(rid.shape) < 0.05
+    rid = torch.where(oob, 1000, rid)
+    val = torch.where(torch.rand(rid.shape) < 0.05, 0.0, val)
+    slot = torch.arange(coo.nnz_pad)
+    rid = torch.where(slot[None, :] >= coo.nnz[:, None], m_pad, rid)
+    _coo_entries_hold(rid, cid, val, coo.nnz, m_pad, 64, dev,
+                      [("mul", "sum"), ("copy_lhs", "mean"), ("add", "max")])
+
+
+@pytest.mark.parametrize("k,n", [(62, 64), (33, 20), (64, 512)])
+def test_grouped_matmul_non_finite_w_stays_in_its_group(dev, k, n):
+    """An inf in one group's w and a NaN in another's, each group in a
+    64-row kernel tile that it shares with other groups, and an inf in the
+    w of a group past the fourth of a 128-row reference tile (its rows come
+    out 0): the kernel puts inf and NaN where its plain version does, only
+    in rows of the bad groups, and matches it on every other row, finite
+    (0 where the reference leaves 0), in the forward and in dx."""
+    from repro_torch.kernels.grouped_matmul import _gmm, _row_groups, \
+        _visited_groups
+
+    # rows 0-9 g0, 10-39 g1 (inf), 40-44 g2, 45-51 g3, 52-60 g4 (inf, not
+    # visited), 61-63 g5, 64-163 g6 (visited from row 128; NaN), 164-223 g7
+    sizes = (10, 30, 5, 7, 9, 3, 100, 60)
+    m = sum(sizes)
+    rg = _row_groups(torch.tensor(sizes, dtype=torch.int32, device=dev), m,
+                     len(sizes))
+    visited = _visited_groups(rg, 128, 4)
+    w = torch.randn((len(sizes), k, n)) / k ** 0.5
+    w[1, 3, n // 2] = float("inf")
+    w[4, 0, 0] = float("inf")
+    w[6, k - 1, n - 1] = float("nan")
+    w = w.to(dev)
+    bad = ((rg == 1) | (rg == 6)) & (visited >= 0)
+    assert bool((visited < 0).any()) and bool(bad.any())
+    for what, a, ww in (
+            ("forward", torch.randn((m, k), device=dev), w),
+            ("dx", torch.randn((m, n), device=dev),
+             w.transpose(1, 2).contiguous())):
+        got = _gmm(a, ww, rg)
+        want = ref.grouped_matmul_ref(a, visited, ww)
+        assert bool((~torch.isfinite(want[bad])).any()), what
+        torch.testing.assert_close(got, want, equal_nan=True, **TOL,
+                                   msg=what)
+        assert bool(torch.isfinite(got[~bad]).all()), what
+        assert bool((got[visited < 0] == 0).all()), what
+        assert torch.equal(torch.nan_to_num(got),
+                           torch.nan_to_num(_gmm(a, ww, rg))), what
 
 
 # (b, tq, tk, h, kv, hd, causal, window): the reference test's five corners,

@@ -167,3 +167,43 @@ def test_gmm_tile_covers_the_rows_in_64_row_tiles(m, n, tile):
     assert bm == 64 or (m < 64 and 0 <= bm - m < tgmm.THREAD_ROWS)
     if m >= 11_200:
         assert -(-m // bm) > 132
+
+
+def test_non_finite_w_stays_in_its_group_as_in_the_reference():
+    """An inf in one group's w and a NaN in another's: the plain version
+    (what the kernel is held to on the card) and the reference's ``_gmm``
+    in interpret mode put inf and NaN at the same places, only in rows of
+    those groups, and agree on every other row (finite; 0 where a 16-row
+    tile of the reference visits no more groups), in the forward and in
+    dx. Tiles straddle both bad groups' boundaries, and the first tile's
+    fifth group, which the reference leaves 0, has an inf of its own."""
+    sizes = np.asarray([3, 7, 2, 2, 2, 5, 9, 6], np.int32)  # 36 rows, tm 16
+    rng = np.random.default_rng(21)
+    m, k, n = int(sizes.sum()), 6, 5
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(len(sizes), k, n)).astype(np.float32)
+    w[1, 2, 3] = np.inf
+    w[5, 4, 1] = np.nan
+    w[4, 0, 0] = np.inf
+    rg = tgmm._row_groups(torch.from_numpy(sizes), m, len(sizes))
+    visited = tgmm._visited_groups(rg, 16, 4)
+    rows = rg.numpy()
+    bad = np.isin(rows, (1, 5)) & (visited.numpy() >= 0)
+    for what, a, b in (("forward", x, w),
+                       ("dx", rng.normal(size=(m, n)).astype(np.float32),
+                        np.ascontiguousarray(w.transpose(0, 2, 1)))):
+        want = np.asarray(jgmm._gmm(jnp.asarray(a), jnp.asarray(b),
+                                    jnp.asarray(sizes), tm=16, tn=8,
+                                    interpret=True))
+        got = ref.grouped_matmul_ref(torch.from_numpy(a), visited,
+                                     torch.from_numpy(b)).numpy()
+        assert (~np.isfinite(want[bad])).any(), what
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+        np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+        assert np.isfinite(got[~bad]).all(), what
+        np.testing.assert_allclose(got[np.isfinite(want)],
+                                   want[np.isfinite(want)], atol=ATOL,
+                                   rtol=RTOL, err_msg=what)
+        assert (visited.numpy() < 0).any()
+        assert (got[visited.numpy() < 0] == 0).all(), what
