@@ -20,7 +20,9 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    GEMM and batched COO kernels also twice for identical bits, the hybrid
    kernel also without a slab, and the COO and CSR kernels in their
    backward roles (dU of the fused layer, dB of ``pallas_csr`` on the
-   transposed CSR), the COO kernel also at the powerlaw batch (hub rows);
+   transposed CSR), the COO and CSR kernels also at the powerlaw batch
+   (hub rows), and the CSR kernel's g-SpMM entry at R-GCN Reaction100
+   serving (n_b 512, the row batched_spmm_csr[reaction100]);
    then the g-SpMM entries of the ELL, CSR and COO
    kernels at the R-GCN ((copy_lhs, mean), n_b 64) and GAT ((mul, sum),
    vector edges, n_b 16) Tox21 serving shapes and on every (op, reduce)
@@ -46,8 +48,10 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ([hubs] lines: the same result, one launch each), and the HMMA
    (mma.sync) count of each instance of the fused kernel (bf16: some; f32:
    none); then the fused layer's large-matrix branch (f32, hybrid, bf16)
-   at m_pad 1024 (8 samples, n_in 512: the row fused_forward[large]) and
-   3072 (2, n_in 62) against the plain versions; then the nine
+   at m_pad 1024 (8 samples, n_in 512: the rows fused_forward[large],
+   fused_hybrid_forward[large], fused_forward_bf16[large]) and 3072 (2,
+   n_in 62: the same with ", m_pad 3072"), each against its plain version,
+   twice for identical bits, and timed; then the nine
    large-matrix entries (planner case 3: ELL, CSR f32 / bf16 / i8, COO f32
    / bf16, the GEMM) at m_pad 2048 (8 matrices) and 9000 (2), n_b
    64, timed beside their bytes bound, plain versions and ``torch.bmm``
@@ -622,22 +626,25 @@ def _panel_times(key, call, want, tol, plan):
 
 def _fused_hmma() -> dict:
     """HMMA (mma.sync) instructions in the SASS of each instance of the
-    fused kernel, keyed by (entry, tile columns, tile rows, large)."""
+    fused kernel and of the large-matrix branch's transform, keyed by
+    (entry, tile columns, tile rows, large); the large branch's transform
+    serves the f32 and hybrid entries alike ("f32")."""
     import re
 
     from repro_torch.kernels import _build
 
-    try:
-        counts = _build.sass_count("fused_graph_conv", "fused_kernel", "HMMA")
-    except RuntimeError as e:
-        raise SmokeFailure(str(e)) from e
     out = {}
-    for fn, n in counts.items():
-        tn, tm, hybrid, large = re.search(
-            r"Li(\d+)ELi(\d+)ELb([01])ELb([01])E", fn).groups()
-        entry = ("bf16" if "bfloat16" in fn else
-                 "hybrid f32" if hybrid == "1" else "f32")
-        out[(entry, int(tn), int(tm), large == "1")] = n
+    for kernel, large in (("fused_kernel", False), ("large_transform", True)):
+        try:
+            counts = _build.sass_count("fused_graph_conv", kernel, "HMMA")
+        except RuntimeError as e:
+            raise SmokeFailure(str(e)) from e
+        for fn, n in counts.items():
+            tn, tm, hybrid = re.search(r"Li(\d+)ELi(\d+)E(?:Lb([01])E)?",
+                                       fn).groups()
+            entry = ("bf16" if "bfloat16" in fn else
+                     "hybrid f32" if hybrid == "1" else "f32")
+            out[(entry, int(tn), int(tm), large)] = n
     return out
 
 
@@ -863,6 +870,16 @@ def phase_kernels(device):
              f"slots, {int((pl_deg >= 64).sum()) / pl.batch:.3f} rows of 64 "
              "or more a matrix", lambda: torch.bmm(pl_dense, pl_b),
              bitwise=True)
+    # the CSR kernel there: a sub-warp sums each row, hub rows whole
+    pl_csr = coo_to_csr(pl, pl_m)
+    _measure(rows, "batched_spmm_csr[powerlaw]", "batched_spmm_csr",
+             lambda: batched_spmm_csr(pl_csr.rpt, pl_csr.col_ids,
+                                      pl_csr.values, pl_b),
+             lambda: ref.batched_spmm_csr_plain(pl_csr.rpt, pl_csr.col_ids,
+                                                pl_csr.values, pl_b),
+             pl_csr.rpt.numel() * 4 + 2 * pl_b.numel() * 4 + pl_real * 8,
+             2 * pl_real * 64, rows["batched_spmm_coo[powerlaw]"]["shape"],
+             lambda: torch.bmm(pl_dense, pl_b), bitwise=True)
     hybrid_row("tox21", a_flat, u, m_pad)
     a_dense_c = a_dense.contiguous()
     _measure(rows, "batched_gemm[tox21]", "batched_gemm",
@@ -1276,6 +1293,32 @@ def phase_gnn_kernels(device, rows, errs):
     x2 = torch.randn((TOX21["batch"], m_pad, 512), generator=gen).to(device)
     gmm_row("rgcn reaction100 layer 2", tokens(x2, 4),
             r_params["convs"][1]["w_rel"])
+    # the CSR kernel's g-SpMM entry at R-GCN Reaction100 serving: the
+    # (copy_lhs, mean) of layers 2-3 over the wave's relations, n_b 512
+    r_rel = flatten_channels(rw.adj)
+    r_h = torch.randn((r_rel.batch, m_pad, 512), generator=gen).to(device)
+    r_csr = coo_to_csr(r_rel, m_pad)
+    r_real = int(r_rel.nnz.sum().item())
+    # the B rows this data reads: each matrix's distinct column ids (a
+    # padding row of the wave is never gathered)
+    r_slot = torch.arange(r_rel.nnz_pad, device=device)
+    r_valid = r_slot[None, :] < r_rel.nnz[:, None]
+    r_read = int(torch.unique(
+        (torch.arange(r_rel.batch, device=device)[:, None] * m_pad
+         + r_rel.col_ids)[r_valid]).numel())
+    kw = dict(op="copy_lhs", reduce="mean")
+    _measure(rows, "batched_spmm_csr[reaction100]", "batched_spmm_csr",
+             lambda: batched_spmm_csr(r_csr.rpt, r_csr.col_ids,
+                                      r_csr.values, r_h, **kw),
+             lambda: ref.batched_gspmm_csr_plain(r_csr.rpt, r_csr.col_ids,
+                                                 r_csr.values, r_h, **kw),
+             (r_read + r_h.shape[0] * m_pad) * 512 * 4
+             + r_csr.rpt.numel() * 4 + r_real * 4, r_real * 512,
+             f"R-GCN Reaction100 serving: {r_rel.batch} matrices x {m_pad} "
+             f"rows, nnz_pad {r_rel.nnz_pad}, n_b 512, {r_real} real nnz, "
+             "(copy_lhs, mean)",
+             _library_gspmm(r_rel, r_h, r_rel.values, "copy_lhs", "mean"),
+             bitwise=True)
     for k, r in rows.items():
         if k not in before:
             errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0),
@@ -1554,7 +1597,7 @@ def phase_precision_kernels(device, rows, errs):
     hmma = _fused_hmma()
     check(all(n > 0 for k, n in hmma.items() if k[0] == "bf16")
           and not any(n for k, n in hmma.items() if k[0] != "bf16")
-          and len(hmma) == 28,
+          and len(hmma) == 20,
           f"fused_graph_conv: HMMA per instance {hmma}")
     log("[kernels] fused_graph_conv: HMMA (mma.sync) instructions per "
         "(entry, tile columns, tile rows, large) instance (cuobjdump "
@@ -1789,14 +1832,17 @@ def phase_large_kernels(device, rows, errs):
 
 
 def phase_fused_large(device, rows, errs):
-    """The fused layer's large-matrix branch (``plan.large``: each block's
-    U_ch and accumulator panels in a global scratch, where the port's
-    planner used to refuse the layer) at FUSED_LARGE, four channels of
-    ``_large_coo`` matrices: the f32, hybrid (its head bounded by each
-    sample's hub count) and bf16 entries against their plain versions; at
-    m_pad 1024 the f32 entry is timed beside its bound, the plain version
-    and the library's einsum + matmul on the dense adjacency (the row
-    fused_forward[large]). Adds to ``rows`` and ``errs``."""
+    """The fused layer's large-matrix branch (``plan.large``: U of every
+    channel in a global scratch, then the rows aggregated a block of rows
+    at a time) at FUSED_LARGE, four channels of ``_large_coo`` matrices:
+    the f32, hybrid (its head bounded by each sample's hub count) and bf16
+    entries against their plain versions, each twice for identical bits,
+    and timed beside its bound, the plain version and the library's
+    einsum + matmul on the dense adjacency (bf16 in bf16, the channels'
+    adjacencies side by side in one bmm): the rows
+    fused_forward[large], fused_hybrid_forward[large] and
+    fused_forward_bf16[large] at m_pad 1024, the same with ", m_pad 3072"
+    at 3072. Adds to ``rows`` and ``errs``."""
     import torch
     from repro_torch.core.batching import plan_fused_graph_conv, plan_hybrid
     from repro_torch.core.formats import coo_to_dense, narrow_col_ids
@@ -1820,61 +1866,80 @@ def phase_fused_large(device, rows, errs):
                                      n_out=n_out)
         check(plan.large and plan.case != 3,
               f"fused layer {tag}: {plan} is not the large-matrix branch")
-
-        def kern():
-            return fused_forward(rid, cid, val, chunks, x, w, bias)
-
-        def plain():
-            return ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w,
-                                              bias)
-
-        if tag == "m_pad 1024":
-            real = int(nnz.sum().item())
-            live_rows = int((chunks > 0).sum().item()) * m_pad
-            dense = torch.stack([coo_to_dense(a, m_pad) for a in adj])
-
-            def library():
-                uu = (torch.einsum("bmn,cnf->cbmf", x, w)
-                      + bias[:, None, None, :])
-                return torch.matmul(dense, uu).sum(dim=0)
-
-            _measure(rows, "fused_forward[large]", "fused_forward", kern,
-                     plain, real * 12 + chunks.numel() * 4
-                     + (x.numel() + w.numel() + bias.numel()
-                        + batch * m_pad * n_out) * 4,
-                     2 * real * n_out + 2 * live_rows * n_in * n_out,
-                     f"{batch} samples x 4 channels, m_pad {m_pad}, n_in "
-                     f"{n_in} -> n_out {n_out}, {real} real nnz, panels of "
-                     f"{plan.n_block} columns in global scratch", library,
-                     iters=10, replays=3)
-            errs["fused_forward"] = max(
-                errs["fused_forward"],
-                rows["fused_forward[large]"]["max_abs_err"])
-            del dense
-        else:
-            errs["fused_forward"] = max(errs["fused_forward"], max_err(
-                kern(), plain(), f"fused_forward {tag}"))
         hp = plan_hybrid(batch=batch, m_pad=m_pad, n_b=n_out,
                          nnz_pad=4 * rid.shape[2])
-        ops_ = fused_hybrid_operands(rid, cid, val, m_pad, hp)
-        errs["fused_hybrid_forward"] = max(
-            errs["fused_hybrid_forward"], max_err(
-                fused_forward(*ops_[:4], x, w, bias, None, *ops_[4:6],
-                              hubs=ops_[6]),
-                ref.fused_graph_conv_plain(*ops_[:4], x, w, bias, None,
-                                           "none", *ops_[4:]),
-                f"fused_hybrid_forward {tag}"))
+        h_ops = fused_hybrid_operands(rid, cid, val, m_pad, hp)
         a16 = (narrow_col_ids(rid, m_pad), narrow_col_ids(cid, m_pad),
                val.to(bf), chunks, x.to(bf), w.to(bf), bias.to(bf))
-        errs["fused_forward_bf16"] = max(
-            errs["fused_forward_bf16"], max_err(
-                fused_forward_bf16(*a16), ref.fused_graph_conv_plain(*a16),
-                f"fused_forward_bf16 {tag}", BF16_KERNEL_TOL))
+        real = int(nnz.sum().item())
+        live_rows = int((chunks > 0).sum().item()) * m_pad
+        sparse = int(((h_ops[2] != 0) & (h_ops[0] < m_pad)).sum().item())
+        slab_nz = int((h_ops[5] != 0).sum().item())
+        hub_rows = h_ops[6].tolist()
+        dense = torch.stack([coo_to_dense(a, m_pad) for a in adj])
+        # bf16: the channels' adjacencies side by side (K = 4 m_pad), one
+        # bmm that rounds once, where four bf16 products summed in bf16
+        # would round four times
+        dense_h = dense.permute(1, 2, 0, 3).reshape(
+            batch, m_pad, 4 * m_pad).to(bf)
+
+        def library():
+            uu = torch.einsum("bmn,cnf->cbmf", x, w) + bias[:, None, None, :]
+            return torch.matmul(dense, uu).sum(dim=0)
+
+        def library_bf16():
+            uu = (torch.einsum("bmn,cnf->bcmf", x.to(bf), w.to(bf))
+                  + bias.to(bf)[None, :, None, :])
+            return torch.bmm(dense_h, uu.reshape(batch, 4 * m_pad, n_out))
+
+        # the bf16 library rounds U to bf16 before products of up to ~280
+        # terms (the hub row), where the plain version and the kernel keep
+        # U in f32: where a row's terms cancel it strays by ~0.25 from a
+        # small output, so it is held to 4 bf16 ulps of the largest output
+        # (a library computing another function misses by the outputs'
+        # own size)
+        lib_bf16_tol = (4 * 2.0 ** -8 * float(ref.fused_graph_conv_plain(
+            *a16).float().abs().max()), POLICY_TOLS["bf16"][1])
+        io = (x.numel() + w.numel() + bias.numel() + batch * m_pad * n_out) * 4
+        transform = 2 * live_rows * n_in * n_out
+        suffix = "" if tag == "m_pad 1024" else f", {tag}"
+        shape = (f"{batch} samples x 4 channels, m_pad {m_pad}, n_in {n_in} "
+                 f"-> n_out {n_out}, {real} real nnz")
+        cases = (
+            ("fused_forward",
+             lambda: fused_forward(rid, cid, val, chunks, x, w, bias),
+             lambda: ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w,
+                                                bias),
+             real * 12 + chunks.numel() * 4 + io,
+             2 * real * n_out + transform, shape, library, F32_TOL,
+             F32_FLOP_PER_S, None),
+            ("fused_hybrid_forward",
+             lambda: fused_forward(*h_ops[:4], x, w, bias, None,
+                                   *h_ops[4:6], hubs=h_ops[6]),
+             lambda: ref.fused_graph_conv_plain(*h_ops[:4], x, w, bias, None,
+                                                "none", *h_ops[4:]),
+             sparse * 12 + chunks.numel() * 4 + io + h_ops[4].numel() * 4
+             + sum(hub_rows) * 4 * m_pad * 4,
+             2 * (sparse + slab_nz) * n_out + transform,
+             f"{shape} ({sparse} scattered), d_pad {hp.d_pad}, hub rows "
+             f"{hub_rows}", library, F32_TOL, F32_FLOP_PER_S, None),
+            ("fused_forward_bf16", lambda: fused_forward_bf16(*a16),
+             lambda: ref.fused_graph_conv_plain(*a16),
+             real * 6 + chunks.numel() * 4 + io // 2,
+             2 * real * n_out + transform, shape, library_bf16,
+             BF16_KERNEL_TOL, BF16_FLOP_PER_S, lib_bf16_tol))
+        for (name, kern, plain, nbytes, flops, shp, lib, tol, rate,
+             lib_tol) in cases:
+            key = f"{name}[large{suffix}]"
+            _measure(rows, key, name, kern, plain, nbytes, flops, shp, lib,
+                     bitwise=True, tol=tol, flop_rate=rate,
+                     library_tol=lib_tol, iters=10, replays=3)
+            errs[name] = max(errs[name], rows[key]["max_abs_err"])
         log(f"[kernels] fused layer {tag} ({batch} x {m_pad} rows, n_in "
-            f"{n_in} -> {n_out}, panels of {plan.n_block} in global "
-            f"scratch): the f32, hybrid (d_pad {hp.d_pad}, hub rows "
-            f"{ops_[6].tolist()}) and bf16 entries match their plain "
-            "versions")
+            f"{n_in} -> {n_out}, the large-matrix branch): the f32, hybrid "
+            f"(d_pad {hp.d_pad}, hub rows {hub_rows}) and bf16 entries match "
+            "their plain versions, identical bits twice")
+        del dense, dense_h, adj, h_ops, a16
         torch.cuda.empty_cache()
     _log_rows(r for k, r in rows.items() if k not in before)
 

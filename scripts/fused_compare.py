@@ -23,17 +23,24 @@ batched COO entries at Tox21 serving (f32, bf16 with int16 ids), as dU of
 the fused backward at Tox21 and Reaction100 training (n_b 64, 512), at the
 powerlaw batch's first channel, and in the g-SpMM entry at the R-GCN and
 GAT Tox21 serving shapes, and its large-matrix entries (f32, bf16) at
-m_pad 9000 x 2. Each row is checked against its plain version first.
-Prints one JSON line ``{"root", "card", "ms": {row: ms}}``.
+m_pad 9000 x 2; the batched CSR entries at Tox21 training (forward and
+dB, on the transposed CSR), at Tox21 serving (f32, bf16, i8), in the
+g-SpMM entry at the R-GCN Tox21 and Reaction100 (n_b 512) and GAT serving
+shapes and at the powerlaw batch's first channel, and its large-matrix
+entries (f32, bf16, i8) at m_pad 9000 x 2; the fused layer's large-matrix
+branch (f32, hybrid, bf16 entries) at chip_smoke.py's FUSED_LARGE shapes.
+Each row is checked against its plain version first (the CSR and fused
+large rows also for the same bits twice). Prints one JSON line
+``{"root", "card", "ms": {row: ms}}``.
 
 To compare two trees on one card, unpack the other (``git archive``) into
 a directory that ``.gitignore`` lists and run this script on both in one
 call, in turns: other, this, this, other. The kernels build into each
 tree's own ``build/kernels``. ``--save FILE`` keeps the outputs of the
-grouped matmul and batched GEMM rows; ``--check FILE`` (on the other
+grouped matmul, batched GEMM and CSR rows; ``--check FILE`` (on the other
 tree, same inputs) prints for each of them whether this tree's output has
 the same bits. ``--only GROUP`` (fused, gemm — with the hybrid rows —,
-gmm, ell, coo; repeatable) times only those rows.
+gmm, ell, coo, csr, fused_large; repeatable) times only those rows.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ from pathlib import Path
 # the outputs that --save keeps and --check compares, {row: tensor}
 OUTS = {}
 # the groups of rows, in the order they run
-GROUPS = ("fused", "gemm", "gmm", "ell", "coo")
+GROUPS = ("fused", "gemm", "gmm", "ell", "coo", "csr", "fused_large")
 
 
 def main() -> int:
@@ -142,6 +149,10 @@ def main() -> int:
         ms.update(_ell_rows(cs, dev, gen, wave, conv, x2, conv2, rw))
     if "coo" in only:
         ms.update(_coo_rows(cs, dev, gen, wave, conv, pl_adj, pl_m))
+    if "csr" in only:
+        ms.update(_csr_rows(cs, dev, gen, wave, conv, rw, pl_adj, pl_m))
+    if "fused_large" in only:
+        ms.update(_fused_large_rows(cs, dev))
     if args.save:
         torch.save({k: v.cpu() for k, v in OUTS.items()}, args.save)
     if args.check:
@@ -459,6 +470,178 @@ def _coo_rows(cs, dev, gen, wave, conv, pl_adj, pl_m):
         lambda: batched_spmm_coo_large_bf16(b16, c16, vbh, bbh),
         lambda: ref.batched_spmm_coo_plain(b16, c16, vbh, bbh),
         cs.BF16_KERNEL_TOL, iters=10, replays=3)
+    return ms
+
+
+def _csr_rows(cs, dev, gen, wave, conv, rw, pl_adj, pl_m):
+    """The CSR rows, {row: ms}, each output kept in OUTS: the stacked SpMM
+    of the first Tox21 training batch's layer 1 (forward, and dB on the
+    transposed CSR), of Tox21 serving layer 1 (f32; bf16 and i8 with int16
+    ids), the g-SpMM entry at the R-GCN (copy_lhs, mean) Tox21 and
+    Reaction100 (n_b 512) and GAT (mul, sum, vector edges) serving shapes,
+    the powerlaw batch's first channel, and the large-matrix entries (f32,
+    bf16, i8) at m_pad 9000 x 2."""
+    import torch
+    from repro_torch.core.formats import BatchedCOO, coo_to_csr, \
+        narrow_col_ids, quantize_values_i8
+    from repro_torch.core.graph_conv import flatten_channels
+    from repro_torch.data.graphs import GraphDatasetSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr, \
+        batched_spmm_csr_bf16, batched_spmm_csr_i8, batched_spmm_csr_large, \
+        batched_spmm_csr_large_bf16, batched_spmm_csr_large_i8
+    from repro_torch.kernels.segment_softmax import segment_softmax
+
+    bf = torch.bfloat16
+    m_pad = cs.TOX21["m_pad"]
+    ms = {}
+
+    def row(key, kern, plain, tol=cs.F32_TOL, **timed):
+        OUTS[key] = got = kern()
+        cs.max_err(got, plain(), key, tol)
+        cs.check(torch.equal(got, kern()), f"{key}: two calls differ")
+        ms[key] = cs.graph_ms(kern, **timed)
+
+    def csr(key, a, m, b, **kw):
+        c = coo_to_csr(a, m)
+        row(key, lambda: batched_spmm_csr(c.rpt, c.col_ids, c.values, b,
+                                          **kw),
+            (lambda: ref.batched_gspmm_csr_plain(c.rpt, c.col_ids, c.values,
+                                                 b, **kw)) if kw else
+            (lambda: ref.batched_spmm_csr_plain(c.rpt, c.col_ids, c.values,
+                                                b)))
+
+    tb = cs._on(cs._train_batches(GraphDatasetSpec.tox21_like(
+        cs.TRAIN_TOX21["n_samples"], seed=0), cs.TRAIN_TOX21["batch"])[0],
+        dev)
+    t = flatten_channels(tb["adj"])
+    t_m = tb["x"].shape[1]
+    t_u = (torch.einsum("bmn,cnf->cbmf", tb["x"], conv["w"])
+           + conv["b"][:, None, None, :]).reshape(-1, t_m, 64).contiguous()
+    csr("batched_spmm_csr[tox21 training]", t, t_m, t_u)
+    csr("batched_spmm_csr[dB, tox21 training]",
+        BatchedCOO(t.col_ids, t.row_ids, t.values, t.nnz, t.n_rows), t_m,
+        torch.randn(tuple(t_u.shape), generator=gen).to(dev))
+    a = flatten_channels(wave.adj)
+    u = (torch.einsum("bmn,cnf->cbmf", wave.x, conv["w"])
+         + conv["b"][:, None, None, :]).reshape(-1, m_pad, 64).contiguous()
+    csr("batched_spmm_csr[tox21]", a, m_pad, u)
+    c = coo_to_csr(a, m_pad)
+    codes, scale = quantize_values_i8(a.values)
+    cq = coo_to_csr(a.with_values(codes), m_pad)
+    c16 = narrow_col_ids(c.col_ids, m_pad)
+    ch, uh = c.values.to(bf), u.to(bf)
+    row("batched_spmm_csr_bf16[tox21]",
+        lambda: batched_spmm_csr_bf16(c.rpt, c16, ch, uh),
+        lambda: ref.batched_spmm_csr_plain(c.rpt, c16, ch, uh),
+        cs.BF16_KERNEL_TOL)
+    row("batched_spmm_csr_i8[tox21]",
+        lambda: batched_spmm_csr_i8(cq.rpt, c16, cq.values, scale, u),
+        lambda: ref.batched_spmm_csr_plain(cq.rpt, c16, cq.values, u, scale))
+    kw = dict(op="copy_lhs", reduce="mean")
+    csr("batched_spmm_csr[g-SpMM, rgcn tox21 serving]", a, m_pad,
+        torch.randn((a.batch, m_pad, 64), generator=gen).to(dev), **kw)
+    r = flatten_channels(rw.adj)
+    csr("batched_spmm_csr[g-SpMM, rgcn reaction100 serving]", r, m_pad,
+        torch.randn((r.batch, m_pad, 512), generator=gen).to(dev), **kw)
+    heads, d_head = 4, 16
+    a0 = wave.adj[0]
+    # the attention weights on the CPU: on the card the softmax's
+    # denominators add by atomics, so their bits, and the row's, would
+    # change from run to run
+    alpha = segment_softmax(torch.randn((a0.batch, a0.nnz_pad, heads),
+                                        generator=gen), a0.row_ids.cpu(),
+                            nnz=a0.nnz.cpu(), m_pad=m_pad).to(dev)
+
+    def flat(x):
+        return x.expand((heads,) + x.shape).reshape((heads * a0.batch,)
+                                                    + x.shape[1:])
+
+    e_vec = alpha.permute(2, 0, 1).reshape(heads * a0.batch, a0.nnz_pad, 1) \
+        .expand(-1, -1, d_head).contiguous()
+    a_gat = BatchedCOO(flat(a0.row_ids), flat(a0.col_ids), e_vec,
+                       flat(a0.nnz), flat(a0.n_rows))
+    csr("batched_spmm_csr[g-SpMM, gat tox21 serving]", a_gat, m_pad,
+        torch.randn((heads * a0.batch, m_pad, d_head), generator=gen).to(dev),
+        op="mul", reduce="sum")
+    pl = pl_adj[0]
+    csr("batched_spmm_csr[powerlaw]", pl, pl_m,
+        torch.randn((pl.batch, pl_m, 64), generator=gen).to(dev))
+    big = cs._large_coo(9000, 2, seed=9000).to(dev)
+    bb = torch.randn((2, 9000, 64), generator=gen).to(dev)
+    c = coo_to_csr(big, 9000)
+    bq_codes, bq_scale = quantize_values_i8(big.values)
+    cq = coo_to_csr(big.with_values(bq_codes), 9000)
+    c16, cq16 = (narrow_col_ids(x, 9000) for x in (c.col_ids, cq.col_ids))
+    ch, bbh = c.values.to(bf), bb.to(bf)
+    timed = dict(iters=10, replays=3)
+    row("batched_spmm_csr_large[m_pad 9000]",
+        lambda: batched_spmm_csr_large(c.rpt, c.col_ids, c.values, bb),
+        lambda: ref.batched_spmm_csr_plain(c.rpt, c.col_ids, c.values, bb),
+        **timed)
+    row("batched_spmm_csr_large_bf16[m_pad 9000]",
+        lambda: batched_spmm_csr_large_bf16(c.rpt, c16, ch, bbh),
+        lambda: ref.batched_spmm_csr_plain(c.rpt, c16, ch, bbh),
+        cs.BF16_KERNEL_TOL, **timed)
+    row("batched_spmm_csr_large_i8[m_pad 9000]",
+        lambda: batched_spmm_csr_large_i8(cq.rpt, cq16, cq.values, bq_scale,
+                                          bb),
+        lambda: ref.batched_spmm_csr_plain(cq.rpt, cq16, cq.values, bb,
+                                           bq_scale), **timed)
+    return ms
+
+
+def _fused_large_rows(cs, dev):
+    """The fused layer's large-matrix branch, {row: ms}: the f32, hybrid
+    (its head bounded by the hub counts) and bf16 entries at each of
+    chip_smoke.py's FUSED_LARGE shapes, four channels of its ``_large_coo``
+    matrices (the inputs of its phase_fused_large)."""
+    import torch
+    from repro_torch.core.batching import plan_hybrid
+    from repro_torch.core.formats import narrow_col_ids
+    from repro_torch.core.graph_conv import stack_channels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_graph_conv import fused_forward, \
+        fused_forward_bf16, fused_hybrid_operands, runtime_chunks
+
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(4)
+    ms = {}
+    for tag, m_pad, batch, n_in, n_out in cs.FUSED_LARGE:
+        adj = [cs._large_coo(m_pad, batch, 20 + c).to(dev) for c in range(4)]
+        rid, cid, val, nnz = stack_channels(adj)
+        chunks = runtime_chunks(nnz)
+        x = torch.randn((batch, m_pad, n_in), generator=gen).to(dev)
+        w = (torch.randn((4, n_in, n_out), generator=gen)
+             / n_in ** 0.5).to(dev)
+        bias = torch.randn((4, n_out), generator=gen).to(dev)
+        hp = plan_hybrid(batch=batch, m_pad=m_pad, n_b=n_out,
+                         nnz_pad=4 * rid.shape[2])
+        h = fused_hybrid_operands(rid, cid, val, m_pad, hp)
+        a16 = (narrow_col_ids(rid, m_pad), narrow_col_ids(cid, m_pad),
+               val.to(bf), chunks, x.to(bf), w.to(bf), bias.to(bf))
+        cases = (
+            ("fused_forward",
+             lambda: fused_forward(rid, cid, val, chunks, x, w, bias),
+             lambda: ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w,
+                                                bias), cs.F32_TOL),
+            ("fused_hybrid_forward",
+             lambda: fused_forward(*h[:4], x, w, bias, None, *h[4:6],
+                                   hubs=h[6]),
+             lambda: ref.fused_graph_conv_plain(*h[:4], x, w, bias, None,
+                                                "none", *h[4:]), cs.F32_TOL),
+            ("fused_forward_bf16", lambda: fused_forward_bf16(*a16),
+             lambda: ref.fused_graph_conv_plain(*a16), cs.BF16_KERNEL_TOL))
+        for name, kern, plain, tol in cases:
+            key = f"{name}[large, {tag}]"
+            got = kern()
+            cs.max_err(got, plain(), key, tol)
+            bits = torch.equal(got, kern())
+            print(f"[bits twice] {key}: {'same' if bits else 'differ'}",
+                  flush=True)
+            ms[key] = cs.graph_ms(kern, iters=10, replays=3)
+        del adj, rid, cid, val, x, h, a16
+        torch.cuda.empty_cache()
     return ms
 
 

@@ -221,6 +221,28 @@ def fused_panel_floats(m_pad: int, tile_cols: int) -> int:
     return (_round_up(m_pad, FUSED_TK) + m_pad) * tile_cols
 
 
+def fused_large_scratch(*, batch: int, channels: int, m_pad: int,
+                        n_out: int, n_block: int) -> tuple[int, int]:
+    """The large-matrix branch's scratch: ``(floats, group)``. It holds
+    ``U`` of ``group`` channels at a time, each ``batch × m_pad × ldu`` f32
+    (``ldu`` = n_out rounded up to 4), and, where ``group`` is fewer than
+    ``channels``, one more such block for the accumulator between the
+    groups. ``group`` is every channel where their ``U`` takes at most
+    twice the U_ch and accumulator panels that the branch's former design
+    kept per block (``batch × p × fused_panel_floats``, the plan of
+    ``n_block`` columns), else as many as fit that budget beside the
+    accumulator (at least one). The kernel derives the same group from the
+    size it is given."""
+    ldu = _round_up(n_out, 4)
+    per_ch = batch * m_pad * ldu
+    budget = 2 * batch * -(-n_out // n_block) * fused_panel_floats(
+        m_pad, fused_tile_cols(n_block))
+    if channels * per_ch <= budget:
+        return channels * per_ch, channels
+    group = max(1, budget // per_ch - 1)
+    return (group + 1) * per_ch, group
+
+
 def plan_fused_graph_conv(*, batch: int, m_pad: int, n_in: int,
                           n_out: int, itemsize: int = 4) -> BatchPlan:
     """Blocking plan for the fused graph-conv kernel, case 3 exactly where

@@ -294,17 +294,6 @@ struct Walk {
   int col0, cc, nbw;
 };
 
-// a / d for an integer d >= 1, correctly rounded where the quotient is a
-// normal float, as PyTorch divides (Markstein's correction of a * RN(1/d)),
-// without the slow-path call of the IEEE division, which, inlined at every
-// row store of the walk, made the mean corner several times slower than
-// the sum
-__device__ __forceinline__ float div_count(float a, int d) {
-  const float fd = static_cast<float>(d), r = __frcp_rn(fd);
-  const float q = a * r;
-  return fmaf(fmaf(-q, fd, a), r, q);
-}
-
 // op(u, e) of a g-SpMM message, rounded once as PyTorch rounds it. The
 // message and the sum's add are intrinsics, which the compiler never fuses
 // into an FMA: where it fused them in some unrolled slots of the walk and
@@ -333,7 +322,7 @@ __device__ __forceinline__ void store_row(float (&acc)[kW], int r,
 #pragma unroll
     for (int i = 0; i < kW; ++i)
       acc[i] = kR == repro::kMax ? (d > 0 ? acc[i] : 0.f)
-                                 : div_count(acc[i], d > 1 ? d : 1);
+                                 : repro::div_count(acc[i], d > 1 ? d : 1);
   }
   repro::store_cols(w.dst + static_cast<size_t>(r) * sh.n_b + w.cc, acc,
                     sh.vec, w.nbw - w.cc);

@@ -69,6 +69,17 @@ __device__ __forceinline__ float finish(float acc, int deg, int reduce) {
   return acc;
 }
 
+// a / d for an integer d >= 1, correctly rounded where the quotient is a
+// normal float, as PyTorch divides (Markstein's correction of a * RN(1/d)),
+// without the slow-path call of the IEEE division, which, inlined at every
+// row store of the COO and CSR kernels' walks, made their mean corners
+// several times slower than the sum
+__device__ __forceinline__ float div_count(float a, int d) {
+  const float fd = static_cast<float>(d), r = __frcp_rn(fd);
+  const float q = a * r;
+  return fmaf(fmaf(-q, fd, a), r, q);
+}
+
 // Element types: value and dense operands are float, __nv_bfloat16 or (int8
 // value codes) signed char; ids are int or (narrowed) short. to_f32 widens
 // an element already read (from shared memory), ldf / ldi read one through
@@ -130,22 +141,9 @@ inline int large_blocks(long long items, int per_block) {
   return static_cast<int>(n < 1 ? 1 : (n > 65535 ? 65535 : n));
 }
 
-// The launch shape of a row-split kernel that reads B where it lies, through
-// the read-only cache, one column a lane (CSR): grid (batch, row blocks of
-// kThreads / sub rows, column panels of at most kPanelMax columns). Returns
-// the panel width.
-template <int kThreads>
-inline int gather_grid(int batch, int m_pad, int n_b, int n_block,
-                       dim3* grid) {
-  const int panel = n_block < kPanelMax ? n_block : kPanelMax;
-  *grid = dim3(batch, large_blocks(m_pad, kThreads / sub_warp(panel)),
-               (n_b + panel - 1) / panel);
-  return panel;
-}
-
 // Columns a lane of the kernels that read B through the L2 holds (hybrid,
-// ELL): four neighbours, one 16-byte f32 or 8-byte bf16 access; 32 lanes x
-// 4 cover a panel of kPanelMax columns.
+// ELL, COO, CSR): four neighbours, one 16-byte f32 or 8-byte bf16 access;
+// 32 lanes x 4 cover a panel of kPanelMax columns.
 constexpr int kW = 4;
 
 // The kW columns of a row of B at p (through the read-only cache), widened

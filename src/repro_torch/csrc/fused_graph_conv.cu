@@ -69,13 +69,33 @@
 // for output row r, then adds the residual and applies ReLU, the
 // reference's order.
 //
-// Large matrices (template kLarge: the plan's U_ch and accumulator panels
-// do not fit a block, m_pad past ~750 at 32 columns): the same steps with
-// U_ch and the accumulator in a block-private region of a global f32
-// scratch the wrapper allocates; the block writes its U_ch panel, passes a
-// barrier, and the scatter adds each slot with global atomics on its own
-// region (native for floats; the row buckets would not fit the ring); the
-// head stages U_ch k-tiles through the ring. Still one launch per call.
+// Large matrices (plan.large: the plan's U_ch and accumulator panels do
+// not fit a block, m_pad past ~750 at 32 columns): two kernels a group of
+// channels, in one entry call, so that the card fills and nothing adds
+// through float atomics. Kernel 1 (large_transform) computes U[s, ch] =
+// X[s] W_ch + b_ch of every (sample, channel) the layer reads into a
+// global f32 scratch (batch, channels, m_pad, ldu), one 128-row (f32) or
+// 64-row (bf16) tile x 32-, 64- or 128-column panel a block through the
+// transform above (f32 FMA register tiles, or bf16 mma.sync summed in
+// f32): 256 blocks at 8 x 1024 rows, 4 channels, f32, where the former
+// design (U_ch and the accumulator in a block-private scratch, one block a
+// sample x 16-column panel, the scatter by global atomics) ran 32. Kernel
+// 2 (large_aggregate) owns output rows: one block a (sample x row block x
+// panel of at most 128 columns), the accumulator of its rows in shared
+// memory; it buckets the slots of its rows in each channel's stream by row
+// in shared memory as the COO kernel does and walks them in slot order,
+// channel after channel, so each output is one fmaf chain in a fixed order
+// (a row longer than a sub-warp's share of a run, a hub row, in pieces
+// added in a fixed order) and the branch is bitwise repeatable; it adds
+// the hybrid head onto the hub rows, then stores Y through the rank map
+// with the residual and ReLU. Where the scratch cannot hold every
+// channel's U (more than twice the former block-private panels: past 4
+// channels), channels go in groups, the accumulator kept in the scratch
+// between them; the sums are the same. Against the former design, in
+// turns on one H100 80GB HBM3 at 700.00 W (scripts/fused_compare.py), at
+// 8 x 1024 rows, 512 -> 64: f32 1.931 -> 0.133 ms (the library's einsum +
+// matmul 0.175), bf16 2.374 -> 0.091 (its one bf16 bmm 0.065); at 2 x
+// 3072, n_in 62: f32 2.999 -> 0.090 (0.267).
 //
 // bf16 entry (fused_graph_conv_bf16, the fused_bf16 registry entry), the
 // reference kernel's other operand branch (_kernel :54 with int16 ids
@@ -204,28 +224,29 @@ __device__ __forceinline__ void load_tile(T* dst, int ldd, const T* src,
   }
 }
 
-// n elements of T at src into dst (n rounded up to a whole copy).
-template <typename T, int kVB>
+// n elements of T at src into dst (n rounded up to a whole copy) by kN
+// threads.
+template <typename T, int kVB, int kN>
 __device__ __forceinline__ void run_chunks(T* dst, const T* src, int n) {
   constexpr int kE = kVB / static_cast<int>(sizeof(T));
-  for (int i = threadIdx.x; i * kE < n; i += kThreads) {
+  for (int i = threadIdx.x; i * kE < n; i += kN) {
     const int c = i * kE;
     cp_async<kVB>(dst + c, src + c,
                   min(kE, n - c) * static_cast<int>(sizeof(T)));
   }
 }
 
-template <typename T>
+template <typename T, int kN = kThreads>
 __device__ __forceinline__ void load_run(T* dst, const T* src, int n,
                                          int vec) {
   if (vec == 16) {
-    run_chunks<T, 16>(dst, src, n);
+    run_chunks<T, 16, kN>(dst, src, n);
   } else if (vec == 8) {
-    run_chunks<T, 8>(dst, src, n);
+    run_chunks<T, 8, kN>(dst, src, n);
   } else if (vec == 4) {
-    run_chunks<T, 4>(dst, src, n);
+    run_chunks<T, 4, kN>(dst, src, n);
   } else {
-    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+    for (int i = threadIdx.x; i < n; i += kN) dst[i] = src[i];
   }
 }
 
@@ -426,13 +447,16 @@ __device__ __forceinline__ void gemm_bf16(float (&c)[TN / 8][4],
   }
 }
 
-// U rows [r0, r0 + row tile) of one channel: X W + b into us (row stride
-// TN), rows below m_u only.
+// U rows [r0, r0 + row tile) of one channel: X W + b into out (row stride
+// ld), rows below m_u and the first ncols columns of the tile only (in
+// groups of four; ncols TN for the shared panel of the fused kernel, the
+// columns of U up to n_out rounded to four for the large branch's U).
 template <int TN, int TM>
-__device__ __forceinline__ void transform(float* us, unsigned char* ring,
+__device__ __forceinline__ void transform(float* out, int ld, int m_u,
+                                          int ncols, unsigned char* ring,
                                           const float* x, const float* w,
-                                          const float* bias, int r0, int m_u,
-                                          int nbw, const Params& p) {
+                                          const float* bias, int r0, int nbw,
+                                          const Params& p) {
   using G = Tile<TN, TM>;
   const int ct = threadIdx.x % G::kCT, rg = threadIdx.x / G::kCT;
   // the bias is read before the product, which hides the loads, but at 128
@@ -456,22 +480,25 @@ __device__ __forceinline__ void transform(float* us, unsigned char* ring,
   for (int i = 0; i < G::kRM; ++i) {
     const int r = r0 + rg + G::kRT * i;
     if (r >= m_u) continue;
-    float* ur = us + r * TN + ct * 4;
-    *reinterpret_cast<float4*>(ur) =
-        make_float4(c[i][0] + bv[0], c[i][1] + bv[1], c[i][2] + bv[2],
-                    c[i][3] + bv[3]);
-    *reinterpret_cast<float4*>(ur + TN / 2) =
-        make_float4(c[i][4] + bv[4], c[i][5] + bv[5], c[i][6] + bv[6],
-                    c[i][7] + bv[7]);
+    float* ur = out + r * ld + ct * 4;
+    if (ct * 4 < ncols)
+      *reinterpret_cast<float4*>(ur) =
+          make_float4(c[i][0] + bv[0], c[i][1] + bv[1], c[i][2] + bv[2],
+                      c[i][3] + bv[3]);
+    if (TN / 2 + ct * 4 < ncols)
+      *reinterpret_cast<float4*>(ur + TN / 2) =
+          make_float4(c[i][4] + bv[4], c[i][5] + bv[5], c[i][6] + bv[6],
+                      c[i][7] + bv[7]);
   }
 }
 
 template <int TN, int TM>
-__device__ __forceinline__ void transform(float* us, unsigned char* ring,
+__device__ __forceinline__ void transform(float* out, int ld, int m_u,
+                                          int ncols, unsigned char* ring,
                                           const __nv_bfloat16* x,
                                           const __nv_bfloat16* w,
                                           const __nv_bfloat16* bias, int r0,
-                                          int m_u, int nbw, const Params& p) {
+                                          int nbw, const Params& p) {
   static_assert(TM == 64, "the bf16 row tile is 4 warps of 16 rows");
   constexpr int kNT = TN / 8;
   const int lane = threadIdx.x & 31;
@@ -495,11 +522,12 @@ __device__ __forceinline__ void transform(float* us, unsigned char* ring,
       for (int j = 0; j < kW; ++j) {
         const int cc = wc * (TN / 2) + j * 8 + (lane & 3) * 2;
         const float* cj = c[mi * kW + j];
+        if (cc >= ncols) continue;
         if (rr < m_u)
-          *reinterpret_cast<float2*>(us + rr * TN + cc) =
+          *reinterpret_cast<float2*>(out + rr * ld + cc) =
               make_float2(cj[0] + bw[j][0], cj[1] + bw[j][1]);
         if (rr + 8 < m_u)
-          *reinterpret_cast<float2*>(us + (rr + 8) * TN + cc) =
+          *reinterpret_cast<float2*>(out + (rr + 8) * ld + cc) =
               make_float2(cj[2] + bw[j][0], cj[3] + bw[j][1]);
       }
     }
@@ -519,11 +547,12 @@ __device__ __forceinline__ void transform(float* us, unsigned char* ring,
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
     const int cc = j * 8 + (lane & 3) * 2;
+    if (cc >= ncols) continue;
     if (r < m_u)
-      *reinterpret_cast<float2*>(us + r * TN + cc) =
+      *reinterpret_cast<float2*>(out + r * ld + cc) =
           make_float2(c[j][0] + bv[j][0], c[j][1] + bv[j][1]);
     if (r + 8 < m_u)
-      *reinterpret_cast<float2*>(us + (r + 8) * TN + cc) =
+      *reinterpret_cast<float2*>(out + (r + 8) * ld + cc) =
           make_float2(c[j][2] + bv[j][0], c[j][3] + bv[j][1]);
   }
 }
@@ -628,42 +657,19 @@ __device__ __forceinline__ void scatter_rows(float* acc, const float* us,
   }
 }
 
-// The same with the accumulator in global memory (kLarge), where the
-// row buckets would not fit the ring: each group of p.sub lanes takes a
-// contiguous share of a run and adds each live slot's products with
-// global atomics (native for floats), one column per lane.
-template <typename V, typename I, int kRingBytes, int TN>
-__device__ __forceinline__ void scatter_atomic(float* acc, const float* us,
-                                               unsigned char* ring,
-                                               const I* rid, const I* cid,
-                                               const V* val, int n,
-                                               int m_pad, int nbw,
-                                               const Params& p) {
-  constexpr int kCap = kRingBytes / (2 * sizeof(I) + sizeof(V)) / 8 * 8;
-  I* rs = reinterpret_cast<I*>(ring);
-  I* cs = rs + kCap;
-  V* vs = reinterpret_cast<V*>(cs + kCap);
-  const int lane = threadIdx.x % p.sub, group = threadIdx.x / p.sub;
-  const int groups = kThreads / p.sub;
-  for (int b0 = 0; b0 < n; b0 += kCap) {
-    const int cnt = min(kCap, n - b0);
-    if (b0 > 0) __syncthreads();  // the previous run is consumed
-    stage_run(rs, cs, vs, rid, cid, val, b0, cnt, p);
-    cp_wait<0>();
-    __syncthreads();
-    for (int i = group; i < cnt; i += groups) {
-      if (!live(rs, cs, vs, i, m_pad)) continue;
-      const float v = repro::to_f32(vs[i]);
-      const float* urow = us + static_cast<int>(cs[i]) * TN;
-      float* arow = acc + static_cast<int>(rs[i]) * TN;
-      for (int cc = lane; cc < nbw; cc += p.sub)
-        atomicAdd(arow + cc, v * urow[cc]);
-    }
-  }
+// The hub count of sample s (the hybrid head's rows), 0 outside the hybrid
+// entry.
+__device__ __forceinline__ int hub_rows(const Params& p, int s) {
+  if (p.slab == nullptr) return 0;
+  return p.hubs ? min(max(p.hubs[s], 0), p.d_pad) : p.d_pad;
 }
 
-template <typename V, typename D, typename I, int TN, int TM, bool kHybrid,
-          bool kLarge>
+// The slots of channel ch of sample s that the reference visits.
+__device__ __forceinline__ int stream_len(const Params& p, int s, int ch) {
+  return min(max(p.chunks[s * p.channels + ch], 0) * p.chunk, p.nnz_pad);
+}
+
+template <typename V, typename D, typename I, int TN, int TM, bool kHybrid>
 __global__ void __launch_bounds__(kThreads) fused_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char fused_smem[];
   constexpr int kRing = Ring<D, TN, TM>::kBytes;
@@ -673,12 +679,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params p) {
   const int nbw = min(p.n_block, p.n_out - col0);
   const int m_pad = p.m_pad, m_u = (m_pad + kTK - 1) / kTK * kTK;
   unsigned char* ring = fused_smem;
-  float* us;
-  if constexpr (kLarge)
-    us = p.scratch + static_cast<size_t>(blockIdx.x * gridDim.y + blockIdx.y) *
-                         (m_u + m_pad) * TN;
-  else
-    us = reinterpret_cast<float*>(fused_smem + kRing);
+  float* us = reinterpret_cast<float*>(fused_smem + kRing);
   float* acc = us + m_u * TN;  // (m_pad, TN) accumulator
   for (int i = threadIdx.x; i < m_pad * TN; i += kThreads) acc[i] = 0.f;
   // U's rows past the last row tile (56-row tiles stop short of m_u): the
@@ -689,12 +690,10 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params p) {
 
   const D* xs = static_cast<const D*>(p.x) +
                 static_cast<size_t>(s) * m_pad * p.n_in;
-  int n_hub = 0;
-  if constexpr (kHybrid)
-    n_hub = p.hubs ? min(max(p.hubs[s], 0), p.d_pad) : p.d_pad;
+  const int n_hub = kHybrid ? hub_rows(p, s) : 0;
   for (int ch = 0; ch < p.channels; ++ch) {
     const int sc = s * p.channels + ch;
-    const int n = min(max(p.chunks[sc], 0) * p.chunk, p.nnz_pad);
+    const int n = stream_len(p, s, ch);
     // the same for every thread of the block
     if (n == 0 && n_hub == 0) continue;
     const D* wch = static_cast<const D*>(p.w) +
@@ -702,7 +701,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params p) {
     const D* bch = static_cast<const D*>(p.bias) +
                    static_cast<size_t>(ch) * p.n_out + col0;
     for (int r0 = 0; r0 < m_pad; r0 += TM)
-      transform<TN, TM>(us, ring, xs, wch, bch, r0, m_u, nbw, p);
+      transform<TN, TM>(us, TN, m_u, TN, ring, xs, wch, bch, r0, nbw, p);
     __syncthreads();
 
     if constexpr (kHybrid) {
@@ -711,7 +710,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params p) {
         const int ct = threadIdx.x % G::kCT, rg = threadIdx.x / G::kCT;
         for (int r0 = 0; r0 < n_hub; r0 += TM) {
           float c[G::kRM][8];
-          gemm_f32<TN, TM, kLarge>(c, ring,
+          gemm_f32<TN, TM, false>(c, ring,
                                sl + static_cast<long long>(r0) * m_pad, m_pad,
                                n_hub - r0, m_pad, p.vec_s, us, TN, TN, 16,
                                us);
@@ -736,12 +735,8 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params p) {
       const I* rid = static_cast<const I*>(p.rid) + off;
       const I* cid = static_cast<const I*>(p.cid) + off;
       const V* val = static_cast<const V*>(p.val) + off;
-      if constexpr (kLarge)
-        scatter_atomic<V, I, kRing, TN>(acc, us, ring, rid, cid, val, n,
-                                        m_pad, nbw, p);
-      else
-        scatter_rows<V, I, kRing, TN>(acc, us, ring, rid, cid, val, n, m_pad,
-                                      nbw, p);
+      scatter_rows<V, I, kRing, TN>(acc, us, ring, rid, cid, val, n, m_pad,
+                                    nbw, p);
     }
     __syncthreads();  // U_ch and the ring are overwritten next
   }
@@ -768,6 +763,419 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The large-matrix branch: two kernels a group of channels.
+
+// What the two kernels of a channel group share besides Params.
+struct Large {
+  float* u;      // U of the group: (batch, g, m_pad, ldu) f32
+  float* acc;    // the sums of earlier groups (batch, m_pad, ldu), or null
+  int ldu;       // n_out rounded up to 4
+  int c0, g;     // the group's channels [c0, c0 + g)
+  int first, last;
+  int rows;      // output rows a block of the second kernel owns
+  int panel;     // its columns (a multiple of 4, at most 128)
+  int sub;       // its lanes a row
+  int vec;       // whether Y (and the residual) take 4-column accesses
+  int run;       // slots it stages at a time (a multiple of 8)
+  int vec_r;     // copy width of the rank map's rows (hybrid)
+};
+
+// Four floats of shared memory (16-byte aligned) into a, and back.
+__device__ __forceinline__ void ld4(float (&a)[4], const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  a[0] = t.x, a[1] = t.y, a[2] = t.z, a[3] = t.w;
+}
+__device__ __forceinline__ void st4(float* p, const float (&a)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+}
+
+// Kernel 1: U[s, ch] = X[s] W_ch + b_ch for the group's channels that are
+// read (a channel with a slot or a hub row), one TM-row tile x TN-column
+// panel a block: the fused kernel's own transform (the k-tile ring; f32
+// FMA register tiles of 8 rows x 8 columns a thread at TM 128, or bf16
+// mma.sync summed in f32 at TM 64), stored in f32.
+template <typename D, int TN, int TM>
+__global__ void __launch_bounds__(kThreads)
+large_transform(const Params p, const Large l) {
+  extern __shared__ __align__(16) unsigned char fused_smem[];
+  const int s = blockIdx.x / l.g, ch = l.c0 + blockIdx.x % l.g;
+  if (stream_len(p, s, ch) == 0 && hub_rows(p, s) == 0) return;
+  const int col0 = blockIdx.z * TN;
+  const int nbw = min(TN, p.n_out - col0);
+  const D* xs = static_cast<const D*>(p.x) +
+                static_cast<size_t>(s) * p.m_pad * p.n_in;
+  const D* wch = static_cast<const D*>(p.w) +
+                 static_cast<size_t>(ch) * p.n_in * p.n_out + col0;
+  const D* bch = static_cast<const D*>(p.bias) +
+                 static_cast<size_t>(ch) * p.n_out + col0;
+  float* out = l.u + static_cast<size_t>(blockIdx.x) * p.m_pad * l.ldu + col0;
+  transform<TN, TM>(out, l.ldu, p.m_pad, (nbw + 3) / 4 * 4, fused_smem, xs,
+                    wch, bch, blockIdx.y * TM, nbw, p);
+}
+
+constexpr int kAgg = 256;                  // threads of kernel 2
+constexpr int kAggWarps = kAgg / repro::kWarp;
+constexpr int kAggSlots = 8;    // gathers a sub-warp issues together
+constexpr int kAggRun = 4096;   // slots a run stages: at most 65,536
+constexpr int kAggRowsMax = 256;           // rows a block owns
+
+// Kernel 2's shared memory: the accumulator (rows x panel f32), the (row,
+// warp) counts of a run, the scan's per-warp totals, the pieces of cut
+// rows, then a region that
+// holds a staged run (row ids, the warps' lists of the block's slots, the
+// bucket's column ids and values), or a hub row's slab row and the
+// sub-warps' partial sums, or the sample's rank map.
+struct AggSmem {
+  size_t counts, parts, region, bytes;
+};
+template <typename V, typename I>
+__host__ __device__ constexpr AggSmem agg_smem(int rows, int panel, int run,
+                                               int m_pad, bool hybrid) {
+  const size_t acc = static_cast<size_t>(rows) * panel * 4;
+  const size_t counts = acc;
+  // the pieces of rows cut by the sub-warps' slot ranges: two partial sums
+  // (kW columns a lane) and two row ids a sub-warp
+  const size_t parts =
+      repro::align16(counts + (static_cast<size_t>(rows) + 1) * kAggWarps * 4);
+  const size_t region = parts + 2 * (kAgg * repro::kW + kAgg) * 4;
+  const size_t staged = static_cast<size_t>(run) * (sizeof(I) + 3 * 4);
+  const size_t head =
+      hybrid ? (static_cast<size_t>((m_pad + 3) / 4 * 4) + kAgg * repro::kW) *
+                   4
+             : 0;
+  const size_t need = staged > head ? staged : head;
+  return {counts, parts, region, region + need};
+}
+
+// Kernel 2: one block a (sample x output-row block x column panel). For
+// each channel of the group, in order, its stream goes through shared
+// memory in runs of kAggRun slots: the row ids staged (cp.async); each
+// warp takes a contiguous share of the run and lists, in order, the slots
+// of the block's rows, counting them per (row, warp); one scan; each warp
+// places its list 32 a step at its (row, warp) cursor plus its rank among
+// the step's slots of that row (as the COO kernel buckets), reading those
+// slots' column ids and values; then the walk: each sub-warp takes an
+// equal share of the run's bucketed slots, continues a row's sum from the
+// accumulator, adds val * U_ch[cid] slot by slot (kAggSlots gathers of U
+// through the L2 issued before their FMAs, four columns a lane) and
+// writes it back. A row the shares cut (a hub row of a run) is summed in
+// pieces, added in sub-warp order after a barrier; every other row's sum
+// is one fmaf chain over the channels in order and each channel's slots
+// in order. Both are the same from run to run. The hybrid head then adds
+// slab_ch[q] . U_ch onto each hub row q the block owns: the slab row
+// staged, each sub-warp a partial over its share of the row's non-zero
+// entries, the partials added in sub-warp order. The last group's blocks
+// then store Y (the rank map, the residual, ReLU, the reference's order);
+// an earlier group's store the accumulator to acc.
+template <typename V, typename D, typename I, bool kHybrid>
+__global__ void __launch_bounds__(kAgg)
+large_aggregate(const Params p, const Large l) {
+  extern __shared__ __align__(16) unsigned char fused_smem[];
+  constexpr int kW = repro::kW;
+  const AggSmem lay = agg_smem<V, I>(l.rows, l.panel, l.run, p.m_pad,
+                                     kHybrid);
+  const int s = blockIdx.x;
+  const int m_pad = p.m_pad;
+  const int row0 = blockIdx.y * l.rows;
+  const int rows = min(l.rows, m_pad - row0);
+  const int col0 = blockIdx.z * l.panel;
+  const int nbw = min(l.panel, p.n_out - col0);
+  const int lane = threadIdx.x % l.sub, g = threadIdx.x / l.sub;
+  const int groups = kAgg / l.sub;
+  const int cc = kW * lane;
+  const bool mine = cc < nbw;
+  const int warp = threadIdx.x / repro::kWarp;
+  const int wl = threadIdx.x % repro::kWarp;
+  float* acc_s = reinterpret_cast<float*>(fused_smem);
+  int* ends = reinterpret_cast<int*>(fused_smem + lay.counts);
+  int* ws = ends + rows * kAggWarps;
+  float* part_first = reinterpret_cast<float*>(fused_smem + lay.parts);
+  float* part_last = part_first + kAgg * kW;
+  int* row_first = reinterpret_cast<int*>(part_last + kAgg * kW);
+  int* row_last = row_first + kAgg;
+  unsigned char* region = fused_smem + lay.region;
+  I* rs = reinterpret_cast<I*>(region);                     // run's row ids
+  int* lst = reinterpret_cast<int*>(rs + l.run);            // warps' lists
+  int* bcol = lst + l.run;                                  // the bucket
+  float* bval = reinterpret_cast<float*>(bcol + l.run);
+  const auto acc_row = [&](int lr) { return acc_s + lr * l.panel + cc; };
+  const auto row_start = [&](int lr) {
+    return lr ? ends[lr * kAggWarps - 1] : 0;
+  };
+
+  // the accumulator: 0.0, or the earlier groups' sums
+  for (int i = threadIdx.x; i < rows * l.panel; i += kAgg) {
+    const int lr = i / l.panel, col = i - lr * l.panel;
+    acc_s[i] = l.first || col >= nbw
+                   ? 0.f
+                   : l.acc[(static_cast<size_t>(s) * m_pad + row0 + lr) *
+                               l.ldu + col0 + col];
+  }
+
+  const unsigned below = (1u << wl) - 1u;
+  for (int ch = l.c0; ch < l.c0 + l.g; ++ch) {
+    const int n = stream_len(p, s, ch);
+    const float* uch = l.u +
+                       static_cast<size_t>(s * l.g + ch - l.c0) * m_pad *
+                           l.ldu + col0;
+    const size_t off = static_cast<size_t>(s * p.channels + ch) * p.nnz_pad;
+    const I* rid = static_cast<const I*>(p.rid) + off;
+    const I* cid = static_cast<const I*>(p.cid) + off;
+    const V* val = static_cast<const V*>(p.val) + off;
+    for (int b0 = 0; b0 < n; b0 += l.run) {
+      const int len = min(l.run, n - b0);
+      __syncthreads();   // the last run (and the accumulator's init) is done
+      load_run<I, kAgg>(rs, rid + b0, len, p.vec_i);
+      cp_commit();
+      for (int i = threadIdx.x; i < rows * kAggWarps; i += kAgg) ends[i] = 0;
+      cp_wait<0>();
+      __syncthreads();
+      // each warp's contiguous share of the run, whole steps of 32 slots:
+      // the slots of the block's rows go to the warp's list, in order, as
+      // (row << 16 | slot), and count in (row, warp)
+      const int share = ((len + kAggWarps - 1) / kAggWarps + repro::kWarp -
+                         1) / repro::kWarp * repro::kWarp;
+      const int lo = min(warp * share, len), hi = min(lo + share, len);
+      int cnt = 0;
+      for (int base = lo; base < hi; base += repro::kWarp) {
+        const int i = base + wl;
+        const int lr = i < hi ? static_cast<int>(rs[i]) - row0 : -1;
+        const bool in = static_cast<unsigned>(lr) <
+                        static_cast<unsigned>(rows);
+        const unsigned took = __ballot_sync(0xffffffffu, in);
+        if (in) {
+          lst[lo + cnt + __popc(took & below)] = lr << 16 | i;
+          atomicAdd(ends + lr * kAggWarps + warp, 1);
+        }
+        cnt += __popc(took);
+      }
+      __syncthreads();
+      repro::exclusive_scan<kAgg>(ends, rows * kAggWarps, ws);
+      __syncthreads();
+      // each warp places its list, 32 a step, at its (row, warp) cursor
+      // plus its rank among the step's entries of that row (the entry
+      // becomes (place << 16 | slot)), then reads the slots' column ids
+      // and values into their places, every load independent of the
+      // others; a slot whose value is 0.0 or whose column lies outside the
+      // matrix keeps its place and adds nothing (column -1)
+      for (int t = 0; t < cnt; t += repro::kWarp) {
+        const int e = t + wl < cnt ? lst[lo + t + wl] : -1;
+        const int lr = e >= 0 ? e >> 16 : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, lr);
+        if (lr >= 0)
+          lst[lo + t + wl] = (ends[lr * kAggWarps + warp] +
+                              __popc(peers & below)) << 16 | (e & 0xffff);
+        __syncwarp();
+        if (lr >= 0 && wl == 31 - __clz(peers))
+          ends[lr * kAggWarps + warp] += __popc(peers);
+        __syncwarp();
+      }
+      for (int t = wl; t < cnt; t += repro::kWarp) {
+        const int e = lst[lo + t], pos = e >> 16, i = b0 + (e & 0xffff);
+        const int j = repro::ldi(cid + i);
+        const float v = repro::ldv(val + i);
+        bcol[pos] = v == 0.f || static_cast<unsigned>(j) >=
+                                    static_cast<unsigned>(m_pad)
+                        ? -1 : j;
+        bval[pos] = v;
+      }
+      __syncthreads();   // ends[lr * kAggWarps + kAggWarps - 1]: row lr's end
+      // sub-warp g walks the bucketed slots [ka, kb), its equal share of
+      // the run's. A row inside it continues its chain from the
+      // accumulator; a row the share boundaries cut (a hub row) is summed
+      // in pieces: the piece its first sub-warp walks continues the chain
+      // (kept in part_last), each later piece starts from 0.0 (part_first),
+      // and the first sub-warp adds the later pieces in sub-warp order
+      const int total = row_start(rows);
+      const int ka = static_cast<int>(1LL * g * total / groups);
+      const int kb = static_cast<int>(1LL * (g + 1) * total / groups);
+      if (mine) {
+        row_first[g] = ka < kb ? -1 : -2;   // -2: an empty share
+        row_last[g] = -1;
+      }
+      if (mine && ka < kb) {
+        int r = 0, z = rows;   // the row holding slot ka: its end is past ka
+        while (r < z) {
+          const int mid = (r + z) / 2;
+          if (row_start(mid + 1) > ka)
+            z = mid;
+          else
+            r = mid + 1;
+        }
+        bool cut = row_start(r) < ka;   // the piece at ka is not its first
+        float a[kW] = {};
+        if (!cut) ld4(a, acc_row(r));
+        // the piece of row r that ends here: to the accumulator, or kept
+        const auto close = [&](bool last) {
+          if (cut) {
+            st4(part_first + g * l.panel + cc, a);
+            row_first[g] = r;
+          } else if (last && row_start(r + 1) > kb) {
+            st4(part_last + g * l.panel + cc, a);
+            row_last[g] = r;
+          } else {
+            st4(acc_row(r), a);
+          }
+        };
+        for (int k0 = ka; k0 < kb; k0 += kAggSlots) {
+          int j[kAggSlots];
+          float v[kAggSlots];
+#pragma unroll
+          for (int q = 0; q < kAggSlots; ++q) {
+            j[q] = k0 + q < kb ? bcol[k0 + q] : -1;
+            v[q] = k0 + q < kb ? bval[k0 + q] : 0.f;
+          }
+          float x[kAggSlots][kW];
+#pragma unroll
+          for (int q = 0; q < kAggSlots; ++q)
+            if (j[q] >= 0)
+              repro::load_cols(uch + static_cast<size_t>(j[q]) * l.ldu + cc,
+                               true, kW, x[q]);
+#pragma unroll
+          for (int q = 0; q < kAggSlots; ++q) {
+            if (k0 + q >= kb) break;
+            while (k0 + q >= row_start(r + 1)) {
+              close(false);
+              cut = false;
+              ld4(a, acc_row(++r));
+            }
+            if (j[q] < 0) continue;
+#pragma unroll
+            for (int i = 0; i < kW; ++i) a[i] = fmaf(v[q], x[q][i], a[i]);
+          }
+        }
+        close(true);
+      }
+      __syncthreads();
+      if (mine && row_last[g] >= 0) {
+        float a[kW], p[kW];
+        ld4(a, part_last + g * l.panel + cc);
+        for (int h = g + 1; h < groups && (row_first[h] == row_last[g] ||
+                                           row_first[h] == -2);
+             ++h) {
+          if (row_first[h] < 0) continue;
+          ld4(p, part_first + h * l.panel + cc);
+#pragma unroll
+          for (int i = 0; i < kW; ++i) a[i] += p[i];
+        }
+        st4(acc_row(row_last[g]), a);
+      }
+    }
+  }
+
+  if constexpr (kHybrid) {
+    float* slab_row = reinterpret_cast<float*>(region);
+    float* part = slab_row + (m_pad + 3) / 4 * 4;   // groups x panel
+    const int hub_end = min(row0 + rows, hub_rows(p, s));
+    for (int q = row0; q < hub_end; ++q) {
+      float h[kW] = {};
+      for (int ch = l.c0; ch < l.c0 + l.g; ++ch) {
+        __syncthreads();   // the region is free
+        load_run<float, kAgg>(
+            slab_row,
+            p.slab + (static_cast<size_t>(s * p.channels + ch) * p.d_pad +
+                      q) * m_pad,
+            m_pad, p.vec_s);
+        cp_commit();
+        cp_wait<0>();
+        __syncthreads();
+        if (!mine) continue;
+        const float* uch = l.u +
+                           static_cast<size_t>(s * l.g + ch - l.c0) * m_pad *
+                               l.ldu + col0;
+        // this sub-warp's share of the row, non-zero entries only (a zero
+        // adds fmaf(0, u, h) == h)
+        const int m1 = static_cast<int>(
+            static_cast<long long>(g + 1) * m_pad / groups);
+        for (int mb = static_cast<int>(static_cast<long long>(g) * m_pad /
+                                       groups);
+             mb < m1; mb += kAggSlots) {
+          float sv[kAggSlots], x[kAggSlots][kW];
+#pragma unroll
+          for (int q2 = 0; q2 < kAggSlots; ++q2) {
+            sv[q2] = mb + q2 < m1 ? slab_row[mb + q2] : 0.f;
+            if (sv[q2] != 0.f)
+              repro::load_cols(
+                  uch + static_cast<size_t>(mb + q2) * l.ldu + cc, true, kW,
+                  x[q2]);
+          }
+#pragma unroll
+          for (int q2 = 0; q2 < kAggSlots; ++q2)
+            if (sv[q2] != 0.f)
+#pragma unroll
+              for (int i = 0; i < kW; ++i) h[i] = fmaf(sv[q2], x[q2][i], h[i]);
+        }
+      }
+      __syncthreads();   // the slab row is read; part overlaps nothing live
+      if (mine) st4(part + g * l.panel + cc, h);
+      __syncthreads();
+      if (g == 0 && mine) {
+        float* ar = acc_row(q - row0);
+#pragma unroll
+        for (int gg = 0; gg < groups; ++gg)
+#pragma unroll
+          for (int i = 0; i < kW; ++i) ar[i] += part[gg * l.panel + cc + i];
+      }
+    }
+  }
+  __syncthreads();
+
+  if (!l.last) {   // an earlier group: keep the sums for the next
+    for (int i = threadIdx.x; i < rows * l.panel; i += kAgg) {
+      const int lr = i / l.panel, col = i - lr * l.panel;
+      if (col < nbw)
+        l.acc[(static_cast<size_t>(s) * m_pad + row0 + lr) * l.ldu + col0 +
+              col] = acc_s[i];
+    }
+    return;
+  }
+  // Y row r from accumulator row lr (-1: none, 0.0), plus the residual,
+  // ReLU, rounded once to D
+  const D* res = static_cast<const D*>(p.res);
+  D* y = static_cast<D*>(p.y);
+  const auto store_y = [&](int r, int lr) {
+    float o[kW] = {};
+    if (lr >= 0) ld4(o, acc_row(lr));
+    const size_t gi = (static_cast<size_t>(s) * m_pad + r) * p.n_out + col0 +
+                      cc;
+    if (res) {
+      float rv[kW];
+      repro::load_cols(res + gi, l.vec, nbw - cc, rv);
+#pragma unroll
+      for (int i = 0; i < kW; ++i) o[i] += rv[i];
+    }
+    if (p.relu)
+#pragma unroll
+      for (int i = 0; i < kW; ++i) o[i] = fmaxf(o[i], 0.f);
+    repro::store_cols(y + gi, o, l.vec, nbw - cc);
+  };
+  if constexpr (kHybrid) {
+    // output row r reads accumulator row rank[r]: every block scans the
+    // sample's rank map for the rows it owns (the first row block also
+    // takes rows whose rank lies outside the matrix, which read 0.0)
+    int* rk = reinterpret_cast<int*>(region);
+    load_run<int, kAgg>(rk, p.rank + static_cast<size_t>(s) * m_pad, m_pad,
+                        l.vec_r);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    if (!mine) return;
+    for (int r = g; r < m_pad; r += groups) {
+      const int q = rk[r];
+      const int lr = q - row0;
+      if (static_cast<unsigned>(lr) < static_cast<unsigned>(rows))
+        store_y(r, lr);
+      else if (blockIdx.y == 0 &&
+               static_cast<unsigned>(q) >= static_cast<unsigned>(m_pad))
+        store_y(r, -1);
+    }
+  } else {
+    if (!mine) return;
+    for (int lr = g; lr < rows; lr += groups) store_y(row0 + lr, lr);
+  }
+}
+
 // The widest copy (16, 8 or 4 bytes, else the element) that every row of an
 // array at ptr with these byte strides starts on.
 int vec_of(const void* ptr, long long a, long long b, int elem) {
@@ -788,39 +1196,120 @@ bool rows56(int m_pad) {
   return (m_pad + 55) / 56 * 56 < (m_pad + 63) / 64 * 64;
 }
 
-template <typename V, typename D, typename I, int TN, int TM, bool kHybrid,
-          bool kLarge>
-int run(const Params& p, int batch, long long scratch_floats, void* stream) {
+// A kernel's opt-in to more than 48 KB of shared memory, and, once, its
+// carve-out: as much of the SM's memory as shared memory as it takes (two
+// blocks of 110 KB, Reaction100's, share an SM only then).
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem, bool* carved) {
+  cudaError_t e = repro::allow_smem(kernel, smem);
+  if (e != cudaSuccess || *carved) return e;
+  *carved = true;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename V, typename D, typename I, int TN, int TM, bool kHybrid>
+int run(const Params& p, int batch, void* stream) {
   using R = Ring<D, TN, TM>;
   const int m_u = (p.m_pad + kTK - 1) / kTK * kTK;
   const int panels = (p.n_out + p.n_block - 1) / p.n_block;
   const long long panel = static_cast<long long>(m_u + p.m_pad) * TN;
-  const size_t smem = R::kBytes + (kLarge ? 0 : panel * 4);
+  const size_t smem = R::kBytes + panel * 4;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // scatter_rows' row buckets and at least a short run fit the ring
-  if (!kLarge && 4 * (p.m_pad + 8) + 8 * (2 * sizeof(I) + sizeof(V) + 4) >
-                     static_cast<size_t>(R::kBytes))
+  if (4 * (p.m_pad + 8) + 8 * (2 * sizeof(I) + sizeof(V) + 4) >
+      static_cast<size_t>(R::kBytes))
     return cudaErrorInvalidValue;
-  if (kLarge && (p.scratch == nullptr ||
-                 scratch_floats < static_cast<long long>(batch) * panels *
-                                      panel))
-    return cudaErrorInvalidValue;
-  auto kernel = fused_kernel<V, D, I, TN, TM, kHybrid, kLarge>;
-  cudaError_t e = repro::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  // as much of the SM's memory as shared memory as it takes: two blocks of
-  // 110 KB (Reaction100) share an SM only then
+  auto kernel = fused_kernel<V, D, I, TN, TM, kHybrid>;
   static bool carved = false;
-  if (!carved) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return e;
-    carved = true;
-  }
+  const cudaError_t e = prepare(kernel, smem, &carved);
+  if (e != cudaSuccess) return e;
   kernel<<<dim3(batch, panels), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// The large-matrix branch: U of as many channels at a time as the scratch
+// holds (all of them where it holds their U; else g a group and an
+// accumulator (batch, m_pad, ldu) between the groups), two kernels a group.
+template <typename V, typename D, typename I, bool kHybrid, int TN>
+int run_large(Params p, int batch, long long scratch_floats, void* stream) {
+  constexpr int TM = sizeof(D) == 4 ? 128 : 64;   // the transform's rows
+  const int ldu = (p.n_out + 3) / 4 * 4;
+  const long long per_ch = static_cast<long long>(batch) * p.m_pad * ldu;
+  int g = p.channels;
+  if (scratch_floats < per_ch * p.channels)
+    g = static_cast<int>(scratch_floats / per_ch - 1);
+  if (p.scratch == nullptr || g < 1) return cudaErrorInvalidValue;
+  const int es = sizeof(D);
+  const int t_panels = (p.n_out + TN - 1) / TN;
+  p.vec_w = vec_of(p.w, 1LL * p.n_out * es, t_panels > 1 ? 1LL * TN * es : 0,
+                   es);
+  const int panel = std::min(ldu, repro::kPanelMax);
+  const int a_panels = (p.n_out + panel - 1) / panel;
+  const int run = std::max(8, std::min((p.nnz_pad + 7) / 8 * 8, kAggRun));
+  const size_t vy = 4 * sizeof(D);
+  Large l{p.scratch, g < p.channels ? p.scratch + per_ch * g : nullptr, ldu,
+          0, g, 1, 0, 0, panel, repro::sub_warp(panel / 4),
+          p.n_out % 4 == 0 && reinterpret_cast<uintptr_t>(p.y) % vy == 0 &&
+              reinterpret_cast<uintptr_t>(p.res) % vy == 0,
+          run, p.rank ? vec_of(p.rank, 4LL * p.m_pad, 0, 4) : 4};
+  auto transform_k = large_transform<D, TN, TM>;
+  auto aggregate_k = large_aggregate<V, D, I, kHybrid>;
+  // kernel 2: as many row blocks a sample as its registers let the card
+  // hold at once (one wave), at least ceil(m_pad / kAggRowsMax), each with
+  // its accumulator in shared memory
+  const size_t most = agg_smem<V, I>(kAggRowsMax, panel, run, p.m_pad,
+                                     kHybrid).bytes;
+  static bool t_carved = false, a_carved = false;
+  static int resident = 0;
+  const size_t t_smem = Ring<D, TN, TM>::kBytes;
+  if (t_smem > kMaxSmem || most > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = prepare(transform_k, t_smem, &t_carved);
+  if (e == cudaSuccess) e = prepare(aggregate_k, most, &a_carved);
+  if (e == cudaSuccess && resident == 0) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, aggregate_k,
+                                                      kAgg, 0);
+    resident = std::max(resident, 1);
+  }
+  if (e != cudaSuccess) return e;
+  const long long fit = static_cast<long long>(sm_count()) * resident /
+                        (1LL * batch * a_panels);
+  const int blocks = static_cast<int>(std::min<long long>(
+      p.m_pad, std::max<long long>(fit, (p.m_pad + kAggRowsMax - 1) /
+                                            kAggRowsMax)));
+  l.rows = (p.m_pad + blocks - 1) / blocks;
+  const size_t a_smem = agg_smem<V, I>(l.rows, panel, run, p.m_pad,
+                                       kHybrid).bytes;
+  const auto st = static_cast<cudaStream_t>(stream);
+  for (int c0 = 0; c0 < p.channels; c0 += g) {
+    l.c0 = c0;
+    l.g = std::min(g, p.channels - c0);
+    l.first = c0 == 0;
+    l.last = c0 + l.g == p.channels;
+    transform_k<<<dim3(batch * l.g, (p.m_pad + TM - 1) / TM, t_panels),
+                  kThreads, t_smem, st>>>(p, l);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    aggregate_k<<<dim3(batch, (p.m_pad + l.rows - 1) / l.rows, a_panels),
+                  kAgg, a_smem, st>>>(p, l);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 template <typename V, typename D, typename I, bool kHybrid>
@@ -838,22 +1327,27 @@ int launch(Params p, int batch, int large, long long scratch_floats,
   p.vec_i = std::min(vec_of(p.rid, 1LL * p.nnz_pad * is, 0, is),
                      vec_of(p.cid, 1LL * p.nnz_pad * is, 0, is));
   p.vec_v = vec_of(p.val, 1LL * p.nnz_pad * vs, 0, vs);
-#define REPRO_FUSED_RUN(TN, TM)                                            \
-  return large ? run<V, D, I, TN, TM, kHybrid, true>(p, batch,             \
-                                                     scratch_floats, stream) \
-               : run<V, D, I, TN, TM, kHybrid, false>(p, batch,            \
-                                                      scratch_floats, stream)
+  if (large) {
+    if (p.n_out <= 32)
+      return run_large<V, D, I, kHybrid, 32>(p, batch, scratch_floats,
+                                             stream);
+    if (p.n_out <= 64)
+      return run_large<V, D, I, kHybrid, 64>(p, batch, scratch_floats,
+                                             stream);
+    return run_large<V, D, I, kHybrid, 128>(p, batch, scratch_floats,
+                                            stream);
+  }
   switch (tile_cols(p.n_block)) {
-    case 16: REPRO_FUSED_RUN(16, 64);
-    case 32: REPRO_FUSED_RUN(32, 64);
-    case 64: REPRO_FUSED_RUN(64, 64);
+    case 16: return run<V, D, I, 16, 64, kHybrid>(p, batch, stream);
+    case 32: return run<V, D, I, 32, 64, kHybrid>(p, batch, stream);
+    case 64: return run<V, D, I, 64, 64, kHybrid>(p, batch, stream);
     default:
       if constexpr (sizeof(D) == 4) {
-        if (rows56(p.m_pad)) REPRO_FUSED_RUN(128, 56);
+        if (rows56(p.m_pad))
+          return run<V, D, I, 128, 56, kHybrid>(p, batch, stream);
       }
-      REPRO_FUSED_RUN(128, 64);
+      return run<V, D, I, 128, 64, kHybrid>(p, batch, stream);
   }
-#undef REPRO_FUSED_RUN
 }
 
 Params params(const void* rid, const void* cid, const void* val,
@@ -886,8 +1380,10 @@ Params params(const void* rid, const void* cid, const void* val,
 }  // namespace
 
 // ids (batch, channels, nnz_pad) int32; val, x, w, bias, res and y f32.
-// large != 0: U_ch and the accumulator in scratch (scratch_floats f32, at
-// least batch * panels * (m_u + m_pad) * tile columns).
+// large != 0: the large-matrix branch, U in scratch (scratch_floats f32:
+// batch * m_pad * ldu for each channel whose U it holds at once, plus one
+// more for the accumulator where that is fewer than all; ldu = n_out
+// rounded up to 4; kernels/fused_graph_conv.py, fused_large_scratch).
 extern "C" int fused_graph_conv_f32(
     const int* rid, const int* cid, const float* val, const int* chunks,
     const float* x, const float* w, const float* bias, const float* res,

@@ -4,11 +4,13 @@ ONE kernel launch per layer (paper Fig. 7 taken to one op).
 The kernel is ``csrc/fused_graph_conv.cu``: one block per (sample ×
 output-column panel) streams X and W through shared memory in k-tiles and
 keeps one channel's ``U_ch`` panel and the accumulator there; ``U_ch``
-never reaches device memory (but for matrices whose panels do not fit a
-block, ``plan.large``, where they sit in a scratch the wrapper allocates),
-and each (sample × channel) scatter visits only its real
-``ceil(nnz / CHUNK)`` chunks (the reference's skew-aware bound). The plain
-version is
+never reaches device memory, and each (sample × channel) scatter visits
+only its real ``ceil(nnz / CHUNK)`` chunks (the reference's skew-aware
+bound). Matrices whose panels do not fit a block (``plan.large``) take
+the kernel's large-matrix branch: two kernels in the one entry call, the
+first writing every ``U_ch`` to a scratch the wrapper allocates
+(:func:`repro_torch.core.batching.fused_large_scratch`), the second
+owning output rows, bitwise repeatable. The plain version is
 :func:`repro_torch.kernels.ref.fused_graph_conv_plain`. The backward
 (:func:`fused_bwd`) is the reference's: dU = Aᵀ·dZ through the COO kernel,
 then dense contractions. f32.
@@ -38,8 +40,7 @@ from repro_torch.core.batching import (
     CHUNK,
     BatchPlan,
     HybridPlan,
-    fused_panel_floats,
-    fused_tile_cols,
+    fused_large_scratch,
     plan_fused_graph_conv,
     plan_hybrid,
 )
@@ -153,8 +154,9 @@ def _fused(row_ids, col_ids, values, chunks, x, w, bias, residual, rank,
         return out
     scratch, floats = None, 0
     if plan.large:
-        floats = batch * plan.p * fused_panel_floats(
-            m_pad, fused_tile_cols(plan.n_block))
+        floats, _ = fused_large_scratch(batch=batch, channels=channels,
+                                        m_pad=m_pad, n_out=n_out,
+                                        n_block=plan.n_block)
         scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
     head = (row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr(),
             chunks.data_ptr(), x.data_ptr(), w.data_ptr(), bias.data_ptr(),

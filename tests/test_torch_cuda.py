@@ -4,11 +4,12 @@ Marked ``cuda``: they need an NVIDIA card and ``nvcc`` and skip without
 them. On the card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Each test seeds torch's generators with a fresh seed and prints it (shown
 with a failure); ``REPRO_TEST_SEED=<seed>`` replays those inputs.
-Atomics in the fused kernel's row buckets and in the COO kernel's
-large-matrix entries add in a run-dependent order, so those are held to
-the f32 tolerance (1e-4, 1e-5), not bitwise; the batched COO, CSR, ELL,
-hybrid and GEMM kernels and the grouped matmul have no float atomics and
-give identical bits twice.
+The fused kernel's row buckets (integer atomics order a row's slots) and
+the COO kernel's large-matrix entries (float atomics) add in a
+run-dependent order, so those are held to the f32 tolerance (1e-4,
+1e-5), not bitwise; the batched COO, CSR, ELL, hybrid and GEMM kernels,
+the fused kernel's large-matrix branch and the grouped matmul have no
+float atomics and give identical bits twice.
 """
 import os
 
@@ -129,6 +130,127 @@ def test_csr_kernel_matches_plain_and_is_bitwise_repeatable(dev, name):
                                             b), **TOL)
         again = batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, b)
         assert torch.equal(got, again)
+
+
+def _csr_contract(name):
+    """The regime's CSR arrays (on the CPU) with the cases the CSR kernel's
+    contracts name: a tenth of the slots with an out-of-range column id
+    (-1, m_pad, 1000) and a tenth real 0.0-valued edges."""
+    coo, m_pad = _regime(name)
+    c = coo_to_csr(coo, m_pad)
+    cid, val = c.col_ids.clone(), c.values.clone()
+    slot = torch.arange(cid.shape[1])
+    valid = slot[None, :] < c.rpt[:, -1:]
+    bad = torch.tensor([-1, m_pad, 1000], dtype=torch.int32)[
+        torch.randint(0, 3, cid.shape)]
+    oob = (torch.rand(cid.shape) < 0.1) & valid
+    cid = torch.where(oob, bad, cid)
+    val = torch.where((torch.rand(cid.shape) < 0.1) & valid & ~oob, 0.0,
+                      val)
+    return c.rpt, cid, val, m_pad
+
+
+def _csr_entries_hold(rpt, cid, val, m_pad, n_b, dev, corners):
+    """Every CSR entry on these operands against its plain version, each
+    twice for identical bits: f32 (also through the large-matrix wrapper,
+    and for the first matrix alone, which the kernel splits into other row
+    blocks: the same bits), bf16 with int16 ids (and int32 ids through the
+    large wrapper: the same bits), i8 codes, and the g-SpMM entry on
+    ``corners`` with scalar and vector edges (max bitwise against the plain
+    version). At planner case 3 (m_pad past LARGE_M) only the large-matrix
+    wrappers take the operands; they launch the same entries."""
+    from repro_torch.core.batching import LARGE_M
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr_bf16, \
+        batched_spmm_csr_i8, batched_spmm_csr_large, \
+        batched_spmm_csr_large_bf16, batched_spmm_csr_large_i8
+
+    large = m_pad > LARGE_M
+    f32 = batched_spmm_csr_large if large else batched_spmm_csr
+    bf16 = batched_spmm_csr_large_bf16 if large else batched_spmm_csr_bf16
+    i8 = batched_spmm_csr_large_i8 if large else batched_spmm_csr_i8
+    rpt, cid, val = (t.to(dev) for t in (rpt, cid, val))
+    batch = rpt.shape[0]
+    b = torch.randn((batch, m_pad, n_b), device=dev)
+    got = f32(rpt, cid, val, b)
+    torch.testing.assert_close(
+        got, ref.batched_spmm_csr_plain(rpt, cid, val, b), **TOL)
+    assert torch.equal(got, f32(rpt, cid, val, b))
+    assert torch.equal(got, batched_spmm_csr_large(rpt, cid, val, b))
+    assert torch.equal(got[:1], f32(rpt[:1], cid[:1], val[:1], b[:1]))
+    c16 = cid.clamp(-32768, 32767).to(torch.int16)
+    c32 = c16.to(torch.int32)
+    vh, bh = val.to(torch.bfloat16), b.to(torch.bfloat16)
+    g16 = bf16(rpt, c16, vh, bh)
+    torch.testing.assert_close(
+        g16.float(), ref.batched_spmm_csr_plain(rpt, c16, vh, bh).float(),
+        **BF16_TOL)
+    assert torch.equal(g16, bf16(rpt, c16, vh, bh))
+    assert torch.equal(g16, batched_spmm_csr_large_bf16(rpt, c32, vh, bh))
+    codes, scale = quantize_values_i8(val)
+    gq = i8(rpt, c16, codes, scale, b)
+    torch.testing.assert_close(
+        gq, ref.batched_spmm_csr_plain(rpt, c16, codes, b, scale), **TOL)
+    assert torch.equal(gq, i8(rpt, c16, codes, scale, b))
+    slot = torch.arange(cid.shape[1], device=dev)
+    # vector edges as large as the slot's value, so that a long row's sum
+    # stays as small as its scalar one
+    vec = torch.randn(tuple(cid.shape) + (n_b,), device=dev) * (
+        val.abs() * (slot[None, :] < rpt[:, -1:]))[..., None]
+    for values in (val, vec):
+        for op, red in corners:
+            kw = dict(op=op, reduce=red)
+            what = f"({op}, {red}) {values.dim()}-D edges"
+            want = ref.batched_gspmm_csr_plain(rpt, cid, values, b, **kw)
+            g = f32(rpt, cid, values, b, **kw)
+            if red == "max":
+                assert torch.equal(g, want), what
+            else:
+                torch.testing.assert_close(g, want, **TOL, msg=what)
+            assert torch.equal(g, f32(rpt, cid, values, b, **kw)), what
+    return got
+
+
+@pytest.mark.parametrize("n_b", (1, 7, 48, 64, 65, 512))
+@pytest.mark.parametrize("name", HYBRID_REGIMES)
+def test_csr_kernel_entries_match_plain_and_are_bitwise(dev, name, n_b):
+    """The CSR entries (f32, bf16 with int16 and int32 ids, i8, g-SpMM on
+    every (op, reduce) corner with scalar and vector edges) against their
+    plain versions on the regimes, the powerlaw batch's hub rows among
+    them, with out-of-range column ids and real 0.0 edges; identical bits
+    twice and under another row-block split. n_b 1, 7 and 65 read B one
+    column at a time, 48, 64 and 512 four (512: four 128-column panels);
+    empty rows store 0.0."""
+    from repro_torch.kernels.ops import GSPMM_OPS, GSPMM_REDUCES
+
+    rpt, cid, val, m_pad = _csr_contract(name)
+    corners = [(op, red) for op in GSPMM_OPS for red in GSPMM_REDUCES]
+    got = _csr_entries_hold(rpt, cid, val, m_pad, n_b, dev, corners)
+    empty = (rpt[:, 1:] == rpt[:, :-1]).to(dev)
+    assert bool((got[empty] == 0).all())
+
+
+def test_csr_kernel_streams_past_one_run(dev):
+    """Blocks whose slots outgrow the 4,096 the CSR kernel stages at a time:
+    2 matrices of 64 rows, rows 3 and 40 of each with 5,000 and 4,500
+    slots (the rest 0-10), so that a row's sum runs through two runs of
+    the stream; then a case-3 shape (2 x 9,000 rows, 3 edges a row and a
+    hub row of 64) through the same checks. A row's values are N(0, 1) /
+    sqrt(its degree), so that every sum stays O(1) and the plain
+    version's other order of 5,000 terms stays within the f32 tolerance."""
+    rng = np.random.default_rng(5)
+    lists = []
+    for _ in range(2):
+        deg = rng.integers(0, 11, 64)
+        deg[3], deg[40] = 5_000, 4_500
+        r = np.repeat(np.arange(64, dtype=np.int32), deg)
+        v = rng.normal(size=r.size) / np.sqrt(np.maximum(deg, 1))[r]
+        lists.append((r, rng.integers(0, 64, r.size).astype(np.int32),
+                      v.astype(np.float32)))
+    c = coo_to_csr(coo_from_lists(lists, [64, 64]), 64)
+    corners = [("mul", "sum"), ("copy_lhs", "mean"), ("add", "max")]
+    _csr_entries_hold(c.rpt, c.col_ids, c.values, 64, 64, dev, corners)
+    c = coo_to_csr(_case3_coo(9000, 2), 9000)
+    _csr_entries_hold(c.rpt, c.col_ids, c.values, 9000, 64, dev, corners)
 
 
 @pytest.mark.parametrize("name", REGIMES)
@@ -551,6 +673,87 @@ def test_fused_large_entries_match_plain(dev, m_pad, entry):
     torch.testing.assert_close(
         got, ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w, bias,
                                         res, "relu", *extra, hubs), **TOL)
+    assert torch.equal(got, fused_forward(rid, cid, val, chunks, x, w, bias,
+                                          res, *extra, epilogue="relu",
+                                          hubs=hubs))
+
+
+@pytest.mark.parametrize("entry", ("f32", "hybrid", "bf16"))
+@pytest.mark.parametrize("m_pad,batch,n_in,channels", [
+    (1024, 8, 512, 4), (3072, 2, 62, 4), (1024, 2, 62, 8)])
+def test_fused_large_branch_matches_plain_and_is_bitwise(dev, m_pad, batch,
+                                                         n_in, channels,
+                                                         entry):
+    """The large-matrix branch at chip_smoke.py's FUSED_LARGE shapes (8 x
+    1024 rows, n_in 512; 2 x 3072, n_in 62; n_out 64), each sample's rows
+    spread over many row blocks of the aggregation, and with 8 channels,
+    whose U the scratch holds a group at a time (the accumulator kept
+    between the groups): every entry against its plain version with a
+    residual and ReLU, one launch a call, identical bits twice. The
+    matrices' rows are shuffled (slots in any order, a hub row among
+    them) and a tenth of the slots are out-of-range or 0.0."""
+    from repro_torch.core.batching import fused_large_scratch, \
+        plan_fused_graph_conv
+    from repro_torch.kernels.fused_graph_conv import fused_forward_bf16, \
+        fused_hybrid_operands
+
+    n_out = 64
+    adj = []
+    for c in range(channels):
+        coo = _case3_coo(m_pad, batch, seed=c)
+        p = torch.randperm(coo.nnz_pad)
+        rid, cid = coo.row_ids[:, p], coo.col_ids[:, p]
+        val = coo.values[:, p]
+        val = torch.where(torch.rand(val.shape) < 0.05, 0.0, val)
+        cid = torch.where(torch.rand(cid.shape) < 0.05, m_pad + 3, cid)
+        adj.append(coo.__class__(rid, cid, val, coo.nnz, coo.n_rows).to(dev))
+    rid, cid, val, nnz = stack_channels(adj)
+    x = torch.randn((batch, m_pad, n_in), device=dev)
+    w = torch.randn((channels, n_in, n_out), device=dev) / n_in ** 0.5
+    bias = torch.randn((channels, n_out), device=dev)
+    res = torch.randn((batch, m_pad, n_out), device=dev)
+    bf16 = entry == "bf16"
+    plan = plan_fused_graph_conv(batch=batch, m_pad=m_pad, n_in=n_in,
+                                 n_out=n_out, itemsize=2 if bf16 else 4)
+    assert plan.large and plan.case != 3
+    _, group = fused_large_scratch(batch=batch, channels=channels,
+                                   m_pad=m_pad, n_out=n_out,
+                                   n_block=plan.n_block)
+    assert (group < channels) == (channels == 8)
+    chunks = runtime_chunks(nnz)
+    if bf16:
+        b = torch.bfloat16
+        args = (narrow_col_ids(rid, m_pad), narrow_col_ids(cid, m_pad),
+                val.to(b), chunks, x.to(b), w.to(b), bias.to(b), res.to(b))
+
+        def run():
+            return fused_forward_bf16(*args, epilogue="relu")
+
+        want, tol, counted = ref.fused_graph_conv_plain(*args, "relu"), \
+            BF16_TOL, fused_forward_bf16
+    else:
+        extra, hubs, counted = (), None, fused_forward
+        if entry == "hybrid":
+            hp = plan_hybrid(batch=batch, m_pad=m_pad, n_b=n_out,
+                             nnz_pad=channels * rid.shape[2])
+            rid, cid, val, chunks, rank, slab, hubs = fused_hybrid_operands(
+                rid, cid, val, m_pad, hp)
+            if channels == 8:   # row 7: ~500 live slots, past dmin 256
+                assert bool((hubs > 0).all())
+            extra, counted = (rank, slab), fused_hybrid_forward
+
+        def run():
+            return fused_forward(rid, cid, val, chunks, x, w, bias, res,
+                                 *extra, epilogue="relu", hubs=hubs)
+
+        want, tol = ref.fused_graph_conv_plain(
+            rid, cid, val, chunks, x, w, bias, res, "relu", *extra,
+            hubs), TOL
+    before = counted.launches
+    got = run()
+    assert counted.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, run())
 
 
 def test_fused_hybrid_hub_bound_on_the_card(dev):

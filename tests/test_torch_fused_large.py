@@ -67,6 +67,41 @@ def test_plan_fused_graph_conv_case3_where_the_reference_has_it(m_pad):
             assert got.smem_bytes == ring + (0 if got.large else panels)
 
 
+@pytest.mark.parametrize("batch,m_pad,n_out,channels", [
+    (8, 1024, 64, 4), (2, 3072, 64, 4), (2, 1024, 64, 8), (2, 1024, 40, 4),
+    (3, 1024, 300, 2), (1, 8192, 5, 16)])
+def test_fused_large_scratch_stays_within_twice_the_former_panels(
+        batch, m_pad, n_out, channels):
+    """The large-matrix branch's scratch holds U of every channel (batch x
+    m_pad x n_out rounded up to 4 floats each) where that is at most twice
+    the U_ch and accumulator panels its former design kept per block, else
+    the largest group of channels that fits that budget beside one
+    accumulator; the kernel reads the group back from the size alone."""
+    for itemsize in (4, 2):
+        plan = tb.plan_fused_graph_conv(batch=batch, m_pad=m_pad, n_in=62,
+                                        n_out=n_out, itemsize=itemsize)
+        assert plan.large
+        floats, group = tb.fused_large_scratch(
+            batch=batch, channels=channels, m_pad=m_pad, n_out=n_out,
+            n_block=plan.n_block)
+        per_ch = batch * m_pad * (-(-n_out // 4) * 4)
+        former = batch * plan.p * tb.fused_panel_floats(
+            m_pad, tb.fused_tile_cols(plan.n_block))
+        assert 1 <= group <= channels
+        assert floats <= 2 * former
+        if group == channels:
+            assert floats == channels * per_ch
+        else:
+            assert floats == (group + 1) * per_ch
+            assert (group + 2) * per_ch > 2 * former
+        kernel_group = (channels if floats >= channels * per_ch
+                        else floats // per_ch - 1)
+        assert kernel_group == group
+    # the FUSED_LARGE shapes of chip_smoke.py hold all four channels
+    assert tb.fused_large_scratch(batch=8, channels=4, m_pad=1024, n_out=64,
+                                  n_block=16) == (4 * 8 * 1024 * 64, 4)
+
+
 @functools.lru_cache(maxsize=None)
 def _layer(m_pad: int, n_in: int, batch: int):
     """Two channels of the reference's powerlaw generator (hub rows at m_pad
