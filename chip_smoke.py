@@ -92,9 +92,20 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    printed), and train 20 Tox21 steps with fused_bf16, pallas_csr_bf16,
    pallas_hybrid_bf16 and pallas_ell_i8 (first-step gradients against
    the variant's own plain versions on the CPU, loss curves within the
-   policy's rtol of the mean f32 ref curve); exact launch counts.
+   policy's rtol of the mean f32 ref curve); exact launch counts;
+11. impl="auto": the cost model's decision for every conv layer of Tox21
+   and Reaction100 serving and training, then ``autotune`` times every
+   candidate into a fresh tuning cache (the model's pick within
+   AUTO_MODEL_RATIO of the measured best); with that cache as
+   ``$REPRO_TORCH_TUNE_CACHE`` every layer resolves from it (the pick
+   re-timed within AUTO_CACHE_RATIO of its rivals), ``GCNConfig.tox21()``
+   serves the Tox21 requests and trains 5 steps beside ``ref`` and the
+   pinned impl (exact launches, logits within F32_TOL of ref, losses
+   within F32_TOL of the pinned run); GAT, R-GCN and the bf16 policy serve
+   Tox21 with ``auto``; the case-3 decision at 2 x 9000 is the forced
+   ``ref``, timed beside the CSR large entry.
 
-Before phases 4-10, the LM zoo's serving path runs (and frees its model):
+Before phases 4-11, the LM zoo's serving path runs (and frees its model):
 
 - the flash-attention kernel against its plain version at the Llama-3-8B
   prefill shape (bf16 within one bf16 ulp, timed beside its bound and SDPA;
@@ -166,6 +177,43 @@ MAX_FLIPS = 4
 # 1.0 (7.8e-3), from 0 when its sign differs
 FLIP_ATOL_BF16 = 1e-2
 TOX21 = dict(batch=128, m_pad=56, nnz_pad=256)
+# kernel launches per wave (serving) and per step (training) of the Tox21
+# model with every conv layer pinned to one impl
+SERVE_TOX21_LAUNCHES = {"fused": {"fused_forward": 2},
+                        "pallas_ell": {"batched_spmm_ell": 2},
+                        "pallas_coo": {"batched_spmm_coo": 2},
+                        "pallas_csr": {"batched_spmm_csr": 2},
+                        "pallas_hybrid": {"batched_spmm_hybrid": 2},
+                        "fused_hybrid": {"fused_hybrid_forward": 2},
+                        "pallas_gemm": {"batched_gemm": 2}}
+TRAIN_TOX21_LAUNCHES = {
+    "fused": {"fused_forward": 2, "batched_spmm_coo": 2},
+    "pallas_coo": {"batched_spmm_coo": 4},
+    "pallas_ell": {"batched_spmm_ell": 2, "batched_spmm_coo": 2},
+    "pallas_csr": {"batched_spmm_csr": 4},
+    "pallas_hybrid": {"batched_spmm_hybrid": 2, "batched_spmm_csr": 2},
+    "fused_hybrid": {"fused_hybrid_forward": 2, "batched_spmm_coo": 2},
+    "pallas_gemm": {"batched_gemm": 2, "batched_spmm_coo": 2}}
+# the kernel a layer of each kernel impl launches in its forward
+KERNEL_OF = {"fused": "fused_forward", "fused_hybrid": "fused_hybrid_forward",
+             "pallas_coo": "batched_spmm_coo",
+             "pallas_csr": "batched_spmm_csr",
+             "pallas_ell": "batched_spmm_ell",
+             "pallas_hybrid": "batched_spmm_hybrid",
+             "pallas_gemm": "batched_gemm",
+             "pallas_ell_bf16": "batched_spmm_ell_bf16",
+             "pallas_ell_i8": "batched_spmm_ell_i8",
+             "pallas_csr_bf16": "batched_spmm_csr_bf16",
+             "pallas_csr_i8": "batched_spmm_csr_i8",
+             "pallas_coo_bf16": "batched_spmm_coo_bf16",
+             "fused_bf16": "fused_forward_bf16",
+             "pallas_hybrid_bf16": "batched_spmm_hybrid_bf16"}
+# impl="auto" on the card: the cost model's pick at most this many times
+# the measured best of its layer; with the measured cache, the pick at most
+# this many times the fastest when re-timed beside its rivals
+AUTO_MODEL_RATIO = 1.25
+AUTO_CACHE_RATIO = 1.1
+AUTO_TRAIN_STEPS = 5
 N_REQUESTS = 512
 TRAIN_TOX21 = dict(n_samples=1000, batch=50, steps=20, lr=3e-3)
 TRAIN_R100 = dict(batch=100, steps=5, lr=3e-3)
@@ -2343,9 +2391,11 @@ def _fit(trainer, data, on_phase=None):
 
 
 def phase_train(tag, cfg_fn, spec, run, impls, expect_per_step, device,
-                resume_impl=None):
+                resume_impl=None, curves_out=None):
     """Train ``run["steps"]`` Adam steps per impl from one set of seed-0
-    parameters through ``GCNTrainer.fit``; returns launches per kernel."""
+    parameters through ``GCNTrainer.fit``; returns launches per kernel.
+    ``curves_out``, a dict, receives each impl's loss curve (``ref``'s the
+    mean of its runs)."""
     import shutil
 
     import numpy as np
@@ -2473,6 +2523,207 @@ def phase_train(tag, cfg_fn, spec, run, impls, expect_per_step, device,
         log(f"[train {tag}] impl={resume_impl}: resumed from the step-10 "
             f"checkpoint, steps 11-{steps} max relative gap {gap:.3e}")
     shutil.rmtree(CKPT_DIR / tag, ignore_errors=True)
+    if curves_out is not None:
+        curves_out.update(curves)
+    return launches
+
+
+def _auto_expect(decisions, per_impl):
+    """Launches per wave or step of an ``impl="auto"`` model whose conv
+    layers resolved to ``decisions``: each layer takes its impl's share of
+    ``per_impl[impl]`` (the pinned expectation of a model whose every layer
+    runs that impl)."""
+    out = {}
+    for d in decisions:
+        for k, n in per_impl.get(d.impl, {}).items():
+            out[k] = out.get(k, 0) + n // len(decisions)
+    return out
+
+
+def _serving_launches(layers):
+    """Launches per wave of a served model whose ``layers`` conv layers
+    all run one kernel impl, for every kernel impl."""
+    return {impl: {kernel: layers} for impl, kernel in KERNEL_OF.items()}
+
+
+def _log_decision(tag, d):
+    top = ", ".join(f"{i} {t * 1e3:.3f}" for i, t in d.scores[:3])
+    log(f"[autotune] {tag}: impl={d.impl} kind={d.kind} case={d.case} "
+        f"source={d.source}; model ms: {top}")
+
+
+def phase_autotune(device):
+    """``impl="auto"`` on the card. (a) The cost model's decision for every
+    conv layer of Tox21 and Reaction100 serving (waves of 128) and training
+    (batches of 50 and 100), then ``autotune`` times every candidate of
+    ``rank_layer`` into a fresh tuning cache: the model's pick within
+    AUTO_MODEL_RATIO of the measured best. (b) With that cache as the
+    process's (``$REPRO_TORCH_TUNE_CACHE``): every layer resolves to the
+    record's best from the cache, re-timed beside the record's next two
+    (within AUTO_CACHE_RATIO of the fastest); ``GCNConfig.tox21()`` (the
+    default impl) serves the Tox21 requests beside ``ref`` and the pinned
+    impl, and trains 5 Tox21 steps beside the pinned impl (loss within
+    F32_TOL of it), launching the chosen impl's kernels. (c) GAT and R-GCN
+    serve Tox21 with ``auto``; (d) Tox21 serving under the bf16 policy;
+    (e) the case-3 decision at 2 x 9000 (the forced ``ref``, timed beside
+    the CSR kernel's large entry). Returns launches per kernel of each
+    ``auto`` path."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import autotune
+    from repro_torch.core.gcn import GCNConfig, resolve_conv_impls
+    from repro_torch.data.graphs import GraphDatasetSpec
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    tox_spec = GraphDatasetSpec.tox21_like(TRAIN_TOX21["n_samples"], seed=0)
+    r_spec = GraphDatasetSpec.reaction100_like(
+        TRAIN_R100["batch"] * TRAIN_R100["steps"], seed=0)
+
+    def train_geometry(spec, batch):
+        b = _train_batches(spec, batch)[0]
+        return (b["x"].shape[0], b["x"].shape[1],
+                max(a.nnz_pad for a in b["adj"]))
+
+    serve = (TOX21["batch"], TOX21["m_pad"], TOX21["nnz_pad"])
+    paths = (("serve tox21", GCNConfig.tox21(), serve),
+             ("train tox21", GCNConfig.tox21(),
+              train_geometry(tox_spec, TRAIN_TOX21["batch"])),
+             ("serve reaction100", GCNConfig.reaction100(), serve),
+             ("train reaction100", GCNConfig.reaction100(),
+              train_geometry(r_spec, TRAIN_R100["batch"])))
+    cache_dir = ROOT / "build" / "chip_smoke_tune"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    cache = autotune.TuningCache(str(cache_dir / "tune.json"))
+    check(os.environ.get(autotune.ENV_VAR) is None,
+          f"${autotune.ENV_VAR} is set: the model's decisions need none")
+    # (a) the model's decisions, then every candidate timed
+    layers = []
+    for tag, cfg, geo in paths:
+        for i, d in enumerate(resolve_conv_impls(cfg, *geo, device=device)):
+            check(d.source == "model" and d.case != 3,
+                  f"{tag} layer {i + 1}: {d}")
+            _log_decision(f"{tag} layer {i + 1} {d.workload.key()}", d)
+            best = autotune.autotune(d.workload, cache=cache, device=device)
+            times = cache.times(d.workload.key())
+            w = d.workload
+            ranked = {c for c, _ in d.scores
+                      if w.nnz_pad <= w.m_pad * w.k_pad
+                      or autotune.precision_of(c)[0] not in ("ell",
+                                                             "pallas_ell")}
+            check(set(times) == ranked,
+                  f"{tag} layer {i + 1}: timed {sorted(times)}, ranked "
+                  f"{sorted(ranked)}")
+            ratio = times[d.impl] / times[best]
+            log(f"[autotune] {tag} layer {i + 1}: measured ms "
+                + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in
+                            sorted(times.items(), key=lambda kv: kv[1]))
+                + f"; model's pick {d.impl} / best {best} = {ratio:.3f}")
+            check(ratio <= AUTO_MODEL_RATIO,
+                  f"{tag} layer {i + 1}: the model's pick {d.impl} measured "
+                  f"{ratio:.3f}x the best ({best})")
+            layers.append((tag, i, cfg, geo, d.workload))
+    os.environ[autotune.ENV_VAR] = cache.path
+    launches = {}
+    try:
+        # (b) the cache decides, the pick re-timed beside the next two
+        tox_decisions = {}
+        for tag, i, cfg, geo, w in layers:
+            d = resolve_conv_impls(cfg, *geo, device=device)[i]
+            times = cache.times(w.key())
+            check(d.source == "cache" and d.impl == cache.best(w.key()),
+                  f"{tag} layer {i + 1} with the cache: {d}")
+            if tag.endswith("tox21"):
+                tox_decisions.setdefault(tag, []).append(d)
+            rivals = sorted(times, key=times.get)[:3]
+            again = autotune.measure_workload(w, tuple(rivals),
+                                              device=device, iters=20)
+            ratio = again[d.impl] / min(again.values())
+            log(f"[autotune] {tag} layer {i + 1} with the cache: "
+                f"impl={d.impl} source={d.source}; re-timed ms "
+                + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in again.items())
+                + f"; pick / fastest {ratio:.3f}")
+            check(ratio <= AUTO_CACHE_RATIO,
+                  f"{tag} layer {i + 1}: the cache's pick {d.impl} re-timed "
+                  f"{ratio:.3f}x the fastest of {again}")
+        serve_d = tox_decisions["serve tox21"]
+        pinned = serve_d[0].impl
+        exp = {"auto": _auto_expect(serve_d, SERVE_TOX21_LAUNCHES),
+               pinned: SERVE_TOX21_LAUNCHES.get(pinned, {})}
+        launches["serve tox21 auto"] = phase_serve(
+            "tox21 auto", GCNConfig.tox21,
+            GraphDatasetSpec.tox21_like(N_REQUESTS, seed=0),
+            tuple(dict.fromkeys(("ref", "auto", pinned))), exp, device,
+            F32_TOL)
+        train_d = tox_decisions["train tox21"]
+        pinned = train_d[0].impl
+        curves = {}
+        exp = {"auto": _auto_expect(train_d, TRAIN_TOX21_LAUNCHES),
+               pinned: TRAIN_TOX21_LAUNCHES.get(pinned, {})}
+        launches["train tox21 auto"] = phase_train(
+            "tox21-auto", GCNConfig.tox21, tox_spec,
+            dict(TRAIN_TOX21, steps=AUTO_TRAIN_STEPS),
+            tuple(dict.fromkeys(("ref", "auto", pinned))), exp, device,
+            curves_out=curves)
+        if all(d.impl == pinned for d in train_d):
+            gap = np.abs(curves["auto"] - curves[pinned])
+            ok = bool((gap <= F32_TOL[0]
+                       + F32_TOL[1] * np.abs(curves[pinned])).all())
+            check(ok, f"train tox21 auto vs pinned {pinned}: losses "
+                      f"{curves['auto']} vs {curves[pinned]}")
+            log(f"[autotune] train tox21: auto vs pinned {pinned}: max abs "
+                f"loss gap {gap.max():.3e} over {AUTO_TRAIN_STEPS} steps "
+                f"(tolerance {F32_TOL})")
+        # (c) GAT and R-GCN over the g-SpMM ladder, model decisions
+        for layer in ("gat", "rgcn"):
+            cfg = GCNConfig.tox21(layer=layer)
+            decisions = resolve_conv_impls(cfg, *serve, device=device)
+            for i, d in enumerate(decisions):
+                _log_decision(f"serve tox21 {layer} layer {i + 1}", d)
+            gmm = {"grouped_matmul": len(decisions)} if layer == "rgcn" \
+                else {}
+            exp = {"ref": gmm, "auto": {**gmm, **_auto_expect(
+                decisions, _serving_launches(len(decisions)))}}
+            launches[f"serve tox21 {layer} auto"] = phase_serve(
+                f"tox21 {layer} auto",
+                lambda layer=layer, **kw: GCNConfig.tox21(layer=layer, **kw),
+                GraphDatasetSpec.tox21_like(N_REQUESTS, seed=0),
+                ("ref", "auto"), exp, device, F32_TOL)
+        # (d) the bf16 policy's ladder
+        cfg = GCNConfig.tox21(precision="bf16")
+        decisions = resolve_conv_impls(cfg, *serve, device=device)
+        for i, d in enumerate(decisions):
+            _log_decision(f"serve tox21 bf16 layer {i + 1}", d)
+        policy = max((autotune.precision_of(d.impl)[1] for d in decisions),
+                     key=("f32", "i8", "bf16").index)
+        launches["serve tox21 bf16 auto"] = phase_serve(
+            "tox21 bf16 auto",
+            lambda **kw: GCNConfig.tox21(precision="bf16", **kw),
+            GraphDatasetSpec.tox21_like(N_REQUESTS, seed=0), ("ref", "auto"),
+            {"auto": _auto_expect(decisions,
+                                  _serving_launches(len(decisions)))},
+            device, F32_TOL,
+            impl_tol={"auto": POLICY_TOLS[policy]})
+    finally:
+        del os.environ[autotune.ENV_VAR]
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    # (e) planner case 3: forced to ref, priced beside the CSR large entry
+    _, m_pad, batch = LARGE_SHAPES[-1]
+    coo = _large_coo(m_pad, batch, seed=21).to(device)
+    b = torch.zeros((batch, m_pad, 64), device=device)
+    d = ops.resolve_impl(coo, b, k_pad=76)
+    check((d.impl, d.source, d.case) == ("ref", "forced", 3),
+          f"case 3 at {batch} x {m_pad}: {d}")
+    times = autotune.measure_workload(d.workload, ("ref", "pallas_csr"),
+                                      device=device)
+    log(f"[autotune] case 3 ({batch} x {m_pad}, nnz_pad {coo.nnz_pad}, n_b "
+        f"64): impl={d.impl} source={d.source}; wall ms per call: ref "
+        f"{times['ref'] * 1e3:.3f}, pallas_csr (the CSR large entry) "
+        f"{times['pallas_csr'] * 1e3:.3f}")
+    log(f"[autotune] phase done in {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2956,13 +3207,8 @@ def main() -> int:
         "tox21", GCNConfig.tox21, GraphDatasetSpec.tox21_like(N_REQUESTS,
                                                               seed=0),
         ("ref", "fused", "pallas_ell", "pallas_coo", "pallas_hybrid",
-         "fused_hybrid", "pallas_gemm"),
-        {"fused": {"fused_forward": 2},
-         "pallas_ell": {"batched_spmm_ell": 2},
-         "pallas_coo": {"batched_spmm_coo": 2},
-         "pallas_hybrid": {"batched_spmm_hybrid": 2},
-         "fused_hybrid": {"fused_hybrid_forward": 2},
-         "pallas_gemm": {"batched_gemm": 2}}, device, F32_TOL)
+         "fused_hybrid", "pallas_gemm"), SERVE_TOX21_LAUNCHES, device,
+        F32_TOL)
     r_launches = phase_serve(
         "reaction100", GCNConfig.reaction100,
         GraphDatasetSpec.reaction100_like(N_REQUESTS, seed=0),
@@ -2975,14 +3221,7 @@ def main() -> int:
         GraphDatasetSpec.tox21_like(TRAIN_TOX21["n_samples"], seed=0),
         TRAIN_TOX21, ("ref", "fused", "pallas_coo", "pallas_ell",
                       "pallas_csr", "pallas_hybrid", "fused_hybrid",
-                      "pallas_gemm"),
-        {"fused": {"fused_forward": 2, "batched_spmm_coo": 2},
-         "pallas_coo": {"batched_spmm_coo": 4},
-         "pallas_ell": {"batched_spmm_ell": 2, "batched_spmm_coo": 2},
-         "pallas_csr": {"batched_spmm_csr": 4},
-         "pallas_hybrid": {"batched_spmm_hybrid": 2, "batched_spmm_csr": 2},
-         "fused_hybrid": {"fused_hybrid_forward": 2, "batched_spmm_coo": 2},
-         "pallas_gemm": {"batched_gemm": 2, "batched_spmm_coo": 2}}, device,
+                      "pallas_gemm"), TRAIN_TOX21_LAUNCHES, device,
         resume_impl="pallas_csr")
     tr_launches = phase_train(
         "reaction100", GCNConfig.reaction100,
@@ -2999,6 +3238,7 @@ def main() -> int:
              "train reaction100": tr_launches}
     paths.update(phase_gnn_paths(device))
     paths.update(phase_precision_paths(device))
+    paths.update(phase_autotune(device))
     paths.update(lm_paths)
     paths.update(large_path)
     kernels = []

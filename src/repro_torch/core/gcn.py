@@ -39,11 +39,14 @@ from repro_torch.models.gnn import (
 @dataclasses.dataclass(frozen=True)
 class GCNConfig:
     """The reference's ``GCNConfig`` without ``interpret`` (the port picks
-    plain or kernel execution from the tensors' device). ``impl`` must be
-    pinned: ``"auto"`` raises in this port. A pinned impl carries its own
-    storage policy (``"fused_bf16"``, ``"pallas_csr_i8"``, ...);
-    ``precision`` steers only ``"auto"``, as in the reference, so under a
-    pinned impl it is checked and otherwise ignored."""
+    plain or kernel execution from the tensors' device). ``impl="auto"``
+    (the default) resolves every conv layer from its workload through
+    ``repro_torch.autotune`` (:func:`resolve_conv_impls` lists the
+    decisions), ranking kernel impls where the tensors lie on CUDA. A
+    pinned impl carries its own storage policy (``"fused_bf16"``,
+    ``"pallas_csr_i8"``, ...); ``precision`` steers only ``"auto"``, as in
+    the reference, so under a pinned impl it is checked and otherwise
+    ignored."""
 
     n_features: int = 62
     channels: int = 4
@@ -122,6 +125,57 @@ def init_gcn(cfg: GCNConfig, *, generator: torch.Generator | None = None,
     return params
 
 
+def resolve_conv_impls(cfg: GCNConfig, batch: int, m_pad: int, nnz_pad: int,
+                       *, itemsize: int = 4, device=None):
+    """The resolved impl of EVERY conv layer of the stack, one
+    ``repro_torch.autotune.Decision`` per ``cfg.conv_widths`` entry, as
+    :func:`apply_gcn` resolves them on ``device`` (kernel impls are ranked
+    only on CUDA; the current CUDA device unless the caller asks for
+    another). Each layer's workload differs in n_in / n_out, so a guard
+    that asks "could an ELL impl run?" must look at all of them.
+    ``itemsize`` is the features' (the cache key holds it). ``cfg.layer``
+    picks the workload: the graph-conv LAYER (``"gcn"``), the attention's
+    vector-edge (mul, sum) g-SpMM over the head-flattened batch
+    (``"gat"``), or the (copy_lhs, mean) g-SpMM over the relation-
+    flattened batch (``"rgcn"``). Host work alone."""
+    from repro_torch import autotune
+
+    allow_pallas = resolve_device(device).type == "cuda"
+    decisions = []
+    n_in = cfg.n_features
+    dtype = (autotune.precision_of(cfg.impl)[1] if cfg.impl != "auto"
+             else cfg.precision)
+    for n_out in cfg.conv_widths:
+        if cfg.layer == "gat":
+            d_head = n_out // cfg.heads
+            w = autotune.Workload(
+                batch=batch * cfg.heads, m_pad=m_pad, nnz_pad=nnz_pad,
+                k_pad=cfg.k_pad, n_b=d_head, itemsize=itemsize,
+                dtype=dtype, d_e=d_head)
+        elif cfg.layer == "rgcn":
+            w = autotune.Workload(
+                batch=batch * cfg.channels, m_pad=m_pad, nnz_pad=nnz_pad,
+                k_pad=cfg.k_pad, n_b=n_out, itemsize=itemsize,
+                dtype=dtype, op="copy_lhs", reduce="mean")
+        else:
+            w = autotune.Workload(
+                batch=batch, m_pad=m_pad, nnz_pad=nnz_pad, k_pad=cfg.k_pad,
+                n_b=n_out, itemsize=itemsize, channels=cfg.channels,
+                n_in=n_in, dtype=dtype)
+        if cfg.impl != "auto":
+            decisions.append(autotune.forced_decision(w, cfg.impl))
+        elif cfg.layer == "gcn":
+            decisions.append(autotune.select_graph_conv_impl(
+                w, allow_pallas=allow_pallas,
+                cache=autotune.default_cache()))
+        else:
+            decisions.append(autotune.select_impl(
+                w, allow_pallas=allow_pallas,
+                cache=autotune.default_cache()))
+        n_in = n_out
+    return tuple(decisions)
+
+
 def _batch_norm(p, x, mask, mode: str = "batch"):
     """Masked batch-norm over real nodes only. ``mode="batch"`` reduces over
     (batch, nodes); ``mode="sample"`` over each graph's own nodes, so a
@@ -160,7 +214,7 @@ def apply_gcn(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
             h = rgcn_layer(conv_p, adj, h, impl=cfg.impl, k_pad=cfg.k_pad)
         elif cfg.batched:
             h = graph_conv_batched(conv_p, adj, h, impl=cfg.impl,
-                                   k_pad=cfg.k_pad)
+                                   k_pad=cfg.k_pad, precision=cfg.precision)
         else:
             h = graph_conv_nonbatched(conv_p, adj, h)
         h = _batch_norm(bn_p, h * mask, mask, cfg.bn_mode)

@@ -9,7 +9,8 @@ structure:
   ``"fused_hybrid"`` or ``"fused_bf16"`` runs the whole layer as ONE
   kernel; any SpMM impl (a precision variant too) runs the stacked form —
   one feature-transform einsum, ONE ``(channels·batch)`` batched SpMM, one
-  channel sum.
+  channel sum. ``impl="auto"`` resolves per LAYER workload
+  (:func:`resolve_graph_conv_impl`).
 """
 from __future__ import annotations
 
@@ -69,9 +70,34 @@ def flatten_channels(adj: Sequence[BatchedCOO]) -> BatchedCOO:
                       n_rows=adj[0].n_rows.repeat(channels))
 
 
+def resolve_graph_conv_impl(adj: Sequence[BatchedCOO], x: torch.Tensor,
+                            n_out: int, *, impl: str = "auto",
+                            k_pad: int | None = None,
+                            precision: str = "f32"):
+    """Resolve ``impl`` against the LAYER workload of one graph-conv call:
+    a ``repro_torch.autotune.Decision`` whose candidates are the fused
+    kernels beside every SpMM impl priced as the stacked layer, and under a
+    reduced ``precision`` their variants. Kernel impls are ranked only on
+    CUDA tensors. Host work alone: no PyTorch op, no sync."""
+    from repro_torch import autotune
+
+    batch, m_pad, n_in = x.shape
+    dtype = precision_of(impl)[1] if impl != "auto" else precision
+    w = autotune.Workload(
+        batch=batch, m_pad=m_pad, nnz_pad=max(a.nnz_pad for a in adj),
+        k_pad=k_pad, n_b=n_out, itemsize=x.element_size(),
+        channels=len(adj), n_in=n_in, dtype=dtype)
+    if impl != "auto":
+        return autotune.forced_decision(w, impl)
+    return autotune.select_graph_conv_impl(
+        w, allow_pallas=x.device.type == "cuda",
+        cache=autotune.default_cache())
+
+
 def graph_conv_batched(params, adj: Sequence[BatchedCOO], x: torch.Tensor,
-                       *, impl: str, k_pad: int | None = None,
-                       epilogue: str = "none") -> torch.Tensor:
+                       *, impl: str = "auto", k_pad: int | None = None,
+                       epilogue: str = "none",
+                       precision: str = "f32") -> torch.Tensor:
     """Paper Fig. 7 and beyond: the whole mini-batch's layer in O(1) ops.
 
     ``impl="fused"`` / ``"fused_hybrid"`` / ``"fused_bf16"`` runs the layer
@@ -84,8 +110,15 @@ def graph_conv_batched(params, adj: Sequence[BatchedCOO], x: torch.Tensor,
     bias to bfloat16 before the kernel, and Y back to X's dtype after it,
     as the reference does. The casts are autograd ops, so the gradients
     are rounded to bf16 where the reference's ``astype`` VJPs round
-    them."""
+    them.
+
+    ``impl="auto"`` resolves per layer workload with ``precision``
+    ("f32"|"bf16"|"i8") as its storage policy; a pinned variant applies
+    its own."""
     check_impl(impl)
+    if impl == "auto":
+        impl = resolve_graph_conv_impl(adj, x, params["w"].shape[-1],
+                                       k_pad=k_pad, precision=precision).impl
     base, policy = precision_of(impl)
     if base.startswith("fused"):
         rids, cids, vals, nnz = stack_channels(adj)

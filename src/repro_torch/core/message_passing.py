@@ -10,24 +10,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import BatchedCOO
-from repro_torch.kernels.ops import batched_gspmm
+from repro_torch.kernels.ops import batched_gspmm, resolve_gspmm_impl
 
 
 def resolve_message_passing_impl(adj: BatchedCOO, x: torch.Tensor, *,
                                  op: str = "mul", reduce: str = "sum",
                                  impl: str = "auto",
                                  k_pad: int | None = None):
-    """The reference resolves ``impl`` against the call's workload through
-    its autotune, which is not ported: this raises, as ``impl="auto"``
-    does."""
-    raise ValueError(
-        "impl resolution (impl='auto') is not ported: the autotune, its "
-        "roofline constants and tuning cache are TPU-calibrated (ROADMAP.md,"
-        " queue 1: Autotune); pin one of repro_torch.kernels.ops.GSPMM_IMPLS")
+    """Resolve ``impl`` against one message-passing call's workload: a
+    ``repro_torch.autotune.Decision`` over the g-SpMM-capable ladder."""
+    return resolve_gspmm_impl(adj, x, op=op, reduce=reduce, impl=impl,
+                              k_pad=k_pad)
 
 
 def message_passing(adj: BatchedCOO, x: torch.Tensor, *, op: str = "mul",
-                    reduce: str = "sum", impl: str,
+                    reduce: str = "sum", impl: str = "auto",
                     k_pad: int | None = None) -> torch.Tensor:
     """One batched message-passing step over x (batch, m_pad, n_b) with
     ``e = adj.values``, scalar per edge or a (batch, nnz_pad, d_e) vector

@@ -6,7 +6,9 @@ from repro_torch.kernels.ops import (
     IMPLS,
     batched_gspmm,
     batched_spmm,
+    resolve_gspmm_impl,
+    resolve_impl,
 )
 
 __all__ = ["GSPMM_OPS", "GSPMM_REDUCES", "IMPLS", "batched_gspmm",
-           "batched_spmm"]
+           "batched_spmm", "resolve_gspmm_impl", "resolve_impl"]

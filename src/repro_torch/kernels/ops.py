@@ -14,7 +14,10 @@ structure under a storage policy (:func:`_forward`). ``bf16`` casts the
 values and B to bfloat16, ``i8`` quantizes the values to int8 codes with a
 per-matrix scale; both narrow the ids to int16 on the kernel paths, sum in
 f32 and return B's dtype. Their backward classes are :data:`_VARIANT_BWD`.
-``impl="auto"`` is not ported and raises (``ROADMAP.md``).
+``impl="auto"`` (the default) resolves to a concrete impl from the call's
+shapes through ``repro_torch.autotune`` (:func:`resolve_impl`,
+:func:`resolve_gspmm_impl`) before the autograd Function runs; a pinned
+impl takes its path directly.
 
 g-SpMM (:func:`batched_gspmm`) generalizes ``C[rid] += val · B[cid]`` into
 message passing ``C[r] = reduce(op(B[c], e))`` with ``op ∈``
@@ -31,7 +34,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import batching
-from repro_torch.autotune.cost_model import PRECISION_IMPLS, precision_of
+from repro_torch.autotune.cost_model import (
+    GSPMM_IMPLS,
+    PRECISION_IMPLS,
+    precision_of,
+    supports_gspmm,
+)
 from repro_torch.core.formats import (
     INT16_MAX,
     BatchedCOO,
@@ -86,28 +94,15 @@ from repro_torch.kernels.batched_spmm_hybrid import (
 #                  remainder, inverse row permutation in the epilogue)
 # - dense:         densify + torch.bmm (the gemmBatched library baseline)
 # - pallas_gemm:   densify + the batched GEMM CUDA kernel
+# - auto:          resolved per call from its shapes (repro_torch.autotune)
 # - loop:          the NON-batched baseline, one SpMM per sample
 # - fused:         the graph-conv LAYER kernel (graph_conv_batched only)
 # - fused_hybrid:  the LAYER kernel with the hybrid split folded in
 # - the PRECISION_IMPLS (ell_bf16, pallas_csr_i8, fused_bf16, ...): the
 #   base impl's structure with bf16 or int8 storage (see _forward)
-IMPLS = ("ref", "ell", "pallas_ell", "csr", "pallas_csr", "pallas_coo",
+IMPLS = ("auto", "ref", "ell", "pallas_ell", "csr", "pallas_csr", "pallas_coo",
          "hybrid", "pallas_hybrid", "dense", "pallas_gemm", "loop", "fused",
          "fused_hybrid") + tuple(PRECISION_IMPLS)
-
-# The impls that implement the whole g-SpMM matrix (op × reduce × edge
-# width), the reference's ``autotune.GSPMM_IMPLS``: the GEMM and hybrid
-# classes are (mul, sum) products only.
-GSPMM_IMPLS = ("ref", "loop", "ell", "pallas_ell", "csr", "pallas_csr",
-               "pallas_coo")
-
-
-def supports_gspmm(impl: str) -> bool:
-    """Whether ``impl`` can run a non-(mul, sum) or vector-edge workload:
-    the precision variants are (mul, sum)-only, as in the reference."""
-    base, policy = precision_of(impl)
-    return base in GSPMM_IMPLS and policy == "f32"
-
 
 # impls that run a hand-written kernel on CUDA tensors (the registry keeps
 # the reference's names: pallas_* is the kernel class, not the toolchain)
@@ -116,14 +111,57 @@ KERNEL_IMPLS = ("pallas_ell", "pallas_csr", "pallas_coo", "pallas_hybrid",
 
 
 def check_impl(impl: str) -> None:
-    """Raise for ``auto`` and for names outside the registry."""
-    if impl == "auto":
-        raise ValueError(
-            "impl='auto' is not ported: the autotune, its roofline constants "
-            "and tuning cache are TPU-calibrated (ROADMAP.md, queue 1: "
-            f"Autotune). Pin one of {IMPLS}")
+    """Raise for names outside the registry (``auto`` is in it)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+
+
+def _workload(a: BatchedCOO, b: torch.Tensor, *, k_pad: int | None,
+              **axes):
+    from repro_torch.autotune import Workload
+
+    batch, m_pad, n_b = b.shape
+    return Workload(batch=batch, m_pad=m_pad, nnz_pad=a.row_ids.shape[1],
+                    k_pad=k_pad, n_b=n_b, itemsize=b.element_size(), **axes)
+
+
+def resolve_impl(a: BatchedCOO, b: torch.Tensor, *, impl: str = "auto",
+                 k_pad: int | None = None, precision: str = "f32"):
+    """Resolve ``impl="auto"`` to the concrete impl for this call's shapes.
+
+    Returns a ``repro_torch.autotune.Decision`` (``.impl`` is the concrete
+    string); a concrete ``impl`` passes through as a forced Decision.
+    ``precision`` (``"f32"``/``"bf16"``/``"i8"``) is the caller's storage
+    policy: under ``auto`` it admits its variants to the ranking, a
+    concrete impl carries its own. Kernel impls are ranked only where
+    they run, on CUDA tensors. Host work alone: no PyTorch op, no sync."""
+    from repro_torch import autotune
+
+    if impl != "auto":
+        return autotune.forced_decision(
+            _workload(a, b, k_pad=k_pad, dtype=precision_of(impl)[1]), impl)
+    batch, m_pad, n_b = b.shape
+    return autotune.resolve_auto(
+        batch=batch, m_pad=m_pad, nnz_pad=a.row_ids.shape[1], k_pad=k_pad,
+        n_b=n_b, itemsize=b.element_size(),
+        allow_pallas=b.device.type == "cuda", dtype=precision)
+
+
+def resolve_gspmm_impl(a: BatchedCOO, b: torch.Tensor, *, op: str = "mul",
+                       reduce: str = "sum", impl: str = "auto",
+                       k_pad: int | None = None):
+    """Resolve ``impl="auto"`` for one g-SpMM call: :func:`resolve_impl`
+    with the workload's ``(op, reduce, d_e)`` axes set, so the ladder is
+    the g-SpMM-capable subset and the cache key never collides with the
+    plain SpMM's."""
+    from repro_torch import autotune
+
+    d_e = a.values.shape[2] if a.values.dim() == 3 else None
+    w = _workload(a, b, k_pad=k_pad, d_e=d_e, reduce=reduce, op=op)
+    if impl != "auto":
+        return autotune.forced_decision(w, impl)
+    return autotune.select_impl(w, allow_pallas=b.device.type == "cuda",
+                                cache=autotune.default_cache())
 
 
 def resolve_compute_dtype(a_dtype: torch.dtype,
@@ -383,14 +421,21 @@ class _SpMM(torch.autograd.Function):
         return dval, db, None, None, None, None, None
 
 
-def batched_spmm(a: BatchedCOO, b: torch.Tensor, *, impl: str,
-                 k_pad: int | None = None) -> torch.Tensor:
+def batched_spmm(a: BatchedCOO, b: torch.Tensor, *, impl: str = "auto",
+                 k_pad: int | None = None,
+                 precision: str = "f32") -> torch.Tensor:
     """C[s] = A[s] @ B[s] for every sample s of the batch.
 
     a: BatchedCOO over square (m_pad, m_pad) adjacencies with scalar edge
     values; b: (batch, m_pad, n_b). Differentiable in ``a.values`` and
-    ``b``; on CUDA tensors a kernel impl's backward runs kernels too."""
+    ``b``; on CUDA tensors a kernel impl's backward runs kernels too.
+    ``impl="auto"`` resolves from the call's shapes (:func:`resolve_impl`)
+    with ``precision`` as its storage policy; a concrete impl carries its
+    own policy and ignores ``precision``."""
     check_impl(impl)
+    if impl == "auto":
+        impl = resolve_impl(a, b, impl=impl, k_pad=k_pad,
+                            precision=precision).impl
     if precision_of(impl)[0].startswith("fused"):
         raise ValueError(
             f"impl={impl!r} is the graph-conv LAYER kernel (it needs W and "
@@ -553,7 +598,7 @@ class _GSpMM(torch.autograd.Function):
 
 
 def batched_gspmm(a: BatchedCOO, b: torch.Tensor, *, op: str = "mul",
-                  reduce: str = "sum", impl: str,
+                  reduce: str = "sum", impl: str = "auto",
                   k_pad: int | None = None) -> torch.Tensor:
     """Generalized SpMM / message passing: per sample s,
     ``C[s][r] = reduce_{edges (r, c)} op(B[s][c], e)`` with ``e =
@@ -562,7 +607,8 @@ def batched_gspmm(a: BatchedCOO, b: torch.Tensor, *, op: str = "mul",
     ``b``; rows of degree 0 give 0.0 with zero gradient for every reduce.
 
     (mul, sum) with scalar edges IS :func:`batched_spmm`, over its whole
-    registry; every other corner runs :data:`GSPMM_IMPLS`."""
+    registry; every other corner runs :data:`GSPMM_IMPLS`, ``auto``
+    resolving over them (:func:`resolve_gspmm_impl`)."""
     if op not in GSPMM_OPS:
         raise ValueError(f"unknown g-SpMM op {op!r}; expected {GSPMM_OPS}")
     if reduce not in GSPMM_REDUCES:
@@ -571,6 +617,9 @@ def batched_gspmm(a: BatchedCOO, b: torch.Tensor, *, op: str = "mul",
     if (op, reduce) == ("mul", "sum") and a.values.dim() == 2:
         return batched_spmm(a, b, impl=impl, k_pad=k_pad)
     check_impl(impl)
+    if impl == "auto":
+        impl = resolve_gspmm_impl(a, b, op=op, reduce=reduce, impl=impl,
+                                  k_pad=k_pad).impl
     if not supports_gspmm(impl):
         raise ValueError(
             f"impl {impl!r} cannot run g-SpMM (op={op!r}, reduce={reduce!r});"

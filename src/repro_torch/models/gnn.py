@@ -57,7 +57,8 @@ def init_gat_layer(n_in: int, n_out: int, heads: int, *,
     }
 
 
-def gat_layer(params, adj: BatchedCOO, x: torch.Tensor, *, impl: str,
+def gat_layer(params, adj: BatchedCOO, x: torch.Tensor, *,
+              impl: str = "auto",
               k_pad: int | None = None,
               negative_slope: float = 0.2) -> torch.Tensor:
     """One multi-head graph-attention layer over x (batch, m_pad, n_in) →
@@ -117,7 +118,8 @@ def init_rgcn_layer(n_in: int, n_out: int, relations: int, *,
 
 
 def rgcn_layer(params, adj: Sequence[BatchedCOO], x: torch.Tensor, *,
-               impl: str, k_pad: int | None = None) -> torch.Tensor:
+               impl: str = "auto",
+               k_pad: int | None = None) -> torch.Tensor:
     """One R-GCN layer: ``out[i] = Σ_r mean_{j ∈ N_r(i)} x[j]·W_r
     + x[i]·W_self + b``.
 

@@ -37,7 +37,12 @@ from repro_torch import resolve_device
 from repro_torch.autotune.cost_model import precision_of
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import BatchedCOO, coo_from_lists
-from repro_torch.core.gcn import GCNConfig, apply_gcn, check_config
+from repro_torch.core.gcn import (
+    GCNConfig,
+    apply_gcn,
+    check_config,
+    resolve_conv_impls,
+)
 from repro_torch.kernels.ops import check_impl
 from repro_torch.models import lm
 
@@ -196,7 +201,9 @@ class GraphServeEngine:
     channel). ``params`` is the reference-named pytree of tensors
     (:func:`repro_torch.core.gcn.init_gcn`, ``GCN.params`` or
     :func:`repro_torch.convert.params_from_jax`); it is moved to ``device``,
-    the current CUDA device unless the caller asks for another."""
+    the current CUDA device unless the caller asks for another.
+    ``cfg.impl="auto"`` resolves each conv layer from the wave geometry's
+    workload, the same decision every wave (:meth:`layer_decision`)."""
 
     def __init__(self, params, cfg: GCNConfig, *, batch: int = 32,
                  m_pad: int = 56, nnz_pad: int = 256,
@@ -212,17 +219,27 @@ class GraphServeEngine:
         self.batch, self.m_pad, self.nnz_pad = batch, m_pad, nnz_pad
         self.device = resolve_device(device)
         self.params = _tree_to(params, self.device)
-        # only an ELL-class impl silently drops > k_pad nnz per row; as in
-        # the reference, every channel is checked, also under layer="gat",
-        # whose layers read channel 0 only
+        # only an ELL-class impl silently drops > k_pad nnz per row, so the
+        # guard asks what this geometry runs: EVERY conv layer, each
+        # resolving "auto" against its own workload. As in the reference,
+        # every channel is checked, also under layer="gat", whose layers
+        # read channel 0 only
+        impls = {cfg.impl}
+        if cfg.impl == "auto" and cfg.k_pad is not None:
+            impls = {d.impl for d in resolve_conv_impls(
+                cfg, batch, m_pad, nnz_pad, device=self.device)}
         self._ell_degree_guard = (
             cfg.k_pad is not None
-            and precision_of(cfg.impl)[0] in ("ell", "pallas_ell"))
+            and any(precision_of(i)[0] in ("ell", "pallas_ell")
+                    for i in impls))
 
     def layer_decision(self):
-        raise NotImplementedError(
-            "layer_decision() audits the autotune, which is not ported "
-            "(ROADMAP.md); the port's impl is the pinned cfg.impl")
+        """The first conv layer's ``repro_torch.autotune.Decision`` at this
+        engine's wave geometry on its device: fused kernel against stacked
+        SpMM for ``layer="gcn"``, the g-SpMM workload for ``"gat"`` and
+        ``"rgcn"``; every wave's forward resolves the same."""
+        return resolve_conv_impls(self.cfg, self.batch, self.m_pad,
+                                  self.nnz_pad, device=self.device)[0]
 
     def compiled_programs(self):
         raise NotImplementedError(

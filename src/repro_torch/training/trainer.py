@@ -27,8 +27,14 @@ from repro_torch import resolve_device, tree
 from repro_torch.autotune.cost_model import precision_of
 from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.core.formats import validate_ell_k_pad
-from repro_torch.core.gcn import GCNConfig, check_config, gcn_loss, init_gcn
-from repro_torch.kernels.ops import check_impl
+from repro_torch.core.gcn import (
+    GCNConfig,
+    check_config,
+    gcn_loss,
+    init_gcn,
+    resolve_conv_impls,
+)
+from repro_torch.kernels.ops import IMPLS, check_impl
 from repro_torch.optim.adam import (
     AdamConfig,
     adam_init,
@@ -49,9 +55,15 @@ class TrainerConfig:
     seed: int = 0
 
 
+# the ELL class, whose conversion silently drops > k_pad nnz per row
+_ELL_IMPLS = tuple(i for i in IMPLS
+                   if precision_of(i)[0] in ("ell", "pallas_ell"))
+
+
 class GCNTrainer:
-    """Trains ChemGCN with ``cfg.impl`` pinned, on ``device`` (the current
-    CUDA device unless the caller asks for another)."""
+    """Trains ChemGCN with ``cfg.impl`` (``"auto"`` resolved per conv
+    layer and batch shape) on ``device`` (the current CUDA device unless
+    the caller asks for another)."""
 
     def __init__(self, cfg: GCNConfig, opt: AdamConfig | None = None,
                  tcfg: TrainerConfig | None = None, *, device=None):
@@ -65,15 +77,38 @@ class GCNTrainer:
         self.tcfg = tcfg
         self.device = resolve_device(device)
         self.manager = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep)
-        # only an ELL-class impl silently drops > k_pad nnz per row
-        self._ell_degree_guard = (
-            cfg.k_pad is not None
-            and precision_of(cfg.impl)[0] in ("ell", "pallas_ell"))
+        # batch shape → whether any conv layer runs an ELL-class impl there
+        self._ell_by_shape: dict[tuple, bool] = {}
 
-    def layer_decision(self, batch=None):
-        raise NotImplementedError(
-            "layer_decision() audits the autotune, which is not ported "
-            "(ROADMAP.md); the port's impl is the pinned cfg.impl")
+    def _needs_ell_guard(self, batch: dict) -> bool:
+        """Whether an ELL-class impl runs on this batch's shapes: pinned, or
+        the resolution of any conv layer under ``auto`` (shape-keyed and
+        memoized; the degree check itself runs on every such batch)."""
+        cfg = self.cfg
+        if cfg.k_pad is None or cfg.impl not in ("auto",) + _ELL_IMPLS:
+            return False
+        x = batch["x"]
+        key = (x.shape[0], x.shape[1], max(a.nnz_pad for a in batch["adj"]))
+        if key not in self._ell_by_shape:
+            self._ell_by_shape[key] = (
+                cfg.impl in _ELL_IMPLS
+                or any(d.impl in _ELL_IMPLS for d in resolve_conv_impls(
+                    cfg, *key, itemsize=x.element_size(),
+                    device=self.device)))
+        return self._ell_by_shape[key]
+
+    def layer_decision(self, batch: dict):
+        """The first conv layer's ``repro_torch.autotune.Decision`` for one
+        training batch, as the step resolves it on the trainer's device:
+        fused kernel against stacked SpMM for ``layer="gcn"``, the g-SpMM
+        workload for ``"gat"`` and ``"rgcn"``. The batch may lie on the
+        host: only its shapes are read."""
+        adj, x = batch["adj"], batch["x"]
+        nnz_pad = (max(a.nnz_pad for a in adj) if self.cfg.layer == "gcn"
+                   else adj[0].row_ids.shape[1])
+        return resolve_conv_impls(self.cfg, x.shape[0], x.shape[1], nnz_pad,
+                                  itemsize=x.element_size(),
+                                  device=self.device)[0]
 
     def init_state(self):
         """Fresh parameters from ``tcfg.seed`` (a ``torch.Generator``: not
@@ -133,11 +168,12 @@ class GCNTrainer:
         Resume: the newest checkpoint is restored and the first ``start``
         batches of the stream are skipped, so a save, kill and restart
         continues the same trajectory. Checkpoints every
-        ``tcfg.checkpoint_every`` steps and once at the end. An ELL-class
-        ``cfg.impl`` checks every batch's row degrees against ``cfg.k_pad``
-        before its step. ``on_metrics(epoch, record)`` gets the last step's
-        loss, accuracy and gradient norm as floats after each epoch that
-        trained. ``on_phase``, a timing hook, is called with ``"batch"``
+        ``tcfg.checkpoint_every`` steps and once at the end. Where an
+        ELL-class impl runs (pinned, or resolved by ``auto`` for the
+        batch's shapes), every batch's row degrees are checked against
+        ``cfg.k_pad`` before its step. ``on_metrics(epoch, record)`` gets
+        the last step's loss, accuracy and gradient norm as floats after
+        each epoch that trained. ``on_phase``, a timing hook, is called with ``"batch"``
         once a batch is on the device, then by :meth:`train_step`.
 
         Returns (params, state, the last record's loss, acc, grad_norm)."""
@@ -154,7 +190,7 @@ class GCNTrainer:
                 seen += 1
                 if seen <= start:
                     continue    # already trained before the restart
-                if self._ell_degree_guard:
+                if self._needs_ell_guard(b):
                     for a in b["adj"]:
                         validate_ell_k_pad(a, b["x"].shape[1], self.cfg.k_pad)
                 placed = self.place_batch(b)

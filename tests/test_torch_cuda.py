@@ -1569,3 +1569,56 @@ def test_precision_case3_runs_the_large_entries_on_the_card(dev):
         want = ops.batched_spmm(coo.to("cpu"), b.cpu(), impl=impl, k_pad=1)
         torch.testing.assert_close(
             got.cpu(), want, **(BF16_TOL if impl.endswith("bf16") else TOL))
+
+
+@pytest.mark.parametrize("layer", (False, True))
+def test_auto_on_the_card_ranks_kernels_and_matches_plain(dev, layer):
+    """impl="auto" on CUDA tensors ranks the kernel impls (the CPU posture
+    ranks none), runs the impl it resolved to, and agrees with the same
+    call's plain version on the CPU within the f32 tolerance."""
+    from repro_torch.core.graph_conv import graph_conv_batched, \
+        resolve_graph_conv_impl
+    from repro_torch.kernels import ops
+
+    coo, m_pad = _regime("uniform")
+    b = torch.randn((coo.batch, m_pad, 48))
+    if layer:
+        adj = [coo, coo]
+        params = {"w": torch.randn((2, 48, 40)), "b": torch.randn((2, 40))}
+        d = resolve_graph_conv_impl([a.to(dev) for a in adj], b.to(dev), 40,
+                                    k_pad=8)
+        d_cpu = resolve_graph_conv_impl(adj, b, 40, k_pad=8)
+
+        def run(where):
+            return graph_conv_batched(
+                {k: v.to(where) for k, v in params.items()},
+                [a.to(where) for a in adj], b.to(where), k_pad=8)
+    else:
+        d = ops.resolve_impl(coo.to(dev), b.to(dev), k_pad=8)
+        d_cpu = ops.resolve_impl(coo, b, k_pad=8)
+
+        def run(where):
+            return ops.batched_spmm(coo.to(where), b.to(where), k_pad=8)
+    ranked = {i for i, _ in d.scores}
+    assert ranked & {"pallas_coo", "pallas_csr", "pallas_ell"}
+    assert not {i for i, _ in d_cpu.scores} & {"pallas_coo", "pallas_csr",
+                                                 "pallas_ell", "fused"}
+    assert d.source == "model" and d.impl == d.scores[0][0]
+    torch.testing.assert_close(run(dev).cpu(), run("cpu"), **TOL)
+
+
+def test_measure_workload_times_every_kernel_impl_on_the_card(dev):
+    """measure_workload on the card: a positive time for every kernel impl
+    asked for, SpMM and layer workloads alike."""
+    from repro_torch.autotune import Workload, measure_workload
+
+    spmm = ("pallas_ell", "pallas_csr", "pallas_coo", "pallas_hybrid",
+            "pallas_gemm", "pallas_csr_bf16", "pallas_ell_i8")
+    w = Workload(batch=8, m_pad=24, nnz_pad=64, k_pad=8, n_b=32)
+    times = measure_workload(w, spmm, device=dev, iters=2)
+    assert set(times) == set(spmm) and min(times.values()) > 0
+    layer = Workload(batch=8, m_pad=24, nnz_pad=64, k_pad=8, n_b=32,
+                     channels=4, n_in=16)
+    times = measure_workload(layer, ("fused", "fused_hybrid", "fused_bf16",
+                                     "pallas_coo"), device=dev, iters=2)
+    assert len(times) == 4 and min(times.values()) > 0

@@ -161,7 +161,22 @@ def test_gcn_module_mirrors_reference_names():
 def test_unported_config_and_device_paths_raise(monkeypatch):
     cfg, np_params, _, bt = _setup("tox21")
     params = params_from_jax(np_params, _port_cfg(cfg), device="cpu")
-    for kw, err in (({"impl": "auto"}, ValueError),
+    # impl="auto" is ported: it resolves every layer (the CPU ranks no
+    # kernel impl) and gives the bits of the impls it resolved to
+    auto = _port_cfg(cfg, impl="auto")
+    decisions = tgcn.resolve_conv_impls(auto, bt["x"].shape[0],
+                                        bt["x"].shape[1],
+                                        bt["adj"][0].nnz_pad, device="cpu")
+    assert len({d.impl for d in decisions}) == 1
+    assert all(d.source == "model" and not d.impl.startswith(("pallas",
+                                                                "fused"))
+               for d in decisions)
+    np.testing.assert_array_equal(
+        tgcn.apply_gcn(params, auto, bt["adj"], bt["x"],
+                       bt["n_nodes"]).numpy(),
+        tgcn.apply_gcn(params, _port_cfg(cfg, impl=decisions[0].impl),
+                       bt["adj"], bt["x"], bt["n_nodes"]).numpy())
+    for kw, err in (({"impl": "pallas_auto"}, ValueError),
                     ({"layer": "gat", "batched": False}, ValueError),
                     ({"layer": "rgcn", "batched": False}, ValueError),
                     ({"layer": "sage"}, ValueError),

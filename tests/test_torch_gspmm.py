@@ -204,8 +204,24 @@ def test_message_passing_matches_reference_and_gspmm():
         np.testing.assert_array_equal(
             got.numpy(), ops.batched_gspmm(ct, torch.from_numpy(b), op=op,
                                            reduce=reduce, impl="csr").numpy())
-    with pytest.raises(ValueError, match="auto"):
-        resolve_message_passing_impl(ct, torch.from_numpy(b))
+    # impl="auto" resolves over the g-SpMM ladder, as the reference's: a
+    # pinned impl is the same forced Decision, "auto" one the CPU runs (no
+    # kernel impl ranked) that gives the pinned impl's bits
+    bt = torch.from_numpy(b)
+    for op, reduce in (("copy_lhs", "mean"), ("add", "max")):
+        d = resolve_message_passing_impl(ct, bt, op=op, reduce=reduce)
+        assert d.source == "model" and ops.supports_gspmm(d.impl)
+        assert not d.impl.startswith("pallas") and d.workload.is_gspmm
+        np.testing.assert_array_equal(
+            message_passing(ct, bt, op=op, reduce=reduce).numpy(),
+            message_passing(ct, bt, op=op, reduce=reduce,
+                            impl=d.impl).numpy())
+        f = resolve_message_passing_impl(ct, bt, op=op, reduce=reduce,
+                                         impl="csr")
+        jf_ = j_ops.resolve_gspmm_impl(coo, jnp.asarray(b), op=op,
+                                       reduce=reduce, impl="csr")
+        assert (f.impl, f.kind, f.source, f.workload.key()) == (
+            jf_.impl, jf_.kind, jf_.source, jf_.workload.key())
 
 
 def test_gspmm_validates_op_reduce_and_impl():
@@ -218,8 +234,14 @@ def test_gspmm_validates_op_reduce_and_impl():
     for impl in ("dense", "pallas_gemm", "hybrid", "pallas_hybrid"):
         with pytest.raises(ValueError, match="cannot run g-SpMM"):
             ops.batched_gspmm(ct, bt, reduce="max", impl=impl)
-    with pytest.raises(ValueError, match="auto"):
-        ops.batched_gspmm(ct, bt, reduce="max", impl="auto")
+    # impl="auto" picks a g-SpMM-capable impl and gives its bits
+    d = ops.resolve_gspmm_impl(ct, bt, reduce="max")
+    assert ops.supports_gspmm(d.impl) and d.workload.d_e == bt.shape[-1]
+    np.testing.assert_array_equal(
+        ops.batched_gspmm(ct, bt, reduce="max", impl="auto",
+                          k_pad=k_pad).numpy(),
+        ops.batched_gspmm(ct, bt, reduce="max", impl=d.impl,
+                          k_pad=k_pad).numpy())
     with pytest.raises(ValueError, match="k_pad"):
         ops.batched_gspmm(ct, bt, reduce="max", impl="pallas_ell")
     with pytest.raises(ValueError, match="k_pad"):

@@ -346,8 +346,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 def test_dispatch_raises_for_unported_paths():
     _, coo, _, b, k_pad = case("uniform")
     bt = torch.from_numpy(b)
-    with pytest.raises(ValueError, match="Autotune"):
-        ops.batched_spmm(coo, bt, impl="auto")
+    # impl="auto" (the default) resolves on the CPU to a plain impl and
+    # gives its bits, within the f32 tolerance of the reference's ref
+    d = ops.resolve_impl(coo, bt, k_pad=k_pad)
+    assert d.source == "model" and not d.impl.startswith("pallas")
+    got = ops.batched_spmm(coo, bt, k_pad=k_pad)
+    np.testing.assert_array_equal(
+        got.numpy(), ops.batched_spmm(coo, bt, impl=d.impl,
+                                      k_pad=k_pad).numpy())
+    np.testing.assert_allclose(got.numpy(), _jax_spmm("uniform", "ref"),
+                               atol=TOLS["f32"][0], rtol=TOLS["f32"][1])
     # the precision variants are ported: the SpMM ones run (in B's dtype,
     # within TOLS["bf16"] of ref), the layer ones only as layers
     for impl in ("pallas_hybrid_bf16", "pallas_ell_bf16"):

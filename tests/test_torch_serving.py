@@ -136,8 +136,15 @@ def test_wave_composition_invariance_bitwise_on_cpu(impl):
 
 def test_engine_contract_raises(monkeypatch):
     cfg, np_params = _params("sample")
-    with pytest.raises(ValueError, match="Autotune"):
-        _port_engine("auto")
+    # impl="auto" serves with the impl its first layer resolves to on the
+    # CPU, bit for bit
+    auto = _port_engine("auto")
+    d = auto.layer_decision()
+    assert d.source == "model" and not d.impl.startswith(("pallas", "fused"))
+    served = auto.run(_requests(GraphRequest))
+    pinned = _port_engine(d.impl).run(_requests(GraphRequest))
+    for a, p in zip(served, pinned):
+        np.testing.assert_array_equal(a.logits, p.logits)
     with pytest.raises(TypeError, match="mesh"):
         _port_engine("fused", mesh=object())
     eng = _port_engine("fused")
@@ -151,8 +158,9 @@ def test_engine_contract_raises(monkeypatch):
     with pytest.raises(ValueError, match="precision"):
         GraphServeEngine(eng.params, eng.cfg, **GEOM, precision="fp8",
                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.layer_decision()
+    d = eng.layer_decision()
+    assert (d.impl, d.source, d.workload.key()) == (
+        "fused", "forced", "b4_m16_nnz64_k8_n64_i4_c4_nin62")
     with pytest.raises(NotImplementedError):
         eng.compiled_programs()
     with pytest.raises(ValueError, match="slots"):

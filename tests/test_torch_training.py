@@ -333,13 +333,18 @@ def test_train_step_phases_and_metrics(tmp_path):
     phases.clear()
     trainer.fit(_tox21_batches(tgraphs)[:1], on_phase=phases.append)
     assert phases == ["batch", "forward", "backward", "optimizer"]
-    with pytest.raises(NotImplementedError):
-        trainer.layer_decision(batch)
+    d = trainer.layer_decision(batch)
+    assert (d.impl, d.source, d.workload.channels) == ("fused", "forced", 4)
+    assert d.case == d.plan.case != 3
     with pytest.raises(ValueError, match="TrainerConfig"):
         GCNTrainer(tgcn.GCNConfig.tox21(impl="fused"), device="cpu")
-    with pytest.raises(ValueError, match="auto"):
-        GCNTrainer(tgcn.GCNConfig.tox21(), tcfg=TrainerConfig(str(tmp_path)),
-                   device="cpu")
+    # the default impl="auto" trains: its decision is the model's on the CPU
+    auto = GCNTrainer(tgcn.GCNConfig.tox21(),
+                      tcfg=TrainerConfig(str(tmp_path / "auto")),
+                      device="cpu")
+    d = auto.layer_decision(batch)
+    assert auto.cfg.impl == "auto" and d.source == "model"
+    assert not d.impl.startswith(("pallas", "fused"))
 
 
 def test_trainer_and_state_conversion_default_to_cuda(monkeypatch, tmp_path):
