@@ -103,9 +103,27 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    pinned impl (exact launches, logits within F32_TOL of ref, losses
    within F32_TOL of the pinned run); GAT, R-GCN and the bf16 policy serve
    Tox21 with ``auto``; the case-3 decision at 2 x 9000 is the forced
-   ``ref``, timed beside the CSR large entry.
+   ``ref``, timed beside the CSR large entry;
+12. continuous batching (``repro_torch.scheduler``): 512 skewed Tox21-like
+   requests over the 3-rung ladder ``TierPolicy.from_requests`` gives at
+   128-slot waves; the fused, ELL, COO (SpMM and g-SpMM), CSR kernels and
+   the grouped matmul at each rung against their plain versions; per impl
+   (``GCNConfig.tox21`` with auto, fused, pallas_coo, pallas_csr,
+   pallas_ell, and R-GCN auto) a warmed ``Scheduler`` on the default
+   device drains every request on the wall clock, then on a VirtualClock
+   (Poisson arrivals at half the wall run's throughput, seed 0, each
+   tier's median wave time as the service model): every request done and
+   within F32_TOL of ``ref`` at the tier it rode, one program per tier
+   used, exact launches per wave, no kernel library loaded while draining,
+   each tier's decision with its measured / predicted ratio; ``[sched]``
+   lines (throughput, p50 / p99, padding waste, fill, host / device ms a
+   wave, the card); a telemetry drain (pallas_coo) exported as strict
+   Chrome JSON with sched/wave > serve/wave > spmm/* nested and a regret
+   report; the device idle share of one ``auto`` drain under
+   ``torch.profiler`` and its three longest gaps by enclosing span; 10
+   fused Tox21 training steps with the trainer's telemetry.
 
-Before phases 4-11, the LM zoo's serving path runs (and frees its model):
+Before phases 4-12, the LM zoo's serving path runs (and frees its model):
 
 - the flash-attention kernel against its plain version at the Llama-3-8B
   prefill shape (bf16 within one bf16 ulp, timed beside its bound and SDPA;
@@ -221,6 +239,13 @@ TRAIN_GNN_STEPS = 12           # GAT / R-GCN Tox21 steps (a resume at 10)
 # the degree-skewed geometry the reference benchmarks the hybrid split on
 # (benchmarks/bench_formats.py "powerlaw"), seed 0
 POWERLAW = dict(batch=40, dim=256, avg_deg=8)
+# continuous-batching serving (phase_scheduler): skewed Tox21-like traffic
+# over a 3-rung ladder of 128-slot waves, the impls it serves with, and the
+# trainer-telemetry steps
+SCHED = dict(n_requests=512, levels=3, batch=128, flush_after=0.05,
+             default_slo=0.5)
+SCHED_IMPLS = ("auto", "fused", "pallas_coo", "pallas_csr", "pallas_ell")
+SCHED_TRAIN = dict(steps=10, log_every=5)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # Llama-3-8B at full width, bf16, seed-0 random weights. Prefill: 2 x 4096
 # prompt tokens (train_4k's length; prefill_32k's 32 x 32768 is cut to fit
@@ -3174,6 +3199,501 @@ def _lm_paths(device):
     return paths
 
 
+def _rung_kernels(device, policy, requests, errs):
+    """Kernels 1-4 and 7 at each rung of the scheduler's ladder, on the
+    wave that rung's own requests make (at most one wave of them), against
+    their plain versions: the fused layer (layer 1, 62 -> 64, and a
+    64 -> 64 layer on masked random features), the stacked ELL, COO and CSR
+    SpMMs (the three batched entries twice for identical bits), the COO
+    kernel's g-SpMM entry at R-GCN's (copy_lhs, mean) aggregation and the
+    grouped matmul of R-GCN's relation transform. Updates ``errs``."""
+    import torch
+    from repro_torch.core.formats import coo_to_csr, coo_to_ell
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.core.graph_conv import flatten_channels, stack_channels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo
+    from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr
+    from repro_torch.kernels.batched_spmm_ell import batched_spmm_ell
+    from repro_torch.kernels.fused_graph_conv import fused_forward, \
+        runtime_chunks
+    from repro_torch.kernels.grouped_matmul import _gmm, _row_groups
+    from repro_torch.serving.engine import GraphServeEngine
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    cfg = GCNConfig.tox21(impl="fused", bn_mode="sample")
+    params = _params(cfg, 0, device)
+    conv = params["convs"][0]
+
+    def note(kname, err):
+        errs[kname] = max(errs[kname], err)
+        return f"{kname} {err:.2e}"
+
+    for tier in policy.tiers:
+        mine = [r for r in requests if policy.assign(r) == tier][:tier.batch]
+        m = tier.m_pad
+        wave = GraphServeEngine(params, cfg, device=device, batch=tier.batch,
+                                m_pad=m, nnz_pad=tier.nnz_pad).assemble(mine)
+        tag = f"rung {tier.key}"
+        out = []
+        rid, cid, val, nnz_sc = stack_channels(wave.adj)
+        chunks = runtime_chunks(nnz_sc)
+        x2 = torch.relu(torch.randn((tier.batch, m, 64), generator=gen)).to(
+            device) * (torch.arange(m, device=device)[None, :, None]
+                       < wave.n_nodes[:, None, None])
+        w2 = (torch.randn((4, 64, 64), generator=gen) / 8).to(device)
+        for x, w, bias, layer in ((wave.x, conv["w"], conv["b"], 1),
+                                  (x2, w2, conv["b"], 2)):
+            out.append(note("fused_forward", max_err(
+                fused_forward(rid, cid, val, chunks, x, w, bias),
+                ref.fused_graph_conv_plain(rid, cid, val, chunks, x, w, bias),
+                f"{tag} fused_forward layer {layer}")))
+        a = flatten_channels(wave.adj)
+        u = (torch.einsum("bmn,cnf->cbmf", wave.x, conv["w"])
+             + conv["b"][:, None, None, :]).reshape(-1, m, 64).contiguous()
+        ell = coo_to_ell(a, m, cfg.k_pad)
+        csr = coo_to_csr(a, m)
+        h = torch.randn((a.batch, m, 64), generator=gen).to(device)
+        cases = (
+            ("batched_spmm_ell",
+             lambda: batched_spmm_ell(ell.col_ids, ell.values, u),
+             lambda: ref.batched_spmm_ell_plain(ell.col_ids, ell.values, u)),
+            ("batched_spmm_coo",
+             lambda: batched_spmm_coo(a.row_ids, a.col_ids, a.values, u),
+             lambda: ref.batched_spmm_coo_plain(a.row_ids, a.col_ids,
+                                                a.values, u)),
+            ("batched_spmm_csr",
+             lambda: batched_spmm_csr(csr.rpt, csr.col_ids, csr.values, u),
+             lambda: ref.batched_spmm_csr_plain(csr.rpt, csr.col_ids,
+                                                csr.values, u)),
+            ("batched_spmm_coo",
+             lambda: batched_spmm_coo(a.row_ids, a.col_ids, a.values, h,
+                                      nnz=a.nnz, op="copy_lhs",
+                                      reduce="mean"),
+             lambda: ref.batched_gspmm_coo_plain(
+                 a.row_ids, a.col_ids, a.values, a.nnz, h, op="copy_lhs",
+                 reduce="mean")))
+        for kname, kern, plain in cases:
+            got = kern()
+            out.append(note(kname, max_err(got, plain(), f"{tag} {kname}")))
+            check(torch.equal(got, kern()), f"{tag} {kname}: two calls differ")
+        e = cfg.channels
+        xt = wave.x.reshape(1, -1, wave.x.shape[-1]).expand(e, -1, -1) \
+            .reshape(-1, wave.x.shape[-1]).contiguous()
+        rg = _row_groups(torch.full((e,), xt.shape[0] // e, dtype=torch.int32,
+                                    device=device), xt.shape[0], e)
+        w_rel = (torch.randn((e, wave.x.shape[-1], 64), generator=gen)
+                 / 8).to(device)
+        got = _gmm(xt, w_rel, rg)
+        out.append(note("grouped_matmul", max_err(
+            got, ref.grouped_matmul_ref(xt, rg, w_rel),
+            f"{tag} grouped_matmul")))
+        check(torch.equal(got, _gmm(xt, w_rel, rg)),
+              f"{tag} grouped_matmul: two calls differ")
+        log(f"[sched rung] {tier.key} ({len(mine)} requests, {a.batch} "
+            f"stacked matrices, {int(a.nnz.sum())} real nnz, M {xt.shape[0]} "
+            f"for the grouped matmul): max abs err vs plain: "
+            + ", ".join(out) + "; ELL, COO (SpMM, g-SpMM), CSR and the "
+            "grouped matmul identical bits twice")
+
+
+def _time_waves(sched):
+    """Wrap each warmed tier engine's ``run_wave`` so that every wave's
+    host assembly and device forward are timed apart (a sync at each of
+    the engine's ``on_phase`` marks). Returns the sink: ms are appended to
+    its ``"host"`` and ``"dev"`` lists, which the caller may swap."""
+    import torch
+
+    sink = {"host": [], "dev": []}
+    for tier in sched.programs.tiers():
+        eng = sched.programs.get(tier).engine
+
+        def run_wave(wave, inner=eng.run_wave):
+            marks = []
+
+            def mark(_phase):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = inner(wave, on_phase=mark)
+            sink["host"].append((marks[0] - t0) * 1e3)
+            sink["dev"].append((marks[1] - marks[0]) * 1e3)
+            return report
+
+        eng.run_wave = run_wave
+    return sink
+
+
+def _sched_line(tag, m, host, dev, card):
+    s = m.summary()
+    log(f"[sched] {tag}: {s['served']} served, {s['rejected']} rejected in "
+        f"{s['waves']} waves over tiers "
+        f"{sorted({w.tier_key for w in m.waves})}; throughput "
+        f"{s['throughput_rps']:.1f} requests/s, latency p50 "
+        f"{s['latency_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{s['latency_p99_s'] * 1e3:.3f} ms, mean wait "
+        f"{s['mean_wait_s'] * 1e3:.3f} ms, {s['deadline_misses']} deadline "
+        f"misses; padding waste nodes {s['padding_waste_nodes']:.4f}, nnz "
+        f"{s['padding_waste_nnz']:.4f}; fill rate {s['fill_rate']:.4f}; "
+        f"median ms per wave: host assembly {statistics.median(host):.3f}, "
+        f"device forward {statistics.median(dev):.3f} ({card})")
+
+
+def _ratio(entries, key, impl):
+    """Geometric mean of measured / predicted over the regret auditor's
+    ``entries`` of ``impl`` at workload ``key``, and their count."""
+    import math
+
+    logs = [math.log(m / e.predicted[impl]) for e in entries
+            if e.key == key and e.chosen == impl
+            for i, m in e.measured.items()
+            if i == impl and e.predicted.get(impl)]
+    return (math.exp(sum(logs) / len(logs)) if logs else None), len(logs)
+
+
+def _idle_share(sched, requests):
+    """One traced drain: ``sched.serve(requests)`` under ``torch.profiler``
+    (CPU and CUDA). Returns (wall ms, kernel ms, kernels, idle share of the
+    wall with no kernel running, idle share with no kernel or copy, the
+    three longest gaps as (ms, enclosing span))."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("drain"):
+            sched.serve(requests)
+            torch.cuda.synchronize()
+    evs = prof.events()
+    drain = next(e for e in evs if e.name == "drain"
+                 and e.device_type == DeviceType.CPU)
+    t0, t1 = drain.time_range.start, drain.time_range.end
+    # device activity: kernels and copies; a record_function range also
+    # shows on the device track (a user annotation from its first kernel
+    # to its last), which is not work
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in evs if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and e.name not in ("drain", "sched/wave", "serve/wave"))
+    check(bool(dev), "idle share: the trace holds no device activity")
+    spans = [e for e in evs if e.device_type == DeviceType.CPU
+             and e.name in ("sched/wave", "serve/wave")]
+
+    def busy(intervals):
+        tot, end = 0.0, t0
+        gaps = []
+        for a, b in sorted(intervals):
+            a, b = max(a, t0), min(b, t1)
+            if b <= end:
+                continue
+            if a > end:
+                gaps.append((end, a))
+            tot += b - max(a, end)
+            end = b
+        gaps.append((end, t1))
+        return tot, gaps
+
+    kern = [(a, b) for a, b, name in dev
+            if "memcpy" not in name.lower() and "memset" not in name.lower()]
+    k_busy, gaps = busy(kern)
+    d_busy, _ = busy([(a, b) for a, b, _ in dev])
+    wall = t1 - t0
+
+    def enclosing(a, b):
+        mid = (a + b) / 2
+        inside = [e for e in spans
+                  if e.time_range.start <= mid <= e.time_range.end]
+        return (min(inside, key=lambda e: e.time_range.elapsed_us()).name
+                if inside else "scheduler loop, outside any wave span")
+
+    top = sorted(gaps, key=lambda g: g[0] - g[1])[:3]
+    return (wall / 1e3, k_busy / 1e3, len(kern), 1 - k_busy / wall,
+            1 - d_busy / wall,
+            [((b - a) / 1e3, enclosing(a, b)) for a, b in top])
+
+
+def phase_scheduler(device, card, errs):
+    """Continuous-batching serving through ``repro_torch.scheduler`` at
+    ``GCNConfig.tox21()`` width on skewed Tox21-like traffic (SCHED): the
+    ladder's kernels at each rung against their plain versions; then per
+    impl (SCHED_IMPLS) a warmed ``Scheduler`` on the default device drains
+    every request on the wall clock and again on a VirtualClock (Poisson
+    arrivals at half the wall run's throughput, each tier's median wave
+    time as the service model): every request done, its logits within
+    F32_TOL of ``ref`` at the tier it rode, one program per tier used,
+    exact launches per wave, no kernel library built or loaded while
+    draining; a telemetry drain (pallas_coo) whose Chrome export nests
+    sched/wave > serve/wave > spmm/* and whose regret report is not empty;
+    the device idle share of one traced ``auto`` drain; and 10 Tox21 steps
+    with the trainer's telemetry. Returns launches per kernel of each
+    path."""
+    import json as json_mod
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import observability as obs
+    from repro_torch.core.gcn import GCNConfig, resolve_conv_impls
+    from repro_torch.data.graphs import GraphDatasetSpec, generate
+    from repro_torch.kernels import _build
+    from repro_torch.scheduler import RealClock, Scheduler, \
+        SchedulerConfig, TierPolicy, VirtualClock
+    from repro_torch.serving.engine import GraphServeEngine
+    from repro_torch.training.trainer import GCNTrainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    spec = GraphDatasetSpec.tox21_like(SCHED["n_requests"],
+                                       size_dist="skewed", seed=0)
+    data = generate(spec)
+    policy = TierPolicy.from_requests(
+        [(s.n_nodes, max(len(r) for r in s.rows)) for s in data],
+        levels=SCHED["levels"], batch=SCHED["batch"])
+    config = SchedulerConfig(flush_after=SCHED["flush_after"],
+                             default_slo=SCHED["default_slo"])
+    log(f"[sched] traffic: {len(data)} skewed Tox21-like requests, ladder "
+        f"{[t.key for t in policy.tiers]}; {config}")
+    _rung_kernels(device, policy, _requests(spec), errs)
+
+    rgcn_per_impl = {"ref": {"grouped_matmul": 2}}
+    rgcn_per_impl.update({i: {"grouped_matmul": 2, k: 2} for i, k in (
+        ("pallas_coo", "batched_spmm_coo"), ("pallas_csr", "batched_spmm_csr"),
+        ("pallas_ell", "batched_spmm_ell"))})
+    ref_logits = {}     # (layer, tier key) -> {request index: logits}
+
+    def ref_of(layer, cfg_fn, params, tier, idx):
+        """``ref``'s logits of the requests ``idx`` at ``tier``'s geometry
+        (cached): by bn_mode="sample" a request's logits do not depend on
+        its wave, so they are scored in ref waves of the tier; the first of
+        each batch is also scored alone and held to them."""
+        got = ref_logits.setdefault((layer, tier.key), {})
+        todo = [i for i in idx if i not in got]
+        if todo:
+            eng = GraphServeEngine(
+                params, cfg_fn(impl="ref", bn_mode="sample"), device=device,
+                batch=tier.batch, m_pad=tier.m_pad, nnz_pad=tier.nnz_pad)
+            reqs = _requests(spec)
+            for k in range(0, len(todo), tier.batch):
+                part = [reqs[i] for i in todo[k:k + tier.batch]]
+                eng.run_wave(part)
+                for i, r in zip(todo[k:k + tier.batch], part):
+                    check(r.done, f"ref at {tier.key}: request {i} failed")
+                    got[i] = r.logits
+            alone = _requests(spec)[todo[0]]
+            eng.run_wave([alone])
+            max_err(torch.from_numpy(alone.logits),
+                    torch.from_numpy(got[todo[0]]),
+                    f"ref at {tier.key}: request {todo[0]} alone vs in a "
+                    "wave")
+        return np.stack([got[i] for i in idx])
+
+    paths = {}
+    runs = [("gcn", i, GCNConfig.tox21) for i in SCHED_IMPLS] + [
+        ("rgcn", "auto", lambda **kw: GCNConfig.tox21(layer="rgcn", **kw))]
+    for layer, impl, cfg_fn in runs:
+        tag = f"tox21 {layer} {impl}"
+        params = _params(cfg_fn(impl="ref"), 0, device)
+        cfg = cfg_fn(impl=impl)
+        sched = Scheduler(params, cfg, tiers=policy, config=config)
+        check(isinstance(sched.clock, RealClock)
+              and sched.device.type == torch.device(DEVICE).type,
+              f"{tag}: the scheduler's default clock and device")
+        reqs = _requests(spec)
+        n_prog = sched.warmup(reqs)
+        aud = obs.default_auditor()
+        n_aud = len(aud.entries)
+        sink = _time_waves(sched)
+        libs = dict(_build._libs)
+        wrappers = _reset_counters()
+        sched.serve(reqs)
+        m = sched.metrics
+        used = {w.tier_key for w in m.waves}
+        _sched_line(f"impl={impl} {layer}, wall clock", m, sink["host"],
+                    sink["dev"], card)
+        med = {}
+        for w in m.waves:
+            med.setdefault(w.tier_key, []).append(w.service_time)
+        med = {k: statistics.median(v) for k, v in med.items()}
+        rps = 0.5 * m.throughput
+        arrivals = list(np.cumsum(np.random.default_rng(0).exponential(
+            1.0 / rps, len(reqs))))
+        vsched = Scheduler(
+            params, cfg, tiers=policy, config=config, clock=VirtualClock(),
+            service_model=lambda tier, n: med.get(tier.key, max(med.values())),
+            engine_factory=lambda tier: sched.programs.get(tier).engine)
+        vreqs = _requests(spec)
+        sink["host"], sink["dev"] = [], []      # the engines are shared
+        vsched.serve(vreqs, arrivals=arrivals)
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        check(dict(_build._libs) == libs,
+              f"{tag}: a kernel library was built or loaded while draining")
+        _sched_line(f"impl={impl} {layer}, VirtualClock (Poisson "
+                    f"{rps:.1f} requests/s, seed 0; service model: the wall "
+                    f"run's median wave s per tier "
+                    f"{ {k: round(v, 6) for k, v in med.items()} })",
+                    vsched.metrics, sink["host"], sink["dev"], card)
+        per_impl = SERVE_TOX21_LAUNCHES if layer == "gcn" else rgcn_per_impl
+        want = {k: 0 for k in counts}
+        for w in m.waves + vsched.metrics.waves:
+            tier = next(t for t in policy.tiers if t.key == w.tier_key)
+            for k, n in _auto_expect(resolve_conv_impls(
+                    cfg, tier.batch, tier.m_pad, tier.nnz_pad,
+                    device=device), per_impl).items():
+                want[k] += n
+        check(counts == want, f"{tag}: launches {counts}, expected {want} "
+                              f"({len(m.waves) + len(vsched.metrics.waves)} "
+                              "waves)")
+        paths[f"serve {tag} scheduler"] = counts
+        for s, rs in ((sched, reqs), (vsched, vreqs)):
+            check(all(r.done and not r.failed for r in rs),
+                  f"{tag}: {sum(not r.done for r in rs)} requests not done")
+            # one program per tier that served a wave or was warmed
+            tiers_used = {w.tier_key for w in s.metrics.waves} | {
+                t.key for t in s.programs.tiers() if s.programs.get(t).warmed}
+            check(s.metrics.compile_count == len(tiers_used)
+                  and s.programs.jit_cache_sizes() == {},
+                  f"{tag}: compile count {s.metrics.compile_count} for "
+                  f"tiers {tiers_used}")
+            by_tier = {}
+            for p in s.completed:
+                by_tier.setdefault(p.served_tier, []).append(p)
+            err = 0.0
+            for tier, ps in by_tier.items():
+                want_l = ref_of(layer, cfg_fn, params, tier,
+                                [p.seq for p in ps])
+                err = max(err, max_err(
+                    torch.from_numpy(np.stack([p.request.logits
+                                               for p in ps])),
+                    torch.from_numpy(want_l),
+                    f"{tag}: logits vs per-request ref at {tier.key}"))
+            log(f"[sched] impl={impl} {layer}: "
+                f"{'wall' if s is sched else 'virtual'} run's logits within"
+                f" {F32_TOL} of per-request ref at the tier each rode, max "
+                f"abs err {err:.3e}")
+        dec = []
+        for key, d in sched.programs.decisions().items():
+            r, n = _ratio(aud.entries[n_aud:], d.workload.key(), d.impl)
+            dec.append(f"{key}: {d.impl} ({d.source}, workload "
+                       f"{d.workload.key()}), measured/predicted "
+                       + (f"{r:.2f} over {n} waves" if r is not None else
+                          "no prediction (pinned)" if d.source == "forced"
+                          else "none recorded (a tier's first wave is "
+                          "skipped)"))
+        log(f"[sched] impl={impl} {layer}: {n_prog} programs warmed; "
+            f"decisions: " + "; ".join(dec))
+
+    # telemetry: pallas_coo's stacked SpMM dispatches through batched_spmm
+    cfg = GCNConfig.tox21(impl="pallas_coo")
+    params = _params(cfg, 0, device)
+    sched = Scheduler(params, cfg, tiers=policy, config=config)
+    reqs = _requests(spec)
+    sched.warmup(reqs)
+    obs.TRACER.clear()
+    aud = obs.default_auditor()
+    n0 = len(aud.entries)
+    wrappers = _reset_counters()
+    with obs.telemetry():
+        sched.serve(reqs)
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    want = {k: SERVE_TOX21_LAUNCHES["pallas_coo"].get(k, 0)
+            * len(sched.metrics.waves) for k in counts}
+    check(counts == want, f"telemetry drain: launches {counts}, expected "
+                          f"{want}")
+    paths["serve tox21 scheduler telemetry"] = counts
+    with tempfile.TemporaryDirectory() as tmp:
+        path = obs.export_chrome_trace(Path(tmp) / "sched_trace.json")
+        text = path.read_text()
+
+    def strict(tok):
+        raise SmokeFailure(f"trace export holds the non-strict {tok}")
+
+    doc = json_mod.loads(text, parse_constant=strict)
+    evs = obs.TRACER.events()
+    sw = [e for e in evs if e.name == "sched/wave"]
+    vw = [e for e in evs if e.name == "serve/wave"]
+    kw = [e for e in evs if e.name.startswith("spmm/")]
+
+    def inside(o, i):
+        return o.ts <= i.ts and i.ts + i.dur <= o.ts + o.dur
+
+    check(len(sw) == len(vw) == len(sched.metrics.waves) and kw,
+          f"telemetry: {len(sw)} sched/wave, {len(vw)} serve/wave, "
+          f"{len(kw)} kernel spans for {len(sched.metrics.waves)} waves")
+    check(all(any(inside(s, w) for s in sw) for w in vw),
+          "telemetry: a serve/wave outside every sched/wave")
+    check(all(any(inside(w, k) for w in vw) for k in kw),
+          "telemetry: a kernel span outside every serve/wave")
+    rep = aud.report()
+    check(len(aud.entries) > n0 and bool(rep["per_impl"]),
+          "telemetry: the regret report is empty")
+    spmm_ms = statistics.median([k.dur for k in kw]) / 1e3
+    log(f"[sched] telemetry drain (pallas_coo): {len(doc['traceEvents'])} "
+        f"events exported as strict JSON ({len(text)} bytes), "
+        f"{len(sw)} sched/wave > {len(vw)} serve/wave > {len(kw)} "
+        f"spmm/* spans nested; median spmm span {spmm_ms:.3f} ms (two "
+        f"syncs); regret per impl "
+        + json_mod.dumps(obs.sanitize_json(rep["per_impl"]))
+        + f" ({card})")
+    obs.TRACER.clear()
+
+    # the device idle share of one auto drain (telemetry off)
+    cfg = GCNConfig.tox21()
+    sched = Scheduler(_params(cfg, 0, device), cfg, tiers=policy,
+                      config=config)
+    reqs = _requests(spec)
+    sched.warmup(reqs)
+    wall, kern, n_kern, idle, idle_dev, gaps = _idle_share(sched, reqs)
+    check(all(r.done for r in reqs), "idle-share drain: requests not done")
+    log(f"[sched] idle share, auto drain of {len(reqs)} requests in "
+        f"{len(sched.metrics.waves)} waves (torch.profiler): wall "
+        f"{wall:.3f} ms, {n_kern} kernels busy {kern:.3f} ms; no kernel "
+        f"running "
+        f"{idle:.4f} of the wall, no kernel or copy {idle_dev:.4f}; longest "
+        f"gaps: " + "; ".join(f"{g:.3f} ms in {name}" for g, name in gaps)
+        + f" ({card})")
+
+    # a few Tox21 training steps with the trainer's telemetry
+    tdata = _train_batches(GraphDatasetSpec.tox21_like(
+        TRAIN_TOX21["n_samples"], seed=0), TRAIN_TOX21["batch"])
+    tdata = tdata[:SCHED_TRAIN["steps"]]
+    reg = obs.MetricsRegistry()
+    obs.TRACER.clear()
+    wrappers = _reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = GCNTrainer(GCNConfig.tox21(impl="fused"),
+                        tcfg=TrainerConfig(tmp, checkpoint_every=1000,
+                                           log_every=SCHED_TRAIN["log_every"]),
+                        registry=reg)
+        _, _, last = tr.fit(tdata, epochs=1)
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    want = {k: TRAIN_TOX21_LAUNCHES["fused"].get(k, 0) * len(tdata)
+            for k in counts}
+    check(counts == want, f"train telemetry: launches {counts}, expected "
+                          f"{want}")
+    paths["train tox21 telemetry"] = counts
+    labels = {"layer": "gcn", "impl": "fused"}
+    steps = [e for e in obs.TRACER.events() if e.name == "train/step"]
+    loss = reg.get("train_loss").value(**labels)
+    check(reg.get("train_steps_total").value(**labels) == len(tdata)
+          == SCHED_TRAIN["steps"] and len(steps) == len(tdata)
+          and np.isfinite(loss) and loss == last["loss"],
+          f"train telemetry: {reg.get('train_steps_total').value(**labels)}"
+          f" steps counted, {len(steps)} train/step spans, loss gauge {loss}")
+    log(f"[sched] train telemetry: {len(tdata)} fused Tox21 steps of "
+        f"{TRAIN_TOX21['batch']}, train_steps_total "
+        f"{reg.get('train_steps_total').value(**labels):.0f}, "
+        f"{len(steps)} train/step spans, loss gauge {loss:.5f}, grad norm "
+        f"{reg.get('train_grad_norm').value(**labels):.4f}, mean step "
+        f"{reg.get('train_step_seconds').sum(**labels) / len(tdata) * 1e3:.3f}"
+        f" ms (host-paced: no sync per step), graphs/s "
+        f"{reg.get('train_graphs_per_s').value(**labels):.1f} ({card})")
+    obs.TRACER.clear()
+    log(f"[sched] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3239,6 +3759,7 @@ def main() -> int:
     paths.update(phase_gnn_paths(device))
     paths.update(phase_precision_paths(device))
     paths.update(phase_autotune(device))
+    paths.update(phase_scheduler(device, card, errs))
     paths.update(lm_paths)
     paths.update(large_path)
     kernels = []

@@ -279,3 +279,32 @@ def plan_fused_graph_conv(*, batch: int, m_pad: int, n_in: int,
     p = -(-n_out // n_block)
     return BatchPlan(batch, m_pad, n_out, n_block, p, 1 if p == 1 else 2,
                      ring(n_block) if large else smem(n_block), large)
+
+
+def tier_ladder(
+    *,
+    m_max: int,
+    nnz_max: int,
+    levels: int = 3,
+    m_min: int = 2 * SUBLANES,
+    nnz_min: int = 64,
+) -> tuple[tuple[int, int], ...]:
+    """Geometry ladder of the serving scheduler's bucketing policy (the
+    reference's): ``levels`` (m_pad, nnz_pad) rungs halving down from the
+    dataset maxima, rows rounded to ``SUBLANES`` and nnz slots to 8 (as
+    ``coo_from_lists`` pads them). The top rung always covers (``m_max``,
+    ``nnz_max``), so every admissible request has a bucket; lower rungs
+    stop small molecules paying worst-case padding.
+    """
+    if levels < 1:
+        raise ValueError(f"levels must be >= 1, got {levels}")
+    m_top = _round_up(max(m_max, 1), SUBLANES)
+    nnz_top = _round_up(max(nnz_max, 1), 8)
+    ms, nnzs = [], []
+    m, nz = m_top, nnz_top
+    for _ in range(levels):
+        ms.append(max(_round_up(m, SUBLANES), _round_up(m_min, SUBLANES)))
+        nnzs.append(max(_round_up(nz, 8), _round_up(nnz_min, 8)))
+        m //= 2
+        nz //= 2
+    return tuple(sorted(set(zip(ms, nnzs))))

@@ -28,8 +28,15 @@ the capable subset :data:`GSPMM_IMPLS` with explicit padding masks, its
 forward through the ELL, CSR and COO kernels' g-SpMM entries on the card
 and its backward (:func:`gspmm_backward`) as plain gather/scatter, as in
 the reference.
+
+With telemetry on (``REPRO_TELEMETRY`` or
+``repro_torch.observability.telemetry()``) every :func:`batched_spmm` and
+:func:`batched_gspmm` dispatch runs inside a ``spmm/{impl}`` span
+(:func:`_traced_dispatch`); off, the dispatch pays one predicate.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -80,6 +87,7 @@ from repro_torch.kernels.batched_spmm_hybrid import (
     batched_spmm_hybrid_bf16,
     batched_spmm_hybrid_ref,
 )
+from repro_torch.observability import trace as obs_trace
 
 # - ref:        plain batched COO scatter-add (the oracle)
 # - ell:        plain ELL row split (gather + contraction)
@@ -170,6 +178,64 @@ def resolve_compute_dtype(a_dtype: torch.dtype,
     meet at their promoted dtype, so a full-precision operand is never
     cast down (bf16 with f32 computes f32)."""
     return torch.promote_types(a_dtype, b_dtype)
+
+
+def _traced_dispatch(f, values, b, *, impl, decision, workload):
+    """Run one dispatch under a telemetry span (the reference's
+    ``_traced_dispatch``).
+
+    Only reached when ``observability.enabled()`` — the hot path pays a
+    single predicate otherwise. The span (``spmm/{impl}``, for a g-SpMM
+    dispatch too, its ``op`` and ``reduce`` in the args) carries the
+    workload geometry, the decision's provenance, and the cost model's
+    *predicted* seconds and minimum bytes, so a trace viewer (and the regret
+    auditor) can line predicted up against measured. A kernel launch
+    returns before the kernel has run, so on the card the dispatch is
+    bracketed by ``torch.cuda.synchronize()``: the span and the auditor's
+    measured time are the wall between two syncs, the reference's
+    ``block_until_ready``. A dispatch made while the stream is capturing a
+    CUDA graph records its span but neither syncs nor feeds the auditor:
+    a capture is not an execution (the reference's traced-call rule).
+    """
+    from repro_torch.autotune.cost_model import estimate
+    from repro_torch.observability.regret import default_auditor
+
+    pred = dict(decision.scores).get(impl) if decision is not None else None
+    if pred is None:
+        try:
+            pred = estimate(workload, impl)
+        except ValueError:
+            pred = None
+        if pred == float("inf"):
+            pred = None
+    it = workload.itemsize
+    # impl-independent floor: value+index slots once, B and C once each
+    pred_bytes = (workload.batch * workload.nnz_pad * (it + 8)
+                  + 2 * workload.batch * workload.m_pad * workload.n_b * it)
+    args = {
+        "impl": impl, "key": workload.key(), "batch": workload.batch,
+        "m_pad": workload.m_pad, "nnz_pad": workload.nnz_pad,
+        "k_pad": workload.k_pad, "n_b": workload.n_b,
+        "dtype": workload.dtype, "op": workload.op,
+        "reduce": workload.reduce, "predicted_s": pred,
+        "predicted_bytes": pred_bytes,
+    }
+    if decision is not None:
+        args["source"] = decision.source
+        args["case"] = decision.case
+    capturing = b.is_cuda and torch.cuda.is_current_stream_capturing()
+    sync = b.is_cuda and not capturing
+    if sync:
+        torch.cuda.synchronize(b.device)
+    t0 = time.perf_counter()
+    with obs_trace.TRACER.span(f"spmm/{impl}", cat="kernel", args=args):
+        out = f(values, b)
+        if sync:
+            torch.cuda.synchronize(b.device)
+    if not capturing and pred is not None:
+        default_auditor().record(workload.key(), impl, predicted_s=pred,
+                                 measured_s=time.perf_counter() - t0)
+    return out
 
 
 # The backward class of each precision variant, checked before the base
@@ -433,9 +499,14 @@ def batched_spmm(a: BatchedCOO, b: torch.Tensor, *, impl: str = "auto",
     with ``precision`` as its storage policy; a concrete impl carries its
     own policy and ignores ``precision``."""
     check_impl(impl)
-    if impl == "auto":
-        impl = resolve_impl(a, b, impl=impl, k_pad=k_pad,
-                            precision=precision).impl
+    tele = obs_trace.enabled()
+    decision = None
+    if impl == "auto" or tele:
+        # telemetry also resolves a CONCRETE impl (a forced Decision), so
+        # the span carries the same workload, plan and case provenance
+        decision = resolve_impl(a, b, impl=impl, k_pad=k_pad,
+                                precision=precision)
+        impl = decision.impl
     if precision_of(impl)[0].startswith("fused"):
         raise ValueError(
             f"impl={impl!r} is the graph-conv LAYER kernel (it needs W and "
@@ -444,6 +515,12 @@ def batched_spmm(a: BatchedCOO, b: torch.Tensor, *, impl: str = "auto",
     if a.values.dim() != 2:
         raise ValueError("vector edge values are g-SpMM: call "
                          "batched_gspmm(op='mul', reduce='sum')")
+    if tele:
+        return _traced_dispatch(
+            lambda values, b: _SpMM.apply(values, b, a.row_ids, a.col_ids,
+                                          a.nnz, impl, k_pad),
+            a.values, b, impl=impl, decision=decision,
+            workload=decision.workload)
     return _SpMM.apply(a.values, b, a.row_ids, a.col_ids, a.nnz, impl, k_pad)
 
 
@@ -617,13 +694,22 @@ def batched_gspmm(a: BatchedCOO, b: torch.Tensor, *, op: str = "mul",
     if (op, reduce) == ("mul", "sum") and a.values.dim() == 2:
         return batched_spmm(a, b, impl=impl, k_pad=k_pad)
     check_impl(impl)
-    if impl == "auto":
-        impl = resolve_gspmm_impl(a, b, op=op, reduce=reduce, impl=impl,
-                                  k_pad=k_pad).impl
+    tele = obs_trace.enabled()
+    decision = None
+    if impl == "auto" or tele:
+        decision = resolve_gspmm_impl(a, b, op=op, reduce=reduce, impl=impl,
+                                      k_pad=k_pad)
+        impl = decision.impl
     if not supports_gspmm(impl):
         raise ValueError(
             f"impl {impl!r} cannot run g-SpMM (op={op!r}, reduce={reduce!r});"
             f" the capable set is {GSPMM_IMPLS} at f32")
+    if tele:
+        return _traced_dispatch(
+            lambda values, b: _GSpMM.apply(values, b, a.row_ids, a.col_ids,
+                                           a.nnz, impl, k_pad, op, reduce),
+            a.values, b, impl=impl, decision=decision,
+            workload=decision.workload)
     return _GSpMM.apply(a.values, b, a.row_ids, a.col_ids, a.nnz, impl,
                         k_pad, op, reduce)
 

@@ -45,6 +45,7 @@ from repro_torch.core.gcn import (
 )
 from repro_torch.kernels.ops import check_impl
 from repro_torch.models import lm
+from repro_torch.observability import TRACER
 
 
 @dataclasses.dataclass
@@ -81,6 +82,12 @@ class GraphRequest:
     done: bool = False
     failed: bool = False
     error: str | None = None
+
+    @property
+    def max_nnz(self) -> int:
+        """Largest per-channel edge count: with ``n_nodes`` the request's
+        geometry, which the scheduler buckets on."""
+        return max((len(r) for r in self.rows), default=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,10 +248,12 @@ class GraphServeEngine:
         return resolve_conv_impls(self.cfg, self.batch, self.m_pad,
                                   self.nnz_pad, device=self.device)[0]
 
-    def compiled_programs(self):
-        raise NotImplementedError(
-            "compiled_programs() counts jit programs; the port runs eagerly "
-            "and has none")
+    def compiled_programs(self) -> None:
+        """Entries in this engine's jit cache, where the reference counts
+        them; the port runs eagerly and has no jit cache, so this is always
+        None, the reference's answer when it cannot count
+        (``ProgramCache.jit_cache_sizes`` leaves such tiers out)."""
+        return None
 
     def _validate(self, s: int, r: GraphRequest) -> str | None:
         """Reason this request cannot ride this engine's wave geometry, or
@@ -335,14 +344,23 @@ class GraphServeEngine:
         """Execute ONE wave (≤ ``batch`` requests) and return its fill and
         padding accounting. ``on_phase``, a timing hook, is called with
         ``"assembled"`` after :meth:`assemble` and with ``"forward"`` once
-        :meth:`forward` has returned (its kernels may still be running)."""
-        w = self.assemble(wave)
-        if on_phase is not None:
-            on_phase("assembled")
-        logits = self.forward(w)
-        if on_phase is not None:
-            on_phase("forward")
-        logits = logits.cpu().numpy()
+        :meth:`forward` has returned (its kernels may still be running).
+
+        The whole wave runs inside a ``serve/wave`` span tagged with the
+        wave geometry (the reference's); kernel-dispatch spans (telemetry
+        on) nest inside it."""
+        with TRACER.span("serve/wave", cat="serve", args={
+                "n_requests": len(wave), "slots": self.batch,
+                "m_pad": self.m_pad, "nnz_pad": self.nnz_pad,
+                "channels": self.cfg.channels, "layer": self.cfg.layer,
+                "impl": self.cfg.impl}):
+            w = self.assemble(wave)
+            if on_phase is not None:
+                on_phase("assembled")
+            logits = self.forward(w)
+            if on_phase is not None:
+                on_phase("forward")
+            logits = logits.cpu().numpy()
         for s, r in w.served:
             r.logits = logits[s]
             r.done = True

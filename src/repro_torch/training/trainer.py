@@ -6,13 +6,21 @@ device: value and grad of :func:`repro_torch.core.gcn.gcn_loss`, the global
 gradient norm, then :func:`repro_torch.optim.adam.adam_update` (in place).
 On the GPU the kernel impls run their kernels forward and backward; on the
 CPU their plain versions. Loss, accuracy and gradient norm stay tensors on
-the device between log points (the end of each epoch), so no step waits for
-the device. Checkpoints are the reference's format: a checkpoint either
+the device between log points (every ``tcfg.log_every`` steps with
+telemetry on, and the end of each epoch), so no other step waits for the
+device. Checkpoints are the reference's format: a checkpoint either
 package wrote resumes in the other.
 
-Not ported here: the reference trainer's ``mesh=`` (batch-axis sharding),
-``registry=``/``telemetry=`` (observability) and ``fit_sampled`` (the
-giant-graph tier); ``ROADMAP.md`` queue 1 holds them.
+Telemetry, as in the reference: every step records a ``train/step`` span
+and a wall-time sample of the ``train_step_seconds`` histogram on
+``registry`` (the process default unless one is passed), and counts
+``train_steps_total``; the loss, accuracy, gradient-norm and graphs/s
+gauges sync on the ``log_every`` cadence. All series are labelled
+``{layer, impl}``. ``telemetry=False`` opts the trainer out.
+
+Not ported here: the reference trainer's ``mesh=`` (batch-axis sharding)
+and ``fit_sampled`` (the giant-graph tier); ``ROADMAP.md`` queue 1 holds
+them.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch.core.gcn import (
     resolve_conv_impls,
 )
 from repro_torch.kernels.ops import IMPLS, check_impl
+from repro_torch.observability import TRACER, default_registry
 from repro_torch.optim.adam import (
     AdamConfig,
     adam_init,
@@ -53,6 +62,7 @@ class TrainerConfig:
     checkpoint_every: int = 50
     keep: int = 3
     seed: int = 0
+    log_every: int = 10
 
 
 # the ELL class, whose conversion silently drops > k_pad nnz per row
@@ -66,7 +76,8 @@ class GCNTrainer:
     the caller asks for another)."""
 
     def __init__(self, cfg: GCNConfig, opt: AdamConfig | None = None,
-                 tcfg: TrainerConfig | None = None, *, device=None):
+                 tcfg: TrainerConfig | None = None, *, device=None,
+                 registry=None, telemetry: bool = True):
         if tcfg is None:
             raise ValueError("GCNTrainer needs a TrainerConfig with a "
                              "checkpoint_dir")
@@ -79,6 +90,20 @@ class GCNTrainer:
         self.manager = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep)
         # batch shape → whether any conv layer runs an ELL-class impl there
         self._ell_by_shape: dict[tuple, bool] = {}
+        self.telemetry = telemetry
+        self.registry = registry if registry is not None else \
+            default_registry()
+        self._m_step_s = self.registry.histogram(
+            "train_step_seconds", "per-step wall time (dispatch-paced)")
+        self._m_steps = self.registry.counter(
+            "train_steps_total", "training steps executed")
+        self._m_loss = self.registry.gauge("train_loss", "last synced loss")
+        self._m_acc = self.registry.gauge(
+            "train_accuracy", "last synced accuracy")
+        self._m_gnorm = self.registry.gauge(
+            "train_grad_norm", "last synced global gradient L2 norm")
+        self._m_tput = self.registry.gauge(
+            "train_graphs_per_s", "graphs/s over the last log window")
 
     def _needs_ell_guard(self, batch: dict) -> bool:
         """Whether an ELL-class impl runs on this batch's shapes: pinned, or
@@ -158,6 +183,13 @@ class GCNTrainer:
         return params, state, {"loss": loss.detach(), "acc": acc,
                                "grad_norm": gnorm}
 
+    def _set_gauges(self, metrics: dict, labels: dict) -> None:
+        """Loss, accuracy and gradient-norm gauges (a device sync when the
+        values are tensors on the card)."""
+        self._m_loss.set(float(metrics["loss"]), **labels)
+        self._m_acc.set(float(metrics["acc"]), **labels)
+        self._m_gnorm.set(float(metrics["grad_norm"]), **labels)
+
     def fit(self, batch_iter: Iterator[dict] | Callable, *, epochs: int = 1,
             on_metrics: Callable[[int, dict], None] | None = None,
             on_phase=None):
@@ -168,7 +200,9 @@ class GCNTrainer:
         Resume: the newest checkpoint is restored and the first ``start``
         batches of the stream are skipped, so a save, kill and restart
         continues the same trajectory. Checkpoints every
-        ``tcfg.checkpoint_every`` steps and once at the end. Where an
+        ``tcfg.checkpoint_every`` steps and once at the end. With telemetry
+        on, each step runs in a ``train/step`` span and the gauges sync
+        every ``tcfg.log_every`` steps and at each epoch's end. Where an
         ELL-class impl runs (pinned, or resolved by ``auto`` for the
         batch's shapes), every batch's row degrees are checked against
         ``cfg.k_pad`` before its step. ``on_metrics(epoch, record)`` gets
@@ -185,6 +219,9 @@ class GCNTrainer:
         last = {"loss": math.nan, "acc": math.nan, "grad_norm": math.nan}
         metrics = None
         step = seen = 0
+        labels = {"layer": self.cfg.layer, "impl": self.cfg.impl}
+        log_every = max(self.tcfg.log_every, 1)
+        win_t0, win_graphs = time.perf_counter(), 0
         for epoch in range(epochs):
             for b in batch_iter(epoch):
                 seen += 1
@@ -196,13 +233,34 @@ class GCNTrainer:
                 placed = self.place_batch(b)
                 if on_phase is not None:
                     on_phase("batch")
-                params, state, metrics = self.train_step(
-                    params, state, placed, on_phase=on_phase)
+                if self.telemetry:
+                    with TRACER.span("train/step", cat="train",
+                                     args={"step": seen, **labels}):
+                        t0 = time.perf_counter()
+                        params, state, metrics = self.train_step(
+                            params, state, placed, on_phase=on_phase)
+                        self._m_step_s.observe(time.perf_counter() - t0,
+                                               **labels)
+                    self._m_steps.inc(**labels)
+                    win_graphs += b["x"].shape[0]
+                    if seen % log_every == 0:
+                        # the only per-window device sync
+                        self._set_gauges(metrics, labels)
+                        now = time.perf_counter()
+                        if now > win_t0:
+                            self._m_tput.set(win_graphs / (now - win_t0),
+                                             **labels)
+                        win_t0, win_graphs = now, 0
+                else:
+                    params, state, metrics = self.train_step(
+                        params, state, placed, on_phase=on_phase)
                 step = seen
                 if step % max(self.tcfg.checkpoint_every, 1) == 0:
                     self.manager.save(step, (params, state))
             if step > start:
                 last = {k: float(v) for k, v in metrics.items()}
+                if self.telemetry:
+                    self._set_gauges(last, labels)
                 if on_metrics is not None:
                     on_metrics(epoch + 1, {"epoch": epoch + 1, **last,
                                            "time": time.time()})

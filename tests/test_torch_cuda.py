@@ -1622,3 +1622,131 @@ def test_measure_workload_times_every_kernel_impl_on_the_card(dev):
     times = measure_workload(layer, ("fused", "fused_hybrid", "fused_bf16",
                                      "pallas_coo"), device=dev, iters=2)
     assert len(times) == 4 and min(times.values()) > 0
+
+
+# -- the continuous-batching scheduler's ladder ------------------------------
+
+SCHED_KERNELS = ("fused", "pallas_ell", "pallas_coo", "pallas_csr",
+                 "gspmm_coo", "grouped_matmul")
+
+
+def _sched_traffic():
+    """The skewed Tox21 traffic of chip_smoke's scheduler phase: 512
+    requests and the 3-rung ladder ``TierPolicy.from_requests`` gives it
+    at 128-slot waves."""
+    from repro_torch.scheduler import TierPolicy
+
+    data = generate(GraphDatasetSpec.tox21_like(512, size_dist="skewed",
+                                                seed=0))
+    reqs = [GraphRequest(rows=list(s.rows), cols=list(s.cols),
+                         features=s.features, n_nodes=s.n_nodes)
+            for s in data]
+    policy = TierPolicy.from_requests(
+        [(s.n_nodes, max(len(r) for r in s.rows)) for s in data], levels=3,
+        batch=128)
+    return reqs, policy
+
+
+@pytest.mark.parametrize("kernel", SCHED_KERNELS)
+@pytest.mark.parametrize("rung", (0, 1, 2))
+def test_kernels_at_the_scheduler_ladder_match_plain(dev, rung, kernel):
+    """Kernels 1-4 and 7 on the wave each rung's own requests make (m_pad
+    16 to 56, nnz_pad 32 to 88), against their plain versions: the fused
+    layer, the stacked ELL, COO and CSR SpMMs, the COO kernel's g-SpMM
+    entry at R-GCN's (copy_lhs, mean) and R-GCN's grouped matmul; all but
+    the fused kernel twice for identical bits."""
+    from repro_torch.core.graph_conv import flatten_channels
+    from repro_torch.kernels.grouped_matmul import _gmm, _row_groups
+
+    reqs, policy = _sched_traffic()
+    tier = policy.tiers[rung]
+    cfg = GCNConfig.tox21(impl="fused", bn_mode="sample")
+    params = init_gcn(cfg, generator=torch.Generator().manual_seed(0),
+                      device=dev)
+    wave = GraphServeEngine(
+        params, cfg, batch=tier.batch, m_pad=tier.m_pad,
+        nnz_pad=tier.nnz_pad, device=dev).assemble(
+        [r for r in reqs if policy.assign(r) == tier][:tier.batch])
+    m, conv = tier.m_pad, params["convs"][0]
+    a = flatten_channels(wave.adj)
+    u = (torch.einsum("bmn,cnf->cbmf", wave.x, conv["w"])
+         + conv["b"][:, None, None, :]).reshape(-1, m, 64).contiguous()
+    if kernel == "fused":
+        rid, cid, val, nnz = stack_channels(wave.adj)
+        chunks = runtime_chunks(nnz)
+        torch.testing.assert_close(
+            fused_forward(rid, cid, val, chunks, wave.x, conv["w"],
+                          conv["b"]),
+            ref.fused_graph_conv_plain(rid, cid, val, chunks, wave.x,
+                                       conv["w"], conv["b"]), **TOL)
+        return
+    e = coo_to_ell(a, m, cfg.k_pad)
+    c = coo_to_csr(a, m)
+    r = cfg.channels                            # R-GCN's relations
+    xt = wave.x.reshape(1, -1, 62).expand(r, -1, -1).reshape(-1, 62) \
+        .contiguous()
+    rg = _row_groups(torch.full((r,), xt.shape[0] // r, dtype=torch.int32,
+                                device=dev), xt.shape[0], r)
+    w = torch.randn((r, 62, 64), device=dev) / 8
+    gs = dict(nnz=a.nnz, op="copy_lhs", reduce="mean")
+    kern, plain = {
+        "pallas_ell": (
+            lambda: batched_spmm_ell(e.col_ids, e.values, u),
+            lambda: ref.batched_spmm_ell_plain(e.col_ids, e.values, u)),
+        "pallas_coo": (
+            lambda: batched_spmm_coo(a.row_ids, a.col_ids, a.values, u),
+            lambda: ref.batched_spmm_coo_plain(a.row_ids, a.col_ids,
+                                               a.values, u)),
+        "pallas_csr": (
+            lambda: batched_spmm_csr(c.rpt, c.col_ids, c.values, u),
+            lambda: ref.batched_spmm_csr_plain(c.rpt, c.col_ids, c.values,
+                                               u)),
+        "gspmm_coo": (
+            lambda: batched_spmm_coo(a.row_ids, a.col_ids, a.values, u,
+                                     **gs),
+            lambda: ref.batched_gspmm_coo_plain(
+                a.row_ids, a.col_ids, a.values, a.nnz, u, op="copy_lhs",
+                reduce="mean")),
+        "grouped_matmul": (lambda: _gmm(xt, w, rg),
+                           lambda: ref.grouped_matmul_ref(xt, rg, w)),
+    }[kernel]
+    want = plain()
+    got = kern()
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, kern())
+
+
+@pytest.mark.parametrize("impl", ("auto", "pallas_coo", "pallas_csr"))
+def test_scheduler_drain_on_the_card_matches_per_request_engines(dev, impl):
+    """A Scheduler on the default device (the card) drains the skewed
+    traffic; each request's logits are within the f32 tolerance of the
+    same request scored alone by a ``ref`` engine of the tier it rode, and
+    the program cache holds one engine per tier used."""
+    from repro_torch.scheduler import Scheduler, VirtualClock
+
+    reqs, policy = _sched_traffic()
+    cfg = GCNConfig.tox21(impl=impl)
+    params = init_gcn(cfg, generator=torch.Generator().manual_seed(0),
+                      device=dev)
+    sched = Scheduler(params, cfg, tiers=policy, clock=VirtualClock(),
+                      service_model=lambda tier, n: 1e-3)
+    assert sched.device.type == "cuda"
+    sched.serve(reqs)
+    assert all(r.done and not r.failed for r in reqs)
+    used = {w.tier_key for w in sched.metrics.waves}
+    assert sched.metrics.compile_count == len(used)
+    assert sched.programs.jit_cache_sizes() == {}
+    engines = {}
+    for p in sched.completed[::7]:
+        tier = p.served_tier
+        if tier not in engines:
+            engines[tier] = GraphServeEngine(
+                params, GCNConfig.tox21(impl="ref", bn_mode="sample"),
+                batch=tier.batch, m_pad=tier.m_pad, nnz_pad=tier.nnz_pad,
+                device=dev)
+        solo = GraphRequest(rows=p.request.rows, cols=p.request.cols,
+                            features=p.request.features,
+                            n_nodes=p.request.n_nodes)
+        engines[tier].run_wave([solo])
+        np.testing.assert_allclose(p.request.logits, solo.logits,
+                                   atol=TOL["atol"], rtol=TOL["rtol"])

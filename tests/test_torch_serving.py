@@ -161,8 +161,8 @@ def test_engine_contract_raises(monkeypatch):
     d = eng.layer_decision()
     assert (d.impl, d.source, d.workload.key()) == (
         "fused", "forced", "b4_m16_nnz64_k8_n64_i4_c4_nin62")
-    with pytest.raises(NotImplementedError):
-        eng.compiled_programs()
+    # no jit cache to count: the reference's "cannot count" answer
+    assert eng.compiled_programs() is None
     with pytest.raises(ValueError, match="slots"):
         eng.run_wave(_requests(GraphRequest, 5))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
