@@ -54,8 +54,12 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    twice for identical bits, and timed; then the nine
    large-matrix entries (planner case 3: ELL, CSR f32 / bf16 / i8, COO f32
    / bf16, the GEMM) at m_pad 2048 (8 matrices) and 9000 (2), n_b
-   64, timed beside their bytes bound, plain versions and ``torch.bmm``
-   (ELL, CSR, GEMM identical bits twice); then the case-3 path:
+   64, timed beside their bytes bound, plain versions and ``torch.bmm``,
+   identical bits twice; the COO ones also on bf16 int32 ids and in
+   g-SpMM (copy_lhs, mean) and (mul, max) there and at the giant-graph
+   tier's two sampled blocks (33,792 rows, 3,072 x 10 slots live; 3,072
+   rows, 512 x 5), and with their batched entries' bits at 64 x 56; then
+   the case-3 path:
    ``ops.batched_spmm`` forward and first-step gradients with every kernel
    impl and precision variant, and g-SpMM (copy_lhs, mean), at m_pad
    9000 on the card with the plain per-sample paths trapped, against the
@@ -334,6 +338,11 @@ ENTRY_ROW = {"batched_spmm_ell": "batched_spmm_ell",
 # planner case 3: (tag, m_pad, batch) of the large-matrix kernel checks; the
 # case-3 path runs the second, past LARGE_M, where every variant is case 3
 LARGE_SHAPES = (("m_pad 2048", 2048, 8), ("m_pad 9000", 9000, 2))
+# the giant-graph tier's sampled blocks (block_caps(512, (10, 5)) in the
+# reference's sampling), one matrix each: (tag, m_pad, live rows, slots a
+# live row); the COO large-matrix entries run there too
+TIER_BLOCKS = (("tier block 33792", 33_792, 3_072, 10),
+               ("tier block 3072", 3_072, 512, 5))
 # the fused layer past a block's panels (the kernel's large-matrix branch):
 # (tag, m_pad, batch, n_in, n_out); m_pad 1024 x n_in 512 is a shape the
 # port's planner used to refuse, 3072 the giant-graph tier's block size
@@ -1372,13 +1381,9 @@ def phase_gnn_kernels(device, rows, errs):
     r_h = torch.randn((r_rel.batch, m_pad, 512), generator=gen).to(device)
     r_csr = coo_to_csr(r_rel, m_pad)
     r_real = int(r_rel.nnz.sum().item())
-    # the B rows this data reads: each matrix's distinct column ids (a
-    # padding row of the wave is never gathered)
-    r_slot = torch.arange(r_rel.nnz_pad, device=device)
-    r_valid = r_slot[None, :] < r_rel.nnz[:, None]
-    r_read = int(torch.unique(
-        (torch.arange(r_rel.batch, device=device)[:, None] * m_pad
-         + r_rel.col_ids)[r_valid]).numel())
+    # the B rows this data reads (a padding row of the wave is never
+    # gathered)
+    r_read = _b_rows_read(r_rel, m_pad)
     kw = dict(op="copy_lhs", reduce="mean")
     _measure(rows, "batched_spmm_csr[reaction100]", "batched_spmm_csr",
              lambda: batched_spmm_csr(r_csr.rpt, r_csr.col_ids,
@@ -1781,13 +1786,40 @@ def _large_coo(m_pad: int, batch: int, seed: int):
     return coo_from_lists(lists, [m_pad] * batch)
 
 
+def _b_rows_read(a, m_pad: int) -> int:
+    """The B rows a sparse product over the matrices ``a`` gathers, for a
+    bytes bound: each matrix's distinct column ids inside ``[0, m_pad)``
+    among its slots below ``nnz[s]`` (a row that no slot names is never
+    read)."""
+    import torch
+
+    slot = torch.arange(a.nnz_pad, device=a.col_ids.device)
+    cid = a.col_ids.long()
+    valid = (slot[None, :] < a.nnz[:, None]) & (cid >= 0) & (cid < m_pad)
+    mat = torch.arange(a.batch, device=cid.device)[:, None] * m_pad
+    return int(torch.unique((mat + cid)[valid]).numel())
+
+
+def _tier_block(m_pad: int, live: int, fanout: int, seed: int):
+    """A sampled block of the giant-graph tier as one matrix, on the CPU:
+    its first ``live`` rows (the destinations) ``fanout`` N(0, 1) slots
+    each, in row order, at columns drawn over all ``m_pad`` rows."""
+    import numpy as np
+    from repro_torch.core.formats import coo_from_lists
+
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(live, dtype=np.int32), fanout)
+    return coo_from_lists([(r, rng.integers(0, m_pad, r.size).astype(
+        np.int32), rng.normal(size=r.size).astype(np.float32))], [m_pad])
+
+
 def phase_large_kernels(device, rows, errs):
     """The large-matrix entries (planner case 3) against their plain
     versions at LARGE_SHAPES (n_b 64, ``_large_coo`` matrices), timed beside
     their bytes bound, the plain versions and ``torch.bmm`` on the densified
-    adjacency: ELL, CSR and GEMM also for identical bits twice; COO (global
-    atomics) within F32_TOL, or one bf16 ulp for bf16. Adds to ``rows`` and
-    ``errs``."""
+    adjacency, each also for identical bits twice (f32 and i8 within
+    F32_TOL, bf16 within one bf16 ulp); then :func:`_coo_large_kernels`.
+    Adds to ``rows`` and ``errs``."""
     import torch
     from repro_torch.core.batching import plan_batched_gemm, \
         plan_batched_spmm
@@ -1831,7 +1863,8 @@ def phase_large_kernels(device, rows, errs):
         dense_h = dense.to(bf)
         dense_q = coo_to_dense(q.with_values(codes.float()), m_pad) \
             * scale[:, None, None]
-        io = 2 * b.numel() * 4               # B read once, C written once
+        # the B rows the slots read, once, and C written once (f32)
+        io = (_b_rows_read(coo, m_pad) + batch * m_pad) * n_b * 4
         rpt = c.rpt.numel() * 4
         flops = 2 * nnz * n_b
         shape = (f"{batch} matrices x {m_pad} rows, {nnz} real nnz (k_pad "
@@ -1873,15 +1906,15 @@ def phase_large_kernels(device, rows, errs):
                                             coo.values, b),
              lambda: ref.batched_spmm_coo_plain(coo.row_ids, coo.col_ids,
                                                 coo.values, b),
-             io + nnz * 12, lambda: torch.bmm(dense, b), False, False),
+             io + nnz * 12, lambda: torch.bmm(dense, b), True, False),
             ("batched_spmm_coo_large_bf16",
              lambda: batched_spmm_coo_large_bf16(r16, k16, vh, bh),
              lambda: ref.batched_spmm_coo_plain(r16, k16, vh, bh),
-             io // 2 + nnz * 6, lambda: torch.bmm(dense_h, bh), False, True),
+             io // 2 + nnz * 6, lambda: torch.bmm(dense_h, bh), True, True),
             ("batched_gemm_large", lambda: batched_gemm_large(dense, b),
              lambda: ref.batched_gemm_plain(dense, b),
-             dense.numel() * 4 + io, lambda: torch.bmm(dense, b), True,
-             False)]
+             (dense.numel() + 2 * b.numel()) * 4,
+             lambda: torch.bmm(dense, b), True, False)]
         for name, kern, plain, nbytes, library, bitwise, bf16 in checks:
             gemm = name == "batched_gemm_large"
             _measure(rows, f"{name}[{tag}]", name, kern, plain, nbytes,
@@ -1898,10 +1931,121 @@ def phase_large_kernels(device, rows, errs):
         torch.cuda.empty_cache()
     log("[kernels] the nine large-matrix entries (planner case 3: ELL, CSR "
         "f32 / bf16 / i8, COO f32 / bf16, the K-tiled GEMM) at m_pad 2048 "
-        "(8 matrices) and 9000 (2) match their plain versions: ELL, CSR and "
-        f"GEMM identical bits twice, within {F32_TOL} (f32, i8) or "
-        f"{BF16_KERNEL_TOL} (bf16); COO within the same")
+        "(8 matrices) and 9000 (2) match their plain versions, identical "
+        f"bits twice, within {F32_TOL} (f32, i8) or {BF16_KERNEL_TOL} "
+        "(bf16)")
+    _coo_large_kernels(device, rows, errs)
     _log_rows(r for k, r in rows.items() if k not in before)
+
+
+def _coo_large_kernels(device, rows, errs):
+    """The COO large-matrix entries beyond phase_large_kernels' rows: at
+    LARGE_SHAPES bf16 on int32 ids and g-SpMM (copy_lhs, mean) and (mul,
+    max), at TIER_BLOCKS also f32 (n_b 64), each against its plain version
+    (max bitwise), identical bits twice, and timed beside its bytes bound,
+    plain version and library call (``torch.bmm`` on the dense adjacency;
+    g-SpMM: ``_library_gspmm``); then, at a Tox21-like shape both branches
+    take (64 matrices x 56 rows), every large entry (f32, bf16 on int16 and
+    int32 ids, each g-SpMM corner with scalar and vector edges) gives its
+    batched entry's bits. Adds to ``rows`` and ``errs``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batching import plan_batched_spmm
+    from repro_torch.core.formats import coo_to_dense, narrow_col_ids, \
+        random_batch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo, \
+        batched_spmm_coo_bf16, batched_spmm_coo_large, \
+        batched_spmm_coo_large_bf16
+
+    gen = torch.Generator(device="cpu").manual_seed(25)
+    bf = torch.bfloat16
+    shapes = [(tag, _large_coo(m_pad, batch, seed=m_pad))
+              for tag, m_pad, batch in LARGE_SHAPES]
+    shapes += [(tag, _tier_block(m_pad, live, fanout, seed=m_pad))
+               for tag, m_pad, live, fanout in TIER_BLOCKS]
+    for tag, a in shapes:
+        a = a.to(device)
+        batch, m = a.batch, int(a.n_rows.max())
+        check(plan_batched_spmm(batch=batch, m_pad=m, n_b=64).case == 3,
+              f"COO {tag}: not planner case 3")
+        b = torch.randn((batch, m, 64), generator=gen).to(device)
+        bh, vh = b.to(bf), a.values.to(bf)
+        rid, cid, val = a.row_ids, a.col_ids, a.values
+        nnz = int(a.nnz.sum().item())
+        # the B rows the slots read, once, and C written once (f32)
+        io = (_b_rows_read(a, m) + batch * m) * 64 * 4
+        dense = coo_to_dense(a, m).contiguous()
+        dense_h = dense.to(bf)
+        shape = f"{batch} x {m} rows, {nnz} real nnz, n_b 64"
+        # (key, kernel, plain, bytes, operations, library, bf16, exact)
+        cases = [(f"batched_spmm_coo_large_bf16[{tag}, int32 ids]",
+                  lambda: batched_spmm_coo_large_bf16(rid, cid, vh, bh),
+                  lambda: ref.batched_spmm_coo_plain(rid, cid, vh, bh),
+                  io // 2 + nnz * 10, 2 * nnz * 64,
+                  lambda: torch.bmm(dense_h, bh), True, False)]
+        if tag.startswith("tier"):
+            cases.append((
+                f"batched_spmm_coo_large[{tag}]",
+                lambda: batched_spmm_coo_large(rid, cid, val, b),
+                lambda: ref.batched_spmm_coo_plain(rid, cid, val, b),
+                io + nnz * 12, 2 * nnz * 64, lambda: torch.bmm(dense, b),
+                False, False))
+        for op, red in (("copy_lhs", "mean"), ("mul", "max")):
+            cases.append((
+                f"batched_spmm_coo_large[g-SpMM ({op}, {red}), {tag}]",
+                lambda op=op, red=red: batched_spmm_coo_large(
+                    rid, cid, val, b, nnz=a.nnz, op=op, reduce=red),
+                lambda op=op, red=red: ref.batched_gspmm_coo_plain(
+                    rid, cid, val, a.nnz, b, op=op, reduce=red),
+                io + nnz * (8 if op == "copy_lhs" else 12) + batch * 4,
+                nnz * 64 * (1 if op == "copy_lhs" else 2),
+                _library_gspmm(a, b, val, op, red), False, red == "max"))
+        for key, kern, plain, nbytes, flops, library, bf16, exact in cases:
+            _measure(rows, key, key.split("[")[0], kern, plain, nbytes, flops,
+                     shape, library, bitwise=True,
+                     tol=BF16_KERNEL_TOL if bf16 else F32_TOL,
+                     flop_rate=BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S,
+                     library_tol=POLICY_TOLS["bf16"] if bf16 else F32_TOL,
+                     iters=10, replays=3)
+            if exact:
+                check(torch.equal(kern(), plain()),
+                      f"{key}: differs from its plain version")
+            name = rows[key]["kernel"]
+            errs[name] = max(errs.get(name, 0.0), rows[key]["max_abs_err"])
+        del dense, dense_h, a, b, bh
+        torch.cuda.empty_cache()
+    # the batched entries' bits, at a shape both branches take
+    a, m = random_batch(np.random.default_rng(25), batch=64, dim=56,
+                        nnz_per_row=3)
+    a = a.with_values(torch.randn(a.values.shape, generator=gen)).to(device)
+    rid, cid, val = a.row_ids, a.col_ids, a.values
+    b = torch.randn((a.batch, m, 64), generator=gen).to(device)
+    r16, c16 = narrow_col_ids(rid, m), narrow_col_ids(cid, m)
+    vh, bh = val.to(bf), b.to(bf)
+    same = [("f32", batched_spmm_coo_large(rid, cid, val, b),
+             batched_spmm_coo(rid, cid, val, b))]
+    want16 = batched_spmm_coo_bf16(r16, c16, vh, bh)
+    same += [(f"bf16, {ids[0].dtype} ids",
+              batched_spmm_coo_large_bf16(*ids, vh, bh), want16)
+             for ids in ((r16, c16), (rid, cid))]
+    vec = torch.randn(tuple(rid.shape) + (64,), generator=gen).to(device)
+    for values in (val, vec):
+        for op, red in GSPMM_CORNERS:
+            kw = dict(nnz=a.nnz, op=op, reduce=red)
+            same.append((f"({op}, {red}) {values.dim()}-D edges",
+                         batched_spmm_coo_large(rid, cid, values, b, **kw),
+                         batched_spmm_coo(rid, cid, values, b, **kw)))
+    for what, got, want in same:
+        check(torch.equal(got, want),
+              f"COO large entry, {what}: not its batched entry's bits")
+    tags = ", ".join(t for t, _ in shapes)
+    log(f"[kernels] COO large-matrix entries at {tags}: f32, bf16 on int32 "
+        "ids, g-SpMM (copy_lhs, mean) and (mul, max) match their plain "
+        "versions (max bitwise), identical bits twice; "
+        f"at 64 x 56 the {len(same)} large entries (f32, bf16 on int16 / "
+        "int32 ids, 9 g-SpMM corners x scalar / vector edges) give their "
+        "batched entries' bits")
 
 
 def phase_fused_large(device, rows, errs):
@@ -2665,7 +2809,7 @@ def phase_autotune(device):
                 tox_decisions.setdefault(tag, []).append(d)
             rivals = sorted(times, key=times.get)[:3]
             again = autotune.measure_workload(w, tuple(rivals),
-                                              device=device, iters=20)
+                                              device=device, iters=60)
             ratio = again[d.impl] / min(again.values())
             log(f"[autotune] {tag} layer {i + 1} with the cache: "
                 f"impl={d.impl} source={d.source}; re-timed ms "

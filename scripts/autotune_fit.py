@@ -14,7 +14,8 @@ g-SpMM workloads and the stacked Tox21 SpMM, and for each candidate the
 model ranks there (``rank_layer`` / ``rank`` with ``allow_pallas=True``):
 
 - ``wall``: ``measure_workload``'s median seconds of one call (``--iters``
-  calls, between two ``torch.cuda.synchronize()``);
+  calls in rotated blocks of 3 or more, every candidate in every round,
+  each call between two ``torch.cuda.synchronize()``);
 - ``ops``: the PyTorch ops one call issues (a ``TorchDispatchMode``
   count), ``launches``: the kernel launches (the wrappers' counters),
   ``syncs``: its device-to-host reads (``aten._local_scalar_dense``);
@@ -167,7 +168,8 @@ def main() -> int:
                               and precision_of(i)[0] in ("ell",
                                                          "pallas_ell")))
         t0 = time.perf_counter()
-        times = measure_workload(w, impls, device=dev, iters=args.iters)
+        times = measure_workload(w, impls, device=dev, iters=args.iters,
+                                 contend=None)
         call = workload_call(w, device=dev)
         for impl in impls:
             wrappers = cs._reset_counters()

@@ -22,15 +22,22 @@ and the g-SpMM entry at the R-GCN and GAT Tox21 serving shapes; the
 batched COO entries at Tox21 serving (f32, bf16 with int16 ids), as dU of
 the fused backward at Tox21 and Reaction100 training (n_b 64, 512), at the
 powerlaw batch's first channel, and in the g-SpMM entry at the R-GCN and
-GAT Tox21 serving shapes, and its large-matrix entries (f32, bf16) at
-m_pad 9000 x 2; the batched CSR entries at Tox21 training (forward and
-dB, on the transposed CSR), at Tox21 serving (f32, bf16, i8), in the
-g-SpMM entry at the R-GCN Tox21 and Reaction100 (n_b 512) and GAT serving
-shapes and at the powerlaw batch's first channel, and its large-matrix
-entries (f32, bf16, i8) at m_pad 9000 x 2; the fused layer's large-matrix
-branch (f32, hybrid, bf16 entries) at chip_smoke.py's FUSED_LARGE shapes.
-Each row is checked against its plain version first (the CSR and fused
-large rows also for the same bits twice). Prints one JSON line
+GAT Tox21 serving shapes, and its large-matrix entries (f32, bf16 on int32
+ids, g-SpMM (copy_lhs, mean) and (mul, max); bf16 also on int16 ids at
+9000) at m_pad 9000 x 2, 2048 x 8 and the giant-graph tier's two sampled
+blocks (1 x 33,792 rows, 3,072 live x 10 slots; 1 x 3,072, 512 x 5), each
+also for the same bits twice and with its back-to-back, plain and library
+times, bytes bound and each kernel's device time (``[detail]`` lines;
+the shapes are this script's tree's, whichever ``--root``), and case 3's
+``ref`` path against ``pallas_coo`` at the 33,792-row block; the batched
+CSR entries at Tox21 training (forward and dB, on the transposed CSR), at
+Tox21 serving (f32, bf16, i8), in the g-SpMM entry at the R-GCN Tox21 and
+Reaction100 (n_b 512) and GAT serving shapes and at the powerlaw batch's
+first channel, and its large-matrix entries (f32, bf16, i8) at m_pad 9000
+x 2; the fused layer's large-matrix branch (f32, hybrid, bf16 entries) at
+chip_smoke.py's FUSED_LARGE shapes. Each row is checked against its plain
+version first (the CSR, COO large and fused large rows also for the same
+bits twice). Prints one JSON line
 ``{"root", "card", "ms": {row: ms}}``.
 
 To compare two trees on one card, unpack the other (``git archive``) into
@@ -389,8 +396,7 @@ def _coo_rows(cs, dev, gen, wave, conv, pl_adj, pl_m):
     from repro_torch.data.graphs import GraphDatasetSpec
     from repro_torch.kernels import ref
     from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo, \
-        batched_spmm_coo_bf16, batched_spmm_coo_large, \
-        batched_spmm_coo_large_bf16
+        batched_spmm_coo_bf16
     from repro_torch.kernels.segment_softmax import segment_softmax
 
     bf = torch.bfloat16
@@ -456,21 +462,143 @@ def _coo_rows(cs, dev, gen, wave, conv, pl_adj, pl_m):
     coo("batched_spmm_coo[g-SpMM, gat tox21 serving]", a_gat,
         torch.randn((heads * a0.batch, m_pad, d_head), generator=gen).to(dev),
         nnz=a_gat.nnz, op="mul", reduce="sum")
-    big = cs._large_coo(9000, 2, seed=9000).to(dev)
-    bb = torch.randn((2, 9000, 64), generator=gen).to(dev)
-    row("batched_spmm_coo_large[m_pad 9000]",
-        lambda: batched_spmm_coo_large(big.row_ids, big.col_ids, big.values,
-                                       bb),
-        lambda: ref.batched_spmm_coo_plain(big.row_ids, big.col_ids,
-                                           big.values, bb),
-        iters=10, replays=3)
-    b16, c16 = (narrow_col_ids(t, 9000) for t in (big.row_ids, big.col_ids))
-    vbh, bbh = big.values.to(bf), bb.to(bf)
-    row("batched_spmm_coo_large_bf16[m_pad 9000]",
-        lambda: batched_spmm_coo_large_bf16(b16, c16, vbh, bbh),
-        lambda: ref.batched_spmm_coo_plain(b16, c16, vbh, bbh),
-        cs.BF16_KERNEL_TOL, iters=10, replays=3)
+    _coo_large_rows(cs, dev, gen, ms)
     return ms
+
+
+def _here():
+    """This script's own tree's ``chip_smoke`` (the COO large rows'
+    shapes, data and bytes count), whichever tree ``--root`` times."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", Path(__file__).resolve().parents[1] /
+        "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _kernel_us(fn, calls: int = 20) -> dict:
+    """Device µs a call of each CUDA kernel that ``fn`` launches, by
+    ``torch.profiler`` over ``calls`` calls after three warm ones."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.key_averages():
+        if e.device_time_total <= 0 or e.key.startswith(("aten::", "cuda")):
+            continue
+        name = re.search(r"(\w+)\s*[<(]",
+                         e.key.replace("(anonymous namespace)", ""))
+        name = name.group(1) if name else e.key
+        us[name] = us.get(name, 0.0) + e.device_time_total / calls
+    return us
+
+
+def _coo_large_rows(cs, dev, gen, ms):
+    """The COO large-matrix entries at chip_smoke's LARGE_SHAPES and
+    TIER_BLOCKS (its ``_large_coo`` and ``_tier_block`` matrices, taken
+    from this script's tree), n_b 64: f32, bf16 on int32 ids (and on int16
+    ids at m_pad 9000, the earlier row), g-SpMM (copy_lhs, mean) and (mul,
+    max), each through ``chip_smoke._measure`` (against its plain version;
+    graph-replay, back-to-back, plain and library times, the bytes bound
+    over the B rows the slots read), each twice for its bits (printed as
+    ``[bits twice]``) and each kernel's device time a call
+    (``kernels_us``: the sort and the walk, or the fill, atomics and
+    finish of the earlier design); at the 33,792-row block also
+    ``ops.batched_spmm`` with ``impl="ref"`` (case 3's plain path on the
+    card) against ``pallas_coo`` (the f32 entry), back to back. Adds
+    ``[detail]`` lines and ``ms`` entries."""
+    import torch
+    from repro_torch.core.formats import coo_to_dense, narrow_col_ids
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.batched_spmm_coo import \
+        batched_spmm_coo_large, batched_spmm_coo_large_bf16
+
+    bf = torch.bfloat16
+    here = _here()
+    shapes = [(tag, lambda m=m, n=n: here._large_coo(m, n, seed=m))
+              for tag, m, n in here.LARGE_SHAPES]
+    shapes += [(tag, lambda m=m, live=live, f=f: here._tier_block(
+        m, live, f, seed=m)) for tag, m, live, f in here.TIER_BLOCKS]
+    for tag, make in shapes:
+        a = make().to(dev)
+        batch, m = a.batch, int(a.n_rows.max())
+        b = torch.randn((batch, m, 64), generator=gen).to(dev)
+        bh, vh = b.to(bf), a.values.to(bf)
+        nnz = int(a.nnz.sum().item())
+        dense = coo_to_dense(a, m).contiguous()
+        dense_h = dense.to(bf)
+        # the B rows the slots read, once, and C written once (f32)
+        io = (here._b_rows_read(a, m) + batch * m) * 64 * 4
+        rid, cid = a.row_ids, a.col_ids
+        # (key, kernel, plain, bytes, operations, library, bf16)
+        cases = [
+            (f"batched_spmm_coo_large[{tag}]",
+             lambda: batched_spmm_coo_large(rid, cid, a.values, b),
+             lambda: ref.batched_spmm_coo_plain(rid, cid, a.values, b),
+             io + nnz * 12, 2 * nnz * 64, lambda: torch.bmm(dense, b),
+             False),
+            (f"batched_spmm_coo_large_bf16[{tag}, int32 ids]",
+             lambda: batched_spmm_coo_large_bf16(rid, cid, vh, bh),
+             lambda: ref.batched_spmm_coo_plain(rid, cid, vh, bh),
+             io // 2 + nnz * 10, 2 * nnz * 64,
+             lambda: torch.bmm(dense_h, bh), True)]
+        if tag == "m_pad 9000":
+            r16, c16 = narrow_col_ids(rid, m), narrow_col_ids(cid, m)
+            cases.append((
+                f"batched_spmm_coo_large_bf16[{tag}]",
+                lambda: batched_spmm_coo_large_bf16(r16, c16, vh, bh),
+                lambda: ref.batched_spmm_coo_plain(r16, c16, vh, bh),
+                io // 2 + nnz * 6, 2 * nnz * 64,
+                lambda: torch.bmm(dense_h, bh), True))
+        for op, red in (("copy_lhs", "mean"), ("mul", "max")):
+            kw = dict(nnz=a.nnz, op=op, reduce=red)
+            cases.append((
+                f"batched_spmm_coo_large[g-SpMM ({op}, {red}), {tag}]",
+                lambda kw=kw: batched_spmm_coo_large(rid, cid, a.values, b,
+                                                     **kw),
+                lambda op=op, red=red: ref.batched_gspmm_coo_plain(
+                    rid, cid, a.values, a.nnz, b, op=op, reduce=red),
+                io + nnz * (8 if op == "copy_lhs" else 12) + batch * 4,
+                nnz * 64 * (1 if op == "copy_lhs" else 2),
+                cs._library_gspmm(a, b, a.values, op, red), False))
+        rows = {}
+        for key, kern, plain, nbytes, flops, library, bf16 in cases:
+            bits = torch.equal(kern(), kern())
+            print(f"[bits twice] {key}: {'same' if bits else 'differ'}",
+                  flush=True)
+            cs._measure(rows, key, key.split("[")[0], kern, plain, nbytes,
+                        flops, f"{batch} x {m} rows, {nnz} real nnz, n_b 64",
+                        library,
+                        tol=cs.BF16_KERNEL_TOL if bf16 else cs.F32_TOL,
+                        flop_rate=cs.BF16_FLOP_PER_S if bf16
+                        else cs.F32_FLOP_PER_S,
+                        library_tol=cs.POLICY_TOLS["bf16"] if bf16
+                        else cs.F32_TOL, iters=10, replays=3)
+            ms[key] = rows[key]["ms"]
+            print("[detail] " + json.dumps({**{k: rows[key][k] for k in (
+                "name", "ms", "stream_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "shape")},
+                "kernels_us": _kernel_us(kern)}), flush=True)
+        if tag == "tier block 33792":
+            for impl in ("ref", "pallas_coo"):
+                key = f"ops.batched_spmm[{impl}, {tag}, back-to-back]"
+                ms[key] = cs.cuda_ms(lambda impl=impl: ops.batched_spmm(
+                    a, b, impl=impl), iters=10)
+                print(f"[case 3] {key}: {ms[key]:.4f} ms", flush=True)
+        del dense, dense_h, a, b, bh
+        torch.cuda.empty_cache()
 
 
 def _csr_rows(cs, dev, gen, wave, conv, rw, pl_adj, pl_m):

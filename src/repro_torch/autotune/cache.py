@@ -203,8 +203,9 @@ def measure_workload(
     *,
     device=None,
     warmup: int = 2,
-    iters: int = 10,
+    iters: int = 30,
     seed: int = 0,
+    contend: float | None = 2.0,
 ) -> dict[str, float]:
     """Median seconds of one call of each impl on inputs at exactly
     ``w``'s shapes, on ``device`` (the current CUDA device unless the
@@ -218,15 +219,31 @@ def measure_workload(
     workload as one ``batched_gspmm`` call of its (op, reduce) with
     ``d_e``-wide vector edges where ``d_e`` is set. Each call runs under
     ``torch.inference_mode()``; on the card it is timed from one
-    ``torch.cuda.synchronize()`` to the next: ``iters`` calls of each
-    candidate in a row after ``warmup`` (more than the reference's 5 after
-    1: the card's host is shared and its pace noisy).
+    ``torch.cuda.synchronize()`` to the next, with Python's garbage
+    collector paused. The calls come in rounds: a round times a block of
+    at least 3 calls in a row of each candidate, each block after
+    ``warmup`` untimed calls, the order rotated a step a round, ``iters``
+    timed calls in all. A candidate whose first block took more than
+    ``contend`` times the fastest first block sits out the later rounds
+    (``None``: every candidate runs every round). A time is the median of
+    the candidate's blocks' medians.
+
+    The reference times 5 calls in a row after 1. The card's host is
+    shared and its pace drifts by tens of percent over a second, so one
+    candidate timed all in a row can ride a slow or a fast stretch that
+    its rivals miss; short blocks in many rounds put every contender in
+    the same stretches, and the candidates that cannot win (``loop`` takes
+    100x the rest) do not stretch a round. Calls stay in a row within a
+    block: timed one call of each candidate in turn on the H100's host, a
+    host-bound impl ran up to 1.6x slower than in a row, and no caller
+    alternates impls call by call.
 
     With ``impls=None`` the candidates are those the model ranks on this
     device, less the ELL class where it cannot hold the workload; an ELL
     impl asked for by name on such a workload raises. A candidate that
     raises while it runs raises here: it does not vanish from the
     record."""
+    import gc
     import time
 
     import numpy as np
@@ -257,20 +274,39 @@ def measure_workload(
         if on_card:
             torch.cuda.synchronize(device)
 
-    times: dict[str, float] = {}
-    with torch.inference_mode():
-        for impl in impls:
-            for _ in range(warmup):
-                call(impl)
+    def block(impl, n):
+        for _ in range(warmup):
+            call(impl)
+        sync()
+        secs = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            call(impl)
             sync()
-            ts = []
-            for _ in range(iters):
-                t0 = time.perf_counter()
-                call(impl)
-                sync()
-                ts.append(time.perf_counter() - t0)
-            times[impl] = float(np.median(ts))
-    return times
+            secs.append(time.perf_counter() - t0)
+        return float(np.median(secs))
+
+    rounds = max(1, iters // 3)
+    live = tuple(impls)
+    ts: dict[str, list[float]] = {impl: [] for impl in live}
+    gc_was_on = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        with torch.inference_mode():
+            for r in range(rounds if live else 0):
+                n = iters * (r + 1) // rounds - iters * r // rounds
+                k = r % len(live)
+                for impl in live[k:] + live[:k]:
+                    ts[impl].append(block(impl, n))
+                if r == 0 and contend is not None:
+                    fastest = min(t[0] for t in ts.values())
+                    live = tuple(i for i in live
+                                 if ts[i][0] <= contend * fastest)
+    finally:
+        if gc_was_on:
+            gc.enable()
+    return {impl: float(np.median(t)) for impl, t in ts.items()}
 
 
 def autotune(

@@ -3,12 +3,12 @@
 // paper's sub-warp width, the opt-in for more than 48 KB of dynamic
 // shared memory (without it such a launch is refused and never runs), the
 // g-SpMM pieces of the ELL, COO and CSR kernels (the (op, reduce) codes the
-// wrappers pass, the per-edge combine and a shared-memory float max), and
-// the element types of the reduced-precision entries: loads that widen
-// f32, bf16 and int8 to f32 and int32 or int16 ids to int, and the one
-// rounding of an f32 sum to the output type, and the panel and grid sizes of
-// the kernels that read B through the L2 and their loads and stores of a
-// lane's four neighbouring columns.
+// wrappers pass, the per-edge combine and the empty-row fix-up), and the
+// element types of the reduced-precision entries: loads that widen f32,
+// bf16 and int8 to f32 and int32 or int16 ids to int, and the one rounding
+// of an f32 sum to the output type, and the panel and grid sizes of the
+// kernels that read B through the L2 and their loads and stores of a
+// lane's four neighbouring columns (in device and in shared memory).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,21 +44,6 @@ __device__ __forceinline__ float combine(float u, float e, int op) {
   if (op == kOpMul) return u * e;
   if (op == kOpAdd) return u + e;
   return u;
-}
-
-// *addr = max(*addr, v) for a float in shared or global memory: a
-// compare-and-swap loop on its bits (there is no native float atomic max).
-// It only ever replaces a smaller value, so -0.0 and 0.0, being equal,
-// never swap, and the result is the exact maximum whatever the order of
-// the calls.
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-  int* bits = reinterpret_cast<int*>(addr);
-  int old = *reinterpret_cast<volatile int*>(bits);
-  while (v > __int_as_float(old)) {
-    const int seen = atomicCAS(bits, old, __float_as_int(v));
-    if (seen == old) break;
-    old = seen;
-  }
 }
 
 // The empty-row fix-up of every reduce: max writes 0.0 where no edge
@@ -216,14 +201,24 @@ __device__ __forceinline__ void store_cols(__nv_bfloat16* p, const float* x,
     if (i < n) p[i] = __float2bfloat16_rn(x[i]);
 }
 
+// Four floats of shared memory (16-byte aligned) into a, and back.
+__device__ __forceinline__ void ld4(float (&a)[kW], const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  a[0] = t.x, a[1] = t.y, a[2] = t.z, a[3] = t.w;
+}
+__device__ __forceinline__ void st4(float* p, const float (&a)[kW]) {
+  *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+}
+
 // Exclusive prefix sum of the n ints at a (shared memory), by the block:
 // each thread sums a contiguous share, the warps scan the shares with
 // shuffles, and each warp adds the totals of the warps before it (ws: one
-// int per warp). Barriers before and after are the caller's. kThreads is
-// the block's size.
+// int per warp). The share is odd, so that a warp's 32 threads, a share
+// apart, read 32 different banks. Barriers before and after are the
+// caller's. kThreads is the block's size.
 template <int kThreads>
 __device__ __forceinline__ void exclusive_scan(int* a, int n, int* ws) {
-  const int share = (n + kThreads - 1) / kThreads;
+  const int share = (n + kThreads - 1) / kThreads | 1;
   const int lo = min(n, static_cast<int>(threadIdx.x) * share);
   const int hi = min(n, lo + share);
   int sum = 0;

@@ -781,14 +781,8 @@ struct Large {
   int vec_r;     // copy width of the rank map's rows (hybrid)
 };
 
-// Four floats of shared memory (16-byte aligned) into a, and back.
-__device__ __forceinline__ void ld4(float (&a)[4], const float* p) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  a[0] = t.x, a[1] = t.y, a[2] = t.z, a[3] = t.w;
-}
-__device__ __forceinline__ void st4(float* p, const float (&a)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
-}
+using repro::ld4;
+using repro::st4;
 
 // Kernel 1: U[s, ch] = X[s] W_ch + b_ch for the group's channels that are
 // read (a channel with a slot or a hub row), one TM-row tile x TN-column

@@ -35,12 +35,16 @@ Large-matrix entries (paper case 3, where the reference takes its plain
 per-sample path): :func:`batched_spmm_coo_large` (f32 and g-SpMM) and
 :func:`batched_spmm_coo_large_bf16` take the same operands and any plan,
 case 3 included. A matrix's stream there is far larger than a block
-buckets at a time, so the kernel's large-matrix branch accumulates into an
-f32 buffer in global memory that the wrapper fills first (``torch.zeros``,
--3e38 for max; the g-SpMM degrees in a zeroed int32 buffer), with global
-atomics, then finishes it in a second pass (mean, empty max, bf16
-rounding). The bf16 one also takes int32 ids, for ``m_pad`` past int16's
-range. Not bitwise repeatable; same plain versions, own counters.
+buckets at a time, so the kernel's large-matrix branch first sorts each
+run of the stream by row tile (stably: a tile's slots in slot order), then
+each walk block stages its tile's slots, buckets them by row and walks
+them as the batched entry does, its sums kept in shared memory between
+stages. Each output is the batched entry's one chain in slot order, stored
+once: no float atomics and no fill, the same bits from run to run and as
+the batched entry's. The scratch (the sorted slots and each (tile, run)'s
+start) is ``torch.empty``, sized from the shapes. The bf16 one also takes
+int32 ids, for ``m_pad`` past int16's range. Same plain versions, own
+counters.
 """
 from __future__ import annotations
 
@@ -60,13 +64,13 @@ from repro_torch.kernels import (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
-_GSPMM_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _P)
 
 
-_LARGE_GSPMM_ARGTYPES = (_P,) * 7 + (_I,) * 8 + (_P,)
-_LARGE_BF16_ARGTYPES = (_P,) * 6 + (_I,) * 6 + (_P,)
+def _argtypes(pointers: int, ints: int) -> tuple:
+    """An entry's ctypes: its pointers (ids, values, [nnz,] b, c[, the
+    large-matrix branch's scratch]), its ints (batch, nnz_pad, m_pad, n_b,
+    n_block[, op, reduce, vector edges][, ids32]), then the stream."""
+    return (_P,) * pointers + (_I,) * ints + (_P,)
 
 
 def batched_spmm_coo(row_ids: torch.Tensor, col_ids: torch.Tensor,
@@ -87,8 +91,8 @@ def batched_spmm_coo_large(row_ids: torch.Tensor, col_ids: torch.Tensor,
                            plan: BatchPlan | None = None,
                            nnz: torch.Tensor | None = None, op: str = "mul",
                            reduce: str = "sum") -> torch.Tensor:
-    """:func:`batched_spmm_coo` through the large-matrix branch (global
-    accumulator), at any plan, planner case 3 included."""
+    """:func:`batched_spmm_coo` through the large-matrix branch (sorted by
+    row tile, then walked), at any plan, planner case 3 included."""
     return _f32(batched_spmm_coo_large, True, row_ids, col_ids, values, b,
                 plan, nnz, op, reduce)
 
@@ -120,34 +124,24 @@ def _f32(counted, large: bool, row_ids, col_ids, values, b, plan, nnz, op,
             return ref.batched_gspmm_coo_plain(row_ids, col_ids, values, nnz,
                                                b, op=op, reduce=reduce)
         return ref.batched_spmm_coo_plain(row_ids, col_ids, values, b)
-    if large:
-        # the accumulator is the output, filled with the reduce's identity
-        out = torch.full_like(b, ref.NEG_INF if reduce == "max" else 0.0)
-    else:
-        out = torch.empty_like(b)
+    out = torch.empty_like(b)
     if out.numel() == 0:
         return out
     ids = (row_ids.data_ptr(), col_ids.data_ptr(), values.data_ptr())
-    if gspmm and large:
-        deg = torch.zeros((batch, m_pad), dtype=torch.int32, device=b.device)
-        fn = _build.entry("batched_spmm_coo", "batched_gspmm_coo_large_f32",
-                          _LARGE_GSPMM_ARGTYPES)
-        code = fn(*ids, nnz.data_ptr(), b.data_ptr(), out.data_ptr(),
-                  deg.data_ptr(), batch, nnz_pad, m_pad, n_b, plan.n_block,
+    ptrs = (b.data_ptr(), out.data_ptr())
+    if large:
+        ptrs += (_large_scratch(batch, nnz_pad, m_pad, plan, b).data_ptr(),)
+    shape = (batch, nnz_pad, m_pad, n_b, plan.n_block)
+    entry = ("batched_gspmm_coo" if gspmm else "batched_spmm_coo") \
+        + ("_large_f32" if large else "_f32")
+    fn = _build.entry("batched_spmm_coo", entry,
+                      _argtypes(5 + gspmm + large, 5 + 3 * gspmm))
+    if gspmm:
+        code = fn(*ids, nnz.data_ptr(), *ptrs, *shape,
                   *gspmm_codes(op, reduce), int(values.dim() == 3),
                   stream_handle())
-    elif gspmm:
-        fn = _build.entry("batched_spmm_coo", "batched_gspmm_coo_f32",
-                          _GSPMM_ARGTYPES)
-        code = fn(*ids, nnz.data_ptr(), b.data_ptr(), out.data_ptr(), batch,
-                  nnz_pad, m_pad, n_b, plan.n_block, *gspmm_codes(op, reduce),
-                  int(values.dim() == 3), stream_handle())
     else:
-        entry = "batched_spmm_coo_large_f32" if large \
-            else "batched_spmm_coo_f32"
-        fn = _build.entry("batched_spmm_coo", entry, _ARGTYPES)
-        code = fn(*ids, b.data_ptr(), out.data_ptr(), batch, nnz_pad, m_pad,
-                  n_b, plan.n_block, stream_handle())
+        code = fn(*ids, *ptrs, *shape, stream_handle())
     _build.check("batched_spmm_coo", code)
     counted.launches += 1
     return out
@@ -171,9 +165,9 @@ def batched_spmm_coo_large_bf16(row_ids: torch.Tensor, col_ids: torch.Tensor,
                                 values: torch.Tensor, b: torch.Tensor, *,
                                 plan: BatchPlan | None = None
                                 ) -> torch.Tensor:
-    """:func:`batched_spmm_coo_bf16` through the large-matrix branch: an f32
-    accumulator in global memory (zeroed here), rounded to bf16 once by the
-    kernel's second pass; int16 or int32 row and column ids."""
+    """:func:`batched_spmm_coo_bf16` through the large-matrix branch (sorted
+    by row tile, then walked; f32 sums rounded to bf16 once at the store);
+    int16 or int32 row and column ids."""
     return _bf16(batched_spmm_coo_large_bf16, True, row_ids, col_ids, values,
                  b, plan)
 
@@ -203,14 +197,14 @@ def _bf16(counted, large: bool, row_ids, col_ids, values, b, plan):
            b.data_ptr())
     shape = (batch, nnz_pad, m_pad, n_b, plan.n_block)
     if large:
-        acc = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+        scratch = _large_scratch(batch, nnz_pad, m_pad, plan, b)
         fn = _build.entry("batched_spmm_coo", "batched_spmm_coo_large_bf16",
-                          _LARGE_BF16_ARGTYPES)
-        code = fn(*ids, acc.data_ptr(), out.data_ptr(), *shape, int(ids32),
-                  stream_handle())
+                          _argtypes(6, 6))
+        code = fn(*ids, out.data_ptr(), scratch.data_ptr(), *shape,
+                  int(ids32), stream_handle())
     else:
         fn = _build.entry("batched_spmm_coo", "batched_spmm_coo_bf16",
-                          _ARGTYPES)
+                          _argtypes(5, 5))
         code = fn(*ids, out.data_ptr(), *shape, stream_handle())
     _build.check("batched_spmm_coo", code)
     counted.launches += 1
@@ -219,3 +213,18 @@ def _bf16(counted, large: bool, row_ids, col_ids, values, b, plan):
 
 batched_spmm_coo_bf16.launches = 0
 batched_spmm_coo_large_bf16.launches = 0
+
+
+def _large_scratch(batch: int, nnz_pad: int, m_pad: int, plan: BatchPlan,
+                   b: torch.Tensor) -> torch.Tensor:
+    """The large-matrix branch's scratch (``torch.empty``, 4-byte words):
+    each matrix's slots sorted by row tile (row ids, column ids, values)
+    and where each (tile, run) starts, its size from the shapes alone (the
+    kernel library's count)."""
+    fn = _build.entry("batched_spmm_coo", "batched_spmm_coo_large_scratch",
+                      (_I,) * 4)
+    words = fn(batch, nnz_pad, m_pad, plan.n_block)
+    if words < 0:
+        raise ValueError(f"batched_spmm_coo: m_pad {m_pad} is past what the "
+                         "large-matrix branch takes (16,776,960)")
+    return torch.empty(batch * words, dtype=torch.int32, device=b.device)

@@ -396,6 +396,57 @@ def test_measure_workload_times_what_it_is_asked_on_the_cpu(monkeypatch):
         tat.measure_workload(g, ("dense",), device="cpu", iters=1)
 
 
+def test_measure_workload_times_contenders_in_rotated_blocks(monkeypatch):
+    """The timed calls of each candidate come in blocks of at least 3 in a
+    row, each after the warm-up calls, one block of every candidate a
+    round, the order rotated a step a round, with the garbage collector
+    paused (and restored after). A candidate whose first block took more
+    than ``contend`` times the fastest sits out the later rounds; a time
+    is the median of the candidate's blocks' medians, so one slow block of
+    three does not decide it. Timed on a fake clock that each call moves
+    by its impl's cost."""
+    import gc
+    import time
+
+    import repro_torch.autotune.cache as cache_mod
+
+    seen, now = [], [0.0]
+
+    def cost(impl):
+        if impl == "csr" and 3 < sum(i == "csr" for i, _ in seen) <= 6:
+            return 10.0                  # csr's second block: a slow stretch
+        return {"ref": 1.0, "csr": 1.0, "ell": 3.0}[impl]
+
+    def fake_call(w, *, device, seed=0):
+        def call(impl):
+            seen.append((impl, gc.isenabled()))
+            now[0] += cost(impl)
+        return call
+
+    monkeypatch.setattr(cache_mod, "workload_call", fake_call)
+    monkeypatch.setattr(time, "perf_counter", lambda: now[0])
+    w = tat.Workload(**SMALL)
+    impls = ("ref", "csr", "ell")
+    # every candidate every round: 7 timed calls over 2 rounds, blocks of 3
+    # then 4, each after 1 warm call
+    tat.measure_workload(w, impls, device="cpu", warmup=1, iters=7,
+                         contend=None)
+    run = lambda impl, n: [impl] * (1 + n)
+    assert [i for i, _ in seen] == (
+        run("ref", 3) + run("csr", 3) + run("ell", 3)
+        + run("csr", 4) + run("ell", 4) + run("ref", 4))
+    assert not any(on for _, on in seen)
+    assert gc.isenabled()
+    # ell (3x the fastest) runs only the first round; csr's slow block is
+    # outvoted by its other two
+    seen.clear()
+    times = tat.measure_workload(w, impls, device="cpu", warmup=0, iters=9)
+    assert [i for i, _ in seen] == (["ref"] * 3 + ["csr"] * 3 + ["ell"] * 3
+                                    + ["csr"] * 3 + ["ref"] * 3
+                                    + ["ref"] * 3 + ["csr"] * 3)
+    assert times == {"ref": 1.0, "csr": 1.0, "ell": 3.0}
+
+
 def test_autotune_fills_the_cache_then_answers_from_it(tmp_path,
                                                        monkeypatch):
     w = tat.Workload(**SMALL)

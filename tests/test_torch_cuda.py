@@ -4,12 +4,12 @@ Marked ``cuda``: they need an NVIDIA card and ``nvcc`` and skip without
 them. On the card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Each test seeds torch's generators with a fresh seed and prints it (shown
 with a failure); ``REPRO_TEST_SEED=<seed>`` replays those inputs.
-The fused kernel's row buckets (integer atomics order a row's slots) and
-the COO kernel's large-matrix entries (float atomics) add in a
-run-dependent order, so those are held to the f32 tolerance (1e-4,
-1e-5), not bitwise; the batched COO, CSR, ELL, hybrid and GEMM kernels,
-the fused kernel's large-matrix branch and the grouped matmul have no
-float atomics and give identical bits twice.
+The fused kernel's row buckets (integer atomics order a row's slots) add
+in a run-dependent order, so those are held to the f32 tolerance (1e-4,
+1e-5), not bitwise; the COO, CSR, ELL, hybrid and GEMM kernels (their
+large-matrix entries too, which give their batched entries' bits), the
+fused kernel's large-matrix branch and the grouped matmul have no float
+atomics and give identical bits twice.
 """
 import os
 
@@ -389,9 +389,9 @@ def test_case3_kernel_impls_run_their_large_entries_on_the_card(
     variants that are case 3 at their element size) runs its kernel's
     large-matrix entry, forward and first-step gradients, against the same
     impl on the CPU, where it takes the reference's plain per-sample path.
-    f32 and i8 at (1e-4, 1e-5) and gradients at 3x (atomics in the COO
-    class's dB and in the CPU's scatter-add change the order of the sums),
-    bf16 at tests/oracle.py's bf16 tolerance."""
+    f32 and i8 at (1e-4, 1e-5) and gradients at 3x (the kernels and the
+    CPU's scatter-add sum in other orders), bf16 at tests/oracle.py's bf16
+    tolerance."""
     coo = _case3_coo(m_pad, batch)
     b0 = torch.randn((batch, m_pad, 32))
     module, name, _ = CASE3_ENTRIES[impl]
@@ -436,8 +436,8 @@ def test_case3_gspmm_runs_the_large_entries_on_the_card(dev, impl):
 
 def test_case3_large_entries_match_their_batched_entries(dev):
     """A large-matrix entry is the same function as its batched entry: at a
-    shape both take (Tox21-like, 64 x 56), ELL, CSR and GEMM give the same
-    bits (one fixed-order sum per output) and COO agrees at (1e-4, 1e-5)."""
+    shape both take (Tox21-like, 64 x 56), ELL, CSR, COO and GEMM give the
+    same bits (one fixed-order sum per output)."""
     from repro_torch.kernels.batched_gemm import batched_gemm_large
     from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo_large
     from repro_torch.kernels.batched_spmm_csr import batched_spmm_csr_large
@@ -452,9 +452,9 @@ def test_case3_large_entries_match_their_batched_entries(dev):
                        batched_spmm_ell(e.col_ids, e.values, b))
     assert torch.equal(batched_spmm_csr_large(c.rpt, c.col_ids, c.values, b),
                        batched_spmm_csr(c.rpt, c.col_ids, c.values, b))
-    torch.testing.assert_close(
+    assert torch.equal(
         batched_spmm_coo_large(coo.row_ids, coo.col_ids, coo.values, b),
-        batched_spmm_coo(coo.row_ids, coo.col_ids, coo.values, b), **TOL)
+        batched_spmm_coo(coo.row_ids, coo.col_ids, coo.values, b))
     a = coo_to_dense(coo, m_pad).contiguous()
     assert torch.equal(batched_gemm_large(a, b), batched_gemm(a, b))
 
@@ -1167,9 +1167,10 @@ def _narrow_plan(batch, m_pad, n_b):
 def _coo_entries_hold(rid, cid, val, nnz, m_pad, n_b, dev, corners):
     """Every COO entry against its plain version on these operands; the
     batched entries twice for identical bits and under another block
-    split for the same bits; max corners bitwise against the plain
-    version; the g-SpMM entries on ``corners`` with scalar and vector
-    edges."""
+    split for the same bits; each large-matrix entry (bf16 with int16 and
+    int32 ids) the same bits as its batched entry, twice and under another
+    panel and tile split; max corners bitwise against the plain version;
+    the g-SpMM entries on ``corners`` with scalar and vector edges."""
     from repro_torch.kernels.batched_spmm_coo import batched_spmm_coo_bf16, \
         batched_spmm_coo_large, batched_spmm_coo_large_bf16
 
@@ -1182,8 +1183,9 @@ def _coo_entries_hold(rid, cid, val, nnz, m_pad, n_b, dev, corners):
         got, ref.batched_spmm_coo_plain(rid, cid, val, b), **TOL)
     assert torch.equal(got, batched_spmm_coo(rid, cid, val, b))
     assert torch.equal(got, batched_spmm_coo(rid, cid, val, b, plan=narrow))
-    torch.testing.assert_close(batched_spmm_coo_large(rid, cid, val, b), got,
-                               **TOL)
+    _same_bits_as(got, lambda **kw: batched_spmm_coo_large(rid, cid, val, b,
+                                                            **kw), narrow,
+                  "f32")
     r16, c16 = rid.to(torch.int16), cid.to(torch.int16)
     vh, bh = val.to(torch.bfloat16), b.to(torch.bfloat16)
     want16 = ref.batched_spmm_coo_plain(r16, c16, vh, bh).float()
@@ -1193,9 +1195,8 @@ def _coo_entries_hold(rid, cid, val, nnz, m_pad, n_b, dev, corners):
     assert torch.equal(got16, batched_spmm_coo_bf16(r16, c16, vh, bh,
                                                     plan=narrow))
     for ids in ((r16, c16), (rid, cid)):
-        torch.testing.assert_close(
-            batched_spmm_coo_large_bf16(*ids, vh, bh).float(), want16,
-            **BF16_TOL)
+        _same_bits_as(got16, lambda **kw: batched_spmm_coo_large_bf16(
+            *ids, vh, bh, **kw), narrow, f"bf16, {ids[0].dtype} ids")
     slot = torch.arange(rid.shape[1], device=dev)
     vec = torch.randn(tuple(rid.shape) + (n_b,), device=dev) * (
         slot[None, :] < nnz[:, None])[..., None]
@@ -1214,10 +1215,18 @@ def _coo_entries_hold(rid, cid, val, nnz, m_pad, n_b, dev, corners):
                                                    **kw)), what
             assert torch.equal(g, batched_spmm_coo(rid, cid, values, b,
                                                    plan=narrow, **kw)), what
-            torch.testing.assert_close(
-                batched_spmm_coo_large(rid, cid, values, b, **kw), want,
-                **TOL, msg=what)
+            _same_bits_as(g, lambda **k: batched_spmm_coo_large(
+                rid, cid, values, b, **kw, **k), narrow, what)
     return got
+
+
+def _same_bits_as(want, large, narrow, what):
+    """``large()`` (a large-matrix entry) gives ``want``'s bits (its batched
+    entry's), twice, and under the ``narrow`` plan's panels and tiles."""
+    got = large()
+    assert torch.equal(got, want), f"{what}: large entry != batched entry"
+    assert torch.equal(large(), got), f"{what}: large entry differs twice"
+    assert torch.equal(large(plan=narrow), got), f"{what}: narrow plan"
 
 
 @pytest.mark.parametrize("n_b", (1, 7, 48, 64, 65, 512))
@@ -1296,6 +1305,128 @@ def test_coo_kernel_entries_hold_on_wide_matrices_in_one_run(dev):
     rid = torch.where(slot[None, :] >= coo.nnz[:, None], m_pad, rid)
     _coo_entries_hold(rid, cid, val, coo.nnz, m_pad, 64, dev,
                       [("mul", "sum"), ("copy_lhs", "mean"), ("add", "max")])
+
+
+def _tier_block(m_pad, live, fanout, seed):
+    """A sampled block of the giant-graph tier as one matrix: its first
+    ``live`` rows (the destinations) ``fanout`` N(0, 1) slots each, in row
+    order, at columns drawn over all ``m_pad`` rows, as numpy from a
+    seed."""
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(live, dtype=np.int32), fanout)
+    return coo_from_lists([(r, rng.integers(0, m_pad, r.size).astype(
+        np.int32), rng.normal(size=r.size).astype(np.float32))], [m_pad])
+
+
+def test_coo_large_entries_at_the_tier_block(dev):
+    """The giant-graph tier's first sampled block (batch 1, 33,792 rows past
+    int16's range, 3,072 live rows x 10 slots, n_b 64), and its transpose
+    (the dB call: rows in column order): the bf16 large-matrix entry on
+    int32 ids, the f32 one and the g-SpMM (copy_lhs, mean) and (mul, max)
+    corners against their plain versions (max bitwise), each the same bits
+    twice."""
+    from repro_torch.kernels.batched_spmm_coo import \
+        batched_spmm_coo_large, batched_spmm_coo_large_bf16
+
+    coo = _tier_block(33_792, 3_072, 10, seed=3).to(dev)
+    assert coo.nnz_pad == 30_720
+    b = torch.randn((1, 33_792, 64), device=dev)
+    vh, bh = coo.values.to(torch.bfloat16), b.to(torch.bfloat16)
+    for rid, cid in ((coo.row_ids, coo.col_ids), (coo.col_ids, coo.row_ids)):
+        got = batched_spmm_coo_large_bf16(rid, cid, vh, bh)
+        torch.testing.assert_close(
+            got.float(), ref.batched_spmm_coo_plain(rid, cid, vh, bh).float(),
+            **BF16_TOL)
+        assert torch.equal(got, batched_spmm_coo_large_bf16(rid, cid, vh, bh))
+        got = batched_spmm_coo_large(rid, cid, coo.values, b)
+        torch.testing.assert_close(
+            got, ref.batched_spmm_coo_plain(rid, cid, coo.values, b), **TOL)
+        assert torch.equal(got, batched_spmm_coo_large(rid, cid, coo.values,
+                                                       b))
+        for op, red in (("copy_lhs", "mean"), ("mul", "max")):
+            kw = dict(nnz=coo.nnz, op=op, reduce=red)
+            got = batched_spmm_coo_large(rid, cid, coo.values, b, **kw)
+            want = ref.batched_gspmm_coo_plain(rid, cid, coo.values, coo.nnz,
+                                               b, op=op, reduce=red)
+            if red == "max":
+                assert torch.equal(got, want), (op, red)
+            else:
+                torch.testing.assert_close(got, want, **TOL)
+            assert torch.equal(got, batched_spmm_coo_large(
+                rid, cid, coo.values, b, **kw)), (op, red)
+
+
+@pytest.mark.parametrize("m_pad,live,fanout", [(1_024, 1_024, 126),
+                                                (33_792, 3_072, 25)])
+def test_coo_large_entries_sort_streams_past_65536_slots(dev, m_pad, live,
+                                                         fanout):
+    """One matrix of more than 65,536 slots, so that the large-matrix
+    branch's sort takes runs longer than 256 slots (255 runs at 1,024 rows,
+    near its 256 a matrix): its first ``live`` rows ``fanout`` N(0, 1)
+    slots each and row 7 1,500 more (a row longer than the 1,024 slots a
+    walk block stages at once), all in random order, with the contracts'
+    0.0 edges, out-of-range row ids and sentinel padding, n_b 64. At 1,024
+    rows (planner case 2) every large entry gives its batched entry's bits
+    (``_coo_entries_hold``); at 33,792 rows (case 3, which the batched
+    entries do not take) each large entry (f32, bf16 on int32 ids, g-SpMM
+    corners with scalar and vector edges) against its plain version (max
+    bitwise), the same bits twice and under another panel and tile
+    split."""
+    from repro_torch.core.batching import plan_batched_spmm
+    from repro_torch.kernels.batched_spmm_coo import \
+        batched_spmm_coo_large, batched_spmm_coo_large_bf16
+
+    rng = np.random.default_rng(13)
+    rows = np.concatenate([np.repeat(np.arange(live), fanout),
+                           np.full(1_500, 7)])
+    perm = rng.permutation(rows.size)
+    coo = coo_from_lists([(rows[perm].astype(np.int32),
+                           rng.integers(0, m_pad, rows.size).astype(np.int32),
+                           rng.normal(size=rows.size).astype(np.float32))],
+                         [m_pad])
+    assert coo.nnz_pad > 65_536
+    rid, cid, val = coo.row_ids, coo.col_ids, coo.values
+    rid = torch.where(torch.rand(rid.shape) < 0.02, m_pad + 1_000, rid)
+    val = torch.where(torch.rand(rid.shape) < 0.02, 0.0, val)
+    slot = torch.arange(coo.nnz_pad)
+    rid = torch.where(slot[None, :] >= coo.nnz[:, None], m_pad, rid)
+    corners = [("mul", "sum"), ("copy_lhs", "mean"), ("add", "max")]
+    case = plan_batched_spmm(batch=1, m_pad=m_pad, n_b=64).case
+    if case != 3:
+        _coo_entries_hold(rid, cid, val, coo.nnz, m_pad, 64, dev, corners)
+        return
+    rid, cid, val, nnz = (t.to(dev) for t in (rid, cid, val, coo.nnz))
+    b = torch.randn((1, m_pad, 64), device=dev)
+    narrow = _narrow_plan(1, m_pad, 64)
+    got = batched_spmm_coo_large(rid, cid, val, b)
+    torch.testing.assert_close(
+        got, ref.batched_spmm_coo_plain(rid, cid, val, b), **TOL)
+    _same_bits_as(got, lambda **kw: batched_spmm_coo_large(rid, cid, val, b,
+                                                            **kw), narrow,
+                  "f32")
+    vh, bh = val.to(torch.bfloat16), b.to(torch.bfloat16)
+    got = batched_spmm_coo_large_bf16(rid, cid, vh, bh)
+    torch.testing.assert_close(
+        got.float(), ref.batched_spmm_coo_plain(rid, cid, vh, bh).float(),
+        **BF16_TOL)
+    _same_bits_as(got, lambda **kw: batched_spmm_coo_large_bf16(
+        rid, cid, vh, bh, **kw), narrow, "bf16, int32 ids")
+    slot = torch.arange(rid.shape[1], device=dev)
+    vec = torch.randn(tuple(rid.shape) + (64,), device=dev) * (
+        slot[None, :] < nnz[:, None])[..., None]
+    for values in (val, vec):
+        for op, red in corners:
+            kw = dict(nnz=nnz, op=op, reduce=red)
+            what = f"({op}, {red}) {values.dim()}-D edges"
+            want = ref.batched_gspmm_coo_plain(rid, cid, values, nnz, b,
+                                               op=op, reduce=red)
+            g = batched_spmm_coo_large(rid, cid, values, b, **kw)
+            if red == "max":
+                assert torch.equal(g, want), what
+            else:
+                torch.testing.assert_close(g, want, **TOL, msg=what)
+            _same_bits_as(g, lambda **k: batched_spmm_coo_large(
+                rid, cid, values, b, **kw, **k), narrow, what)
 
 
 @pytest.mark.parametrize("k,n", [(62, 64), (33, 20), (64, 512)])
