@@ -125,9 +125,23 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    Chrome JSON with sched/wave > serve/wave > spmm/* nested and a regret
    report; the device idle share of one ``auto`` drain under
    ``torch.profiler`` and its three longest gaps by enclosing span; 10
-   fused Tox21 training steps with the trainer's telemetry.
+   fused Tox21 training steps with the trainer's telemetry;
+13. the giant-graph tier (``examples/node_classification.py``'s settings,
+   TIER): a 100k-node ``reddit_like`` graph, a static 4,096-row hot-node
+   cache, batches of 512 seeds with fanouts (10, 5); ``auto``'s block
+   decisions at the top-rung blocks (33,792 and 3,072 rows: the forced
+   ``ref`` past LARGE_M) and at the rungs the batches fall on; each
+   block's SpMM forward and forward+backward by graph replay for ref,
+   pallas_coo, pallas_csr and ``auto``'s pick beside their bounds, the
+   pick within AUTO_MODEL_RATIO of the measured best; ``fit_sampled``
+   with ``auto`` (2 epochs) and pallas_coo, pallas_csr, ref (1 each):
+   first-step gradients against ref's, 20-step loss curves against
+   three ``ref`` runs' mean, exact launches a step, programs within the
+   ladders' product, the cache's hit rate, validation accuracy >= 0.5, a
+   bitwise resume at step 10; ms per step in parts (prefetch on and off)
+   and the device idle share of one ``auto`` epoch.
 
-Before phases 4-12, the LM zoo's serving path runs (and frees its model):
+Before phases 4-13, the LM zoo's serving path runs (and frees its model):
 
 - the flash-attention kernel against its plain version at the Llama-3-8B
   prefill shape (bf16 within one bf16 ulp, timed beside its bound and SDPA;
@@ -348,6 +362,18 @@ TIER_BLOCKS = (("tier block 33792", 33_792, 3_072, 10),
 # port's planner used to refuse, 3072 the giant-graph tier's block size
 FUSED_LARGE = (("m_pad 1024", 1024, 8, 512, 64),
                ("m_pad 3072", 3072, 2, 62, 64))
+# the giant-graph tier (phase_sampled), at examples/node_classification.py's
+# settings: a 100k-node reddit_like graph (8 classes, 64 features), a
+# static hot-node cache of 4,096 rows, batches of 512 seeds with fanouts
+# (10, 5) over 3-rung ladders (loader seed 0), GCN widths (64, 64), Adam at
+# lr 5e-3; auto trains 2 epochs, each pinned impl 1. The validation pass
+# samples "epoch" 10,000 (as the example does) and must reach 0.5 (4x
+# chance); loss curves are held over the first 20 steps, the resume at 10.
+TIER = dict(nodes=100_000, batch=512, fanouts=(10, 5), levels=3,
+            cache_rows=4096, widths=(64, 64), lr=5e-3, auto_epochs=2,
+            val_epoch=10_000, curve_steps=20, resume_at=10)
+TIER_IMPLS = ("pallas_coo", "pallas_csr", "ref")
+TIER_MIN_VAL_ACC = 0.5
 # the kernel impls and precision variants the case-3 path drives
 CASE3_IMPLS = ("pallas_ell", "pallas_csr", "pallas_coo", "pallas_hybrid",
                "pallas_gemm", "pallas_ell_bf16", "pallas_csr_bf16",
@@ -2378,7 +2404,9 @@ def phase_serve(tag, cfg_fn, spec, impls, expect_per_wave, device, tol,
 def _first_grads(cfg, params, batch, relu_masks=None):
     """gcn_loss's gradients at ``params`` on a placed batch (the first
     step's, computed apart from the counted run), and the input of each
-    ReLU of the forward. With ``relu_masks`` (one boolean tensor per ReLU,
+    ReLU of the forward. ``batch`` may instead be a function ``(cfg,
+    params) -> (loss, acc)``, the loss to differentiate (the sampled tier's
+    ``gcn_node_loss``). With ``relu_masks`` (one boolean tensor per ReLU,
     in call order) each ReLU passes exactly where its mask holds: the
     gradients at another run's activation pattern."""
     import torch
@@ -2399,8 +2427,12 @@ def _first_grads(cfg, params, batch, relu_masks=None):
 
     live = [p.detach().clone().requires_grad_() for p in tree.leaves(params)]
     with Relu():
-        loss, _ = gcn_loss(tree.unflatten(params, live), cfg, batch["adj"],
-                           batch["x"], batch["n_nodes"], batch["labels"])
+        if callable(batch):
+            loss, _ = batch(cfg, tree.unflatten(params, live))
+        else:
+            loss, _ = gcn_loss(tree.unflatten(params, live), cfg,
+                               batch["adj"], batch["x"], batch["n_nodes"],
+                               batch["labels"])
     return torch.autograd.grad(loss, live), pre
 
 
@@ -3499,9 +3531,17 @@ def _ratio(entries, key, impl):
 
 def _idle_share(sched, requests):
     """One traced drain: ``sched.serve(requests)`` under ``torch.profiler``
-    (CPU and CUDA). Returns (wall ms, kernel ms, kernels, idle share of the
-    wall with no kernel running, idle share with no kernel or copy, the
-    three longest gaps as (ms, enclosing span))."""
+    (CPU and CUDA); see :func:`_device_idle`."""
+    return _device_idle(lambda: sched.serve(requests),
+                        ("sched/wave", "serve/wave"),
+                        "scheduler loop, outside any wave span")
+
+
+def _device_idle(run, span_names, outside):
+    """``run()`` under ``torch.profiler`` (CPU and CUDA). Returns (wall ms,
+    kernel ms, kernels, idle share of the wall with no kernel running, idle
+    share with no kernel or copy, the three longest gaps as (ms, the
+    innermost of the ``span_names`` spans around it, else ``outside``))."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -3509,7 +3549,7 @@ def _idle_share(sched, requests):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("drain"):
-            sched.serve(requests)
+            run()
             torch.cuda.synchronize()
     evs = prof.events()
     drain = next(e for e in evs if e.name == "drain"
@@ -3521,10 +3561,10 @@ def _idle_share(sched, requests):
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in evs if e.device_type == DeviceType.CUDA
                  and not getattr(e, "is_user_annotation", False)
-                 and e.name not in ("drain", "sched/wave", "serve/wave"))
+                 and e.name not in ("drain",) + tuple(span_names))
     check(bool(dev), "idle share: the trace holds no device activity")
     spans = [e for e in evs if e.device_type == DeviceType.CPU
-             and e.name in ("sched/wave", "serve/wave")]
+             and e.name in span_names]
 
     def busy(intervals):
         tot, end = 0.0, t0
@@ -3551,7 +3591,7 @@ def _idle_share(sched, requests):
         inside = [e for e in spans
                   if e.time_range.start <= mid <= e.time_range.end]
         return (min(inside, key=lambda e: e.time_range.elapsed_us()).name
-                if inside else "scheduler loop, outside any wave span")
+                if inside else outside)
 
     top = sorted(gaps, key=lambda g: g[0] - g[1])[:3]
     return (wall / 1e3, k_busy / 1e3, len(kern), 1 - k_busy / wall,
@@ -3838,6 +3878,444 @@ def phase_scheduler(device, card, errs):
     return paths
 
 
+class _Recorded:
+    """A sampled loader's stream (its first ``limit`` batches an epoch, all
+    without a limit) that records, in whatever thread builds the batches
+    (the prefetcher's), each batch's host seconds and rungs."""
+
+    def __init__(self, loader, limit=None):
+        self.loader, self.limit = loader, limit
+        self.build_s, self.keys = [], []
+
+    def epoch(self, epoch):
+        it = self.loader.epoch(epoch)
+        for _ in range(self.limit or self.loader.batches_per_epoch()):
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            self.build_s.append(time.perf_counter() - t0)
+            self.keys.append(batch.shape_key())
+            yield batch
+
+
+def _fit_sampled(trainer, loader, *, epochs=1, on_phase=None,
+                 prefetch=True):
+    """``trainer.fit_sampled(loader)`` with each step's loss tensor and its
+    ``(m_pads, impls)`` recorded by a spy on ``sampled_step`` (the losses
+    stay on the device until the run ends). Returns (params, result,
+    losses as floats, per-step (m_pads, impls))."""
+    import torch
+
+    losses, programs = [], []
+    step = trainer.sampled_step
+
+    def spy(params, state, placed, *, m_pads, impls, on_phase=None):
+        out = step(params, state, placed, m_pads=m_pads, impls=impls,
+                   on_phase=on_phase)
+        losses.append(out[2]["loss"])
+        programs.append((m_pads, impls))
+        return out
+
+    trainer.sampled_step = spy
+    params, _, result = trainer.fit_sampled(loader, epochs=epochs,
+                                            on_phase=on_phase,
+                                            prefetch=prefetch)
+    curve = (torch.stack(losses).cpu().tolist() if losses else [])
+    return params, result, curve, programs
+
+
+def _tier_kernels(impl: str, m_pad: int, n_b: int) -> dict:
+    """The kernel launches of one sampled layer's SpMM forward and dB
+    (``ops.bwd_impl_for``) under ``impl`` at ``m_pad`` rows: a kernel
+    impl's batched entry, or its large-matrix entry at planner case 3 (the
+    hybrid one: the CSR large entry); none for the plain impls. The values
+    of a block take no gradient, so dValues launches nothing."""
+    from repro_torch.core.batching import plan_batched_gemm, \
+        plan_batched_spmm, plan_hybrid
+    from repro_torch.kernels.ops import bwd_impl_for
+
+    out = {}
+    for role in (impl, bwd_impl_for(impl)):
+        if role not in KERNEL_OF:
+            continue
+        name = KERNEL_OF[role]
+        if role == "pallas_gemm":
+            large = plan_batched_gemm(batch=1, m=m_pad, n=n_b,
+                                      k=m_pad).case == 3
+        elif role == "pallas_hybrid":
+            large = plan_hybrid(batch=1, m_pad=m_pad, n_b=n_b,
+                                nnz_pad=1).spmm.case == 3
+            name = "batched_spmm_csr" if large else name
+        else:
+            large = plan_batched_spmm(batch=1, m_pad=m_pad,
+                                      n_b=n_b).case == 3
+        if large:
+            name += "_large"
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _tier_spmm_times(tag, batch, decisions, device, gen):
+    """Each layer block of ``batch`` (one matrix, n_b 64, the block's own
+    values): ``ops.batched_spmm`` forward, and forward plus backward (dB
+    and dValues), of ref, pallas_coo, pallas_csr and the block's ``auto``
+    decision, each held against ref (forward F32_TOL, gradients GRAD_TOL)
+    and timed by CUDA-graph replay beside its bound (bytes: the slots, the
+    B and dC rows the slots read (``_b_rows_read``), C, dB and dValues
+    written once; operations: 2 x nnz x 64 a product). Then the impls the
+    decision ranked, by ``measure_workload`` (wall between syncs: the
+    caller's wait, which the model prices), where the decision is not the
+    forced ``ref``: the pick against the measured best. Returns {block
+    rows: (pick / best, pick, best)}."""
+    import torch
+    from repro_torch import autotune
+    from repro_torch.kernels import ops
+
+    out = {}
+    for layer, (blk, d) in enumerate(zip(batch.blocks, decisions)):
+        m, nnz = blk.m_pad, blk.nnz
+        adj = blk.adj.to(device)
+        u = torch.randn((1, m, 64), generator=gen).to(device)
+        dc = torch.randn((1, m, 64), generator=gen).to(device)
+        vals = adj.values.clone().requires_grad_()
+        ur = u.clone().requires_grad_()
+        rows_b = _b_rows_read(adj, m)
+        rows_dc = _b_rows_read(adj.transpose(m), m)
+        f_ms, f_by = bound(nnz * 12 + (rows_b + m) * 64 * 4, 2 * nnz * 64)
+        fb_ms, fb_by = bound(nnz * 16 + (rows_b + rows_dc + 2 * m) * 64 * 4,
+                             6 * nnz * 64)
+
+        def fwd(impl):
+            return ops.batched_spmm(adj, u, impl=impl)
+
+        def fwd_bwd(impl):
+            c = ops.batched_spmm(adj.with_values(vals), ur, impl=impl)
+            return torch.autograd.grad(c, (vals, ur), dc)
+
+        want_c, want_g = fwd("ref"), fwd_bwd("ref")
+        impls = tuple(dict.fromkeys(("ref", "pallas_coo", "pallas_csr",
+                                     d.impl)))
+        parts = []
+        for impl in impls:
+            max_err(fwd(impl), want_c, f"sampled {tag} layer {layer} {impl}")
+            for g, w in zip(fwd_bwd(impl), want_g):
+                max_err(g, w, f"sampled {tag} layer {layer} {impl} grad",
+                        GRAD_TOL)
+            t_f = graph_ms(lambda impl=impl: fwd(impl), iters=10, replays=3)
+            t_fb = graph_ms(lambda impl=impl: fwd_bwd(impl), iters=10,
+                            replays=3)
+            parts.append(f"{impl} {t_f:.4f} / {t_fb:.4f}")
+        log(f"[sampled spmm] {tag} layer {layer} block {m} rows ({blk.n_dst}"
+            f" dst, {blk.n_src} src, {nnz} of {blk.nnz_pad} slots, max_deg "
+            f"{blk.max_deg}), n_b 64; graph-replay ms forward / forward+"
+            f"backward (dB, dValues): " + ", ".join(parts)
+            + f"; bounds {f_ms:.4f} ({f_by}) / {fb_ms:.4f} ({fb_by})")
+        del adj, u, dc, vals, ur
+        if d.source == "forced":
+            continue            # past LARGE_M: ref, as in the reference
+        names = tuple(i for i, _ in d.scores)
+        times = autotune.measure_workload(d.workload, names, device=device)
+        best = min(times, key=times.get)
+        ratio = times[d.impl] / times[best]
+        log(f"[sampled auto] {tag} layer {layer} {d.workload.key()}: "
+            f"impl={d.impl} case={d.case} source={d.source}; measured wall "
+            "ms per call " + ", ".join(
+                f"{k} {v * 1e3:.3f}" for k, v in
+                sorted(times.items(), key=lambda kv: kv[1]))
+            + f"; pick / best ({best}) = {ratio:.3f}")
+        out[m] = (ratio, d.impl, best)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sampled(device):
+    """The giant-graph tier on the card: the counterpart of
+    ``examples/node_classification.py`` at TIER's settings. (1) The graph
+    (host time), the hot-node cache, a train and a validation loader; the
+    edges, the largest in-degree, the ladders. (2) ``block_decisions`` of
+    ``auto`` at the two top-rung blocks (a one-rung loader's batch: 33,792
+    and 3,072 rows; the forced ``ref`` past LARGE_M at the first) and at
+    the rungs the main path's blocks fall on. (3) At both pairs of blocks,
+    :func:`_tier_spmm_times` (graph-replay forward and forward+backward of
+    ref, pallas_coo, pallas_csr and auto's pick beside their bounds;
+    ``auto``'s pick within AUTO_MODEL_RATIO of the measured best below
+    LARGE_M). (4) ``GCNTrainer.fit_sampled`` from the seed-0 parameters:
+    ``auto`` for 2 epochs, each of TIER_IMPLS for 1; first-step gradients
+    of every kernel impl against ref's (GRAD_TOL, the ReLU pattern
+    pinned), 20-step loss curves within CURVE_RTOL of the mean of REF_RUNS
+    ``ref`` runs, exact launches per step (from each step's rungs and
+    impls, forward and dB), programs <= the ladders' product, a cache hit
+    rate above 0, validation accuracy (``apply_gcn_blocks`` over the val
+    loader, the trainer's block decisions) >= TIER_MIN_VAL_ACC for every
+    impl, and a pallas_coo run stopped at step 10 and resumed: the same
+    losses bit for bit. (5) Median ms per step split into sample and
+    gather (the prefetch thread), waiting and placement, forward, backward
+    and optimizer, and the device idle share of one ``auto`` epoch
+    (``torch.profiler``). Returns launches per kernel of each run."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.core.gcn import GCNConfig, apply_gcn_blocks, \
+        gcn_node_loss
+    from repro_torch.data.graphs import reddit_like
+    from repro_torch.observability import MetricsRegistry
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.sampling import FeatureStore, HotNodeCache, \
+        SampledNodeLoader, static_hot_ids
+    from repro_torch.training.trainer import GCNTrainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = reddit_like(TIER["nodes"])
+    t_graph = time.perf_counter() - t0
+    deg = data.csc.in_degrees()
+    reg = MetricsRegistry()
+    store = FeatureStore(data.features, registry=reg)
+    cache = HotNodeCache(store, TIER["cache_rows"], policy="static",
+                         hot_ids=static_hot_ids(deg, TIER["cache_rows"]),
+                         registry=reg)
+
+    def loader(ids, levels=TIER["levels"]):
+        return SampledNodeLoader(data.csc, data.features, data.labels, ids,
+                                 fanouts=TIER["fanouts"],
+                                 batch_size=TIER["batch"], levels=levels,
+                                 cache=cache)
+
+    train, val = loader(data.train_ids), loader(data.val_ids)
+    bound_programs = math.prod(len(lad) for lad in train.ladders)
+    log(f"[sampled] reddit_like({TIER['nodes']}): {data.csc.n_edges} edges "
+        f"(self-loops included), max in-degree {int(deg.max())}, "
+        f"{t_graph:.2f} s on the host; {len(data.train_ids)} train / "
+        f"{len(data.val_ids)} val seeds, batch {TIER['batch']}, fanouts "
+        f"{TIER['fanouts']}: {train.batches_per_epoch()} batches an epoch; "
+        f"ladders (m_pad, nnz_pad) per layer {train.ladders}; static cache "
+        f"{TIER['cache_rows']} rows")
+    gen = torch.Generator().manual_seed(26)
+
+    def cfg_of(impl):
+        return GCNConfig(n_features=data.features.shape[1], channels=1,
+                         conv_widths=TIER["widths"],
+                         n_tasks=data.n_classes, task="multiclass",
+                         k_pad=None, impl=impl)
+
+    def trainer(impl, ck):
+        shutil.rmtree(ck, ignore_errors=True)
+        return GCNTrainer(cfg_of(impl), AdamConfig(lr=TIER["lr"]),
+                          TrainerConfig(str(ck), checkpoint_every=10_000,
+                                        log_every=20), device=device)
+
+    ck_root = CKPT_DIR / "sampled"
+    # (2) auto's decisions at the top-rung blocks and the path's own rungs
+    auto = trainer("auto", ck_root / "auto")
+    top = next(iter(loader(data.train_ids, levels=1).epoch(0)))
+    first = next(iter(train.epoch(0)))
+    check([b.m_pad for b in top.blocks] == [lad[-1][0] for lad in
+                                             train.ladders],
+          f"top-rung blocks {[b.m_pad for b in top.blocks]}")
+    log(f"[sampled] the first batch's blocks fall on rungs "
+        f"{first.shape_key()} (n_src, nnz, max_deg per layer: "
+        f"{[(b.n_src, b.nnz, b.max_deg) for b in first.blocks]}); a one-rung"
+        f" ladder pads them to {top.shape_key()}")
+    for tag, b in (("top rungs", top), ("main path", first)):
+        for i, d in enumerate(auto.block_decisions(b)):
+            _log_decision(f"sampled {tag} layer {i} {d.workload.key()}", d)
+    big, small = auto.block_decisions(top)
+    check((big.impl, big.source, big.case) == ("ref", "forced", 3),
+          f"auto at {big.workload.m_pad} rows: {big}")
+    if not small.impl.startswith(("pallas_", "fused")):
+        log(f"[sampled finding] auto at {small.workload.m_pad} rows picks "
+            f"the plain {small.impl}")
+    # (3) the layer SpMMs at both pairs of blocks
+    ratios = {}
+    for tag, b in (("top rungs", top), ("main path", first)):
+        ratios.update(_tier_spmm_times(tag, b, auto.block_decisions(b),
+                                       device, gen))
+    for m, (ratio, pick, best) in ratios.items():
+        check(ratio <= AUTO_MODEL_RATIO,
+              f"sampled auto at {m} rows: the pick {pick} measured "
+              f"{ratio:.3f}x the best ({best})")
+    log(f"[sampled] decisions and layer timings done at "
+        f"{time.perf_counter() - t_phase:.1f} s of the phase")
+    # (4) training
+    launches, curves, grads, results, splits, hosts = {}, {}, {}, {}, {}, {}
+    placed = auto.place_sampled(first)
+    m_pads = tuple(b.m_pad for b in first.blocks)
+    params0 = auto.init_state()[0]
+
+    def node_loss(impls):
+        return lambda cfg, p: gcn_node_loss(
+            p, cfg, placed["adjs"], placed["x"], placed["labels"],
+            m_pads=m_pads, impls=impls)
+
+    marks = []
+
+    def mark(phase):
+        torch.cuda.synchronize()
+        marks.append((phase, time.perf_counter()))
+
+    def split_of(marks):
+        split = {p: [] for p in ("fetched", "batch", "forward", "backward",
+                                 "optimizer")}
+        for (_, a), (phase, b) in zip(marks, marks[1:]):
+            split[phase].append((b - a) * 1e3)
+        return split
+
+    runs = (("auto", TIER["auto_epochs"]),) + tuple(
+        (impl, 1) for impl in TIER_IMPLS)
+    for impl, epochs in runs:
+        tr = auto if impl == "auto" else trainer(impl, ck_root / impl)
+        impls = tuple(d.impl for d in tr.block_decisions(first))
+        if impl != "ref":
+            grads[impl] = _first_grads(tr.cfg, params0, node_loss(impls))
+        marks.clear()
+        stream = _Recorded(train)
+        wrappers = _reset_counters()
+        if impl != "auto":
+            mark("start")
+        t_run = time.perf_counter()
+        params, result, curve, steps = _fit_sampled(
+            tr, stream, epochs=epochs, on_phase=None if impl == "auto"
+            else mark)
+        t_run = time.perf_counter() - t_run
+        counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+        want = {}
+        for mp, ims in steps:
+            for m_pad, im, n_b in zip(mp, ims, TIER["widths"]):
+                for k, n in _tier_kernels(im, m_pad, n_b).items():
+                    want[k] = want.get(k, 0) + n
+        check(counts == want, f"sampled {impl}: launches {counts}, expected "
+                              f"{want} from the steps' rungs and impls")
+        n_steps = len(steps)
+        check(n_steps == epochs * train.batches_per_epoch()
+              and all(math.isfinite(x) for x in curve),
+              f"sampled {impl}: {n_steps} steps, curve {curve[:5]} ...")
+        check(result["programs"] <= bound_programs,
+              f"sampled {impl}: {result['programs']} programs, more than "
+              f"the ladders' product {bound_programs}")
+        rungs = {}
+        for key in stream.keys:
+            rungs[key] = rungs.get(key, 0) + 1
+        launches[f"train sampled {impl}"] = counts
+        curves[impl] = np.asarray(curve[:TIER["curve_steps"]])
+        results[impl] = (params, result, t_run, n_steps, rungs,
+                         {k: n // n_steps for k, n in counts.items()})
+        hosts[impl] = stream.build_s
+        if marks:
+            splits[impl] = split_of(marks)
+        if impl == "ref":
+            more = []
+            for k in range(1, REF_RUNS):
+                _, _, c, _ = _fit_sampled(
+                    trainer("ref", ck_root / f"ref-{k}"),
+                    _Recorded(train, TIER["curve_steps"]))
+                more.append(np.asarray(c))
+            runs_ref = np.stack([curves["ref"], *more])
+            curves["ref"] = runs_ref.mean(axis=0)
+            spread = float(np.max(np.abs(runs_ref - curves["ref"])
+                                  / np.abs(curves["ref"])))
+            log(f"[sampled] ref: {REF_RUNS} runs of {TIER['curve_steps']} "
+                f"steps, largest relative gap of a run to their mean "
+                f"{spread:.3e}")
+    for impl, (params, result, t_run, n_steps, rungs, per_step) in \
+            results.items():
+        hits = total = 0
+        for b in val.epoch(TIER["val_epoch"]):
+            impls = (tuple(d.impl for d in auto.block_decisions(b))
+                     if impl == "auto" else (impl,) * len(b.blocks))
+            p = auto.place_sampled(b)
+            logits = apply_gcn_blocks(
+                params, cfg_of(impl), p["adjs"], p["x"],
+                m_pads=tuple(bl.m_pad for bl in b.blocks), impls=impls)
+            pred = logits[:len(b.labels)].argmax(-1).cpu().numpy()
+            hits += int((pred == b.labels).sum())
+            total += len(b.labels)
+        acc = hits / total
+        check(acc >= TIER_MIN_VAL_ACC,
+              f"sampled {impl}: validation accuracy {acc:.4f} below "
+              f"{TIER_MIN_VAL_ACC}")
+        gap = ""
+        if impl != "ref":
+            g = float(np.max(np.abs(curves[impl] - curves["ref"])
+                             / np.abs(curves["ref"])))
+            check(g <= CURVE_RTOL, f"sampled {impl}: the first "
+                                   f"{TIER['curve_steps']} losses differ "
+                                   f"from ref's by {g:.3e} relative")
+            err, flips, flip_max, free = _grads_vs_ref(
+                f"sampled {impl} first-step grad", grads[impl],
+                cfg_of("ref"), params0, node_loss(("ref", "ref")))
+            gap = (f"; first-step gradients vs ref max abs error {err:.3e} "
+                   f"(tolerance {GRAD_TOL}; {flips} ReLU inputs of other "
+                   f"sign, |x| <= {flip_max:.1e}; {free:.3e} without the "
+                   f"pinned pattern); first {TIER['curve_steps']} losses "
+                   f"max relative gap to the mean ref curve {g:.3e}")
+        log(f"[sampled train] impl={impl}: {n_steps} steps in "
+            f"{t_run:.2f} s (prefetch on), rungs {rungs}, programs "
+            f"{result['programs']} (bound {bound_programs}), launches per "
+            f"step {per_step}; loss {curves[impl][0]:.5f} -> "
+            f"{result['loss']:.5f}, train acc {result['acc']:.4f}; "
+            f"validation accuracy {acc:.4f} over {total} seeds (chance "
+            f"{1 / data.n_classes:.3f}){gap}")
+    check(cache.hit_rate() > 0, f"sampled: cache hit rate {cache.hit_rate()}")
+    log(f"[sampled] hot-node cache hit rate {cache.hit_rate():.4f} over "
+        f"{len(cache)} cached rows (cumulative over every gather); store "
+        f"rows gathered {int(store._fetch_rows.total())}")
+    # the resume: pallas_coo stopped at step 10, restored, the same bits
+    ck = ck_root / "pallas_coo-resume"
+    head = _fit_sampled(trainer("pallas_coo", ck),
+                        _Recorded(train, TIER["resume_at"]))[2]
+    tail = _fit_sampled(GCNTrainer(
+        cfg_of("pallas_coo"), AdamConfig(lr=TIER["lr"]),
+        TrainerConfig(str(ck), checkpoint_every=10_000, log_every=20),
+        device=device), _Recorded(train, TIER["curve_steps"]))[2]
+    want = curves["pallas_coo"].tolist()
+    check(head + tail == want,
+          f"sampled pallas_coo resume: losses {head + tail} vs the "
+          f"uninterrupted run's {want}")
+    log(f"[sampled] pallas_coo stopped at step {TIER['resume_at']} and "
+        f"resumed: steps 1-{TIER['curve_steps']} equal the uninterrupted "
+        "run's bit for bit")
+    log(f"[sampled] training checks done at "
+        f"{time.perf_counter() - t_phase:.1f} s of the phase")
+    # (5) where a step's time goes; pallas_coo again without the prefetch
+    # thread (sampling inline, in the wait before each step)
+    marks.clear()
+    stream = _Recorded(train, TIER["curve_steps"])
+    mark("start")
+    _fit_sampled(trainer("pallas_coo", ck_root / "no-prefetch"), stream,
+                 on_phase=mark, prefetch=False)
+    splits["pallas_coo, prefetch off"] = split_of(marks)
+    hosts["pallas_coo, prefetch off"] = stream.build_s
+    for impl, split in splits.items():
+        total = [sum(x) for x in zip(*split.values())]
+        where = ("inline, inside the wait" if "off" in impl
+                 else "the prefetch thread, beside the step")
+        log(f"[sampled split] impl={impl}: median ms per step: sample and "
+            f"gather {statistics.median(hosts[impl]) * 1e3:.3f} ({where}), "
+            f"waiting and placement "
+            f"{statistics.median(split['fetched']):.3f} + "
+            f"{statistics.median(split['batch']):.3f}, forward "
+            f"{statistics.median(split['forward']):.3f}, backward "
+            f"{statistics.median(split['backward']):.3f}, optimizer "
+            f"{statistics.median(split['optimizer']):.3f}, total "
+            f"{statistics.median(total):.3f} (syncs at each part)")
+    prof = trainer("auto", ck_root / "auto-profiled")
+    wall, kern, n_kern, idle, idle_dev, gaps = _device_idle(
+        lambda: prof.fit_sampled(train, epochs=1),
+        ("train/sampled_step",), "outside a step (the loop, the prefetch "
+        "wait, checkpoints)")
+    log(f"[sampled idle] one auto epoch ({train.batches_per_epoch()} steps) "
+        f"under torch.profiler: wall {wall:.1f} ms, kernels {kern:.1f} ms "
+        f"({n_kern} kernels), device idle {idle:.4f} of the wall with no "
+        f"kernel running ({idle_dev:.4f} with no kernel or copy); longest "
+        "gaps " + ", ".join(f"{ms:.2f} ms in {where}" for ms, where in gaps))
+    shutil.rmtree(ck_root, ignore_errors=True)
+    log(f"[sampled] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3904,6 +4382,7 @@ def main() -> int:
     paths.update(phase_precision_paths(device))
     paths.update(phase_autotune(device))
     paths.update(phase_scheduler(device, card, errs))
+    paths.update(phase_sampled(device))
     paths.update(lm_paths)
     paths.update(large_path)
     kernels = []

@@ -7,9 +7,13 @@ what audits the choice (the planner case, the model's ranking, and whether
 a measured tuning-cache record overrode the model). The precedence is the
 reference's:
 
-1. planner case 3 — forced to the per-sample ``ref`` path. The port
-   mirrors this as it is, although on the card its kernel impls run their
-   large-matrix entries there (PERF.md §6 prices the choice);
+1. past ``LARGE_M`` rows (the reference's planner case 3) — forced to
+   the per-sample ``ref`` path, as in the reference (:func:`forces_ref`).
+   The port's own plan reaches case 3 earlier (a 32-column f32 panel of
+   2,048 rows is more than a block's shared memory); below ``LARGE_M``
+   such a workload is ranked like any other, and a kernel impl picked
+   there runs its large-matrix entry. ``Decision.case`` reports the
+   port's plan;
 2. a measured winner from the tuning cache, where one exists for this
    workload key and names a candidate of the allowed ladder;
 3. the cost model's cheapest candidate.
@@ -33,7 +37,11 @@ from repro_torch.autotune.cost_model import (
     rank_layer,
     spmm_plan,
 )
-from repro_torch.core.batching import BatchPlan, plan_fused_graph_conv
+from repro_torch.core.batching import (
+    LARGE_M,
+    BatchPlan,
+    plan_fused_graph_conv,
+)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -94,6 +102,14 @@ def forced_decision(w: Workload, impl: str, *, note: str = "") -> Decision:
         reason=f"caller pinned impl={impl!r}{note}")
 
 
+def forces_ref(w: Workload) -> bool:
+    """Whether ``impl="auto"`` forces the per-sample ``ref`` path: the
+    reference's rule, ``m_pad > LARGE_M`` (its planner's case 3, which
+    depends on m_pad alone), shared by :func:`select_impl` and
+    :func:`select_graph_conv_impl`."""
+    return w.m_pad > LARGE_M
+
+
 def select_impl(
     w: Workload,
     *,
@@ -104,7 +120,7 @@ def select_impl(
     """Resolve ``impl="auto"`` for one SpMM workload. Host work only:
     ``rank`` is memoized and ``cache.best`` is a dict lookup."""
     scores = rank(w, allow_pallas=allow_pallas, hw=hw)
-    if spmm_plan(w).case == 3:
+    if forces_ref(w):
         plan = spmm_plan(w, "ref")
         return Decision(
             impl="ref", kind="scatter", case=3, plan=plan, scores=scores,
@@ -148,7 +164,7 @@ def select_graph_conv_impl(
     if w.channels is None or w.n_in is None:
         raise ValueError(f"not a layer workload (channels/n_in unset): {w}")
     scores = rank_layer(w, allow_pallas=allow_pallas, hw=hw)
-    if spmm_plan(w).case == 3:
+    if forces_ref(w):
         plan = spmm_plan(w, "ref")
         return Decision(
             impl="ref", kind="scatter", case=3, plan=plan, scores=scores,

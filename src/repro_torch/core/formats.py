@@ -261,8 +261,7 @@ def coo_to_csr(coo: BatchedCOO, m_pad: int) -> BatchedCSR:
     rid_s, order = torch.sort(rid_eff, dim=1, stable=True)
     # the reference's scatter indexes numpy-style: a negative row id wraps,
     # and one still out of range is dropped
-    idx = torch.minimum(rid_s, torch.tensor(m_pad, dtype=rid_s.dtype,
-                                            device=rid_s.device))
+    idx = rid_s.clamp(max=m_pad)
     idx = torch.where(idx < 0, idx + m_pad + 1, idx)
     keep = torch.gather(valid, 1, order) & (idx >= 0)
     counts = torch.zeros((coo.batch, m_pad + 1), dtype=torch.int32,

@@ -223,6 +223,69 @@ def apply_gcn(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
     return readout @ params["head"]["w"] + params["head"]["b"]
 
 
+def apply_gcn_blocks(params, cfg: GCNConfig, adjs: Sequence[BatchedCOO],
+                     x: torch.Tensor, *, m_pads: tuple[int, ...],
+                     impls: tuple[str, ...] | None = None) -> torch.Tensor:
+    """Forward over one sampled minibatch's layered blocks (DESIGN.md §14).
+
+    ``adjs[i]`` is layer ``i``'s bipartite block in the square
+    ``(m_pads[i], m_pads[i])`` embedding (``core.csc.Block.adj``, placed on
+    ``x``'s device); ``x`` is ``(m_pads[0], n_features)``, the input
+    layer's src rows. The first ``n_dst_i`` output rows of a layer are, by
+    the dst-prefix convention, layer ``i+1``'s src prefix, so chaining is a
+    slice or zero pad to ``m_pads[i+1]`` plus a mask from ``adj.n_rows``,
+    compared on the device (no host read). ``impls`` carries the trainer's
+    per-layer block-aware decisions; ``None`` means ``cfg.impl`` for every
+    layer. A kernel impl runs its large-matrix entry where the block is
+    past its panels (planner case 3). Returns per-node logits
+    ``(m_pads[-1], n_tasks)``; rows past the seed count are padding."""
+    if len(adjs) != len(params["convs"]):
+        raise ValueError(f"{len(adjs)} blocks for "
+                         f"{len(params['convs'])} conv layers")
+    if cfg.layer != "gcn":
+        raise ValueError("sampled-block forward currently supports "
+                         f"layer='gcn' only, got {cfg.layer!r}")
+    if impls is None:
+        impls = (cfg.impl,) * len(adjs)
+    h = x[None]                               # (1, m_pads[0], n_features)
+    for i, (conv_p, bn_p) in enumerate(zip(params["convs"], params["bns"])):
+        adj = adjs[i]
+        # real dst rows of THIS layer, compared on the device
+        mask = (torch.arange(h.shape[1], device=h.device)[None, :, None]
+                < adj.n_rows[0]).to(h.dtype)
+        h = graph_conv_batched(conv_p, [adj], h, impl=impls[i],
+                               k_pad=cfg.k_pad, precision=cfg.precision)
+        h = _batch_norm(bn_p, h * mask, mask, cfg.bn_mode)
+        h = torch.relu(h) * mask
+        if i + 1 < len(adjs):
+            # dst rows ARE the next block's src prefix (same local ids)
+            m_next = m_pads[i + 1]
+            if m_next <= h.shape[1]:
+                h = h[:, :m_next]
+            else:
+                h = torch.nn.functional.pad(h, (0, 0, 0, m_next - h.shape[1]))
+    # node-level head: no readout, one logit row per dst node
+    return h[0] @ params["head"]["w"] + params["head"]["b"]
+
+
+def gcn_node_loss(params, cfg: GCNConfig, adjs: Sequence[BatchedCOO],
+                  x: torch.Tensor, labels: torch.Tensor, *,
+                  m_pads: tuple[int, ...],
+                  impls: tuple[str, ...] | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss, accuracy) of node classification over the seed rows of a
+    sampled minibatch: softmax cross-entropy on the first ``len(labels)``
+    rows of the block forward (the last block's seed prefix; padding rows
+    never reach the loss), as 0-d tensors."""
+    logits = apply_gcn_blocks(params, cfg, adjs, x, m_pads=m_pads,
+                              impls=impls)[:labels.shape[0]]
+    ids = labels.long()
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -torch.gather(logp, 1, ids[:, None]).mean()
+    acc = (logits.argmax(dim=-1) == ids).to(torch.float32).mean()
+    return loss, acc
+
+
 def gcn_loss(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
              x: torch.Tensor, n_nodes: torch.Tensor,
              labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,2 +1,2 @@
-"""Data pipelines: synthetic molecular graphs (ChemGCN) and LM token
-batches."""
+"""Data pipelines: synthetic molecular graphs (ChemGCN), the giant
+node-classification graph of the sampled tier, and LM token batches."""

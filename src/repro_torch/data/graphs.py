@@ -1,10 +1,12 @@
-"""Synthetic molecular-graph datasets shaped like the paper's (Table I).
+"""Synthetic molecular-graph datasets shaped like the paper's (Table I), and
+the giant node-classification graph of the sampled tier.
 
-A copy of the reference's numpy generator (``repro.data.graphs``, molecular
-part): for the same :class:`GraphDatasetSpec` it yields bitwise the same
-samples. Graphs have at most 50 nodes and bond degree ≤ 4, with one
-adjacency channel per bond type; labels come from a fixed random "teacher"
-GCN so that training has signal.
+A copy of the reference's numpy generators (``repro.data.graphs``): for the
+same :class:`GraphDatasetSpec` it yields bitwise the same samples, and
+:func:`reddit_like` bitwise the same graph for the same seed. Graphs have
+at most 50 nodes and bond degree ≤ 4, with one adjacency channel per bond
+type; labels come from a fixed random "teacher" GCN so that training has
+signal.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from repro_torch.core.formats import coo_from_lists
+from repro_torch.core.csc import CSCGraph, csc_from_edges
+from repro_torch.core.formats import coo_from_lists, powerlaw_degrees
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,3 +177,79 @@ def batches(
                                         dtype=torch.int32),
                 "labels": torch.from_numpy(labels),
             }
+
+
+# -- giant-graph tier (DESIGN.md §14) -----------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeClassData:
+    """One giant node-classification graph for the sampled tier: the static
+    CSC sampling structure, per-node features and labels, and a train/val
+    seed split, all host-side numpy. Features reach the device only through
+    the sampled minibatch's gather."""
+
+    csc: CSCGraph
+    features: np.ndarray   # (n_nodes, n_features) float32
+    labels: np.ndarray     # (n_nodes,) int32 class ids
+    train_ids: np.ndarray  # (n_train,) int64
+    val_ids: np.ndarray    # (n_val,) int64
+    n_classes: int
+
+
+def reddit_like(
+    n_nodes: int = 100_000,
+    *,
+    n_classes: int = 8,
+    n_features: int = 64,
+    avg_deg: int = 12,
+    alpha: float = 1.2,
+    homophily: float = 0.7,
+    noise: float = 1.0,
+    val_frac: float = 0.1,
+    seed: int = 0,
+) -> NodeClassData:
+    """Synthetic "reddit-like" powerlaw node-classification graph, the
+    reference's draws in the reference's order.
+
+    * **Zipf-hot hubs**: per-node in-degrees follow the powerlaw of
+      ``random_powerlaw_batch`` (:func:`powerlaw_degrees`), so a few hub
+      nodes sit in most sampled neighborhoods.
+    * **Learnable labels**: planted partition. Each edge's source comes
+      from the destination's own class with probability ``homophily``
+      (else uniformly), and features are a noisy class centroid.
+
+    Every node has a self-loop (paper §II-A's ``a_uu = 1``), so a
+    destination's own features survive fanout sampling.
+    """
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_classes, n_nodes).astype(np.int32)
+    # class-sorted node table: same-class sources are one fancy-index away
+    order = np.argsort(labels, kind="stable")
+    class_sizes = np.bincount(labels, minlength=n_classes)
+    class_offsets = np.zeros(n_classes + 1, np.int64)
+    np.cumsum(class_sizes, out=class_offsets[1:])
+    deg = powerlaw_degrees(rng, n_nodes, avg_deg, alpha)
+    dst = np.repeat(np.arange(n_nodes, dtype=np.int64), deg)
+    e = len(dst)
+    same = rng.random(e) < homophily
+    dst_cls = labels[dst]
+    within = rng.integers(0, np.maximum(class_sizes[dst_cls], 1))
+    src = np.where(
+        same,
+        order[class_offsets[dst_cls] + within],   # same-class source
+        rng.integers(0, n_nodes, e),              # long-range source
+    )
+    loops = np.arange(n_nodes, dtype=np.int64)
+    src = np.concatenate([src, loops])
+    dst = np.concatenate([dst, loops])
+    csc = csc_from_edges(src, dst, n_nodes)
+    centroids = rng.standard_normal((n_classes, n_features))
+    features = (centroids[labels]
+                + noise * rng.standard_normal((n_nodes, n_features))
+                ).astype(np.float32)
+    perm = rng.permutation(n_nodes).astype(np.int64)
+    n_val = int(n_nodes * val_frac)
+    return NodeClassData(csc=csc, features=features, labels=labels,
+                         train_ids=perm[n_val:], val_ids=perm[:n_val],
+                         n_classes=n_classes)

@@ -5,7 +5,8 @@ bitwise the reference's for the same spec and step.
 A batch is a pure function of ``(spec, step)``: a fixed random bigram table
 (``branch`` successors per token) plus ``noise`` random tokens, drawn by
 numpy from the spec's seed, step and shard. The prefetching
-``token_stream`` comes with LM training (ROADMAP.md queue 1 item 12).
+``token_stream`` comes with LM training (ROADMAP.md queue 1: the LM zoo
+(LM training)).
 """
 from __future__ import annotations
 

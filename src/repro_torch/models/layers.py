@@ -17,7 +17,7 @@ kernel, as in the reference.
 The decode cache is written in place (the reference's
 ``dynamic_update_slice`` returns a new array): ``attention_apply`` returns
 the same cache dict it was given. Cross-attention and MoE are not ported
-yet (ROADMAP.md queue 1 item 12).
+yet (ROADMAP.md queue 1: the LM zoo).
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from repro_torch import tuning
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 
-UNPORTED = "not ported yet (ROADMAP.md queue 1 item 12)"
+UNPORTED = "not ported yet (ROADMAP.md queue 1: the LM zoo)"
 
 
 def _normal(shape, dtype, generator, device) -> torch.Tensor:

@@ -17,7 +17,7 @@ KV, hd)) and ``decode_step`` writes them in place. ``prefill`` returns
 ``(last_logits, enc_out)``, as the reference's does (its docstring names
 caches; ``enc_out`` is None without an encoder). The other families (MoE,
 SSM, hybrid, audio, VLM), ``loss_fn`` and remat are not ported yet
-(ROADMAP.md queue 1 item 12); their configs raise ``NotImplementedError``.
+(ROADMAP.md queue 1: the LM zoo); their configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

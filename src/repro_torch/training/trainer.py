@@ -18,9 +18,15 @@ and a wall-time sample of the ``train_step_seconds`` histogram on
 gauges sync on the ``log_every`` cadence. All series are labelled
 ``{layer, impl}``. ``telemetry=False`` opts the trainer out.
 
-Not ported here: the reference trainer's ``mesh=`` (batch-axis sharding)
-and ``fit_sampled`` (the giant-graph tier); ``ROADMAP.md`` queue 1 holds
-them.
+``fit_sampled`` trains over the giant-graph tier's sampled minibatches
+(``repro_torch.sampling.SampledNodeLoader``, DESIGN.md §14): per-layer
+block-aware decisions (:meth:`GCNTrainer.block_decisions`), the blocks
+moved to the device on the trainer's thread, the step of ``train_step`` on
+:func:`~repro_torch.core.gcn.gcn_node_loss`, under a
+``train/sampled_step`` span, with the ``train_sampled_programs`` gauge.
+
+Not ported here: the reference trainer's ``mesh=`` (batch-axis sharding);
+``ROADMAP.md`` queue 1 holds it (sharding and the distributed stack).
 """
 from __future__ import annotations
 
@@ -34,11 +40,12 @@ import torch
 from repro_torch import resolve_device, tree
 from repro_torch.autotune.cost_model import precision_of
 from repro_torch.checkpoint.store import CheckpointManager
-from repro_torch.core.formats import validate_ell_k_pad
+from repro_torch.core.formats import BatchedCOO, validate_ell_k_pad
 from repro_torch.core.gcn import (
     GCNConfig,
     check_config,
     gcn_loss,
+    gcn_node_loss,
     init_gcn,
     resolve_conv_impls,
 )
@@ -104,6 +111,7 @@ class GCNTrainer:
             "train_grad_norm", "last synced global gradient L2 norm")
         self._m_tput = self.registry.gauge(
             "train_graphs_per_s", "graphs/s over the last log window")
+        self._block_impl_memo: dict[tuple, tuple] = {}
 
     def _needs_ell_guard(self, batch: dict) -> bool:
         """Whether an ELL-class impl runs on this batch's shapes: pinned, or
@@ -267,3 +275,183 @@ class GCNTrainer:
         if step > start:
             self.manager.save(step, (params, state))
         return params, state, last
+
+    # -- the giant-graph tier (DESIGN.md §14) --------------------------
+
+    def block_decisions(self, batch) -> tuple:
+        """Per-layer ``repro_torch.autotune.Decision`` of one sampled
+        minibatch, on the block-aware workload: ``block`` = the layer's
+        padded dst-row count, ``max_deg`` = the sampled in-degree rounded up
+        to a power of two (so the memo and tuning-cache keys stay few),
+        ``k_pad=None`` (a sampled block has no ELL bound). Kernel impls are
+        ranked where the trainer's device is CUDA. Memoized per (geometry,
+        skew) key; host work alone."""
+        from repro_torch import autotune
+
+        blocks = batch.blocks
+        m_pads = tuple(b.m_pad for b in blocks)
+        n_seed = len(batch.labels)
+        # per-layer dst-row bound: the next block's padded src count (dst
+        # rows ARE its src prefix); the last layer's is the seed count
+        dst_pads = tuple(
+            min(m_pads[i], m_pads[i + 1]) if i + 1 < len(blocks)
+            else min(m_pads[i], -(-n_seed // 8) * 8)
+            for i in range(len(blocks)))
+        max_degs = tuple(
+            1 << max(b.max_deg, 1).bit_length() for b in blocks)
+        key = (m_pads, tuple(b.nnz_pad for b in blocks), dst_pads, max_degs)
+        if key not in self._block_impl_memo:
+            allow_pallas = self.device.type == "cuda"
+            decisions = []
+            for i, b in enumerate(blocks):
+                w = autotune.Workload(
+                    batch=1, m_pad=b.m_pad, nnz_pad=b.nnz_pad, k_pad=None,
+                    n_b=self.cfg.conv_widths[i],
+                    itemsize=batch.x.dtype.itemsize,
+                    max_deg=max_degs[i], block=dst_pads[i])
+                if self.cfg.impl != "auto":
+                    decisions.append(autotune.forced_decision(
+                        w, self.cfg.impl))
+                else:
+                    decisions.append(autotune.select_impl(
+                        w, allow_pallas=allow_pallas,
+                        cache=autotune.default_cache()))
+            self._block_impl_memo[key] = tuple(decisions)
+        return self._block_impl_memo[key]
+
+    def place_sampled(self, batch) -> dict:
+        """A sampled minibatch's blocks, input rows and seed labels on the
+        trainer's device (from pinned host memory without waiting, on CUDA).
+        Call it on the trainer's thread."""
+        cuda = self.device.type == "cuda"
+
+        def put(t: torch.Tensor) -> torch.Tensor:
+            if cuda:
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=cuda)
+
+        return {"adjs": [BatchedCOO(*(put(getattr(b.adj, f.name))
+                                      for f in dataclasses.fields(b.adj)))
+                         for b in batch.blocks],
+                "x": put(torch.from_numpy(batch.x)),
+                "labels": put(torch.from_numpy(batch.labels))}
+
+    def sampled_step(self, params, state, placed: dict, *,
+                     m_pads: tuple[int, ...], impls: tuple[str, ...],
+                     on_phase=None):
+        """One training step on a placed sampled minibatch, run eagerly as
+        :meth:`train_step`: value and grad of ``gcn_node_loss``, the global
+        norm, then ``adam_update`` in place. Returns (params, state,
+        metrics) with 0-d device tensors; ``on_phase`` as in
+        :meth:`train_step`."""
+        live = [p.detach().requires_grad_() for p in tree.leaves(params)]
+        loss, acc = gcn_node_loss(tree.unflatten(params, live), self.cfg,
+                                  placed["adjs"], placed["x"],
+                                  placed["labels"], m_pads=m_pads,
+                                  impls=impls)
+        if on_phase is not None:
+            on_phase("forward")
+        grads = torch.autograd.grad(loss, live)
+        gnorm = global_norm(grads)
+        if on_phase is not None:
+            on_phase("backward")
+        params, state = adam_update(self.opt, params,
+                                    tree.unflatten(params, grads), state)
+        if on_phase is not None:
+            on_phase("optimizer")
+        return params, state, {"loss": loss.detach(), "acc": acc,
+                               "grad_norm": gnorm}
+
+    def fit_sampled(self, loader, *, epochs: int = 1, prefetch: bool = True,
+                    on_metrics: Callable[[int, dict], None] | None = None,
+                    on_phase=None):
+        """Giant-graph training over ``loader``'s sampled minibatches
+        (``repro_torch.sampling.SampledNodeLoader``), with ``fit``'s
+        checkpoint and telemetry machinery.
+
+        Per minibatch: the per-layer decisions (:meth:`block_decisions`),
+        the batch on the device (:meth:`place_sampled`), then
+        :meth:`sampled_step`. The count of distinct ``(m_pads, nnz_pads,
+        impls)`` is the ``train_sampled_programs`` gauge: the eager port
+        compiles nothing, but it is the reference's count of compiled
+        programs, bounded by the loader's bucket ladders.
+
+        Resume, as ``fit``: the newest checkpoint is restored and the first
+        ``start`` batches are skipped; the loader's ``(seed, epoch,
+        batch)``-addressed sampling makes the replayed stream bitwise the
+        same, and a checkpoint either package wrote resumes in the other.
+        ``prefetch`` builds the next minibatch in a worker thread (host
+        work only) during the current step. ``on_phase``, a timing hook, is
+        called with ``"fetched"`` once a batch to train on has arrived,
+        ``"batch"`` once it is on the device, then by
+        :meth:`sampled_step`. Returns (params, state, the last step's loss,
+        acc and grad_norm as floats, and ``programs``)."""
+        from repro_torch.sampling import Prefetcher
+
+        params, state, start = self.restore_or_init()
+        metrics = None
+        last = {"loss": math.nan, "acc": math.nan, "grad_norm": math.nan}
+        labels_kw = {"layer": self.cfg.layer, "impl": self.cfg.impl}
+        log_every = max(self.tcfg.log_every, 1)
+        win_t0, win_nodes = time.perf_counter(), 0
+        m_programs = self.registry.gauge(
+            "train_sampled_programs",
+            "distinct sampled-step programs (bucket-bounded)")
+        programs: set[tuple] = set()
+        step = seen = 0
+        for epoch in range(epochs):
+            batches = loader.epoch(epoch)
+            if prefetch:
+                batches = Prefetcher(batches, registry=self.registry)
+            for b in batches:
+                seen += 1
+                if seen <= start:
+                    continue    # already trained before the restart
+                if on_phase is not None:
+                    on_phase("fetched")
+                decisions = self.block_decisions(b)
+                impls = tuple(d.impl for d in decisions)
+                m_pads = tuple(bl.m_pad for bl in b.blocks)
+                programs.add((m_pads, tuple(bl.nnz_pad for bl in b.blocks),
+                              impls))
+                placed = self.place_sampled(b)
+                if on_phase is not None:
+                    on_phase("batch")
+                if self.telemetry:
+                    with TRACER.span("train/sampled_step", cat="train",
+                                     args={"step": seen, **labels_kw}):
+                        t0 = time.perf_counter()
+                        params, state, metrics = self.sampled_step(
+                            params, state, placed, m_pads=m_pads,
+                            impls=impls, on_phase=on_phase)
+                        self._m_step_s.observe(time.perf_counter() - t0,
+                                               **labels_kw)
+                    self._m_steps.inc(**labels_kw)
+                    m_programs.set(len(programs), **labels_kw)
+                    win_nodes += len(b.labels)
+                    if seen % log_every == 0:
+                        # the only per-window device sync
+                        self._set_gauges(metrics, labels_kw)
+                        now = time.perf_counter()
+                        if now > win_t0:
+                            self._m_tput.set(win_nodes / (now - win_t0),
+                                             **labels_kw)
+                        win_t0, win_nodes = now, 0
+                else:
+                    params, state, metrics = self.sampled_step(
+                        params, state, placed, m_pads=m_pads, impls=impls,
+                        on_phase=on_phase)
+                step = seen
+                if step % max(self.tcfg.checkpoint_every, 1) == 0:
+                    self.manager.save(step, (params, state))
+            if step > start:
+                last = {k: float(v) for k, v in metrics.items()}
+                if self.telemetry:
+                    self._set_gauges(last, labels_kw)
+                if on_metrics is not None:
+                    on_metrics(epoch + 1, {"epoch": epoch + 1, **last,
+                                           "programs": len(programs),
+                                           "time": time.time()})
+        if step > start:
+            self.manager.save(step, (params, state))
+        return params, state, {**last, "programs": len(programs)}

@@ -5,7 +5,8 @@ Flags are a context: a caller sets them around a call with
 defaults are the reference's, so a ``--tune key=value`` list means the same
 in both packages. The reference's mesh hint (``use_mesh_hint``,
 ``axis_size``, ``constrain``) is not ported: on one device its calls are
-the identity, and the port leaves them out (ROADMAP.md queue 1 item 11).
+the identity, and the port leaves them out (ROADMAP.md queue 1: sharding
+and the distributed stack).
 The port reads ``attention_impl``, ``q_block`` and ``kv_block``; setting
 any other field away from its default raises ``NotImplementedError`` until
 the code that reads it is ported.
@@ -46,14 +47,14 @@ _FLAGS: contextvars.ContextVar[TuneFlags] = contextvars.ContextVar(
     "tune_flags", default=TuneFlags())
 
 
-# the fields nothing in the port reads yet, and the ROADMAP.md queue 1 item
-# that brings their reader
-UNPORTED = {"remat_policy": "item 12 (LM training)",
-            "moe_dispatch": "item 12 (MoE)",
-            "constrain_decode": "item 11 (sharding)",
-            "capacity_factor": "item 12 (MoE)",
-            "fsdp": "item 11 (sharding)",
-            "mamba_chunk": "item 12 (SSM)"}
+# the fields nothing in the port reads yet, and the title of the ROADMAP.md
+# queue 1 item that brings their reader
+UNPORTED = {"remat_policy": "the LM zoo (LM training)",
+            "moe_dispatch": "the LM zoo (MoE)",
+            "constrain_decode": "sharding and the distributed stack",
+            "capacity_factor": "the LM zoo (MoE)",
+            "fsdp": "sharding and the distributed stack",
+            "mamba_chunk": "the LM zoo (SSM)"}
 
 
 def flags() -> TuneFlags:
@@ -67,7 +68,7 @@ def use_flags(**kw):
         if getattr(new, name) != getattr(TuneFlags, name):
             raise NotImplementedError(
                 f"tune flag {name}={getattr(new, name)!r}: nothing in "
-                f"repro_torch reads it yet (ROADMAP.md queue 1 {item})")
+                f"repro_torch reads it yet (ROADMAP.md queue 1: {item})")
     tok = _FLAGS.set(new)
     try:
         yield _FLAGS.get()

@@ -290,12 +290,15 @@ def test_forced_decisions_agree(impl):
         assert t.case == t.plan.case
 
 
-def test_case3_is_forced_to_ref_in_both_packages():
+def test_ref_is_forced_only_past_large_m_in_both_packages():
     """Past LARGE_M both packages force ``ref`` (f32, bare and layer
-    workloads). Where they differ: at m_pad 2048 and n_b 64 the port's
+    workloads). Below it neither does: at m_pad 2048 and n_b 64 the port's
     plan is case 3 (one 32-column f32 panel of 2048 rows is 256 KB, more
-    than a block's 227 KB of shared memory), so the port forces ``ref``
-    where the reference's VMEM plan keeps batching and its model decides."""
+    than a block's 227 KB of shared memory) while the reference's VMEM plan
+    keeps batching, and in both packages the model decides. Each package
+    picks its own model's cheapest (the two cost models differ); on the
+    card the port's pick there is a kernel impl, which runs its
+    large-matrix entry."""
     for kw in (dict(TOX, batch=2, m_pad=9000),
                dict(LAYER, batch=2, m_pad=9000)):
         t, j = _both(**kw)
@@ -307,10 +310,24 @@ def test_case3_is_forced_to_ref_in_both_packages():
                 (jd.impl, jd.kind, jd.source, jd.case) == \
                 ("ref", "scatter", "forced", 3)
             assert td.reason.split(":")[0] == jd.reason.split(":")[0]
-    t, j = _both(**dict(TOX, batch=2, m_pad=2048))
-    assert tsel.select_impl(t).source == "forced"
-    assert tsel.select_impl(t).case == 3
-    assert jsel.select_impl(j, allow_pallas=False).source == "model"
+            assert tsel.forces_ref(t)
+    for kw in (dict(TOX, batch=2, m_pad=2048),
+               dict(LAYER, batch=2, m_pad=2048)):
+        t, j = _both(**kw)
+        select = "select_graph_conv_impl" if t.channels else "select_impl"
+        ranker = tat.rank_layer if t.channels else tat.rank
+        j_ranker = jat.rank_layer if t.channels else jat.rank
+        assert not tsel.forces_ref(t)
+        td = getattr(tsel, select)(t, allow_pallas=False)
+        jd = getattr(jsel, select)(j, allow_pallas=False)
+        assert td.source == jd.source == "model"
+        assert td.impl == ranker(t, allow_pallas=False)[0][0]
+        assert jd.impl == j_ranker(j, allow_pallas=False)[0][0]
+        assert tsel.spmm_plan(t).case == 3     # the port's plan, reported
+        on_card = getattr(tsel, select)(t, allow_pallas=True)
+        assert on_card.source == "model"
+        assert on_card.impl.startswith(("pallas_", "fused")), on_card
+        assert on_card.impl == ranker(t, allow_pallas=True)[0][0]
 
 
 def test_resolvers_mirror_the_reference_on_pinned_impls():

@@ -1881,3 +1881,96 @@ def test_scheduler_drain_on_the_card_matches_per_request_engines(dev, impl):
         engines[tier].run_wave([solo])
         np.testing.assert_allclose(p.request.logits, solo.logits,
                                    atol=TOL["atol"], rtol=TOL["rtol"])
+
+
+# -- the giant-graph tier (DESIGN.md §14) ----------------------------------
+
+TIER_TOL = dict(atol=3e-4, rtol=3e-5)   # layer gradients: 3x TOL
+
+
+@pytest.fixture(scope="module")
+def tier_batch():
+    """One sampled minibatch at the tier's example settings (100k-node
+    reddit_like, batch 512, fanouts (10, 5), loader seed 0), its blocks
+    padded to the top rungs of their ladders (a one-rung ladder each):
+    33,792 and 3,072 rows. (The loader's 3-rung ladders put this graph's
+    blocks on lower rungs.)"""
+    from repro_torch.data.graphs import reddit_like
+    from repro_torch.sampling import SampledNodeLoader
+
+    data = reddit_like(100_000)
+    loader = SampledNodeLoader(data.csc, data.features, data.labels,
+                               data.train_ids, fanouts=(10, 5),
+                               batch_size=512, levels=1)
+    batch = next(iter(loader.epoch(0)))
+    assert [b.m_pad for b in batch.blocks] == [33_792, 3_072]
+    return batch
+
+
+def _tier_trainer(dev, impl, tmp_path):
+    from repro_torch.training.trainer import GCNTrainer, TrainerConfig
+
+    cfg = GCNConfig(n_features=64, channels=1, conv_widths=(64, 64),
+                    n_tasks=8, task="multiclass", k_pad=None, impl=impl)
+    return GCNTrainer(cfg, tcfg=TrainerConfig(str(tmp_path)), device=dev)
+
+
+@pytest.mark.parametrize("impl", ("pallas_coo", "pallas_csr"))
+def test_sampled_step_at_the_tier_blocks_matches_the_cpu(dev, tier_batch,
+                                                         tmp_path, impl):
+    """A sampled step's loss and gradients with a kernel impl at both
+    top-rung blocks (the large-matrix entries, forward and dB) against the
+    same step's plain versions on the CPU, and the step's update runs."""
+    from repro_torch import tree
+    from repro_torch.core.gcn import gcn_node_loss
+    from repro_torch.kernels import batched_spmm_coo as coo_mod, \
+        batched_spmm_csr as csr_mod
+
+    kernel = (coo_mod.batched_spmm_coo_large if impl == "pallas_coo"
+              else csr_mod.batched_spmm_csr_large)
+    trainer = _tier_trainer(dev, impl, tmp_path)
+    cpu = _tier_trainer("cpu", impl, tmp_path)
+    m_pads = tuple(b.m_pad for b in tier_batch.blocks)
+    params = init_gcn(trainer.cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    out = {}
+    for t in (trainer, cpu):
+        placed = t.place_sampled(tier_batch)
+        live = [p.to(t.device).requires_grad_()
+                for p in tree.leaves(params)]
+        kernel.launches = 0
+        loss, acc = gcn_node_loss(tree.unflatten(params, live), t.cfg,
+                                  placed["adjs"], placed["x"],
+                                  placed["labels"], m_pads=m_pads,
+                                  impls=(impl, impl))
+        grads = torch.autograd.grad(loss, live)
+        out[t.device.type] = (loss, acc, grads, kernel.launches)
+    loss, acc, grads, launches = out["cuda"]
+    assert launches == 4            # a forward and a dB per layer
+    assert out["cpu"][3] == 0
+    torch.testing.assert_close(loss.cpu(), out["cpu"][0], **TIER_TOL)
+    for g, want in zip(grads, out["cpu"][2]):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.cpu(), want, **TIER_TOL)
+    state = trainer.init_state()
+    _, _, metrics = trainer.sampled_step(
+        *state, trainer.place_sampled(tier_batch), m_pads=m_pads,
+        impls=(impl, impl))
+    assert torch.isfinite(metrics["loss"]) and metrics["loss"].is_cuda
+
+
+def test_block_decisions_auto_at_the_tier_blocks(dev, tier_batch, tmp_path):
+    """impl="auto" on the card: the forced ``ref`` past LARGE_M (33,792
+    rows), and at 3,072 rows the pick ``select_impl`` gives that workload
+    with kernels allowed."""
+    from repro_torch import autotune
+
+    decisions = _tier_trainer(dev, "auto", tmp_path).block_decisions(
+        tier_batch)
+    big, small = decisions
+    assert (big.impl, big.source, big.case) == ("ref", "forced", 3)
+    want = autotune.select_impl(small.workload, allow_pallas=True,
+                                cache=autotune.default_cache())
+    assert (small.impl, small.source) == (want.impl, want.source)
+    assert small.workload.m_pad == 3_072 and small.workload.k_pad is None
+    assert "ell" not in small.impl

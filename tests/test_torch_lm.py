@@ -91,8 +91,11 @@ def test_registry_shape_cells_and_tune_flags_match_reference():
         assert fl.attention_impl == ttuning.flags().attention_impl == "pallas"
     assert ttuning.flags() == ttuning.TuneFlags()
     # a field the port does not read raises rather than doing nothing
-    for pair in pairs[1:3] + ["moe_dispatch=scatter"]:
-        with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    for pair, item in zip(pairs[1:3] + ["moe_dispatch=scatter"],
+                          ("sharding and the distributed stack",
+                           r"the LM zoo \(MoE\)", r"the LM zoo \(MoE\)")):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md queue 1: {item}"):
             with ttuning.use_flags(**ttuning.parse_tune_args([pair])):
                 pass
     assert ttuning.flags() == ttuning.TuneFlags()
@@ -344,12 +347,12 @@ def test_init_params_module_and_unported_paths():
     for arch in ("mixtral-8x22b", "rwkv6-1.6b", "zamba2-7b", "whisper-small",
                  "llava-next-34b", "llama4-maverick-400b-a17b"):
         cfg = tconfigs.get(arch).reduced()
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        with pytest.raises(NotImplementedError, match="queue 1: the LM zoo"):
             tlm.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        with pytest.raises(NotImplementedError, match="queue 1: the LM zoo"):
             tlm.init_decode_state(cfg, 2, 8, device="cpu")
     for fn in (tlayers.init_moe, tlayers.moe_apply, tlayers._moe_grouped):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        with pytest.raises(NotImplementedError, match="queue 1: the LM zoo"):
             fn()
     x = torch.zeros((1, 2, tcfg.d_model))
     with pytest.raises(NotImplementedError, match="cross-attention"):

@@ -116,6 +116,6 @@ def test_engine_defaults_to_the_gpu_and_rejects_unported_families(state):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine(tp, tcfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="queue 1: the LM zoo"):
         ServeEngine(tp, tconfigs.get("mixtral-8x22b").reduced(),
                     device="cpu")
