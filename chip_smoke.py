@@ -141,7 +141,8 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    bitwise resume at step 10; ms per step in parts (prefetch on and off)
    and the device idle share of one ``auto`` epoch.
 
-Before phases 4-13, the LM zoo's serving path runs (and frees its model):
+Before phases 4-13, the LM zoo's paths run (each model freed before the
+next):
 
 - the flash-attention kernel against its plain version at the Llama-3-8B
   prefill shape (bf16 within one bf16 ulp, timed beside its bound and SDPA;
@@ -157,7 +158,28 @@ Before phases 4-13, the LM zoo's serving path runs (and frees its model):
   of greedy decode over 8 requests (exact lengths, identical twice, no
   flash launch: decode attends by plain products), ms per step split into
   device and host, and one-request waves' first tokens against prefill's
-  argmax where the top-2 margin exceeds the prompt's noise floor.
+  argmax where the top-2 margin exceeds the prompt's noise floor;
+- the MoE LMs at full width (bf16, seed-0 weights): Mixtral 8x22B at 2
+  layers (prefill 2 x 4096 through the kernel, 2 launches a call, and
+  xla_packed; ``moe_apply`` under the grouped and scatter dispatches at
+  capacity factor 16 within TOLS bf16 of each other; the share of (token,
+  k) pairs dropped at 1.25; ``ServeEngine`` waves as above) and at 1
+  layer 3 training steps (remat, finite loss and aux); Llama-4 Maverick
+  at one (dense, MoE) block (prefill; 64 tokens through ``decode_step``,
+  the last logits within TOLS bf16 of ``forward``'s; ``ServeEngine``);
+- LM training (``phase_lm_train``): Llama-3-8B width at 4 blocks on
+  4096-token sequences: ``attention_impl="pallas"`` under grad raises
+  first; the first step's loss and gradient norm under every remat
+  setting against none; then ``build_train_step`` steps with remat off,
+  full and dots at 4 microbatches of 1, full at 1, and full with int8
+  compression (ms and tokens per step, one traced step's kernel time and
+  device idle share, peak memory under 75 GB, full's peak below off's);
+  then the ``examples/lm_pretrain.py`` counterpart: its step alone (ms,
+  one traced step's kernel time and idle share), then ``Trainer``: 300
+  steps of ~100M parameters, stopped by a SIGTERM at 150 and resumed
+  (metrics.jsonl continues, the restored state bitwise the saved one, the
+  last loss below ln(vocab) and 0.1 nat below the first, the resumed loss
+  within 1e-3 of an uninterrupted run's).
 
 The line before the last is the ``{"kernels": [...]}`` record (25
 kernels: the nine large-matrix entries report their m_pad 9000 row and
@@ -272,6 +294,47 @@ LM_ARCH = "llama3-8b"
 PREFILL = dict(batch=2, seq_len=4096, calls=2)
 LM_SERVE = dict(batch=4, max_len=256, n_requests=8, new_tokens=16,
                 min_prompt=16, max_prompt=96)
+# LM training at Llama-3-8B width (bf16, seed-0 weights): 4 of its 32
+# blocks (1.92 B parameters), sequences of 4096 (train_4k's length) in a
+# global batch of 4 as 4 microbatches of 1 (train_4k's 256 x 4096 in 16
+# microbatches does not fit one card). Each run: (remat policy or None for
+# no checkpoint, microbatches, sequences a step, compress_grads)
+LM_TRAIN = dict(n_layers=4, seq_len=4096, steps=3, lr=1e-4)
+LM_TRAIN_RUNS = {"remat off, mb 4": (None, 4, 4, False),
+                 "remat full, mb 4": ("full", 4, 4, False),
+                 "remat dots, mb 4": ("dots", 4, 4, False),
+                 "remat full, mb 1": ("full", 1, 1, False),
+                 "remat full, mb 1, int8 compression": ("full", 1, 1, True)}
+LM_TRAIN_MEM = 75e9            # peak bytes allowed on the 80 GB card
+# first-step loss and gradient norm under remat against no remat: the
+# recompute runs the same kernels, so only the gradient sums' order moves
+REMAT_RTOL = 1e-3
+# examples/lm_pretrain.py: ~100M parameters (12 layers of d 768, llama3
+# family, vocab 8192, f32), batch 8 x 256, AdamConfig(lr=3e-4,
+# grad_clip=1.0), 300 steps; stopped by a SIGTERM at step 150 and resumed.
+# The last logged loss must lie below ln(vocab) (a uniform guess) and
+# min_drop below the first, and the median of the last 5 logged losses
+# late_drop below their median at early_steps, so a run that stalls after
+# its first steps fails. At these settings the reference's own curve
+# (tests/lm_pretrain_curve.py --steps 300, on the CPU) falls 0.21 nat from
+# step 10 to 300 and 0.088 between those medians (a median, as its loss
+# spikes by 0.2 at step 290); the port's 0.22 and 0.088 there, 0.24 and
+# 0.087 on the card
+PRETRAIN = dict(cfg=dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
+                         d_ff=2048, vocab=8192, head_dim=64,
+                         dtype="float32"),
+                batch=8, seq_len=256, steps=300, stop=150, log_every=10,
+                checkpoint_every=100, lr=3e-4, min_drop=0.1,
+                early_steps=(20, 60), late_drop=0.04, resume_atol=1e-3)
+# the MoE LMs at full width (bf16, seed-0 weights), depth cut to fit the
+# card: Mixtral 8x22B serves at 2 of 56 layers (5.4 B parameters) and
+# trains at 1 (2.9 B, with Adam ~35 GB); Llama-4 Maverick serves one
+# (dense, MoE) block of its 24 (18.5 B parameters, 37 GB)
+MIXTRAL = dict(arch="mixtral-8x22b", serve_layers=2, train_layers=1,
+               train_steps=3, cf_tokens=2048, cf_check=16.0)
+LLAMA4 = dict(arch="llama4-maverick-400b-a17b", n_layers=2, prompt=64,
+              serve_batch=2, new_tokens=8)
+BF16_TOL = (8e-2, 2e-2)        # tests/oracle.py TOLS["bf16"]
 # the kernel's prefill logits may differ from xla_packed's by at most this
 # multiple of the two plain orders' difference (the bf16 noise floor)
 NOISE_MULT = 2.0
@@ -3034,9 +3097,10 @@ def _attended_pairs(tq: int, tk: int, causal: bool, window: int) -> int:
 def phase_flash_kernels(device, rows, errs):
     """The flash-attention kernel against its plain version: at the
     Llama-3-8B prefill shape (bf16, timed, with its bound and SDPA beside
-    it), on the reference test's five corners and at FLASH_WIDTHS in f32
-    and bf16, identical bits twice everywhere; then the HGMMA count of the
-    bf16 entry's SASS. Adds to ``rows`` and ``errs``."""
+    it; f32), at the Mixtral and Llama-4 prefill shapes (bf16), on the
+    reference test's five corners and at FLASH_WIDTHS in f32 and bf16,
+    identical bits twice everywhere; then the HGMMA count of the bf16
+    entry's SASS. Adds to ``rows`` and ``errs``."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import KV_TILE, flash_attention
@@ -3044,14 +3108,19 @@ def phase_flash_kernels(device, rows, errs):
     from repro_torch import configs
 
     gen = torch.Generator(device=device).manual_seed(4)
-    cfg = configs.get(LM_ARCH)
     b, t = PREFILL["batch"], PREFILL["seq_len"]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    # (tag, b, t, h, kv, hd, causal, window, dtype): the main path's shape,
-    # then tests/test_kernels.py's five corners
-    cases = [("llama3-8b prefill", b, t, h, kv, hd, True, 0, "bfloat16"),
-             ("llama3-8b prefill float32", b, t, h, kv, hd, True, 0,
-              "float32")]
+    # (tag, b, t, h, kv, hd, causal, window, dtype): the main path's
+    # prefill shapes (Llama-3-8B, also in f32; Mixtral 8x22B, 48 heads on 8
+    # KV with its window; Llama-4 Maverick, 40 on 8), then
+    # tests/test_kernels.py's five corners
+    cases = []
+    for arch in (LM_ARCH, MIXTRAL["arch"], LLAMA4["arch"]):
+        c = configs.get(arch)
+        shape = (b, t, c.n_heads, c.n_kv_heads, c.head_dim, True, c.window)
+        cases.append((f"{arch} prefill", *shape, "bfloat16"))
+        if arch == LM_ARCH:
+            cases.append((f"{arch} prefill float32", *shape, "float32"))
+    main = {case[0] for case in cases}
     for dtype in ("float32", "bfloat16"):
         cases += [(f"mha causal {dtype}", 2, 64, 4, 4, 32, True, 0, dtype),
                   (f"gqa {dtype}", 1, 128, 8, 2, 16, True, 0, dtype),
@@ -3062,7 +3131,7 @@ def phase_flash_kernels(device, rows, errs):
         # every head width of FLASH_WIDTHS, causal GQA at a ragged length
         cases += [(f"hd {w} {dtype}", 1, 300, 8, 2, w, True, 0, dtype)
                   for w in FLASH_WIDTHS]
-    err = main_f32 = 0.0
+    err, main_errs = 0.0, {}
     for tag, b, t, h, kv, hd, causal, window, dtype in cases:
         dt = getattr(torch, dtype)
         q = torch.randn((b, t, h, hd), generator=gen, device=device).to(dt)
@@ -3076,13 +3145,13 @@ def phase_flash_kernels(device, rows, errs):
         def plain(q=q, k=k, v=v, kw=kw):
             return ref.flash_attention_plain(q, k, v, kv_block=KV_TILE, **kw)
 
-        tol = (FLASH_MAIN_TOL if tag.startswith("llama3-8b") else
-               FLASH_TOL)[dtype]
-        if tag != "llama3-8b prefill":
+        tol = (FLASH_MAIN_TOL if tag in main else FLASH_TOL)[dtype]
+        if tag != f"{LM_ARCH} prefill":
             got = kern()
             e = max_err(got.float(), plain().float(),
                         f"flash_attention {tag}", tol)
-            main_f32 = e if tag.startswith("llama3-8b") else main_f32
+            if tag in main:
+                main_errs[tag] = e
             err = max(err, e)
             check(torch.equal(got, kern()),
                   f"flash_attention {tag}: two calls differ")
@@ -3109,10 +3178,11 @@ def phase_flash_kernels(device, rows, errs):
         "tests/test_kernels.py (MHA causal, GQA, MQA with T 96, window 48, "
         f"bidirectional) and at head widths {FLASH_WIDTHS} (T 300, GQA 8 / "
         f"2) in f32 (tolerance {FLASH_TOL['float32']}) and bf16 "
-        f"({FLASH_TOL['bfloat16']}) and at the Llama-3-8B prefill shape in "
-        f"bf16 ({FLASH_MAIN_TOL['bfloat16']}) and f32 (max abs err "
-        f"{main_f32:.3e}, tolerance {FLASH_MAIN_TOL['float32']}) matches its "
-        "plain version, identical bits twice")
+        f"({FLASH_TOL['bfloat16']}) and at the main path's prefill shapes "
+        f"in bf16 ({FLASH_MAIN_TOL['bfloat16']}; f32 "
+        f"{FLASH_MAIN_TOL['float32']}) matches its plain version, identical "
+        "bits twice; max abs err at the prefill shapes: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in main_errs.items()))
     _log_rows([rows["flash_attention[llama3-8b prefill]"]])
     torch.cuda.empty_cache()
     hgmma = _sass_count("flash_attention", "flash_wgmma_kernel", "HGMMA")
@@ -3159,8 +3229,9 @@ def _lm_prompts(cfg):
 def phase_lm(device):
     """Llama-3-8B at full width on the card: ``lm.prefill`` of 2 x 4096
     tokens through the flash-attention kernel and through the two plain
-    impls, then ``ServeEngine`` waves of greedy decode; the model is freed
-    before the next phase. Returns the launches per kernel of each path."""
+    impls, then ``ServeEngine`` waves of greedy decode; then the MoE LMs
+    (:func:`_moe_paths`). Each model is freed before the next. Returns the
+    launches per kernel of each path."""
     import gc
 
     import torch
@@ -3172,6 +3243,7 @@ def phase_lm(device):
     check(allocated < 1e9, f"{allocated / 1e9:.2f} GB still allocated after "
                            "the LM phases")
     log(f"[lm] model freed: {allocated / 1e9:.2f} GB allocated on the card")
+    paths.update(_moe_paths(device))
     return paths
 
 
@@ -3179,74 +3251,19 @@ def _lm_paths(device):
     """The body of :func:`phase_lm`; everything it allocates dies with its
     frame."""
     import torch
-    from repro_torch import configs, tree, tuning
-    from repro_torch.data.tokens import TokenStreamSpec, make_batch
+    from repro_torch import tuning
     from repro_torch.models import lm
-    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.serving.engine import Request
 
-    cfg = configs.get(LM_ARCH)
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params = lm.init_params(
-        cfg, generator=torch.Generator(device=device).manual_seed(0),
-        device=device)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree.leaves(params))
-    blk = params["blocks"]["0_attn_dense"]
-    n_norm = params["final_norm"]["scale"].numel() + sum(
-        p["scale"].numel() for p in (blk["ln1"], blk["ln2"], *(
-            blk["attn"][k] for k in ("q_norm", "k_norm")
-            if k in blk["attn"])))
-    check(n_params - n_norm == cfg.param_count(),
-          f"{n_params} parameters ({n_norm} in norms), param_count() says "
-          f"{cfg.param_count()} without the norms")
-    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}: {n_params} "
-        f"parameters ({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn on "
-        f"the card in {time.perf_counter() - t0:.2f} s")
+    cfg, params = _lm_model(LM_ARCH, device)
 
     # -- prefill -----------------------------------------------------------
-    toks = make_batch(TokenStreamSpec(vocab=cfg.vocab,
-                                      batch=PREFILL["batch"],
-                                      seq_len=PREFILL["seq_len"], seed=0), 0)
-    batch = {"tokens": torch.from_numpy(toks).to(device)}
-    n_tok = toks.size
-    orders = {"pallas": {}, "xla_packed": {}, "xla_chunked": {},
-              "xla_chunked 512": CHUNKED_ORDER}
-    last, launches = {}, {}
-    for name, blocks in orders.items():
-        impl = name.split()[0]
-        wrappers = _reset_counters()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        with torch.inference_mode(), tuning.use_flags(attention_impl=impl,
-                                                      **blocks):
-            for _ in range(PREFILL["calls"]):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                logits, enc_out = lm.prefill(params, cfg, batch)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t1) * 1e3)
-        counts = {k: fn.launches for k, fn in wrappers.items()}
-        want = {k: 0 for k in counts}
-        if impl == "pallas":
-            want["flash_attention"] = cfg.n_layers * PREFILL["calls"]
-            launches = counts
-        check(counts == want, f"prefill {name}: launches {counts}, expected "
-                              f"{want}")
-        check(enc_out is None and tuple(logits.shape) == (
-            PREFILL["batch"], 1, cfg.vocab), f"prefill {name}: "
-            f"{tuple(logits.shape)}")
-        check(bool(torch.isfinite(logits).all()),
-              f"prefill {name}: non-finite logits")
-        last[name] = logits[:, 0].float()
-        log(f"[lm prefill] attention_impl={name}: {PREFILL['batch']} x "
-            f"{PREFILL['seq_len']} tokens, ms per call {times[0]:.1f} (first)"
-            f", {times[-1]:.1f} (last): {n_tok / times[-1] * 1e3:.0f} tokens/"
-            f"s; flash_attention launches {counts['flash_attention']}; peak "
-            f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    toks = _token_batch(cfg, PREFILL["batch"], PREFILL["seq_len"], 0, device)
+    last, launches = _prefill_orders(
+        "lm", cfg, params, toks, {"pallas": {}, "xla_packed": {},
+                                  "xla_chunked": {},
+                                  "xla_chunked 512": CHUNKED_ORDER})
     same = torch.equal(last["xla_packed"], last["xla_chunked"])
     floor = float((last["xla_chunked 512"] - last["xla_packed"]).abs().max())
     gap = float((last["pallas"] - last["xla_packed"]).abs().max())
@@ -3274,67 +3291,8 @@ def _lm_paths(device):
     paths = {"lm prefill": launches}
 
     # -- serving -----------------------------------------------------------
-    engine = ServeEngine(params, cfg, batch=LM_SERVE["batch"],
-                         max_len=LM_SERVE["max_len"], device=device)
-    steps = []
-    decode = engine._decode
-
-    def counted(*a):
-        steps.append(1)
-        return decode(*a)
-
-    engine._decode = counted
-    outs = []
-    for attempt in range(2):
-        reqs = _lm_prompts(cfg)
-        wrappers = _reset_counters()
-        torch.cuda.reset_peak_memory_stats()
-        steps.clear()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        engine.run(reqs)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t1) * 1e3
-        counts = {k: fn.launches for k, fn in wrappers.items()}
-        check(counts == {k: 0 for k in counts},
-              f"serve: launches {counts}, expected none")
-        for i, r in enumerate(reqs):
-            check(r.done and not r.truncated
-                  and len(r.out) == r.max_new_tokens
-                  and all(0 <= x < cfg.vocab for x in r.out),
-                  f"serve: request {i} done={r.done} truncated="
-                  f"{r.truncated} with {len(r.out)} of {r.max_new_tokens} "
-                  "tokens")
-        outs.append([r.out for r in reqs])
-        generated = sum(len(r.out) for r in reqs)
-        if attempt == 0:
-            first = (wall, len(steps), generated,
-                     torch.cuda.max_memory_allocated())
-    check(outs[0] == outs[1], "serve: greedy tokens differ between two runs")
-    paths["lm serve"] = counts
-    # device time of one decode step at the serving batch: CUDA-graph
-    # replay of decode_step at position 128 of a fresh cache
-    with torch.inference_mode():
-        caches = lm.init_decode_state(cfg, LM_SERVE["batch"],
-                                      LM_SERVE["max_len"], device=device)
-        tok = torch.zeros((LM_SERVE["batch"], 1), dtype=torch.int64,
-                          device=device)
-        step_dev = graph_ms(lambda: lm.decode_step(params, cfg, tok, caches,
-                                                   128), iters=5, replays=4)
-    wall, n_steps, generated, peak = first
-    per_step = wall / n_steps
-    log(f"[lm serve] ServeEngine(batch={LM_SERVE['batch']}, max_len="
-        f"{LM_SERVE['max_len']}): {LM_SERVE['n_requests']} requests (prompts "
-        f"{LM_SERVE['min_prompt']}-{LM_SERVE['max_prompt']} tokens, "
-        f"{LM_SERVE['new_tokens']} new, one with 0) in "
-        f"{-(-LM_SERVE['n_requests'] // LM_SERVE['batch'])} waves: every "
-        f"request done with exact lengths; {n_steps} decode steps in "
-        f"{wall:.1f} ms ({generated} tokens generated: "
-        f"{generated / wall * 1e3:.1f} tokens/s, "
-        f"{n_steps * LM_SERVE['batch'] / wall * 1e3:.1f} slot-steps/s); ms "
-        f"per decode step {per_step:.2f} wall = {step_dev:.2f} device "
-        f"(CUDA-graph replay) + {per_step - step_dev:.2f} host; greedy "
-        f"tokens identical on a second run; peak memory {peak / 1e9:.2f} GB")
+    engine, paths["lm serve"] = _serve_waves("lm", cfg, params, device,
+                                             _lm_prompts(cfg))
     log("[lm serve] flash_attention launches while serving: 0 (decode "
         "attends over the KV cache by plain products, as the reference's "
         "decode does; the kernel runs only in prefill and forward)")
@@ -3373,6 +3331,639 @@ def _lm_paths(device):
     log(f"[lm serve] first token = prefill's argmax on {agreed} of "
         f"{decided} one-request waves whose margin exceeds the floor")
     return paths
+
+
+def _n_params(params) -> tuple[int, int]:
+    """(all parameters, those in norm scales): ``param_count()`` leaves the
+    norms out."""
+    flat = list(_named_leaves(params))
+    n = sum(t.numel() for _, t in flat)
+    return n, sum(t.numel() for path, t in flat if path.endswith("scale"))
+
+
+def _named_leaves(node, prefix=""):
+    if isinstance(node, dict):
+        for k in sorted(node):
+            yield from _named_leaves(node[k], f"{prefix}.{k}" if prefix
+                                     else k)
+    else:
+        yield prefix, node
+
+
+def _free(what: str) -> None:
+    """Collect what the caller's frame dropped and check that the card
+    holds under 1 GB."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    check(allocated < 1e9, f"{allocated / 1e9:.2f} GB still allocated after "
+                           f"{what}")
+    log(f"[lm] {what} freed: {allocated / 1e9:.2f} GB allocated on the card")
+
+
+def _lm_model(arch: str, device, **fields):
+    """``configs.get(arch)`` with ``fields`` replaced, and its seed-0
+    random parameters drawn on the card; logs the count and checks it
+    against ``param_count()``."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get(arch), **fields)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        device=device)
+    torch.cuda.synchronize()
+    n, n_norm = _n_params(params)
+    check(n - n_norm == cfg.param_count(),
+          f"{arch}: {n} parameters ({n_norm} in norms), param_count() says "
+          f"{cfg.param_count()} without the norms")
+    log(f"[lm] {arch} at {cfg.n_layers} of {configs.get(arch).n_layers} "
+        f"layers: d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} KV of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        + (f"{cfg.n_experts} experts top-{cfg.top_k}"
+           f"{' + shared' if cfg.shared_expert else ''}, "
+           if cfg.n_experts else "")
+        + f"vocab {cfg.vocab}, "
+        f"block pattern {cfg.block_pattern}, {cfg.dtype}: {n} parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+def _timed(fn, n: int = 1):
+    """(result of the last call, ms of each of ``n`` calls, wall between
+    syncs)."""
+    import torch
+
+    times, out = [], None
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def _moe_input(params, cfg, tokens):
+    """The input of the first block's MoE sublayer (a config whose pattern
+    starts with one): the embedding through that sublayer's attention
+    (xla_packed), residual and ``ln2``; and its MoE parameters."""
+    from repro_torch import tree
+    from repro_torch.models import layers, lm
+
+    check(cfg.block_pattern[0] == "attn_moe", f"{cfg.name}: the first "
+          "sublayer is not a MoE one")
+    p = tree.tree_map(lambda t: t[0], params["blocks"]["0_attn_moe"])
+    h = params["embed"][tokens.long()]
+    pos = lm._positions(h.shape[0], h.shape[1], h.device)
+    a, _ = layers.attention_apply(p["attn"], cfg,
+                                  layers.rms_norm(p["ln1"], h, cfg.norm_eps),
+                                  positions=pos)
+    return layers.rms_norm(p["ln2"], h + a, cfg.norm_eps), p["moe"]
+
+
+def _dropped_share(p_moe, cfg, x, capacity_factor) -> float:
+    """The share of (token, k) pairs of ``x`` (B, T, D) the grouped dispatch
+    drops at ``capacity_factor``: past their expert's capacity."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+
+    _, eids, _ = layers._route(p_moe, cfg, x)
+    b, t, k = eids.shape
+    onehot = F.one_hot(eids.reshape(b, t * k), cfg.n_experts)
+    pos = (onehot.cumsum(1) * onehot).sum(-1) - 1
+    cap = layers._capacity(capacity_factor, t, k, cfg.n_experts)
+    return float((pos >= cap).float().mean())
+
+
+def _token_batch(cfg, batch: int, seq: int, step: int, device):
+    """``make_batch`` (seed 0) at ``step`` as a tensor on ``device``."""
+    import torch
+    from repro_torch.data.tokens import TokenStreamSpec, make_batch
+
+    return torch.from_numpy(make_batch(TokenStreamSpec(
+        vocab=cfg.vocab, batch=batch, seq_len=seq, seed=0), step)).to(device)
+
+
+def _prefill_orders(tag, cfg, params, toks, orders):
+    """``lm.prefill`` of ``toks``, PREFILL["calls"] calls under each
+    attention order of ``orders`` (a name whose first word is the impl ->
+    its block flags): flash_attention launched once a layer a call under
+    "pallas" and never otherwise, logits (B, 1, vocab), all finite.
+    Returns (the last logits in f32 per order, the "pallas" order's
+    launches)."""
+    import torch
+    from repro_torch import tuning
+    from repro_torch.models import lm
+
+    batch = {"tokens": toks}
+    last, launches = {}, {}
+    for name, blocks in orders.items():
+        impl = name.split()[0]
+        wrappers = _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode(), tuning.use_flags(attention_impl=impl,
+                                                      **blocks):
+            (logits, enc_out), times = _timed(
+                lambda: lm.prefill(params, cfg, batch), PREFILL["calls"])
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        want = {k: 0 for k in counts}
+        if impl == "pallas":
+            want["flash_attention"] = cfg.n_layers * PREFILL["calls"]
+            launches = counts
+        check(counts == want, f"{tag} prefill {name}: launches {counts}, "
+                              f"expected {want}")
+        check(enc_out is None and tuple(logits.shape) == (
+            toks.shape[0], 1, cfg.vocab), f"{tag} prefill {name}: "
+            f"{tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()),
+              f"{tag} prefill {name}: non-finite logits")
+        last[name] = logits[:, 0].float()
+        log(f"[{tag} prefill] attention_impl={name}: {toks.shape[0]} x "
+            f"{toks.shape[1]} tokens, ms per call {times[0]:.1f} (first), "
+            f"{times[-1]:.1f} (last): {toks.numel() / times[-1] * 1e3:.0f} "
+            f"tokens/s; flash_attention launches "
+            f"{counts['flash_attention']}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return last, launches
+
+
+def _serve_waves(tag, cfg, params, device, prompts):
+    """``ServeEngine`` waves (LM_SERVE's batch and max_len) of greedy
+    decode over ``prompts``, twice: every request done with exact lengths
+    and in-vocab tokens, no kernel launched, the greedy tokens identical;
+    ms per decode step, wall and by CUDA-graph replay of one
+    ``decode_step`` at position 128 of a fresh cache. Returns (the engine,
+    the launches of its last run)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    engine = ServeEngine(params, cfg, batch=LM_SERVE["batch"],
+                         max_len=LM_SERVE["max_len"], device=device)
+    steps = []
+    decode = engine._decode
+
+    def counted(*a):
+        steps.append(1)
+        return decode(*a)
+
+    engine._decode = counted
+    outs = []
+    for attempt in range(2):
+        reqs = [Request(prompt=list(r.prompt),
+                        max_new_tokens=r.max_new_tokens) for r in prompts]
+        wrappers = _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        steps.clear()
+        _, (wall,) = _timed(lambda: engine.run(reqs))
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        check(counts == {k: 0 for k in counts},
+              f"{tag} serve: launches {counts}, expected none")
+        for i, r in enumerate(reqs):
+            check(r.done and not r.truncated
+                  and len(r.out) == r.max_new_tokens
+                  and all(0 <= x < cfg.vocab for x in r.out),
+                  f"{tag} serve: request {i} done={r.done} truncated="
+                  f"{r.truncated} with {len(r.out)} of {r.max_new_tokens} "
+                  "tokens")
+        outs.append([r.out for r in reqs])
+        if attempt == 0:
+            first = (wall, len(steps), sum(len(r.out) for r in reqs),
+                     torch.cuda.max_memory_allocated())
+    check(outs[0] == outs[1], f"{tag} serve: greedy tokens differ between "
+                              "two runs")
+    with torch.inference_mode():
+        caches = lm.init_decode_state(cfg, LM_SERVE["batch"],
+                                      LM_SERVE["max_len"], device=device)
+        tok = torch.zeros((LM_SERVE["batch"], 1), dtype=torch.int64,
+                          device=device)
+        step_dev = graph_ms(lambda: lm.decode_step(params, cfg, tok, caches,
+                                                   128), iters=5, replays=4)
+    wall, n_steps, generated, peak = first
+    per_step = wall / n_steps
+    lengths = [len(r.prompt) for r in prompts]
+    log(f"[{tag} serve] ServeEngine(batch={LM_SERVE['batch']}, max_len="
+        f"{LM_SERVE['max_len']}): {len(prompts)} requests (prompts "
+        f"{min(lengths)}-{max(lengths)} tokens, budgets "
+        f"{sorted({r.max_new_tokens for r in prompts})}) in "
+        f"{-(-len(prompts) // LM_SERVE['batch'])} waves: every request done "
+        f"with exact lengths; {n_steps} decode steps in {wall:.1f} ms "
+        f"({generated} tokens generated: {generated / wall * 1e3:.1f} "
+        f"tokens/s, {n_steps * LM_SERVE['batch'] / wall * 1e3:.1f} "
+        f"slot-steps/s); ms per decode step {per_step:.2f} wall = "
+        f"{step_dev:.2f} device (CUDA-graph replay) + "
+        f"{per_step - step_dev:.2f} host; greedy tokens identical on a "
+        f"second run; peak memory {peak / 1e9:.2f} GB")
+    return engine, counts
+
+
+def _moe_paths(device):
+    """Mixtral 8x22B and Llama-4 Maverick at full width (see MIXTRAL and
+    LLAMA4); each model is freed before the next. Returns the launches of
+    the MoE prefill path."""
+    import torch
+    from repro_torch import tuning
+    from repro_torch.models import layers, lm
+
+    paths = {}
+
+    def prefill(tag, cfg, params):
+        toks = _token_batch(cfg, PREFILL["batch"], PREFILL["seq_len"], 0,
+                            device)
+        last, paths[f"{tag} prefill"] = _prefill_orders(
+            tag, cfg, params, toks, {"pallas": {}, "xla_packed": {}})
+        gap = float((last["pallas"] - last["xla_packed"]).abs().max())
+        log(f"[{tag} prefill] last logits, kernel vs xla_packed: max abs "
+            f"difference {gap:.4e} (|logit| max "
+            f"{float(last['xla_packed'].abs().max()):.3f}; a token whose "
+            "top experts change with the attention's rounding moves more, "
+            "so the kernel is held to its plain version at this shape in "
+            "the kernels phase)")
+        return toks
+
+    # -- Mixtral 8x22B: serve at 2 layers --------------------------------
+    tag = "mixtral"
+    cfg, params = _lm_model(MIXTRAL["arch"], device,
+                            n_layers=MIXTRAL["serve_layers"])
+    toks = prefill(tag, cfg, params)
+    with torch.inference_mode():
+        x, p_moe = _moe_input(params, cfg, toks)
+        shares = {cf: _dropped_share(p_moe, cfg, x, cf)
+                  for cf in (tuning.TuneFlags.capacity_factor, 2.0)}
+        xs = x[:, :MIXTRAL["cf_tokens"]]
+        out = {}
+        for dispatch in ("grouped", "scatter"):
+            with tuning.use_flags(moe_dispatch=dispatch,
+                                  capacity_factor=MIXTRAL["cf_check"]):
+                (out[dispatch], times) = _timed(
+                    lambda: layers.moe_apply(p_moe, cfg, xs), 2)
+            log(f"[{tag} moe] moe_apply dispatch={dispatch} at capacity "
+                f"factor {MIXTRAL['cf_check']}, 2 x {MIXTRAL['cf_tokens']} "
+                f"tokens: {times[-1]:.2f} ms, aux "
+                f"{float(out[dispatch][1]):.4f}")
+        err = max_err(out["scatter"][0], out["grouped"][0],
+                      f"{tag} moe_apply scatter vs grouped", tol=BF16_TOL)
+        aux_gap = abs(float(out["scatter"][1]) - float(out["grouped"][1]))
+        check(aux_gap <= 1e-5, f"{tag}: aux differs between dispatches by "
+                               f"{aux_gap:.3e}")
+        del out, xs
+    log(f"[{tag} moe] scatter vs grouped at capacity factor "
+        f"{MIXTRAL['cf_check']} (nothing dropped): max abs difference "
+        f"{err:.4e} (TOLS bf16 {BF16_TOL}); (token, k) pairs dropped by the "
+        f"grouped dispatch at the first MoE layer of the 2 x "
+        f"{PREFILL['seq_len']} prefill: "
+        + ", ".join(f"{v:.4%} at capacity factor {k}"
+                    for k, v in shares.items()))
+    _serve_waves(tag, cfg, params, device, _lm_prompts(cfg))
+    del params, x, p_moe, toks
+    _free(f"{tag} serving")
+
+    # -- Mixtral 8x22B: train at 1 layer ---------------------------------
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.optim.adam import AdamConfig, adam_init
+
+    cfg, params = _lm_model(MIXTRAL["arch"], device,
+                            n_layers=MIXTRAL["train_layers"])
+    state = adam_init(params)
+    batch = {"tokens": _token_batch(cfg, 1, LM_TRAIN["seq_len"], 2, device)}
+    with torch.no_grad():
+        _, metrics = lm.loss_fn(params, cfg, batch)
+    step = build_train_step(cfg, AdamConfig(lr=LM_TRAIN["lr"],
+                                            grad_clip=1.0), remat=True,
+                            device=device)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(MIXTRAL["train_steps"]):
+        (params, state, m), (ms,) = _timed(
+            lambda: step(params, state, batch))
+        losses.append(float(m["loss"]))
+        times.append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(_finite, losses)) and _finite(float(metrics["aux"])),
+          f"{tag} train: losses {losses}, aux {float(metrics['aux'])}")
+    check(peak < LM_TRAIN_MEM, f"{tag} train: peak {peak / 1e9:.2f} GB")
+    log(f"[{tag} train] 1 layer, remat full, 1 x {LM_TRAIN['seq_len']} "
+        f"tokens a step: losses {[round(x, 4) for x in losses]} (nll "
+        f"{float(metrics['nll']):.4f} + aux {float(metrics['aux']):.4f} at "
+        f"the start), ms per step {[round(t, 1) for t in times]}, "
+        f"{LM_TRAIN['seq_len'] / times[-1] * 1e3:.0f} tokens/s, peak memory "
+        f"{peak / 1e9:.2f} GB")
+    del params, state, step, batch
+    _free(f"{tag} training")
+
+    # -- Llama-4 Maverick: serve one (dense, MoE) block -------------------
+    tag = "llama4"
+    cfg, params = _lm_model(LLAMA4["arch"], device,
+                            n_layers=LLAMA4["n_layers"])
+    prefill(tag, cfg, params)
+    toks = _token_batch(cfg, LLAMA4["serve_batch"], LLAMA4["prompt"], 3,
+                        device)
+    with torch.inference_mode():
+        want, aux = lm.forward(params, cfg, {"tokens": toks})
+        caches = lm.init_decode_state(cfg, LLAMA4["serve_batch"],
+                                      LLAMA4["prompt"], device=device)
+        for i in range(LLAMA4["prompt"]):
+            got, caches = lm.decode_step(params, cfg, toks[:, i:i + 1],
+                                         caches, i)
+    err = max_err(got[:, 0], want[:, -1], f"{tag}: decode vs forward's "
+                  "last position", tol=BF16_TOL)
+    log(f"[{tag} decode] {LLAMA4['serve_batch']} x {LLAMA4['prompt']} "
+        f"tokens through decode_step: the last logits within TOLS bf16 "
+        f"{BF16_TOL} of forward's last position (max abs difference "
+        f"{err:.4e}; |logit| max {float(want[:, -1].abs().max()):.3f}; "
+        f"aux {float(aux):.4f})")
+    _serve_waves(tag, cfg, params, device,
+                 _lm_prompts(cfg)[:LLAMA4["serve_batch"] * 2])
+    del params, caches, want, got, toks
+    _free(f"{tag} serving")
+    return paths
+
+
+def _finite(x: float) -> bool:
+    return x == x and abs(x) != float("inf")
+
+
+def phase_lm_train(device):
+    """LM training on the card: Llama-3-8B width under each remat setting
+    (LM_TRAIN_RUNS), then the ``examples/lm_pretrain.py`` counterpart
+    (PRETRAIN) through ``Trainer``; each model is freed before the next."""
+    t0 = time.perf_counter()
+    _lm_train_width(device)
+    _free("Llama-3-8B-width training")
+    t1 = time.perf_counter()
+    _lm_pretrain(device)
+    _free("the lm_pretrain counterpart")
+    log(f"[lm train] phase times: Llama-3-8B width {t1 - t0:.1f} s, "
+        f"lm_pretrain {time.perf_counter() - t1:.1f} s")
+
+
+def _lm_train_width(device):
+    import gc
+
+    import torch
+    from repro_torch import tree, tuning
+    from repro_torch.distributed.compression import ef_init
+    from repro_torch.distributed.steps import build_train_step, \
+        loss_and_grads
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import AdamConfig, adam_init, global_norm
+
+    cfg, init = _lm_model(LM_ARCH, device, n_layers=LM_TRAIN["n_layers"])
+    seq = LM_TRAIN["seq_len"]
+    toks = _token_batch(cfg, 4, seq, 0, device)
+
+    # the flash kernel has no gradient: under grad it raises, launching
+    # nothing, before any step
+    live = tree.tree_map(lambda t: t.detach().requires_grad_(), init)
+    before = flash_attention.launches
+    try:
+        with tuning.use_flags(attention_impl="pallas"):
+            lm.loss_fn(live, cfg, {"tokens": toks[:1, :256]})
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    check("no gradient" in raised and flash_attention.launches == before,
+          f"attention_impl='pallas' under grad did not raise ({raised!r})")
+    log(f"[lm train] attention_impl='pallas' under grad raises before any "
+        f"step, launching nothing: {raised}")
+    del live
+
+    # first-step loss and gradient norm under every remat setting (4
+    # microbatches of 1 x 4096), against no remat
+    first = {}
+    for name, policy in (("off", None), ("full", "full"),
+                         ("dots", "dots"), ("none", "none")):
+        torch.cuda.reset_peak_memory_stats()
+        with tuning.use_flags(remat_policy=policy or "full"):
+            (loss, grads), (ms,) = _timed(lambda: loss_and_grads(
+                cfg, init, {"tokens": toks}, microbatches=4,
+                remat=policy is not None))
+        first[name] = (float(loss), float(global_norm(grads)),
+                       torch.cuda.max_memory_allocated(), ms)
+        del grads
+    base = first["off"]
+    worst = {"loss": 0.0, "grad norm": 0.0}
+    for name, (loss, gn, peak, ms) in first.items():
+        d_loss, d_gn = abs(loss - base[0]), abs(gn - base[1])
+        worst["loss"] = max(worst["loss"], d_loss)
+        worst["grad norm"] = max(worst["grad norm"], d_gn)
+        check(_finite(loss) and d_loss <= REMAT_RTOL * abs(base[0])
+              and d_gn <= REMAT_RTOL * base[1],
+              f"remat {name}: first-step loss {loss} / grad norm {gn} "
+              f"against {base[:2]} without remat")
+        log(f"[lm train first step] remat {name}: loss {loss:.6f}, grad "
+            f"norm {gn:.6f} (differences from no remat {d_loss:.3e}, "
+            f"{d_gn:.3e}); value and grad of 4 x {seq} tokens in {ms:.1f} "
+            f"ms; peak memory {peak / 1e9:.2f} GB")
+    log(f"[lm train first step] largest difference from no remat: loss "
+        f"{worst['loss']:.3e}, gradient norm {worst['grad norm']:.3e} "
+        f"(limit {REMAT_RTOL} of the value)")
+
+    # steps through build_train_step, each run from the same parameters
+    peaks = {}
+    for name, (policy, mb, rows, compress) in LM_TRAIN_RUNS.items():
+        params = tree.tree_map(torch.clone, init)
+        state = adam_init(params)
+        if compress:
+            state["ef_err"] = ef_init(params)
+        step = build_train_step(cfg, AdamConfig(lr=LM_TRAIN["lr"],
+                                                grad_clip=1.0),
+                                microbatches=mb, remat=policy is not None,
+                                compress_grads=compress, device=device)
+        batch = {"tokens": toks[:rows]}
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        with tuning.use_flags(remat_policy=policy or "full"):
+            for _ in range(LM_TRAIN["steps"]):
+                (params, state, m), (ms,) = _timed(
+                    lambda: step(params, state, batch))
+                losses.append(float(m["loss"]))
+                times.append(ms)
+            peaks[name] = torch.cuda.max_memory_allocated()
+            held = [params, state]
+
+            def traced():
+                held[0], held[1], _ = step(held[0], held[1], batch)
+
+            wall, kern, n_k, idle, _, gaps = _device_idle(traced, (),
+                                                          "train step")
+        check(all(map(_finite, losses)), f"{name}: losses {losses}")
+        check(peaks[name] < LM_TRAIN_MEM, f"{name}: peak memory "
+                                          f"{peaks[name] / 1e9:.2f} GB")
+        tokens = rows * seq
+        log(f"[lm train] {name}: {rows} x {seq} tokens a step, losses "
+            f"{[round(x, 4) for x in losses]}; ms per step "
+            f"{[round(t, 1) for t in times]} wall, "
+            f"{tokens / times[-1] * 1e3:.0f} tokens/s; one traced step: "
+            f"{wall:.1f} ms wall, {kern:.1f} ms of {n_k} kernels (device "
+            f"idle {idle:.1%}); peak memory {peaks[name] / 1e9:.2f} GB")
+        del params, state, step, held, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(peaks["remat full, mb 4"] < peaks["remat off, mb 4"],
+          f"remat full does not lower the peak: {peaks}")
+    log(f"[lm train] peak memory, remat full vs off at 4 microbatches: "
+        f"{peaks['remat full, mb 4'] / 1e9:.2f} vs "
+        f"{peaks['remat off, mb 4'] / 1e9:.2f} GB (limit "
+        f"{LM_TRAIN_MEM / 1e9:.0f} GB)")
+
+
+def _pretrain_step(cfg, opt, device, steps: int = 10):
+    """The ``lm_pretrain`` step alone, outside ``Trainer``: ms a step over
+    ``steps`` steps on one batch, one traced step's kernel time and idle
+    share, and the host ms of one ``make_batch`` (the token thread's
+    work)."""
+    import torch
+    from repro_torch.data.tokens import TokenStreamSpec, make_batch
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import adam_init
+
+    spec = TokenStreamSpec(vocab=cfg.vocab, batch=PRETRAIN["batch"],
+                           seq_len=PRETRAIN["seq_len"])
+    t0 = time.perf_counter()
+    toks = make_batch(spec, 0)
+    make_ms = (time.perf_counter() - t0) * 1e3
+    held = [lm.init_params(cfg, device=device), None]
+    held[1] = adam_init(held[0])
+    step = build_train_step(cfg, opt, remat=False, device=device)
+    batch = {"tokens": torch.from_numpy(toks).to(device)}
+
+    def one():
+        held[0], held[1], _ = step(held[0], held[1], batch)
+
+    for _ in range(3):
+        one()
+    _, (ms,) = _timed(lambda: [one() for _ in range(steps)])
+    wall, kern, n_k, idle, _, _ = _device_idle(one, (), "step")
+    log(f"[lm pretrain step] build_train_step alone, {PRETRAIN['batch']} x "
+        f"{PRETRAIN['seq_len']} tokens: {ms / steps:.1f} ms a step (mean of "
+        f"{steps}); one traced step {wall:.1f} ms wall, {kern:.1f} ms of "
+        f"{n_k} kernels (device idle {idle:.1%}); make_batch {make_ms:.1f} "
+        "ms of host Python a batch")
+
+
+def _lm_pretrain(device):
+    """The ``examples/lm_pretrain.py`` counterpart through ``Trainer`` and
+    ``synthetic_data``: stopped by a SIGTERM at PRETRAIN["stop"], resumed
+    from its checkpoint to the end; beside it an uninterrupted run to the
+    resumed run's first logged step."""
+    import dataclasses
+    import json
+    import math
+    import os
+    import shutil
+    import signal
+    import statistics
+
+    import torch
+    from repro_torch import configs, tree
+    from repro_torch.launch.train import synthetic_data
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(configs.get(LM_ARCH), **PRETRAIN["cfg"])
+    opt = AdamConfig(lr=PRETRAIN["lr"], grad_clip=1.0)
+    root = CKPT_DIR / "lm_pretrain"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(name, total):
+        return Trainer(cfg, opt, TrainerConfig(
+            checkpoint_dir=str(root / name), total_steps=total,
+            checkpoint_every=PRETRAIN["checkpoint_every"],
+            log_every=PRETRAIN["log_every"]), device=device)
+
+    def run(t, start=0, on_metrics=None):
+        data = synthetic_data(cfg, PRETRAIN["batch"], PRETRAIN["seq_len"],
+                              start_step=start, device=device)
+        try:
+            (out, (ms,)) = _timed(lambda: t.fit(data, on_metrics=on_metrics))
+        finally:
+            data.close()
+        return out, ms
+
+    def stop(step, rec):
+        if step == PRETRAIN["stop"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    _pretrain_step(cfg, opt, device)
+    stopped = trainer("run", PRETRAIN["steps"])
+    (params, state), ms_a = run(stopped, on_metrics=stop)
+    check(stopped.manager.latest_step() == PRETRAIN["stop"]
+          and int(state["step"]) == PRETRAIN["stop"],
+          f"SIGTERM at step {PRETRAIN['stop']}: checkpoints "
+          f"{stopped.manager.steps()}, state step {int(state['step'])}")
+    restored = stopped.manager.restore(PRETRAIN["stop"],
+                                       stopped.init_state())
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(restored), tree.leaves((params, state)), strict=True))
+    check(same, "the restored checkpoint differs from the state it saved")
+    del params, state, restored
+    resumed = trainer("run", PRETRAIN["steps"])
+    check(resumed.restore_or_init()[2] == PRETRAIN["stop"], "no resume")
+    _, ms_b = run(resumed, start=PRETRAIN["stop"])
+    with open(root / "run" / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r["step"] for r in recs]
+    want = list(range(PRETRAIN["log_every"], PRETRAIN["steps"] + 1,
+                      PRETRAIN["log_every"]))
+    log(f"[lm pretrain] logged losses: " + ", ".join(
+        f"{r['step']}: {r['loss']:.4f}" for r in recs))
+    check(steps == want, f"metrics.jsonl steps {steps}, expected {want}")
+    drop = recs[0]["loss"] - recs[-1]["loss"]
+    check(drop >= PRETRAIN["min_drop"]
+          and recs[-1]["loss"] < math.log(cfg.vocab),
+          f"loss {recs[0]['loss']:.4f} -> {recs[-1]['loss']:.4f}: fell by "
+          f"less than {PRETRAIN['min_drop']} or not below ln(vocab)")
+    lo, hi = PRETRAIN["early_steps"]
+    early = statistics.median(r["loss"] for r in recs
+                              if lo <= r["step"] <= hi)
+    late = statistics.median(r["loss"] for r in recs[-5:])
+    check(early - late >= PRETRAIN["late_drop"],
+          f"the median of the last 5 logged losses, {late:.4f}, lies less "
+          f"than {PRETRAIN['late_drop']} below their median at steps "
+          f"{lo}-{hi}, {early:.4f}: the loss stalled")
+    first_resumed = recs[steps.index(PRETRAIN["stop"]) + 1]
+    whole = trainer("whole", first_resumed["step"])
+    _, ms_c = run(whole)
+    with open(root / "whole" / "metrics.jsonl") as f:
+        ref = {r["step"]: r["loss"] for r in map(json.loads, f)}
+    gap = abs(first_resumed["loss"] - ref[first_resumed["step"]])
+    check(gap <= PRETRAIN["resume_atol"], f"resumed loss at step "
+          f"{first_resumed['step']} differs from the uninterrupted run's by "
+          f"{gap:.3e}")
+    n, _ = _n_params(whole.init_state()[0])
+    tokens = PRETRAIN["batch"] * PRETRAIN["seq_len"]
+    log(f"[lm pretrain] {n} parameters ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}), "
+        f"batch {PRETRAIN['batch']} x {PRETRAIN['seq_len']}: stopped by "
+        f"SIGTERM at step {PRETRAIN['stop']} ({ms_a / 1e3:.1f} s), the "
+        f"restored parameters and Adam state equal the saved ones bit for "
+        f"bit, resumed to {PRETRAIN['steps']} ({ms_b / 1e3:.1f} s; "
+        f"{tokens * (PRETRAIN['steps'] - PRETRAIN['stop']) / ms_b * 1e3:.0f}"
+        f" tokens/s); metrics.jsonl logs steps {steps[0]}..{steps[-1]}, "
+        f"step {PRETRAIN['stop']} once; loss {recs[0]['loss']:.4f} at step "
+        f"{steps[0]} -> {recs[-1]['loss']:.4f} at {steps[-1]} (ln "
+        f"{cfg.vocab} = {math.log(cfg.vocab):.4f}); median of steps {lo}-{hi} "
+        f"{early:.5f} -> of the last 5 {late:.5f} (drop {early - late:.5f}, "
+        f"at least {PRETRAIN['late_drop']}); at step "
+        f"{first_resumed['step']} resumed "
+        f"{first_resumed['loss']:.6f} vs uninterrupted "
+        f"{ref[first_resumed['step']]:.6f} (difference {gap:.3e}, limit "
+        f"{PRETRAIN['resume_atol']}; {ms_c / 1e3:.1f} s)")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _rung_kernels(device, policy, requests, errs):
@@ -4343,6 +4934,7 @@ def main() -> int:
     phase_fused_large(device, rows, errs)
     large_path = phase_large_path(device)
     lm_paths = phase_lm(device)
+    phase_lm_train(device)
     p_launches = phase_powerlaw(device)
 
     tox_launches = phase_serve(

@@ -8,7 +8,9 @@
 
 One ``shard-0.npz`` holds the leaves as ``leaf_<i>`` in the reference's
 leaf order (:mod:`repro_torch.tree`), so a checkpoint that either package
-wrote restores in the other, bitwise.
+wrote restores in the other, bitwise. A bf16 leaf is stored as the
+reference's ``np.savez`` stores an ``ml_dtypes.bfloat16`` array: its raw
+2-byte values (numpy ``V2``), read back as bf16 into a bf16 leaf.
 """
 from __future__ import annotations
 
@@ -31,15 +33,34 @@ def _digest(path: str) -> str:
     return h.hexdigest()
 
 
+_BF16_RAW = np.dtype("V2")        # how np.savez stores a bfloat16 array
+
+
+def _to_numpy(x) -> np.ndarray:
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(_BF16_RAW)
+    return x.numpy()
+
+
+def _from_numpy(a: np.ndarray, like: torch.Tensor, what: str):
+    if a.dtype == _BF16_RAW:
+        if like.dtype != torch.bfloat16:
+            raise IOError(f"{what}: raw 2-byte values (bfloat16), expected "
+                          f"{like.dtype}")
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def save_pytree(tree_: object, directory: str) -> None:
     """Write ``tree_`` (tensors or arrays as leaves) to ``directory``,
     replacing what was there only once the new checkpoint is complete."""
     tmp = f"{directory}.tmp-{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
     flat = tree.leaves(tree_)
-    arrays = {f"leaf_{i}": (x.detach().cpu().numpy()
-                            if isinstance(x, torch.Tensor) else np.asarray(x))
-              for i, x in enumerate(flat)}
+    arrays = {f"leaf_{i}": _to_numpy(x) for i, x in enumerate(flat)}
     npz = os.path.join(tmp, "shard-0.npz")
     np.savez(npz, **arrays)
     manifest = {"treedef": tree.describe(tree_), "n_leaves": len(flat),
@@ -73,7 +94,8 @@ def load_pytree(tree_like, directory: str):
             if tuple(a.shape) != tuple(ref.shape):
                 raise IOError(f"checkpoint {directory}: leaf {i} has shape "
                               f"{a.shape}, expected {tuple(ref.shape)}")
-            restored.append(torch.from_numpy(a).to(ref.device))
+            restored.append(_from_numpy(a, ref, f"checkpoint {directory}: "
+                                        f"leaf {i}").to(ref.device))
     return tree.unflatten(tree_like, restored)
 
 

@@ -84,8 +84,9 @@ def opt_state_from_jax(np_state, cfg: GCNConfig, *, device=None) -> dict:
 def lm_params_from_jax(np_params, cfg: ModelConfig, *, device=None) -> dict:
     """Copy a reference LM pytree (numpy leaves) onto ``device``, checking
     every leaf's name, shape and dtype against ``cfg`` (:func:`repro_torch.
-    models.lm.param_shapes`: weights in ``cfg.dtype``, norm scales in f32)
-    and keeping each leaf's dtype. A bf16 leaf (an
+    models.lm.param_shapes`: weights in ``cfg.dtype``, norm scales and the
+    MoE router in f32; the expert stacks and the shared expert of an
+    ``attn_moe`` sublayer included) and keeping each leaf's dtype. A bf16 leaf (an
     ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects) goes
     through float32, exactly."""
     device = resolve_device(device)

@@ -4,15 +4,22 @@ bitwise the reference's for the same spec and step.
 
 A batch is a pure function of ``(spec, step)``: a fixed random bigram table
 (``branch`` successors per token) plus ``noise`` random tokens, drawn by
-numpy from the spec's seed, step and shard. The prefetching
-``token_stream`` comes with LM training (ROADMAP.md queue 1: the LM zoo
-(LM training)).
+numpy from the spec's seed, step and shard. ``token_stream`` prefetches
+batches on a background thread, which makes numpy arrays only: the tensors
+are built on the consumer's thread, so the worker does no device work and
+holds the interpreter lock for no more than ``make_batch``.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
+from typing import Iterator
 
 import numpy as np
+import torch
+
+from repro_torch import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,3 +50,46 @@ def make_batch(spec: TokenStreamSpec, step: int) -> np.ndarray:
         nxt[mix] = rng.integers(0, spec.vocab, int(mix.sum()))
         toks[:, t] = nxt
     return toks
+
+
+def token_stream(spec: TokenStreamSpec, start_step: int = 0,
+                 prefetch: int = 2, *, device=None) -> Iterator[dict]:
+    """Prefetching iterator of ``{"tokens": (batch, seq) int32}`` on
+    ``device`` (the current CUDA device unless asked for another), from
+    ``start_step`` on: batch ``i`` is ``make_batch(spec, i)``, so a restart
+    at ``start_step`` resumes the exact sequence. A bounded queue of
+    ``prefetch`` numpy batches sits between the worker thread and the
+    consumer; an error in the worker is raised to the consumer. Closing the
+    iterator stops the worker."""
+    device = resolve_device(device)
+    q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
+    stop = threading.Event()
+
+    def put(item) -> None:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def worker():
+        step = start_step
+        try:
+            while not stop.is_set():
+                put(make_batch(spec, step))
+                step += 1
+        except Exception as e:          # raised again on the consumer's side
+            put(e)
+
+    th = threading.Thread(target=worker, name="token_stream", daemon=True)
+    th.start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, Exception):
+                raise item
+            yield {"tokens": torch.from_numpy(item).to(device)}
+    finally:
+        stop.set()
+        th.join(timeout=5)

@@ -13,7 +13,10 @@ recurrence over the same 64-key tiles. Both keep the reference kernel's
 numeric contract (``NEG_INF = -1e30``, p in f32, ``acc / max(l, 1e-20)``).
 The reference takes ``q_block``/``kv_block`` for its TPU grid; here the
 tiles are the kernel's (``KV_TILE``), which changes rounding only. There is
-no backward: the reference gives ``flash_attention`` no VJP.
+no backward: the reference gives ``flash_attention`` no VJP, so a call with
+grad mode on and a q, k or v that requires grad raises on either device
+(the kernel's output would carry no autograd history, and the plain
+version's gradient would exist only on the CPU).
 
 Head widths: the bf16 entry takes every multiple of 16 up to
 ``MAX_HEAD_DIM``, the f32 entry the widths of ``F32_WIDTHS``. Any other
@@ -64,7 +67,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     or all bf16 and contiguous → (B, Tq, H, hd) in q's type. Query head h
     reads KV head ``h // (H // KV)``; ``causal`` masks keys past the query's
     position, ``window`` > 0 keys at or before ``position - window``
-    (positions count from 0 for q and k alike)."""
+    (positions count from 0 for q and k alike). Raises ``RuntimeError``
+    under grad mode when q, k or v requires grad: there is no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no gradient: the reference kernel defines "
+            "no VJP, so nothing trains through it; train with "
+            "attention_impl='xla_packed' or 'xla_chunked', or call it under "
+            "torch.no_grad() or torch.inference_mode()")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-D q, k and v")
     if q.dtype not in _ENTRY:

@@ -16,8 +16,13 @@ kernel, as in the reference.
 
 The decode cache is written in place (the reference's
 ``dynamic_update_slice`` returns a new array): ``attention_apply`` returns
-the same cache dict it was given. Cross-attention and MoE are not ported
-yet (ROADMAP.md queue 1: the LM zoo).
+the same cache dict it was given. Cross-attention is not ported yet
+(ROADMAP.md queue 1: the LM zoo (whisper)).
+
+MoE (``init_moe``, ``moe_apply``) routes each token to its top-k experts
+with a per-expert capacity and runs the experts as one batched product
+over the expert axis, the reference's einsums; it never calls the grouped
+matmul kernel, as the reference never calls ``_gmm``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,11 @@ from repro_torch import tuning
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 
-UNPORTED = "not ported yet (ROADMAP.md queue 1: the LM zoo)"
+
+def unported(item: str) -> str:
+    """The text of the ``NotImplementedError`` of a part of the LM zoo that
+    is not ported yet: it names the ROADMAP.md item that ports it."""
+    return f"not ported yet (ROADMAP.md queue 1: the LM zoo ({item}))"
 
 
 def _normal(shape, dtype, generator, device) -> torch.Tensor:
@@ -231,7 +240,8 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
     place at ``cache_pos`` (a ring buffer when ``cfg.window``). Returns
     (out, the cache)."""
     if xa is not None or cache_mode != "write":
-        raise NotImplementedError(f"cross-attention is {UNPORTED}")
+        raise NotImplementedError(
+            f"cross-attention is {unported('whisper')}")
     b, t, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(b, t, h, hd)
@@ -274,7 +284,7 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# FFN: SwiGLU (MoE not ported yet)
+# FFN: SwiGLU and MoE
 # ---------------------------------------------------------------------------
 
 def init_ffn(d: int, d_ff: int, dtype, *, generator=None, device=None):
@@ -287,13 +297,112 @@ def ffn_apply(p, x):
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
-def init_moe(*args, **kwargs):
-    raise NotImplementedError(f"MoE is {UNPORTED}")
+def init_moe(cfg: ModelConfig, dtype, *, generator=None, device=None):
+    """The router (f32), the stacked expert weights (``cfg.dtype``) and,
+    with ``cfg.shared_expert``, the always-on expert's FFN."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {"router": _normal((d, e), torch.float32, generator, device),
+         "w_gate": _normal((e, d, f), dtype, generator, device),
+         "w_up": _normal((e, d, f), dtype, generator, device),
+         "w_down": _normal((e, f, d), dtype, generator, device)}
+    if cfg.shared_expert:
+        p["shared"] = init_ffn(d, f, dtype, generator=generator,
+                               device=device)
+    return p
 
 
-def _moe_grouped(*args, **kwargs):
-    raise NotImplementedError(f"MoE is {UNPORTED}")
+def _capacity(capacity_factor: float, n: int, k: int, e: int) -> int:
+    """Slots per expert for ``n`` tokens of a dispatch group: the
+    reference's ``max(int(cf·n·k/e), 8)`` rounded up to a multiple of 8."""
+    cap = max(int(capacity_factor * n * k / e), 8)
+    return -(-cap // 8) * 8
 
 
-def moe_apply(*args, **kwargs):
-    raise NotImplementedError(f"MoE is {UNPORTED}")
+def _route(p, cfg: ModelConfig, x):
+    """Router softmax over the experts (in f32), the top-k gates
+    renormalised to sum to 1 and their expert ids, and the load-balance
+    aux ``e · Σ mean(probs) · mean(onehot(top-1))`` over every token of
+    ``x`` (..., D). The top k come from a stable descending sort, so equal
+    probabilities rank the lower expert first, as ``lax.top_k`` does."""
+    e, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    gate_vals, eids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, eids = gate_vals[..., :k], eids[..., :k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    tokens = tuple(range(probs.dim() - 1))
+    me = probs.mean(dim=tokens)
+    ce = F.one_hot(eids[..., 0], e).float().mean(dim=tokens)
+    return gate_vals, eids, e * torch.sum(me * ce)
+
+
+def _dispatch_experts(p, cfg: ModelConfig, x, gate_vals, eids, cap: int):
+    """Capacity dispatch of ``x`` (G, n, D) in G independent groups, ONE
+    batched expert product over every (group, expert) buffer, and the
+    gated combine. A (token, k) pair takes the next slot of its expert in
+    token-major order; past ``cap`` it is dropped (the reference's drop
+    bucket at slot ``cap``, whose sums are discarded). The dispatch is a
+    gather: each slot reads its one source token, and an empty slot or a
+    dropped pair reads a zero row, so no slot is ever summed into and the
+    result does not depend on the order of a scatter. Returns (G, n, D)."""
+    g, n, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    flat_e = eids.reshape(g, n * k)
+    onehot = F.one_hot(flat_e, e)                        # (G, n·k, E)
+    pos = (onehot.cumsum(dim=1) * onehot).sum(-1) - 1     # slot in expert
+    keep = pos < cap
+    group = torch.arange(g, device=x.device)[:, None]
+    trash = g * e * cap                                   # a zero row
+    dest = torch.where(keep, (group * e + flat_e) * cap + pos, trash)
+    token = group * n + torch.arange(n * k, device=x.device) // k
+    src = torch.full((trash + 1,), g * n, dtype=torch.int64,
+                     device=x.device).scatter_reduce(
+        0, dest.reshape(-1), token.reshape(-1), "amin")
+    rows = F.pad(x.reshape(g * n, d), (0, 0, 0, 1))       # row g·n is 0
+    buf = rows[src[:trash]].reshape(g, e, cap, d)
+    hidden = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"])) \
+        * torch.einsum("gecd,edf->gecf", buf, p["w_up"])
+    out_buf = torch.einsum("gecf,efd->gecd", hidden, p["w_down"])
+    gathered = F.pad(out_buf.reshape(trash, d), (0, 0, 0, 1))[dest]
+    w = gate_vals.reshape(g, n * k, 1).to(x.dtype) \
+        * keep[..., None].to(x.dtype)
+    return (gathered * w).reshape(g, n, k, d).sum(dim=2)
+
+
+def _moe_grouped(p, cfg: ModelConfig, x, capacity_factor):
+    """Grouped local dispatch: each sequence of ``x`` (B, T, D) is its own
+    dispatch group with its own capacity (computed from T)."""
+    b, t, _ = x.shape
+    gate_vals, eids, aux = _route(p, cfg, x)
+    out = _dispatch_experts(p, cfg, x, gate_vals, eids,
+                            _capacity(capacity_factor, t, cfg.top_k,
+                                      cfg.n_experts))
+    if cfg.shared_expert:
+        out = out + ffn_apply(p["shared"], x)
+    return out, aux
+
+
+def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *, capacity_factor=None):
+    """Top-k MoE over ``x`` (B, T, D) with capacity dispatch and one batched
+    expert product (``torch.einsum`` over the expert axis, as the
+    reference's einsums). ``tuning.flags().moe_dispatch``: ``"grouped"``
+    (per-sequence capacity) or ``"scatter"`` / ``"sharded_scatter"`` (one
+    group of all B·T tokens; the sharded form's constraints are the
+    identity on one device). ``capacity_factor`` defaults to the flag's.
+    Returns (out (B, T, D), aux)."""
+    fl = tuning.flags()
+    if capacity_factor is None:
+        capacity_factor = fl.capacity_factor
+    if fl.moe_dispatch == "grouped":
+        return _moe_grouped(p, cfg, x, capacity_factor)
+    b, t, d = x.shape
+    n, k = b * t, cfg.top_k
+    gate_vals, eids, aux = _route(p, cfg, x.reshape(n, d))
+    out = _dispatch_experts(p, cfg, x.reshape(1, n, d),
+                            gate_vals.reshape(1, n, k),
+                            eids.reshape(1, n, k),
+                            _capacity(capacity_factor, n, k, cfg.n_experts))
+    out = out.reshape(n, d)
+    if cfg.shared_expert:
+        out = out + ffn_apply(p["shared"], x.reshape(n, d))
+    return out.reshape(b, t, d), aux

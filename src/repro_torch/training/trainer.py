@@ -1,17 +1,30 @@
-"""ChemGCN training (``GCNTrainer``), the reference's ``GCNTrainer`` over
+"""The trainers: the LM ``Trainer`` (the reference's, on one device) and
+ChemGCN training (``GCNTrainer``), the reference's ``GCNTrainer`` over
 batched SpMM (§IV-D, §V-B).
 
-One step is the reference's jitted step run eagerly on the trainer's
-device: value and grad of :func:`repro_torch.core.gcn.gcn_loss`, the global
-gradient norm, then :func:`repro_torch.optim.adam.adam_update` (in place).
-On the GPU the kernel impls run their kernels forward and backward; on the
-CPU their plain versions. Loss, accuracy and gradient norm stay tensors on
-the device between log points (every ``tcfg.log_every`` steps with
-telemetry on, and the end of each epoch), so no other step waits for the
-device. Checkpoints are the reference's format: a checkpoint either
-package wrote resumes in the other.
+``Trainer`` runs the step of :func:`repro_torch.distributed.steps.
+build_train_step` (microbatches, remat, int8 error-feedback compression,
+Adam with clipping) on its device, from a pull-based batch iterator. As in
+the reference: the loss stays on the device and syncs only every
+``log_every`` steps (and at the last), when a ``{"step", "loss", "time"}``
+line is appended to ``metrics.jsonl`` in the checkpoint directory;
+checkpoints every ``checkpoint_every`` steps; a SIGTERM during ``fit``
+ends the loop after the current step with one final checkpoint; a restart
+resumes from the newest checkpoint (the caller's iterator starts at that
+step: ``synthetic_data(..., start_step=)``). ``device=`` takes the place of
+the reference's ``mesh``.
 
-Telemetry, as in the reference: every step records a ``train/step`` span
+One ``GCNTrainer`` step is the reference's jitted step run eagerly on the
+trainer's device: value and grad of :func:`repro_torch.core.gcn.gcn_loss`,
+the global gradient norm, then :func:`repro_torch.optim.adam.adam_update`
+(in place). On the GPU the kernel impls run their kernels forward and
+backward; on the CPU their plain versions. Loss, accuracy and gradient norm
+stay tensors on the device between log points (every ``tcfg.log_every``
+steps with telemetry on, and the end of each epoch), so no other step waits
+for the device. Checkpoints of both trainers are the reference's format: a
+checkpoint either package wrote resumes in the other.
+
+``GCNTrainer``'s telemetry, as in the reference: every step records a ``train/step`` span
 and a wall-time sample of the ``train_step_seconds`` histogram on
 ``registry`` (the process default unless one is passed), and counts
 ``train_steps_total``; the loss, accuracy, gradient-norm and graphs/s
@@ -25,13 +38,16 @@ moved to the device on the trainer's thread, the step of ``train_step`` on
 :func:`~repro_torch.core.gcn.gcn_node_loss`, under a
 ``train/sampled_step`` span, with the ``train_sampled_programs`` gauge.
 
-Not ported here: the reference trainer's ``mesh=`` (batch-axis sharding);
+Not ported here: the reference trainers' ``mesh=`` (batch-axis sharding);
 ``ROADMAP.md`` queue 1 holds it (sharding and the distributed stack).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
+import signal
 import time
 from typing import Callable, Iterator
 
@@ -49,7 +65,11 @@ from repro_torch.core.gcn import (
     init_gcn,
     resolve_conv_impls,
 )
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.compression import ef_init
+from repro_torch.distributed.steps import build_train_step
 from repro_torch.kernels.ops import IMPLS, check_impl
+from repro_torch.models import lm
 from repro_torch.observability import TRACER, default_registry
 from repro_torch.optim.adam import (
     AdamConfig,
@@ -61,15 +81,102 @@ from repro_torch.optim.adam import (
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The reference's ``TrainerConfig`` fields that ``GCNTrainer`` reads.
-    ``checkpoint_dir`` has no default: the port writes only where it is
-    told to."""
+    """The reference's ``TrainerConfig``, its defaults included
+    (``GCNTrainer`` reads the first five fields). ``checkpoint_dir`` has no
+    default: the port writes only where it is told to."""
 
     checkpoint_dir: str
     checkpoint_every: int = 50
     keep: int = 3
     seed: int = 0
     log_every: int = 10
+    total_steps: int = 100
+    microbatches: int = 1
+    remat: bool = False
+    compress_grads: bool = False
+    zero1: bool = True            # read by no step: one device shards nothing
+
+
+class Trainer:
+    """LM pretraining of ``cfg`` with ``opt`` on ``device`` (the current
+    CUDA device unless the caller asks for another)."""
+
+    def __init__(self, cfg: ModelConfig, opt: AdamConfig, tcfg: TrainerConfig,
+                 *, device=None):
+        lm.check_ported(cfg)
+        self.cfg, self.opt, self.tcfg = cfg, opt, tcfg
+        self.device = resolve_device(device)
+        self.manager = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep)
+        self._step_fn = build_train_step(
+            cfg, opt, microbatches=tcfg.microbatches, remat=tcfg.remat,
+            compress_grads=tcfg.compress_grads, device=self.device)
+        self._interrupted = False
+
+    # -- state ---------------------------------------------------------
+
+    def init_state(self):
+        """Fresh parameters from ``tcfg.seed`` (a ``torch.Generator`` on the
+        device: not the reference's numbers), zero Adam state and, with
+        ``compress_grads``, zero residuals ``ef_err``."""
+        params = lm.init_params(
+            self.cfg, generator=torch.Generator(
+                device=self.device).manual_seed(self.tcfg.seed),
+            device=self.device)
+        opt_state = adam_init(params)
+        if self.tcfg.compress_grads:
+            opt_state["ef_err"] = ef_init(params)
+        return params, opt_state
+
+    def restore_or_init(self):
+        """(params, opt_state, step): the newest checkpoint and its step,
+        or a fresh state at step 0."""
+        params, opt_state = self.init_state()
+        latest = self.manager.latest_step()
+        if latest is not None:
+            params, opt_state = self.manager.restore(
+                latest, (params, opt_state))
+            return params, opt_state, latest
+        return params, opt_state, 0
+
+    # -- loop ----------------------------------------------------------
+
+    def _on_sigterm(self, *_):
+        self._interrupted = True
+
+    def fit(self, data_iter: Iterator[dict],
+            on_metrics: Callable[[int, dict], None] | None = None):
+        """Train from the newest checkpoint (or step 0) to
+        ``tcfg.total_steps``, one batch of ``data_iter`` a step. Returns
+        (params, opt_state)."""
+        tcfg = self.tcfg
+        params, opt_state, start = self.restore_or_init()
+        old_handler = signal.signal(signal.SIGTERM, self._on_sigterm)
+        log_path = os.path.join(tcfg.checkpoint_dir, "metrics.jsonl")
+        step = start
+        try:
+            for step in range(start, tcfg.total_steps):
+                batch = next(data_iter)
+                params, opt_state, metrics = self._step_fn(
+                    params, opt_state, batch)
+                if (step + 1) % tcfg.log_every == 0 or \
+                        step + 1 == tcfg.total_steps:
+                    loss = float(metrics["loss"])   # the sync point
+                    rec = {"step": step + 1, "loss": loss,
+                           "time": time.time()}
+                    with open(log_path, "a") as f:
+                        f.write(json.dumps(rec) + "\n")
+                    if on_metrics:
+                        on_metrics(step + 1, rec)
+                if (step + 1) % tcfg.checkpoint_every == 0:
+                    self.manager.save(step + 1, (params, opt_state))
+                if self._interrupted:
+                    break
+        finally:
+            signal.signal(signal.SIGTERM, old_handler)
+        if self._interrupted:
+            # preemption: one final durable checkpoint before returning
+            self.manager.save(step + 1, (params, opt_state))
+        return params, opt_state
 
 
 # the ELL class, whose conversion silently drops > k_pad nnz per row

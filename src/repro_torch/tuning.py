@@ -7,9 +7,11 @@ in both packages. The reference's mesh hint (``use_mesh_hint``,
 ``axis_size``, ``constrain``) is not ported: on one device its calls are
 the identity, and the port leaves them out (ROADMAP.md queue 1: sharding
 and the distributed stack).
-The port reads ``attention_impl``, ``q_block`` and ``kv_block``; setting
-any other field away from its default raises ``NotImplementedError`` until
-the code that reads it is ported.
+The port reads ``attention_impl``, ``q_block``, ``kv_block``,
+``remat_policy`` (LM training's per-block checkpoint), ``moe_dispatch`` and
+``capacity_factor`` (the MoE sublayer); setting any other field away from
+its default raises ``NotImplementedError`` until the code that reads it is
+ported.
 """
 from __future__ import annotations
 
@@ -20,14 +22,16 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class TuneFlags:
-    # remat policy of the per-layer checkpoint: "full" | "dots" | "none"
-    # (read by LM training, not ported yet)
+    # remat policy of the per-block checkpoint: "full" (recompute the
+    # block) | "dots" (keep the weight products, recompute the rest) |
+    # "none" (no checkpoint)
     remat_policy: str = "full"
     # chunked- and packed-attention block sizes
     q_block: int = 1024
     kv_block: int = 1024
-    # MoE dispatch: "grouped" | "scatter" | "sharded_scatter" (MoE is not
-    # ported yet)
+    # MoE dispatch: "grouped" (per-sequence capacity, the default) |
+    # "scatter" (one dispatch over the batch) | "sharded_scatter" (the
+    # scatter with expert-axis constraints: on one device, the scatter)
     moe_dispatch: str = "grouped"
     # decode: sequence-parallel KV constraints (the identity on one device)
     constrain_decode: bool = True
@@ -49,10 +53,7 @@ _FLAGS: contextvars.ContextVar[TuneFlags] = contextvars.ContextVar(
 
 # the fields nothing in the port reads yet, and the title of the ROADMAP.md
 # queue 1 item that brings their reader
-UNPORTED = {"remat_policy": "the LM zoo (LM training)",
-            "moe_dispatch": "the LM zoo (MoE)",
-            "constrain_decode": "sharding and the distributed stack",
-            "capacity_factor": "the LM zoo (MoE)",
+UNPORTED = {"constrain_decode": "sharding and the distributed stack",
             "fsdp": "sharding and the distributed stack",
             "mamba_chunk": "the LM zoo (SSM)"}
 

@@ -1560,6 +1560,94 @@ def test_reduced_lm_on_the_card_matches_the_cpu(dev):
         assert [r.out for r in reqs["dev"]] == [r.out for r in reqs["cpu"]]
 
 
+@pytest.mark.parametrize("arch", ("mixtral-8x22b",
+                                  "llama4-maverick-400b-a17b"))
+def test_moe_lm_on_the_card_matches_the_cpu(dev, arch):
+    """The reduced MoE LMs (f32) on the card against the same parameters on
+    the CPU: forward and loss under both dispatches (capacity 1.25, so
+    pairs may drop), and decode steps. Tolerance: f32 (1e-4, 1e-5)."""
+    from repro_torch import configs, tree, tuning
+    from repro_torch.models import lm
+
+    cfg = configs.get(arch).reduced()
+    p = lm.init_params(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(1))
+    pd = tree.tree_map(lambda t: t.to(dev), p)
+    tokens = torch.randint(0, cfg.vocab, (2, 48))
+    for dispatch in ("grouped", "scatter"):
+        with tuning.use_flags(moe_dispatch=dispatch, q_block=16,
+                              kv_block=16):
+            want, aux = lm.forward(p, cfg, {"tokens": tokens})
+            got, aux_d = lm.forward(pd, cfg, {"tokens": tokens.to(dev)})
+            loss = lm.loss_fn(p, cfg, {"tokens": tokens})[0]
+            loss_d = lm.loss_fn(pd, cfg, {"tokens": tokens.to(dev)})[0]
+        torch.testing.assert_close(got.cpu(), want, **TOL, msg=dispatch)
+        torch.testing.assert_close(aux_d.cpu(), aux, **TOL)
+        torch.testing.assert_close(loss_d.cpu(), loss, **TOL)
+    caches = {"cpu": lm.init_decode_state(cfg, 2, 8, device="cpu"),
+              "dev": lm.init_decode_state(cfg, 2, 8, device=dev)}
+    for i in range(4):
+        want, caches["cpu"] = lm.decode_step(p, cfg, tokens[:, i:i + 1],
+                                             caches["cpu"], i)
+        got, caches["dev"] = lm.decode_step(
+            pd, cfg, tokens[:, i:i + 1].to(dev), caches["dev"], i)
+        torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(dev):
+    """One step of ``build_train_step`` (2 microbatches, remat "dots", int8
+    compression, Adam with clipping) on the reduced mixtral, on the card
+    and on the CPU from the same state: the loss and the updated
+    parameters within f32 (1e-4, 1e-5). The learning rate is small, so a
+    gradient whose sign (or int8 level) the two devices' sums flip moves a
+    parameter by no more than 2 × 1e-5."""
+    from repro_torch import configs, tree, tuning
+    from repro_torch.distributed.compression import ef_init
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import AdamConfig, adam_init
+
+    cfg = configs.get("mixtral-8x22b").reduced()
+    opt = AdamConfig(lr=1e-5, grad_clip=1.0)
+    out = {}
+    tokens = torch.randint(0, cfg.vocab, (4, 32))
+    for where in ("cpu", dev):
+        p = lm.init_params(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(2))
+        p = tree.tree_map(lambda t: t.to(where), p)
+        state = {**adam_init(p), "ef_err": ef_init(p)}
+        step = build_train_step(cfg, opt, microbatches=2, remat=True,
+                                compress_grads=True, device=where)
+        with tuning.use_flags(remat_policy="dots", q_block=16, kv_block=16):
+            p, state, m = step(p, state, {"tokens": tokens})
+        assert int(state["step"]) == 1
+        out[str(where)] = (m["loss"].cpu(), tree.tree_map(
+            lambda t: t.cpu(), p))
+    (loss, trees), (loss_d, trees_d) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(loss_d, loss, **TOL)
+    for a, b in zip(tree.leaves(trees_d), tree.leaves(trees), strict=True):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+def test_flash_attention_under_grad_raises_on_the_card(dev):
+    """The kernel has no backward: with grad mode on and a q, k or v that
+    requires grad it raises before launching, on the card as on the CPU."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = (torch.randn(1, 64, 2, 64, device=dev) for _ in range(3))
+    before = flash_attention.launches
+    for t in (q, k, v):
+        t.requires_grad_()
+        with pytest.raises(RuntimeError, match="no gradient"):
+            flash_attention(q, k, v)
+        t.requires_grad_(False)
+    assert flash_attention.launches == before
+    q.requires_grad_()
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+    assert out.grad_fn is None and flash_attention.launches == before + 1
+
+
 @pytest.mark.parametrize("name", HYBRID_REGIMES)
 def test_precision_kernels_match_plain(dev, name):
     """The seven reduced-precision entries against their plain versions:

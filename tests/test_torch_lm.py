@@ -91,9 +91,11 @@ def test_registry_shape_cells_and_tune_flags_match_reference():
         assert fl.attention_impl == ttuning.flags().attention_impl == "pallas"
     assert ttuning.flags() == ttuning.TuneFlags()
     # a field the port does not read raises rather than doing nothing
-    for pair, item in zip(pairs[1:3] + ["moe_dispatch=scatter"],
+    for pair, item in zip(("constrain_decode=false", "fsdp=true",
+                           "mamba_chunk=64"),
                           ("sharding and the distributed stack",
-                           r"the LM zoo \(MoE\)", r"the LM zoo \(MoE\)")):
+                           "sharding and the distributed stack",
+                           r"the LM zoo \(SSM\)")):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md queue 1: {item}"):
             with ttuning.use_flags(**ttuning.parse_tune_args([pair])):
@@ -101,6 +103,12 @@ def test_registry_shape_cells_and_tune_flags_match_reference():
     assert ttuning.flags() == ttuning.TuneFlags()
     with ttuning.use_flags(moe_dispatch="grouped", fsdp=False):
         assert ttuning.flags() == ttuning.TuneFlags()
+    # LM training and MoE read theirs
+    with ttuning.use_flags(**ttuning.parse_tune_args(
+            ["remat_policy=dots", "moe_dispatch=scatter",
+             "capacity_factor=2.5"])) as fl:
+        assert (fl.remat_policy, fl.moe_dispatch, fl.capacity_factor) == (
+            "dots", "scatter", 2.5)
 
 
 @pytest.mark.parametrize("spec", [
@@ -344,16 +352,22 @@ def test_init_params_module_and_unported_paths():
     tokens = torch.randint(0, tcfg.vocab, (2, 5))
     torch.testing.assert_close(model(tokens),
                                tlm.forward(p, tcfg, {"tokens": tokens})[0])
-    for arch in ("mixtral-8x22b", "rwkv6-1.6b", "zamba2-7b", "whisper-small",
-                 "llava-next-34b", "llama4-maverick-400b-a17b"):
+    for arch, item in (("rwkv6-1.6b", "SSM"), ("zamba2-7b", "SSM"),
+                       ("whisper-small", "whisper"),
+                       ("llava-next-34b", "llava")):
         cfg = tconfigs.get(arch).reduced()
-        with pytest.raises(NotImplementedError, match="queue 1: the LM zoo"):
+        match = rf"queue 1: the LM zoo \({item}\)"
+        with pytest.raises(NotImplementedError, match=match):
             tlm.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1: the LM zoo"):
+        with pytest.raises(NotImplementedError, match=match):
             tlm.init_decode_state(cfg, 2, 8, device="cpu")
-    for fn in (tlayers.init_moe, tlayers.moe_apply, tlayers._moe_grouped):
-        with pytest.raises(NotImplementedError, match="queue 1: the LM zoo"):
-            fn()
+        with pytest.raises(NotImplementedError, match=match):
+            tlm.param_shapes(cfg)
+    for arch in ("mixtral-8x22b", "llama4-maverick-400b-a17b"):
+        cfg = tconfigs.get(arch).reduced()
+        tlm.check_ported(cfg)
+        assert sorted(tlm.init_decode_state(cfg, 2, 8, device="cpu")) == [
+            str(i) for i in range(len(cfg.block_pattern))]
     x = torch.zeros((1, 2, tcfg.d_model))
     with pytest.raises(NotImplementedError, match="cross-attention"):
         tlayers.attention_apply(p, tcfg, x, positions=torch.zeros((1, 2)),

@@ -116,6 +116,7 @@ def test_engine_defaults_to_the_gpu_and_rejects_unported_families(state):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine(tp, tcfg)
-    with pytest.raises(NotImplementedError, match="queue 1: the LM zoo"):
-        ServeEngine(tp, tconfigs.get("mixtral-8x22b").reduced(),
+    with pytest.raises(NotImplementedError,
+                       match=r"queue 1: the LM zoo \(SSM\)"):
+        ServeEngine(tp, tconfigs.get("rwkv6-1.6b").reduced(),
                     device="cpu")
