@@ -139,7 +139,31 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    three ``ref`` runs' mean, exact launches a step, programs within the
    ladders' product, the cache's hit rate, validation accuracy >= 0.5, a
    bitwise resume at step 10; ms per step in parts (prefetch on and off)
-   and the device idle share of one ``auto`` epoch.
+   and the device idle share of one ``auto`` epoch;
+14. the rest of the LM zoo (``phase_lm_zoo``, last, after the GCN phases
+   whose checks time the host): first the flash kernel against its plain
+   version at ZOO_FLASH's shapes (every zoo prefill's: Zamba2, Whisper's
+   encoder, decoder and cross-attention, LLaVA), timed beside SDPA and
+   the bound; then, at full width (bf16, seed-0 weights):
+   rwkv6-1.6b, zamba2-7b and whisper-small whole, llava-next-34b at 8 of
+   60 blocks. ``lm.prefill`` per ZOO_PREFILL (zamba2 2 x 4096 under
+   mamba_chunk 256, its shared attention 13 launches a call; rwkv6 2 x
+   1024 through the time loop; whisper 1500 frames and 448 tokens, 36
+   launches: encoder, self and cross; llava 2 x 2048 with 576 patch
+   positions) under pallas, xla_packed and xla_chunked 512 (the kernel
+   within NOISE_MULT of the noise floor); zamba2's scan against its
+   chunked SSD at 2 x 512 (one mixer within TOLS bf16, the model within
+   NOISE_MULT of other orders' floor) and 16 decode steps of rwkv6 and
+   zamba2 against forward (in f32, within the reference test's 2e-3; in
+   bf16, the decode's distance from the f32 forward within NOISE_MULT of
+   the bf16 forward's); ``ServeEngine`` waves of 4 requests (32-token
+   prompts, 32 new tokens; greedy twice, no kernel launched); then a
+   ``Trainer`` run each (ZOO_TRAIN, ``xla_packed``, one batch repeated):
+   rwkv6 whole (2 x 512, remat full, 8 steps), zamba2 at one group (2 x
+   2048, mamba_chunk 256, 20 steps), whisper whole (2 x 448 tokens over
+   1500 frames, 20 steps): the first step's bf16 gradients against f32
+   (global norm, every leaf's cosine), finite losses, the last
+   ZOO_TRAIN_DROP below the first, ms a step, peak memory under 75 GB.
 
 Before phases 4-13, the LM zoo's paths run (each model freed before the
 next):
@@ -167,7 +191,7 @@ next):
   layer 3 training steps (remat, finite loss and aux); Llama-4 Maverick
   at one (dense, MoE) block (prefill; 64 tokens through ``decode_step``,
   the last logits within TOLS bf16 of ``forward``'s; ``ServeEngine``);
-- LM training (``phase_lm_train``): Llama-3-8B width at 4 blocks on
+- LM training (``phase_lm_train``): Llama-3-8B width at 1 block on
   4096-token sequences: ``attention_impl="pallas"`` under grad raises
   first; the first step's loss and gradient norm under every remat
   setting against none; then ``build_train_step`` steps with remat off,
@@ -183,7 +207,8 @@ next):
 
 The line before the last is the ``{"kernels": [...]}`` record (25
 kernels: the nine large-matrix entries report their m_pad 9000 row and
-the case-3 path's launches); the last line is ``{"ok": true, "device":
+the case-3 path's launches; flash attention's entry lists the zoo's
+shapes under ``shapes``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -294,12 +319,13 @@ LM_ARCH = "llama3-8b"
 PREFILL = dict(batch=2, seq_len=4096, calls=2)
 LM_SERVE = dict(batch=4, max_len=256, n_requests=8, new_tokens=16,
                 min_prompt=16, max_prompt=96)
-# LM training at Llama-3-8B width (bf16, seed-0 weights): 4 of its 32
-# blocks (1.92 B parameters), sequences of 4096 (train_4k's length) in a
+# LM training at Llama-3-8B width (bf16, seed-0 weights): 1 of its 32
+# blocks (1.27 B parameters; 4 until the zoo's phase came, cut to keep the
+# smoke under 600 s), sequences of 4096 (train_4k's length) in a
 # global batch of 4 as 4 microbatches of 1 (train_4k's 256 x 4096 in 16
 # microbatches does not fit one card). Each run: (remat policy or None for
 # no checkpoint, microbatches, sequences a step, compress_grads)
-LM_TRAIN = dict(n_layers=4, seq_len=4096, steps=3, lr=1e-4)
+LM_TRAIN = dict(n_layers=1, seq_len=4096, steps=3, lr=1e-4)
 LM_TRAIN_RUNS = {"remat off, mb 4": (None, 4, 4, False),
                  "remat full, mb 4": ("full", 4, 4, False),
                  "remat dots, mb 4": ("dots", 4, 4, False),
@@ -338,9 +364,71 @@ BF16_TOL = (8e-2, 2e-2)        # tests/oracle.py TOLS["bf16"]
 # the kernel's prefill logits may differ from xla_packed's by at most this
 # multiple of the two plain orders' difference (the bf16 noise floor)
 NOISE_MULT = 2.0
+# the flash kernel at every zoo prefill shape (tag, b, tq, tk, h, kv, hd,
+# causal), bf16: zamba2's shared attention at 2 x 4096; whisper's encoder
+# over its 1500 frames (causal, as the reference's), its decoder's
+# self-attention over the 448-token text context and that context's
+# cross-attention to the frames; llava's 2 x 2048 (a GQA group of 7)
+ZOO_FLASH = (("zamba2-7b prefill", 2, 4096, 4096, 32, 32, 112, True),
+             ("whisper-small encoder", 2, 1500, 1500, 12, 12, 64, True),
+             ("whisper-small decoder", 2, 448, 448, 12, 12, 64, True),
+             ("whisper-small cross", 2, 448, 1500, 12, 12, 64, False),
+             ("llava-next-34b prefill", 2, 2048, 2048, 56, 8, 128, True))
+FLASH_ZOO_TAGS = tuple(z[0] for z in ZOO_FLASH)
 # the second plain order: xla_chunked at these blocks (at the default 1024
 # it is xla_packed's arithmetic, bit for bit)
 CHUNKED_ORDER = dict(q_block=512, kv_block=512)
+# the rest of the LM zoo at full width (bf16, seed-0 random weights):
+# rwkv6-1.6b (1.6 B), zamba2-7b (6.7 B), whisper-small (0.29 B) whole, and
+# llava-next-34b at 8 of its 60 blocks (5.4 B: 33.4 B whole is 67 GB).
+# Serving: ZOO_SERVE's 4 requests of 32-token prompts and 32 new tokens
+# through ServeEngine(LM_SERVE's batch 4, max_len 256). Prefill per model:
+# (batch, tokens) and its other inputs; zamba2 under mamba_chunk 256,
+# rwkv6 through the time loop, whisper over its 30 s window (1500 frames)
+# with its 448-token text context, llava with one 576-position tile
+ZOO_ARCHS = ("rwkv6-1.6b", "zamba2-7b", "whisper-small", "llava-next-34b")
+ZOO_LAYERS = {"llava-next-34b": 8}
+ZOO_SERVE = dict(n_requests=4, prompt=32, new_tokens=32)
+ZOO_PREFILL = {"rwkv6-1.6b": dict(batch=2, seq_len=1024),
+               "zamba2-7b": dict(batch=2, seq_len=4096, mamba_chunk=256),
+               "whisper-small": dict(batch=2, seq_len=448, frames=1500),
+               "llava-next-34b": dict(batch=2, seq_len=2048, patches=576)}
+# zamba2's scan against its chunked SSD (chunk 256) at 2 x 512: one mixer
+# within TOLS bf16, the whole model within NOISE_MULT of the floor of other
+# orders (81 bf16 layers round past TOLS bf16: 0.23 at |logit| 5.8, where
+# two attention orders differ by 0.16); decode steps against forward (rwkv6,
+# zamba2) with the parameters cast to f32, at the reference test's
+# tolerance (tests/test_models.py: in bf16 zamba2's decode and forward
+# differ by 0.34-0.36, 2x either order's floor, as every product's shape
+# differs)
+ZOO_SCAN_CHECK = dict(batch=2, seq_len=512, mamba_chunk=256)
+ZOO_DECODE_STEPS = 16
+DECODE_TOL = (2e-3, 2e-3)
+# the attention blocks of the second plain order there (xla_packed takes
+# the whole 512 as one block)
+ZOO_NOISE_BLOCKS = dict(q_block=128, kv_block=128)
+# Trainer runs under attention_impl="xla_packed" (flash has no backward),
+# each step on the same batch: sequences, tokens, other inputs, fields
+# replaced, remat policy, flags, Adam's lr (clipped at 1.0) and steps
+# (RWKV-6's time loop takes 4.5 s a step, so it takes 8 of the 20)
+ZOO_TRAIN = {"rwkv6-1.6b": dict(batch=2, seq_len=512, remat="full",
+                                lr=3e-4, steps=8),
+             "zamba2-7b": dict(batch=2, seq_len=2048, mamba_chunk=256,
+                               n_layers=6, lr=3e-4, steps=20),
+             "whisper-small": dict(batch=2, seq_len=448, frames=1500,
+                                   lr=3e-4, steps=20)}
+# a repeated batch's loss: a step that updates nothing leaves it as it was,
+# and on fresh batches it moved by +-0.03 a step at these settings; the
+# last must lie this far (nats) below the first
+ZOO_TRAIN_DROP = 1.0
+# the first step's gradients in bf16 against the same parameters cast to
+# f32, on the batch's first ZOO_GRAD_SEQ tokens: the global norms within
+# BF16_TOL's relative part, every leaf's cosine at least ZOO_GRAD_COS (a
+# leaf whose gradient is lost or garbled gives ~0; bf16 rounding through
+# RWKV-6's 24 layers leaves its bonus u at 0.986: a sum over tokens that
+# cancels, as its logits lie 0.47 from f32's at |logit| 4.9)
+ZOO_GRAD_SEQ = 256
+ZOO_GRAD_COS = 0.9
 TPU_SITE = {
     "batched_spmm_ell": "src/repro/kernels/batched_spmm_ell.py:142",
     "batched_spmm_coo": "src/repro/kernels/batched_spmm_coo.py:168",
@@ -2816,6 +2904,18 @@ def _log_decision(tag, d):
         f"source={d.source}; model ms: {top}")
 
 
+def _host_load() -> str:
+    """The host's 1-minute load average against its cores, and this
+    process's live threads: what else competes for the host-bound wall
+    times that the autotune phase compares."""
+    import os
+    import threading
+
+    names = sorted(t.name for t in threading.enumerate())
+    return (f"host load {os.getloadavg()[0]:.2f} on {os.cpu_count()} "
+            f"cores, threads {names}")
+
+
 def phase_autotune(device):
     """``impl="auto"`` on the card. (a) The cost model's decision for every
     conv layer of Tox21 and Reaction100 serving (waves of 128) and training
@@ -2843,6 +2943,7 @@ def phase_autotune(device):
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
+    log(f"[autotune] at the start: {_host_load()}")
     tox_spec = GraphDatasetSpec.tox21_like(TRAIN_TOX21["n_samples"], seed=0)
     r_spec = GraphDatasetSpec.reaction100_like(
         TRAIN_R100["batch"] * TRAIN_R100["steps"], seed=0)
@@ -2912,7 +3013,8 @@ def phase_autotune(device):
                 + f"; pick / fastest {ratio:.3f}")
             check(ratio <= AUTO_CACHE_RATIO,
                   f"{tag} layer {i + 1}: the cache's pick {d.impl} re-timed "
-                  f"{ratio:.3f}x the fastest of {again}")
+                  f"{ratio:.3f}x the fastest of {again} (recorded "
+                  f"{ {k: times[k] for k in rivals} }; {_host_load()})")
         serve_d = tox_decisions["serve tox21"]
         pinned = serve_d[0].impl
         exp = {"auto": _auto_expect(serve_d, SERVE_TOX21_LAUNCHES),
@@ -3193,6 +3295,50 @@ def phase_flash_kernels(device, rows, errs):
         f"{hgmma}")
 
 
+def _flash_zoo_rows(device, rows, errs):
+    """The flash kernel against its plain version at ZOO_FLASH's shapes,
+    timed beside their bounds and SDPA (rows ``flash_attention[<tag>]``):
+    lengths off the 128-row q and 64-key tiles, and Tq != Tk without a
+    mask. Raises ``errs["flash_attention"]`` to the largest error."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import KV_TILE, flash_attention
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    for tag, b, tq, tk, h, kv, hd, causal in ZOO_FLASH:
+        q = torch.randn((b, tq, h, hd), generator=gen,
+                        device=device).bfloat16()
+        k, v = (torch.randn((b, tk, kv, hd), generator=gen,
+                            device=device).bfloat16() for _ in range(2))
+
+        def kern(q=q, k=k, v=v, causal=causal):
+            return flash_attention(q, k, v, causal=causal)
+
+        def plain(q=q, k=k, v=v, causal=causal):
+            return ref.flash_attention_plain(q, k, v, causal=causal,
+                                             kv_block=KV_TILE)
+
+        def library(q=q, k=k, v=v, causal=causal):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True).transpose(1, 2)
+
+        flops = 4 * b * h * hd * _attended_pairs(tq, tk, causal, 0)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        key = f"flash_attention[{tag}]"
+        _measure(rows, key, "flash_attention", kern, plain, nbytes, flops,
+                 f"B {b}, Tq {tq}, Tk {tk}, H {h}, KV {kv}, hd {hd}, "
+                 f"{'causal' if causal else 'not causal'}, bfloat16, "
+                 f"{flops:.3e} FLOP unmasked", library, bitwise=True,
+                 tol=FLASH_MAIN_TOL["bfloat16"], flop_rate=BF16_FLOP_PER_S,
+                 iters=3, replays=2, library_tol=FLASH_TOL["bfloat16"])
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      rows[key]["max_abs_err"])
+        del q, k, v
+    _log_rows([rows[f"flash_attention[{tag}]"] for tag in FLASH_ZOO_TAGS])
+    torch.cuda.empty_cache()
+
+
 def _sass_count(lib: str, kernel: str, opcode: str) -> dict:
     """``opcode`` instructions in the SASS of each function of the built
     library ``lib`` whose name holds ``kernel`` (``_build.sass_count``);
@@ -3261,33 +3407,21 @@ def _lm_paths(device):
     # -- prefill -----------------------------------------------------------
     toks = _token_batch(cfg, PREFILL["batch"], PREFILL["seq_len"], 0, device)
     last, launches = _prefill_orders(
-        "lm", cfg, params, toks, {"pallas": {}, "xla_packed": {},
-                                  "xla_chunked": {},
-                                  "xla_chunked 512": CHUNKED_ORDER})
+        "lm", cfg, params, {"tokens": toks},
+        {"pallas": {}, "xla_packed": {}, "xla_chunked": {},
+         "xla_chunked 512": CHUNKED_ORDER})
     same = torch.equal(last["xla_packed"], last["xla_chunked"])
-    floor = float((last["xla_chunked 512"] - last["xla_packed"]).abs().max())
-    gap = float((last["pallas"] - last["xla_packed"]).abs().max())
+    floor, _ = _floor_check("lm prefill", "prefill, the kernel vs "
+                            "xla_packed", last["pallas"], last["xla_packed"],
+                            {"xla_chunked 512": last["xla_chunked 512"]})
+    agree, decided, margin = _argmax_check(
+        "lm prefill", last["pallas"], last["xla_packed"], floor)
     gap_c = float((last["pallas"] - last["xla_chunked 512"]).abs().max())
-    check(floor > 0, "the two plain orders agree bit for bit: no noise floor")
-    check(gap <= NOISE_MULT * floor,
-          f"prefill: the kernel's last logits differ from xla_packed's by "
-          f"{gap:.3e}, more than {NOISE_MULT} x the noise floor {floor:.3e}")
-    ref_logits = last["xla_packed"]
-    top2 = ref_logits.topk(2, dim=-1).values
-    margin = top2[:, 0] - top2[:, 1]
-    decided = margin > floor
-    agree = ref_logits.argmax(-1) == last["pallas"].argmax(-1)
-    check(bool(agree[decided].all()),
-          f"prefill: argmax differs where the top-2 margin {margin.tolist()} "
-          f"exceeds the floor {floor:.3e}")
     log(f"[lm prefill] xla_chunked at the default blocks equals xla_packed "
-        f"bit for bit: {same}; noise floor (xla_chunked at "
-        f"{CHUNKED_ORDER['q_block']}-blocks vs xla_packed) {floor:.4e}; "
-        f"kernel vs xla_packed {gap:.4e} ({gap / floor:.2f} x the floor, "
-        f"limit {NOISE_MULT}), vs xla_chunked 512 {gap_c:.4e}; |logit| max "
-        f"{float(ref_logits.abs().max()):.3f}; argmax agrees on "
-        f"{int(agree.sum())} of {agree.numel()} rows ({int(decided.sum())} "
-        f"with a top-2 margin above the floor: {margin.tolist()})")
+        f"bit for bit: {same}; the kernel vs xla_chunked 512 {gap_c:.4e}; "
+        f"argmax agrees on {int(agree.sum())} of {agree.numel()} rows "
+        f"({int(decided.sum())} with a top-2 margin above the floor: "
+        f"{margin.tolist()})")
     paths = {"lm prefill": launches}
 
     # -- serving -----------------------------------------------------------
@@ -3383,7 +3517,12 @@ def _lm_model(arch: str, device, **fields):
         device=device)
     torch.cuda.synchronize()
     n, n_norm = _n_params(params)
-    check(n - n_norm == cfg.param_count(),
+    # param_count() is exact for the transformers; for the SSM, hybrid,
+    # audio and vision families it is the reference's estimate (it leaves
+    # out RWKV's decay LoRA and lerps, Mamba2's conv and per-head leaves,
+    # the frame and patch projections, and counts half of cross-attention)
+    exact = cfg.family in ("dense", "moe")
+    check(not exact or n - n_norm == cfg.param_count(),
           f"{arch}: {n} parameters ({n_norm} in norms), param_count() says "
           f"{cfg.param_count()} without the norms")
     log(f"[lm] {arch} at {cfg.n_layers} of {configs.get(arch).n_layers} "
@@ -3394,7 +3533,9 @@ def _lm_model(arch: str, device, **fields):
            if cfg.n_experts else "")
         + f"vocab {cfg.vocab}, "
         f"block pattern {cfg.block_pattern}, {cfg.dtype}: {n} parameters "
-        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn in "
+        + ("" if exact else f"(param_count()'s estimate "
+           f"{cfg.param_count()}) ")
+        + f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn in "
         f"{time.perf_counter() - t0:.2f} s")
     return cfg, params
 
@@ -3455,47 +3596,65 @@ def _token_batch(cfg, batch: int, seq: int, step: int, device):
         vocab=cfg.vocab, batch=batch, seq_len=seq, seed=0), step)).to(device)
 
 
-def _prefill_orders(tag, cfg, params, toks, orders):
-    """``lm.prefill`` of ``toks``, PREFILL["calls"] calls under each
+def _prefill_orders(tag, cfg, params, batch, orders, per_call=None,
+                    **flags):
+    """``lm.prefill`` of ``batch``, PREFILL["calls"] calls under each
     attention order of ``orders`` (a name whose first word is the impl ->
-    its block flags): flash_attention launched once a layer a call under
-    "pallas" and never otherwise, logits (B, 1, vocab), all finite.
-    Returns (the last logits in f32 per order, the "pallas" order's
-    launches)."""
+    its block flags) and ``flags``: flash_attention launched ``per_call``
+    times a call (by default once a layer) under "pallas" and never
+    otherwise, logits (B, 1, vocab), all finite, the encoder's output with
+    an encoder. Returns (the last logits in f32 per order, the "pallas"
+    order's launches)."""
     import torch
     from repro_torch import tuning
     from repro_torch.models import lm
 
-    batch = {"tokens": toks}
+    toks = batch["tokens"]
+    per_call = cfg.n_layers if per_call is None else per_call
     last, launches = {}, {}
     for name, blocks in orders.items():
         impl = name.split()[0]
         wrappers = _reset_counters()
         torch.cuda.reset_peak_memory_stats()
         with torch.inference_mode(), tuning.use_flags(attention_impl=impl,
-                                                      **blocks):
+                                                      **blocks, **flags):
             (logits, enc_out), times = _timed(
                 lambda: lm.prefill(params, cfg, batch), PREFILL["calls"])
         counts = {k: fn.launches for k, fn in wrappers.items()}
         want = {k: 0 for k in counts}
         if impl == "pallas":
-            want["flash_attention"] = cfg.n_layers * PREFILL["calls"]
+            want["flash_attention"] = per_call * PREFILL["calls"]
             launches = counts
         check(counts == want, f"{tag} prefill {name}: launches {counts}, "
                               f"expected {want}")
-        check(enc_out is None and tuple(logits.shape) == (
-            toks.shape[0], 1, cfg.vocab), f"{tag} prefill {name}: "
-            f"{tuple(logits.shape)}")
+        check((enc_out is None) == (not cfg.encoder_layers)
+              and tuple(logits.shape) == (toks.shape[0], 1, cfg.vocab),
+              f"{tag} prefill {name}: {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()),
               f"{tag} prefill {name}: non-finite logits")
         last[name] = logits[:, 0].float()
-        log(f"[{tag} prefill] attention_impl={name}: {toks.shape[0]} x "
-            f"{toks.shape[1]} tokens, ms per call {times[0]:.1f} (first), "
-            f"{times[-1]:.1f} (last): {toks.numel() / times[-1] * 1e3:.0f} "
-            f"tokens/s; flash_attention launches "
-            f"{counts['flash_attention']}; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        log(f"[{tag} prefill] attention_impl={name}"
+            + "".join(f", {k}={v}" for k, v in flags.items()) + ": "
+            + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+            + f", ms per call {times[0]:.1f} (first), {times[-1]:.1f} "
+            f"(last): {toks.numel() / times[-1] * 1e3:.0f} tokens/s; "
+            f"flash_attention launches {counts['flash_attention']}; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return last, launches
+
+
+def _argmax_check(what, got, want, floor):
+    """``got``'s argmax equals ``want``'s on every row whose top-2 margin
+    in ``want`` exceeds ``floor``. Returns (the rows' agreement, the rows
+    decided, their margins)."""
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > floor
+    agree = want.argmax(-1) == got.argmax(-1)
+    check(bool(agree[decided].all()),
+          f"{what}: argmax differs where the top-2 margin "
+          f"{margin.tolist()} exceeds the floor {floor:.3e}")
+    return agree, decided, margin
 
 
 def _serve_waves(tag, cfg, params, device, prompts):
@@ -3582,7 +3741,8 @@ def _moe_paths(device):
         toks = _token_batch(cfg, PREFILL["batch"], PREFILL["seq_len"], 0,
                             device)
         last, paths[f"{tag} prefill"] = _prefill_orders(
-            tag, cfg, params, toks, {"pallas": {}, "xla_packed": {}})
+            tag, cfg, params, {"tokens": toks},
+            {"pallas": {}, "xla_packed": {}})
         gap = float((last["pallas"] - last["xla_packed"]).abs().max())
         log(f"[{tag} prefill] last logits, kernel vs xla_packed: max abs "
             f"difference {gap:.4e} (|logit| max "
@@ -3688,6 +3848,349 @@ def _moe_paths(device):
     del params, caches, want, got, toks
     _free(f"{tag} serving")
     return paths
+
+
+def _zoo_inputs(cfg, spec, device, step: int = 0, seed: int = 5):
+    """``spec``'s batch of ``cfg``: ``make_batch`` tokens (seed 0, at
+    ``step``) and, from a seeded generator on the card, Whisper's frames
+    (``spec["frames"]`` of AUDIO_DIM) or LLaVA's patch embeddings
+    (``spec["patches"]`` of VISION_DIM), N(0, 1) in f32."""
+    import torch
+    from repro_torch.models import lm
+
+    b = spec["batch"]
+    batch = {"tokens": _token_batch(cfg, b, spec["seq_len"], step, device)}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn((b, spec["frames"], lm.AUDIO_DIM),
+                                      generator=gen, device=device)
+    if "patches" in spec:
+        batch["patch_embeds"] = torch.randn(
+            (b, spec["patches"], lm.VISION_DIM), generator=gen,
+            device=device)
+    return batch
+
+
+def _attention_calls(cfg) -> int:
+    """Attention calls of one forward: once a layer, Zamba2's shared block
+    once a group, Whisper's encoder layers and cross-attention besides."""
+    if cfg.attn_every:
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers * (2 if cfg.encoder_layers else 1) \
+        + cfg.encoder_layers
+
+
+def _zoo_prompts(cfg):
+    """ZOO_SERVE's requests: prompts of ``prompt`` tokens from
+    ``make_batch`` (seed 0, step 1), ``new_tokens`` each."""
+    from repro_torch.data.tokens import TokenStreamSpec, make_batch
+    from repro_torch.serving.engine import Request
+
+    toks = make_batch(TokenStreamSpec(vocab=cfg.vocab,
+                                      batch=ZOO_SERVE["n_requests"],
+                                      seq_len=ZOO_SERVE["prompt"], seed=0), 1)
+    return [Request(prompt=row.tolist(),
+                    max_new_tokens=ZOO_SERVE["new_tokens"]) for row in toks]
+
+
+def phase_lm_zoo(device, rows, errs):
+    """The rest of the LM zoo on the card: the flash kernel at ZOO_FLASH's
+    shapes (rows added to ``rows``, the error to ``errs``), then ZOO_ARCHS
+    at full width (LLaVA at ZOO_LAYERS' depth): prefill through every
+    attention order (the kernel's logits within NOISE_MULT of the plain
+    orders' noise floor), Zamba2's scan against its chunked SSD, decode
+    steps against forward, ``ServeEngine`` waves; then one short
+    ``Trainer`` run each (ZOO_TRAIN). Each model is freed before the next.
+    Returns the launches per kernel of each path."""
+    t0 = time.perf_counter()
+    _flash_zoo_rows(device, rows, errs)
+    paths, times = {}, {"flash rows": time.perf_counter() - t0}
+    for arch in ZOO_ARCHS:
+        t = time.perf_counter()
+        paths.update(_zoo_serve(arch, device))
+        _free(f"{arch} serving")
+        times[f"{arch} serving"] = time.perf_counter() - t
+    for arch in ZOO_TRAIN:
+        t = time.perf_counter()
+        _zoo_train(arch, device)
+        _free(f"{arch} training")
+        times[f"{arch} training"] = time.perf_counter() - t
+    log("[zoo] phase times: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in times.items())
+        + f"; all {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def _zoo_serve(arch, device):
+    """One zoo model's prefill, checks and serving (see phase_lm_zoo);
+    everything it allocates dies with its frame."""
+    import torch
+    from repro_torch import tuning
+    from repro_torch.models import lm
+
+    cfg, params = _lm_model(arch, device, **(
+        {"n_layers": ZOO_LAYERS[arch]} if arch in ZOO_LAYERS else {}))
+    spec = ZOO_PREFILL[arch]
+    flags = {"mamba_chunk": spec["mamba_chunk"]} if "mamba_chunk" in spec \
+        else {}
+    batch = _zoo_inputs(cfg, spec, device)
+    paths = {}
+    calls = _attention_calls(cfg)
+    if calls:
+        last, paths[f"{arch} prefill"] = _prefill_orders(
+            arch, cfg, params, batch,
+            {"pallas": {}, "xla_packed": {},
+             "xla_chunked 512": CHUNKED_ORDER}, per_call=calls, **flags)
+        floor, _ = _floor_check(
+            "zoo check", f"{arch} prefill, the kernel vs xla_packed",
+            last["pallas"], last["xla_packed"],
+            {"xla_chunked 512": last["xla_chunked 512"]})
+        agree, decided, _ = _argmax_check(f"{arch} prefill", last["pallas"],
+                                          last["xla_packed"], floor)
+        log(f"[{arch} prefill] argmax agrees on {int(agree.sum())} of "
+            f"{agree.numel()} rows ({int(decided.sum())} above the floor)")
+    else:           # attention-free: the time loop, under any impl
+        _prefill_orders(arch, cfg, params, batch, {"xla_packed": {}},
+                        per_call=0)
+    del batch
+    torch.cuda.empty_cache()
+
+    if cfg.attn_every:
+        _zoo_scan_checks(arch, cfg, params, device)
+    if cfg.family in ("ssm", "hybrid"):
+        _decode_vs_forward(arch, cfg, params, device)
+    _, paths[f"{arch} serve"] = _serve_waves(arch, cfg, params, device,
+                                             _zoo_prompts(cfg))
+    return paths
+
+
+def _zoo_scan_checks(arch, cfg, params, device):
+    """Zamba2's two SSM forms on the card. One mixer (group 0, sublayer 0)
+    on the normed embedding of a ZOO_SCAN_CHECK prompt: the scan against
+    the chunked SSD within TOLS bf16. The whole model, where 81 bf16
+    layers carry rounding noise past TOLS bf16: the scan's last prefill
+    logits against the chunked ones within NOISE_MULT times the model's
+    noise floor (:func:`_floor_check`: another chunk length, attention by
+    other blocks)."""
+    import torch
+    from repro_torch import tree, tuning
+    from repro_torch.models import layers, lm, ssm
+
+    c = ZOO_SCAN_CHECK
+    chunk = c["mamba_chunk"]
+    toks = _token_batch(cfg, c["batch"], c["seq_len"], 2, device)
+    sub = tree.tree_map(lambda t: t[0, 0], params["groups"])
+    with torch.inference_mode():
+        x = layers.rms_norm(sub["ln"], lm._embed(params, cfg,
+                                                 {"tokens": toks}),
+                            cfg.norm_eps)
+        state = ssm.mamba_state_init(cfg, c["batch"], device=device)
+        outs = {k: ssm.mamba_apply(sub["mamba"], cfg, x, state,
+                                   chunk=k)[0] for k in (0, chunk)}
+    err = max_err(outs[chunk], outs[0], f"{arch}: one mixer, chunked vs "
+                  "scan", tol=BF16_TOL)
+    log(f"[{arch} scan] one Mamba2 mixer at {c['batch']} x {c['seq_len']}: "
+        f"chunked SSD (chunk {chunk}) vs the time loop, max abs difference "
+        f"{err:.4e} (TOLS bf16 {BF16_TOL}; |out| max "
+        f"{float(outs[0].abs().max()):.3f})")
+    # the model's bf16 noise floor: two plain orders of the same sums (the
+    # chunk length, the attention's blocks), the larger of the two
+    orders = {"scan": dict(mamba_chunk=0),
+              f"chunk {chunk}": dict(mamba_chunk=chunk),
+              f"chunk {chunk // 2}": dict(mamba_chunk=chunk // 2),
+              f"chunk {chunk}, xla_chunked": dict(
+                  mamba_chunk=chunk, attention_impl="xla_chunked",
+                  **ZOO_NOISE_BLOCKS)}
+    last = {}
+    for name, fl in orders.items():
+        with torch.inference_mode(), tuning.use_flags(**fl):
+            (out, _), (ms,) = _timed(lambda: lm.prefill(
+                params, cfg, {"tokens": toks}))
+        last[name] = out[:, 0].float()
+        log(f"[{arch} scan] prefill {c['batch']} x {c['seq_len']}, {name}: "
+            f"{ms:.1f} ms")
+    base = last.pop(f"chunk {chunk}")
+    _floor_check("zoo check", f"{arch} prefill, scan vs chunk {chunk}",
+                 last.pop("scan"), base, last)
+
+
+def _decode_vs_forward(arch, cfg, params, device):
+    """ZOO_DECODE_STEPS ``decode_step``s reproduce ``forward``'s logits at
+    every position. In f32 at the reference test's tolerance (DECODE_TOL;
+    ``tests/test_models.py`` casts the model to f32 too): the parameters
+    cast up (exactly), on the card beside the bf16 ones. In bf16, the
+    precision served: the bf16 decode's distance from the f32 forward
+    within NOISE_MULT times the bf16 forward's (:func:`_floor_check`)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import lm
+
+    n = ZOO_DECODE_STEPS
+    toks = _token_batch(cfg, 2, n, 3, device)
+
+    def run(c, p):
+        with torch.inference_mode():
+            fwd, _ = lm.forward(p, c, {"tokens": toks})
+            caches = lm.init_decode_state(c, 2, n, device=device)
+            dec = torch.cat([lm.decode_step(p, c, toks[:, i:i + 1], caches,
+                                            i)[0] for i in range(n)], dim=1)
+        return fwd.float(), dec.float()
+
+    want, got = run(dataclasses.replace(cfg, dtype="float32"),
+                    tree.tree_map(lambda t: t.float(), params))
+    err = max_err(got, want, f"{arch}: decode vs forward (f32)",
+                  tol=DECODE_TOL)
+    log(f"[{arch} decode] 2 x {n} tokens through decode_step, f32: every "
+        f"position's logits within {DECODE_TOL} of forward's (max abs "
+        f"difference {err:.4e}; |logit| max {float(want.abs().max()):.3f})")
+    fwd16, dec16 = run(cfg, params)
+    _floor_check("zoo check", f"{arch} bf16 decode vs the f32 forward",
+                 dec16, want, {"bf16 forward": fwd16})
+
+
+def _floor_check(tag, what, got, want, others):
+    """``got`` within NOISE_MULT times the noise floor of ``want``: the
+    largest difference from it of ``others`` (name -> the same values by
+    another order of the same sums, in bf16); logs the figures under
+    ``tag`` and whether TOLS bf16 would have held too. Returns (floor,
+    gap)."""
+    import torch
+
+    floors = {k: float((v - want).abs().max()) for k, v in others.items()}
+    floor = max(floors.values())
+    gap = float((got - want).abs().max())
+    tols = bool(((got - want).abs()
+                 <= BF16_TOL[0] + BF16_TOL[1] * want.abs()).all())
+    check(bool(torch.isfinite(got).all()) and floor > 0
+          and gap <= NOISE_MULT * floor,
+          f"{what}: max abs difference {gap:.3e}, more than {NOISE_MULT} x "
+          f"the noise floor {floor:.3e} ({floors})")
+    log(f"[{tag}] {what}: max abs difference {gap:.4e}, noise floor "
+        f"{floor:.4e} (" + ", ".join(f"{k} {v:.4e}" for k, v in
+                                    floors.items())
+        + f"): {gap / floor:.2f} x (limit {NOISE_MULT}); within TOLS bf16 "
+        f"{BF16_TOL}: {tols}; |max| {float(want.abs().max()):.3f}")
+    return floor, gap
+
+
+def _zoo_train(arch, device):
+    """One zoo model's ``Trainer`` run (ZOO_TRAIN) under
+    ``attention_impl="xla_packed"``, every step on one batch: every loss
+    finite, the last ZOO_TRAIN_DROP below the first, ms a step, peak
+    memory under LM_TRAIN_MEM. Before it, the first step's gradients
+    against f32 (:func:`_grads_vs_f32`)."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch import configs, tuning
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    spec = ZOO_TRAIN[arch]
+    cfg = configs.get(arch)
+    if "n_layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    root = CKPT_DIR / "zoo" / arch
+    shutil.rmtree(root, ignore_errors=True)
+    trainer = Trainer(cfg, AdamConfig(lr=spec["lr"], grad_clip=1.0),
+                      TrainerConfig(checkpoint_dir=str(root),
+                                    total_steps=spec["steps"],
+                                    checkpoint_every=10 ** 9, log_every=1,
+                                    remat=spec.get("remat") is not None),
+                      device=device)
+    batch = _zoo_inputs(cfg, spec, device)
+    flags = dict(attention_impl="xla_packed",
+                 remat_policy=spec.get("remat") or "full",
+                 mamba_chunk=spec.get("mamba_chunk", 0))
+    _grads_vs_f32(arch, cfg, trainer.init_state()[0], batch, flags)
+    losses, stamps = [], []
+
+    def on_metrics(step, rec):
+        losses.append(rec["loss"])
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tuning.use_flags(**flags):
+        trainer.fit(iter([batch] * spec["steps"]), on_metrics=on_metrics)
+    peak = torch.cuda.max_memory_allocated()
+    ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    shutil.rmtree(root, ignore_errors=True)
+    tokens = spec["batch"] * spec["seq_len"]
+    step_ms = statistics.median(ms[1:])
+    log(f"[{arch} train] {cfg.n_layers} layers at full width, "
+        f"{spec['batch']} x {spec['seq_len']} tokens a step"
+        + (f" over {spec['frames']} frames" if "frames" in spec else "")
+        + f", one batch each step, remat {spec.get('remat') or 'off'}"
+        + (f", mamba_chunk {spec['mamba_chunk']}" if "mamba_chunk" in spec
+           else "")
+        + f", Adam lr {spec['lr']}: losses {[round(x, 4) for x in losses]} "
+        f"({losses[0] - losses[-1]:.4f} lower at the last, at least "
+        f"{ZOO_TRAIN_DROP}); ms per step {ms[0]:.1f} (first), median "
+        f"{step_ms:.1f} of the rest ({tokens / step_ms * 1e3:.0f} tokens/s); "
+        f"peak memory {peak / 1e9:.2f} GB (limit {LM_TRAIN_MEM / 1e9:.0f})")
+    check(len(losses) == spec["steps"] and all(map(_finite, losses)),
+          f"{arch} train: losses {losses}")
+    check(losses[-1] <= losses[0] - ZOO_TRAIN_DROP,
+          f"{arch} train: the loss of the repeated batch went from "
+          f"{losses[0]:.4f} to {losses[-1]:.4f}, less than {ZOO_TRAIN_DROP} "
+          "lower")
+    check(peak < LM_TRAIN_MEM, f"{arch} train: peak {peak / 1e9:.2f} GB")
+
+
+def _grads_vs_f32(arch, cfg, params, batch, flags):
+    """``loss_fn``'s gradients at ``params`` (bf16) on the first
+    ZOO_GRAD_SEQ tokens of ``batch``, under ``flags``, against the same
+    parameters cast to f32: the global norms within BF16_TOL's relative
+    part of each other, every leaf's cosine similarity at least
+    ZOO_GRAD_COS."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree, tuning
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import global_norm
+
+    short = dict(batch, tokens=batch["tokens"][:, :ZOO_GRAD_SEQ])
+    names = [k for k, _ in _named_leaves(params)]
+
+    def grads(c, p):
+        live = [t.detach().requires_grad_() for t in tree.leaves(p)]
+        with tuning.use_flags(**flags):
+            loss, _ = lm.loss_fn(tree.unflatten(p, live), c, short)
+        return float(loss.detach()), [g.float() for g in
+                             torch.autograd.grad(loss, live)]
+
+    (loss16, g16), (ms16,) = _timed(lambda: grads(cfg, params))
+    (loss32, g32), (ms32,) = _timed(lambda: grads(
+        dataclasses.replace(cfg, dtype="float32"),
+        tree.tree_map(lambda t: t.float(), params)))
+    n16, n32 = float(global_norm(g16)), float(global_norm(g32))
+    cos = {}
+    for name, a, b in zip(names, g16, g32, strict=True):
+        na, nb = float(a.norm()), float(b.norm())
+        cos[name] = 1.0 if na == nb == 0 else \
+            float((a * b).sum()) / max(na * nb, 1e-30)
+    worst = min(cos, key=cos.get)
+    rows = short["tokens"].shape[0]
+    log(f"[{arch} train first step] loss_fn gradients on {rows} x "
+        f"{ZOO_GRAD_SEQ} tokens, bf16 vs f32: loss {loss16:.5f} "
+        f"vs {loss32:.5f}; global norm {n16:.5e} vs {n32:.5e} (relative "
+        f"difference {abs(n16 - n32) / n32:.3e}, limit {BF16_TOL[1]}); "
+        f"{len(cos)} leaves, the lowest cosine {cos[worst]:.6f} at {worst} "
+        f"(limit {ZOO_GRAD_COS}); {ms16:.0f} / {ms32:.0f} ms")
+    check(all(map(_finite, (loss16, n16, n32)))
+          and abs(n16 - n32) <= BF16_TOL[1] * n32 and n32 > 0,
+          f"{arch}: the bf16 gradient norm {n16} against f32's {n32}")
+    check(cos[worst] >= ZOO_GRAD_COS,
+          f"{arch}: the bf16 gradient of {worst} has cosine {cos[worst]} "
+          f"with f32's")
+    del g16, g32
 
 
 def _finite(x: float) -> bool:
@@ -4975,6 +5478,7 @@ def main() -> int:
     paths.update(phase_autotune(device))
     paths.update(phase_scheduler(device, card, errs))
     paths.update(phase_sampled(device))
+    paths.update(phase_lm_zoo(device, rows, errs))
     paths.update(lm_paths)
     paths.update(large_path)
     kernels = []
@@ -4991,6 +5495,14 @@ def main() -> int:
             "max_abs_err": errs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if kname == "flash_attention":
+            # the zoo's prefill shapes beside the entry's Llama-3 row
+            kernels[-1]["shapes"] = [
+                {"shape": rows[f"flash_attention[{tag}]"]["shape"],
+                 **{k: rows[f"flash_attention[{tag}]"][k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms")}}
+                for tag in FLASH_ZOO_TAGS]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

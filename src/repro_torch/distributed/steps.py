@@ -68,7 +68,6 @@ def build_train_step(cfg: ModelConfig, opt: AdamConfig, *,
     with ``compress_grads`` the state holds ``ef_err``
     (:func:`~repro_torch.distributed.compression.ef_init`). The loss stays
     a 0-d tensor on the device."""
-    lm.check_ported(cfg)
     if microbatches < 1:
         raise ValueError(f"microbatches={microbatches} < 1")
     device = resolve_device(device)

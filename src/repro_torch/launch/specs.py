@@ -16,6 +16,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import lm
 
+WHISPER_DEC_RATIO = 8        # decoder tokens per encoder frame (train cells)
+WHISPER_DEC_ENC_LEN = 4096   # encoder context used by decode cells
+
 
 def cell_supported(cfg: ModelConfig, cell: ShapeCell) -> tuple[bool, str]:
     """Applicability per DESIGN.md §4."""
@@ -34,20 +37,35 @@ def _device(concrete: bool, device) -> torch.device:
 
 def make_train_batch(cfg: ModelConfig, batch: int, seq: int, concrete=False,
                      *, device=None) -> dict:
-    """``{"tokens": (batch, seq) int32}``, the batch of the ported
-    families; the inputs of the frontends (llava's patch embeddings,
-    whisper's frames) come with those families, which raise here."""
-    lm.check_ported(cfg)
-    return {"tokens": torch.zeros((batch, seq), dtype=torch.int32,
-                                  device=_device(concrete, device))}
+    """``{"tokens": (batch, seq) int32}``; LLaVA adds ``patch_embeds``
+    (batch, min(frontend_len, max(seq // 4, 8)), VISION_DIM) f32; Whisper
+    takes ``frames`` (batch, seq, AUDIO_DIM) f32 and ``max(seq //
+    WHISPER_DEC_RATIO, 8)`` decoder tokens."""
+    dev = _device(concrete, device)
+    out = {"tokens": torch.zeros((batch, seq), dtype=torch.int32,
+                                 device=dev)}
+    if cfg.frontend == "vision_tiles":
+        n_tiles = min(cfg.frontend_len, max(seq // 4, 8))
+        out["patch_embeds"] = torch.zeros((batch, n_tiles, lm.VISION_DIM),
+                                          dtype=torch.float32, device=dev)
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.zeros((batch, seq, lm.AUDIO_DIM),
+                                    dtype=torch.float32, device=dev)
+        out["tokens"] = torch.zeros(
+            (batch, max(seq // WHISPER_DEC_RATIO, 8)), dtype=torch.int32,
+            device=dev)
+    return out
 
 
 def make_decode_inputs(cfg: ModelConfig, batch: int, cache_len: int,
                        concrete=False, *, device=None):
-    """(tokens, caches, pos) for one decode step."""
+    """(tokens, caches, pos) for one decode step; Whisper's cross-attention
+    cache holds WHISPER_DEC_ENC_LEN encoder positions."""
     dev = _device(concrete, device)
     tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
-    caches = lm.init_decode_state(cfg, batch, cache_len, device=dev)
+    enc_len = WHISPER_DEC_ENC_LEN if cfg.is_encoder_decoder else 0
+    caches = lm.init_decode_state(cfg, batch, cache_len, enc_len,
+                                  device=dev)
     pos = torch.tensor(cache_len, dtype=torch.int32, device=dev)
     return tokens, caches, pos
 

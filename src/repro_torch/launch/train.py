@@ -15,6 +15,7 @@ import argparse
 
 from repro_torch import configs
 from repro_torch.data.tokens import TokenStreamSpec, token_stream
+from repro_torch.launch import specs
 from repro_torch.optim.adam import AdamConfig
 from repro_torch.training.trainer import Trainer, TrainerConfig
 
@@ -22,10 +23,21 @@ from repro_torch.training.trainer import Trainer, TrainerConfig
 def synthetic_data(cfg, batch, seq, seed=0, start_step=0, *, device=None):
     """Resumable synthetic next-token stream (``data.tokens``) on
     ``device``: batch ``i`` is a pure function of (seed, i), so a restart
-    at ``start_step`` is an exact resume."""
+    at ``start_step`` is an exact resume. Each batch carries the family's
+    other inputs of ``specs.make_train_batch`` (zeros: LLaVA's
+    ``patch_embeds``, Whisper's ``frames``) beside the stream's tokens, as
+    the reference's does."""
     spec = TokenStreamSpec(vocab=cfg.vocab, batch=batch, seq_len=seq,
                            seed=seed)
-    return token_stream(spec, start_step=start_step, device=device)
+    extras = {k: v for k, v in specs.make_train_batch(
+        cfg, batch, seq, concrete=True, device=device).items()
+        if k != "tokens"}
+    stream = token_stream(spec, start_step=start_step, device=device)
+    try:
+        for b in stream:
+            yield {**extras, **b}
+    finally:
+        stream.close()
 
 
 def main(argv=None) -> None:

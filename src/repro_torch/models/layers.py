@@ -16,8 +16,11 @@ kernel, as in the reference.
 
 The decode cache is written in place (the reference's
 ``dynamic_update_slice`` returns a new array): ``attention_apply`` returns
-the same cache dict it was given. Cross-attention is not ported yet
-(ROADMAP.md queue 1: the LM zoo (whisper)).
+the same cache dict it was given. Cross-attention (whisper's decoder) takes
+K and V projected from a source sequence ``xa`` without RoPE and masks
+nothing (under ``"pallas"`` the kernel with ``causal=False`` and Tq ≠ Tk,
+else ``chunked_attention``), or, with ``cache_mode="read_all"``, attends
+over a static K/V cache by plain products, writing nothing.
 
 MoE (``init_moe``, ``moe_apply``) routes each token to its top-k experts
 with a per-expert capacity and runs the experts as one batched product
@@ -35,16 +38,30 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 
 
-def unported(item: str) -> str:
-    """The text of the ``NotImplementedError`` of a part of the LM zoo that
-    is not ported yet: it names the ROADMAP.md item that ports it."""
-    return f"not ported yet (ROADMAP.md queue 1: the LM zoo ({item}))"
-
-
 def _normal(shape, dtype, generator, device) -> torch.Tensor:
     """N(0, 0.02²) draws, the reference's ``initializers.normal(0.02)``."""
     return torch.empty(shape, dtype=dtype, device=device).normal_(
         0.0, 0.02, generator=generator)
+
+
+def build_tree(shapes: dict, generator, device, rules=None) -> dict:
+    """The tensors of a ``(shape, dtype)`` tree, drawn leaf by leaf in the
+    tree's order straight into each tensor: a leaf named in ``rules``
+    (name -> fill of an empty tensor from ``generator``) by its rule, norm
+    scales 1, every other leaf N(0, 0.02²)."""
+    rules = rules or {}
+
+    def build(node, name):
+        if isinstance(node, dict):
+            return {k: build(v, k) for k, v in sorted(node.items())}
+        t = torch.empty(node[0], dtype=node[1], device=device)
+        if name in rules:
+            return rules[name](t, generator)
+        if name == "scale":
+            return t.fill_(1.0)
+        return t.normal_(0.0, 0.02, generator=generator)
+
+    return build(shapes, "")
 
 
 # ---------------------------------------------------------------------------
@@ -235,25 +252,40 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
                     positions: torch.Tensor, causal: bool = True,
                     kv_cache: dict | None = None, cache_pos: int | None = None,
                     xa=None, cache_mode: str = "write"):
-    """Self-attention with GQA, optional qk-norm, RoPE, window and an
-    optional decode-time KV cache ``{"k", "v"}`` (B, S, KV, hd), written in
-    place at ``cache_pos`` (a ring buffer when ``cfg.window``). Returns
-    (out, the cache)."""
-    if xa is not None or cache_mode != "write":
-        raise NotImplementedError(
-            f"cross-attention is {unported('whisper')}")
+    """Self- or cross-attention with GQA, optional qk-norm, RoPE (self only),
+    window and an optional decode-time KV cache ``{"k", "v"}`` (B, S, KV,
+    hd): written in place at ``cache_pos`` (a ring buffer when
+    ``cfg.window``) for self-attention; read whole, unwritten and unmasked,
+    with ``cache_mode="read_all"`` (cross-attention over a precomputed
+    cache). ``xa`` (B, Ta, D) is the cross-attention source. Returns (out,
+    the cache)."""
     b, t, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(b, t, h, hd)
-    k = (x @ p["wk"]).reshape(b, t, kv, hd)
-    v = (x @ p["wv"]).reshape(b, t, kv, hd)
+    if kv_cache is not None and cache_mode == "read_all":
+        # a static cache: no projection of the source, no write, no mask
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        if cfg.qk_norm:
+            q = rms_norm(p["q_norm"], q)
+        groups = h // ck.shape[2]
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                         _repeat_kv(ck, groups).float()) * hd ** -0.5
+        w = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", w,
+                           _repeat_kv(cv, groups).float()).to(x.dtype)
+        return (out.reshape(b, t, h * hd) @ p["wo"]).to(x.dtype), kv_cache
+    src = x if xa is None else xa
+    k = (src @ p["wk"]).reshape(b, src.shape[1], kv, hd)
+    v = (src @ p["wv"]).reshape(b, src.shape[1], kv, hd)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q)
         k = rms_norm(p["k_norm"], k)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if xa is None:                               # RoPE on self-attention only
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    causal = causal and xa is None
 
-    if kv_cache is not None:
+    if kv_cache is not None and xa is None:
         ck, cv = kv_cache["k"], kv_cache["v"]
         s_cache = ck.shape[1]
         slot = cache_pos % s_cache if cfg.window else cache_pos

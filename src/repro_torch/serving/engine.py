@@ -133,7 +133,6 @@ class ServeEngine:
     def __init__(self, params, cfg: ModelConfig, *, batch: int = 4,
                  max_len: int = 128, temperature: float = 0.0, seed: int = 0,
                  device=None):
-        lm.check_ported(cfg)
         self.cfg = cfg
         self.batch, self.max_len = batch, max_len
         self.temperature = temperature

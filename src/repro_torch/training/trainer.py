@@ -103,7 +103,6 @@ class Trainer:
 
     def __init__(self, cfg: ModelConfig, opt: AdamConfig, tcfg: TrainerConfig,
                  *, device=None):
-        lm.check_ported(cfg)
         self.cfg, self.opt, self.tcfg = cfg, opt, tcfg
         self.device = resolve_device(device)
         self.manager = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep)

@@ -8,10 +8,10 @@ in both packages. The reference's mesh hint (``use_mesh_hint``,
 the identity, and the port leaves them out (ROADMAP.md queue 1: sharding
 and the distributed stack).
 The port reads ``attention_impl``, ``q_block``, ``kv_block``,
-``remat_policy`` (LM training's per-block checkpoint), ``moe_dispatch`` and
-``capacity_factor`` (the MoE sublayer); setting any other field away from
-its default raises ``NotImplementedError`` until the code that reads it is
-ported.
+``remat_policy`` (LM training's per-block checkpoint), ``moe_dispatch``,
+``capacity_factor`` (the MoE sublayer) and ``mamba_chunk`` (the Mamba2
+mixer); setting any other field away from its default raises
+``NotImplementedError`` until the code that reads it is ported.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ class TuneFlags:
     capacity_factor: float = 1.25
     # parameter sharding over the data axis (multi-device, not ported)
     fsdp: bool = False
-    # Mamba2 chunked scan length; 0 = sequential scan (SSM, not ported)
+    # Mamba2 chunked scan length; 0 = sequential scan
     mamba_chunk: int = 0
 
 
@@ -54,8 +54,7 @@ _FLAGS: contextvars.ContextVar[TuneFlags] = contextvars.ContextVar(
 # the fields nothing in the port reads yet, and the title of the ROADMAP.md
 # queue 1 item that brings their reader
 UNPORTED = {"constrain_decode": "sharding and the distributed stack",
-            "fsdp": "sharding and the distributed stack",
-            "mamba_chunk": "the LM zoo (SSM)"}
+            "fsdp": "sharding and the distributed stack"}
 
 
 def flags() -> TuneFlags:

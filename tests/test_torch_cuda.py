@@ -1648,6 +1648,136 @@ def test_flash_attention_under_grad_raises_on_the_card(dev):
     assert out.grad_fn is None and flash_attention.launches == before + 1
 
 
+# the LM zoo's prefill shapes: (tag, b, tq, tk, h, kv, hd, causal) of
+# zamba2's shared attention at 2 x 4096, whisper's encoder over its 1500
+# frames, whisper's cross-attention of 448 text positions to them; lengths
+# that are not multiples of the kernel's 128-row q or 64-key tiles
+ZOO_FLASH_SHAPES = [("zamba2 prefill", 2, 4096, 4096, 32, 32, 112, True),
+                    ("whisper encoder", 2, 1500, 1500, 12, 12, 64, True),
+                    ("whisper decoder", 2, 448, 448, 12, 12, 64, True),
+                    ("whisper cross", 2, 448, 1500, 12, 12, 64, False),
+                    ("llava prefill", 2, 2048, 2048, 56, 8, 128, True)]
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape", ZOO_FLASH_SHAPES, ids=lambda s: s[0])
+def test_flash_attention_kernel_at_the_zoo_shapes(dev, shape, dtype):
+    """The kernel against its plain version at the zoo's prefill shapes,
+    identical bits twice. Tolerance: the reference test's, 2e-5 (f32) and
+    3e-2 (bf16)."""
+    from repro_torch.kernels.flash_attention import KV_TILE, flash_attention
+
+    _, b, tq, tk, h, kv, hd, causal = shape
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, tq, h, hd), device=dev).to(dt)
+    k, v = (torch.randn((b, tk, kv, hd), device=dev).to(dt) for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_plain(q, k, v, causal=causal, kv_block=KV_TILE)
+    tol = 2e-5 if dt == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("arch", ("rwkv6-1.6b", "zamba2-7b", "whisper-small",
+                                  "llava-next-34b"))
+def test_zoo_lm_on_the_card_matches_the_cpu(dev, arch):
+    """The reduced zoo LMs (f32) on the card against the same parameters on
+    the CPU: forward and prefill (the kernel once per attention under
+    "pallas": zamba2's shared block once a group, whisper's encoder, self
+    and cross-attention), Zamba2's scan and chunked mixer, decode steps.
+    Tolerance: f32 (1e-4, 1e-5)."""
+    from repro_torch import configs, tree, tuning
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm
+
+    cfg = configs.get(arch).reduced()
+    p = lm.init_params(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(3))
+    pd = tree.tree_map(lambda t: t.to(dev), p)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64))}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn((2, 100, lm.AUDIO_DIM))
+    if cfg.frontend == "vision_tiles":
+        batch["patch_embeds"] = torch.randn((2, 8, lm.VISION_DIM))
+    on_dev = {k: t.to(dev) for k, t in batch.items()}
+    attn = (cfg.n_layers // cfg.attn_every if cfg.attn_every
+            else 0 if cfg.family == "ssm"
+            else cfg.n_layers * 2 + cfg.encoder_layers if cfg.encoder_layers
+            else cfg.n_layers)
+    for impl, chunk in (("xla_packed", 0), ("pallas", 0), ("pallas", 16)):
+        with tuning.use_flags(attention_impl=impl, q_block=32, kv_block=32,
+                              mamba_chunk=chunk), torch.inference_mode():
+            want = lm.prefill(p, cfg, batch)
+            before = flash_attention.launches
+            got = lm.prefill(pd, cfg, on_dev)
+        launched = flash_attention.launches - before
+        assert launched == (attn if impl == "pallas" else 0), (impl, launched)
+        for g, w in zip(got, want):
+            if w is not None:
+                torch.testing.assert_close(g.cpu(), w, **TOL,
+                                           msg=f"{arch} {impl} {chunk}")
+    want = lm.forward(p, cfg, batch)[0]
+    got = lm.forward(pd, cfg, on_dev)[0]
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    caches = {"cpu": lm.init_decode_state(cfg, 2, 16, device="cpu"),
+              "dev": lm.init_decode_state(cfg, 2, 16, device=dev)}
+    with torch.inference_mode():
+        for i in range(6):
+            toks = batch["tokens"][:, i:i + 1]
+            want, caches["cpu"] = lm.decode_step(p, cfg, toks,
+                                                 caches["cpu"], i)
+            got, caches["dev"] = lm.decode_step(pd, cfg, toks.to(dev),
+                                                caches["dev"], i)
+            torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+@pytest.mark.parametrize("arch,chunk", (("rwkv6-1.6b", 0), ("zamba2-7b", 0),
+                                        ("zamba2-7b", 16),
+                                        ("whisper-small", 0),
+                                        ("llava-next-34b", 0)))
+def test_zoo_lm_gradients_on_the_card_match_the_cpu(dev, arch, chunk):
+    """The first step's ``loss_fn`` gradients of the reduced zoo LMs (f32,
+    ``xla_packed``) at every leaf, on the card against the same parameters
+    on the CPU, without remat and with a full remat of each block: RWKV's
+    hand-written recurrence backward, Mamba2's scan and (chunk 16) chunked
+    SSD backward, Whisper's encoder and cross-attention, LLaVA's masked
+    loss. Tolerance: 3x f32 (3e-4, 3e-5), as the CPU tests hold the port's
+    gradients against the reference's."""
+    from repro_torch import configs, tree, tuning
+    from repro_torch.models import lm
+
+    cfg = configs.get(arch).reduced()
+    p = lm.init_params(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(4))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64))}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn((2, 100, lm.AUDIO_DIM))
+    if cfg.frontend == "vision_tiles":
+        batch["patch_embeds"] = torch.randn((2, 8, lm.VISION_DIM))
+
+    def grads(device, remat):
+        live = [t.detach().to(device).requires_grad_()
+                for t in tree.leaves(p)]
+        with tuning.use_flags(attention_impl="xla_packed", mamba_chunk=chunk,
+                              remat_policy="full"):
+            loss, _ = lm.loss_fn(tree.unflatten(p, live), cfg,
+                                 {k: t.to(device) for k, t in batch.items()},
+                                 remat=remat)
+        return loss, torch.autograd.grad(loss, live)
+
+    for remat in (False, True):
+        want_loss, want = grads("cpu", remat)
+        got_loss, got = grads(dev, remat)
+        torch.testing.assert_close(got_loss.cpu(), want_loss, **TOL)
+        for i, (g, w) in enumerate(zip(got, want, strict=True)):
+            torch.testing.assert_close(
+                g.cpu(), w, atol=3 * TOL["atol"], rtol=3 * TOL["rtol"],
+                msg=lambda m, i=i: f"{arch} chunk {chunk} remat {remat} "
+                                   f"leaf {i}: {m}")
+
+
 @pytest.mark.parametrize("name", HYBRID_REGIMES)
 def test_precision_kernels_match_plain(dev, name):
     """The seven reduced-precision entries against their plain versions:

@@ -35,6 +35,7 @@ from repro_torch.convert import lm_params_from_jax
 from repro_torch.data import tokens as ttokens
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from repro_torch.models import ssm as tssm
 
 ATOL, RTOL = TOLS["f32"]
 IMPLS = ("xla_packed", "xla_chunked", "pallas")
@@ -91,15 +92,32 @@ def test_registry_shape_cells_and_tune_flags_match_reference():
         assert fl.attention_impl == ttuning.flags().attention_impl == "pallas"
     assert ttuning.flags() == ttuning.TuneFlags()
     # a field the port does not read raises rather than doing nothing
-    for pair, item in zip(("constrain_decode=false", "fsdp=true",
-                           "mamba_chunk=64"),
-                          ("sharding and the distributed stack",
-                           "sharding and the distributed stack",
-                           r"the LM zoo \(SSM\)")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue 1: {item}"):
+    for pair in ("constrain_decode=false", "fsdp=true"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: "
+                           "sharding and the distributed stack"):
             with ttuning.use_flags(**ttuning.parse_tune_args([pair])):
                 pass
+    assert ttuning.flags() == ttuning.TuneFlags()
+    # the Mamba2 mixer reads mamba_chunk: set, it takes the chunked form
+    cfg = tconfigs.get("zamba2-7b").reduced()
+    mixer = tssm.init_mamba(cfg, torch.float32, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    state = tssm.mamba_state_init(cfg, 1, device="cpu")
+    x = torch.randn((1, 128, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    chunks, ssd = [], tssm._ssd_chunked
+    tssm._ssd_chunked = lambda *a: chunks.append(a[-1]) or ssd(*a)
+    try:
+        with ttuning.use_flags(**ttuning.parse_tune_args(["mamba_chunk=64"])):
+            assert ttuning.flags().mamba_chunk == 64
+            flagged = tssm.mamba_apply(mixer, cfg, x, state)[0]
+        assert chunks == [64]
+        tssm.mamba_apply(mixer, cfg, x, state)          # the scan
+        assert chunks == [64]
+    finally:
+        tssm._ssd_chunked = ssd
+    assert torch.equal(flagged,
+                       tssm.mamba_apply(mixer, cfg, x, state, chunk=64)[0])
     assert ttuning.flags() == ttuning.TuneFlags()
     with ttuning.use_flags(moe_dispatch="grouped", fsdp=False):
         assert ttuning.flags() == ttuning.TuneFlags()
@@ -352,23 +370,59 @@ def test_init_params_module_and_unported_paths():
     tokens = torch.randint(0, tcfg.vocab, (2, 5))
     torch.testing.assert_close(model(tokens),
                                tlm.forward(p, tcfg, {"tokens": tokens})[0])
-    for arch, item in (("rwkv6-1.6b", "SSM"), ("zamba2-7b", "SSM"),
-                       ("whisper-small", "whisper"),
-                       ("llava-next-34b", "llava")):
+    # the zoo's other families: the same trees as the reference's
+    # (parameters and decode caches), drawn by each leaf's initializer
+    for arch in ("rwkv6-1.6b", "zamba2-7b", "whisper-small",
+                 "llava-next-34b"):
         cfg = tconfigs.get(arch).reduced()
-        match = rf"queue 1: the LM zoo \({item}\)"
-        with pytest.raises(NotImplementedError, match=match):
-            tlm.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            tlm.init_decode_state(cfg, 2, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            tlm.param_shapes(cfg)
+        jcfg = jconfigs.get(arch).reduced()
+        params = tlm.init_params(cfg, device="cpu")
+        want = jax.eval_shape(lambda: jlm.init_params(jax.random.key(0),
+                                                      jcfg))
+        assert jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)
+                                       .replace("torch.", "")), params) == \
+            jax.tree.map(lambda a: (a.shape, str(a.dtype)), want), arch
+        caches = tlm.init_decode_state(cfg, 2, 8, 20, device="cpu")
+        j_caches = jax.eval_shape(lambda: jlm.init_decode_state(jcfg, 2, 8,
+                                                                20))
+        assert jax.tree.map(lambda t: tuple(t.shape), caches) == \
+            jax.tree.map(lambda a: a.shape, j_caches), arch
     for arch in ("mixtral-8x22b", "llama4-maverick-400b-a17b"):
         cfg = tconfigs.get(arch).reduced()
-        tlm.check_ported(cfg)
         assert sorted(tlm.init_decode_state(cfg, 2, 8, device="cpu")) == [
             str(i) for i in range(len(cfg.block_pattern))]
-    x = torch.zeros((1, 2, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        tlayers.attention_apply(p, tcfg, x, positions=torch.zeros((1, 2)),
-                                xa=x)
+    # cross-attention (whisper's decoder): K and V from the source without
+    # RoPE, unmasked, under each impl; and over a static cache (read_all)
+    jcfg, ccfg = _cfg("whisper-small")
+    jattn = jax.jit(jlayers.init_attention, static_argnums=(1, 2))(
+        jax.random.key(4), jcfg, jnp.float32)
+    tattn = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jattn)
+    rng = np.random.default_rng(8)
+    x, xa = (rng.standard_normal((2, n, ccfg.d_model)).astype(np.float32)
+             for n in (5, 11))
+    pos = np.zeros((2, 5), np.int32)
+    for impl in IMPLS:
+        with jtuning.use_flags(attention_impl=impl, **BLOCKS):
+            want, _ = jax.jit(lambda p, x, pos, xa: jlayers.attention_apply(
+                p, jcfg, x, positions=pos, causal=False, xa=xa))(
+                jattn, jnp.asarray(x), jnp.asarray(pos), jnp.asarray(xa))
+        with ttuning.use_flags(attention_impl=impl, **BLOCKS):
+            got, _ = tlayers.attention_apply(
+                tattn, ccfg, torch.from_numpy(x),
+                positions=torch.from_numpy(pos), causal=False,
+                xa=torch.from_numpy(xa))
+        _close(got, want, f"cross-attention {impl}")
+    cache = {k: rng.standard_normal((2, 16, ccfg.n_kv_heads,
+                                     ccfg.head_dim)).astype(np.float32)
+             for k in ("k", "v")}
+    want, _ = jlayers.attention_apply(
+        jattn, jcfg, jnp.asarray(x), positions=jnp.asarray(pos),
+        causal=False, kv_cache=jax.tree.map(jnp.asarray, cache),
+        cache_mode="read_all")
+    t_cache = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    got, back = tlayers.attention_apply(
+        tattn, ccfg, torch.from_numpy(x), positions=torch.from_numpy(pos),
+        causal=False, kv_cache=t_cache, cache_mode="read_all")
+    _close(got, want, "cross-attention over a static cache")
+    assert back is t_cache and all(np.array_equal(t_cache[k].numpy(),
+                                                  cache[k]) for k in cache)

@@ -42,11 +42,20 @@ def _engine(state, **kw):
     return ServeEngine(tp, tcfg, device="cpu", **kw), tcfg
 
 
-@pytest.mark.parametrize("impl", ("xla_packed", "pallas"))
-def test_greedy_tokens_equal_the_reference(state, impl):
-    jcfg, tcfg, jp, tp = state
+@pytest.fixture(scope="module")
+def ref_served(state):
+    """The reference engine's greedy requests over PROMPTS, served once for
+    the module (its decode attends by plain products under any impl)."""
+    jcfg, _, jp, _ = state
     want = [JRequest(prompt=list(p), max_new_tokens=n) for p, n in PROMPTS]
     JEngine(jp, jcfg, batch=3, max_len=48).run(want)
+    return want
+
+
+@pytest.mark.parametrize("impl", ("xla_packed", "pallas"))
+def test_greedy_tokens_equal_the_reference(state, ref_served, impl):
+    jcfg, tcfg, jp, tp = state
+    want = ref_served
     got = [Request(prompt=list(p), max_new_tokens=n) for p, n in PROMPTS]
     with tuning.use_flags(attention_impl=impl):
         ServeEngine(tp, tcfg, batch=3, max_len=48, device="cpu").run(got)
@@ -116,7 +125,12 @@ def test_engine_defaults_to_the_gpu_and_rejects_unported_families(state):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine(tp, tcfg)
-    with pytest.raises(NotImplementedError,
-                       match=r"queue 1: the LM zoo \(SSM\)"):
-        ServeEngine(tp, tconfigs.get("rwkv6-1.6b").reduced(),
-                    device="cpu")
+    # the zoo's other families are served too (tests/test_torch_lm_zoo.py
+    # holds their tokens to the reference's)
+    rcfg = tconfigs.get("rwkv6-1.6b").reduced()
+    engine = ServeEngine(tlm.init_params(rcfg, device="cpu"), rcfg,
+                         device="cpu")
+    assert engine.device.type == "cpu" and engine.cfg is rcfg
+    req = Request(prompt=[3, 1], max_new_tokens=2)
+    engine.run([req])
+    assert req.done and len(req.out) == 2

@@ -420,11 +420,19 @@ def test_trainer_resumes_in_a_second_process(tmp_path):
     exec(_RESUME, scope)
     ckpt, whole = str(tmp_path / "resumed"), str(tmp_path / "whole")
     scope["fit"](ckpt, 10)
-    out = subprocess.run([sys.executable, "-c", _RESUME, ckpt, "15"],
-                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    scope["fit"](whole, 15)
+    proc = subprocess.Popen([sys.executable, "-c", _RESUME, ckpt, "15"],
+                            env=dict(os.environ,
+                                     PYTHONPATH=str(ROOT / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        scope["fit"](whole, 15)        # meanwhile, the uninterrupted run
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
     assert [r["step"] for r in _records(ckpt)] == [5, 10, 15]
     assert [r["loss"] for r in _records(ckpt)] == [
         r["loss"] for r in _records(whole)]

@@ -217,17 +217,27 @@ def test_moe_lm_forward_loss_and_prefill_match_reference(arch, dispatch):
         _close(m_t[k], m_j[k], f"{arch} metric {k}")
 
 
+SERVE = dict(batch=2, max_len=24)
+
+
+@functools.cache
+def _ref_engine(jcfg):
+    """The reference's ``ServeEngine`` of ``jcfg`` (its jitted decode step
+    compiled once in a process: the decode test steps through it too)."""
+    return JEngine(None, jcfg, **SERVE)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_moe_lm_decode_steps_match_reference_and_own_forward(arch):
     jcfg, tcfg, jp, tp = _lm_pair(arch, seed=1)
     t = 10
     tokens = np.random.default_rng(6).integers(0, tcfg.vocab, (2, t))
-    jc = jlm.init_decode_state(jcfg, 2, t)
-    tc = tlm.init_decode_state(tcfg, 2, t, device="cpu")
+    jc = jlm.init_decode_state(jcfg, 2, SERVE["max_len"])
+    tc = tlm.init_decode_state(tcfg, 2, SERVE["max_len"], device="cpu")
     assert sorted(tc) == [str(i) for i in range(len(tcfg.block_pattern))]
     assert jax.tree.map(np.shape, jc) == tree.tree_map(
         lambda x: tuple(x.shape), tc)
-    step_j = jax.jit(lambda p, tok, c, i: jlm.decode_step(p, jcfg, tok, c, i))
+    step_j = _ref_engine(jcfg)._decode
     got = []
     for i in range(t):
         tok = tokens[:, i:i + 1]
@@ -248,9 +258,11 @@ def test_moe_serve_engine_greedy_tokens_equal_the_reference(arch):
     jcfg, tcfg, jp, tp = _lm_pair(arch, seed=2)
     prompts = [([5, 9, 200, 3], 5), ([17], 3), ([42, 7, 99], 4)]
     want = [JRequest(prompt=list(p), max_new_tokens=n) for p, n in prompts]
-    JEngine(jp, jcfg, batch=2, max_len=24).run(want)
+    engine = _ref_engine(jcfg)
+    engine.params = jp
+    engine.run(want)
     got = [Request(prompt=list(p), max_new_tokens=n) for p, n in prompts]
-    ServeEngine(tp, tcfg, batch=2, max_len=24, device="cpu").run(got)
+    ServeEngine(tp, tcfg, device="cpu", **SERVE).run(got)
     for i, (g, w) in enumerate(zip(got, want)):
         assert (g.out, g.done, g.truncated) == (w.out, w.done, w.truncated), i
 
