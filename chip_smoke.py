@@ -126,7 +126,35 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    report; the device idle share of one ``auto`` drain under
    ``torch.profiler`` and its three longest gaps by enclosing span; 10
    fused Tox21 training steps with the trainer's telemetry;
-13. the giant-graph tier (``examples/node_classification.py``'s settings,
+13. the data-parallel GCN path on a device mesh (``phase_mesh``, MESH): 2
+   ranks spawned on this one card, joined over gloo (NCCL refuses two
+   ranks on one GPU), at full width, seed 0: (a) the sharded SpMM
+   (``batched_spmm(mesh=)``: pallas_ell, pallas_csr, pallas_coo,
+   pallas_hybrid, pallas_gemm) and g-SpMM ((copy_lhs, mean), (mul, max)
+   on ELL, CSR, COO) at the stacked Tox21 serving call (4 x 128 matrices,
+   n_b 64) and at 127 matrices, forward and both gradients, bitwise to
+   the single-device call (the g-SpMM gradients, a plain gather / scatter
+   that adds by atomics on the card, within F32_TOL); the fused and
+   fused_hybrid layers
+   (``sharded_fused_graph_conv``, 62 -> 64, 4 channels) at 128 and 127
+   graphs, forward and all four gradients within F32_TOL; (b)
+   ``GraphServeEngine(mesh=)`` serving the 512 Tox21 requests (fused,
+   auto) and Reaction100 (fused), logits within F32_TOL of the
+   single-device engine's; (c) ``GCNTrainer(mesh=)`` steps (Tox21 5 x 50
+   + 49 with fused, Reaction100 3 x 100 with pallas_hybrid and fused):
+   losses within 1e-5 of the single-device trainer's (Reaction100's fused,
+   whose integer-atomic order is run-dependent, within 3e-3, beside the
+   gap between two single-device runs), parameters bitwise equal across
+   the ranks;
+   (d) ``Scheduler(mesh=)`` draining 128 skewed Tox21 requests over the
+   3-rung ladder on a VirtualClock (Poisson arrivals, 1 ms apart on
+   average): the single-device scheduler's waves
+   and logits bits; (e) GAT and R-GCN serving one Tox21 wave. ``[mesh
+   *]`` lines: each part's wall ms a wave or step on the mesh beside
+   alone, the backend, each rank's launches (summed into the kernels'
+   launch counts), each mesh call's launches held on every rank to one
+   per shard of every kernel its impls run;
+14. the giant-graph tier (``examples/node_classification.py``'s settings,
    TIER): a 100k-node ``reddit_like`` graph, a static 4,096-row hot-node
    cache, batches of 512 seeds with fanouts (10, 5); ``auto``'s block
    decisions at the top-rung blocks (33,792 and 3,072 rows: the forced
@@ -140,7 +168,7 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ladders' product, the cache's hit rate, validation accuracy >= 0.5, a
    bitwise resume at step 10; ms per step in parts (prefetch on and off)
    and the device idle share of one ``auto`` epoch;
-14. the rest of the LM zoo (``phase_lm_zoo``, last, after the GCN phases
+15. the rest of the LM zoo (``phase_lm_zoo``, last, after the GCN phases
    whose checks time the host): first the flash kernel against its plain
    version at ZOO_FLASH's shapes (every zoo prefill's: Zamba2, Whisper's
    encoder, decoder and cross-attention, LLaVA), timed beside SDPA and
@@ -165,7 +193,7 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    (global norm, every leaf's cosine), finite losses, the last
    ZOO_TRAIN_DROP below the first, ms a step, peak memory under 75 GB.
 
-Before phases 4-13, the LM zoo's paths run (each model freed before the
+Before phases 4-14, the LM zoo's paths run (each model freed before the
 next):
 
 - the flash-attention kernel against its plain version at the Llama-3-8B
@@ -312,6 +340,18 @@ SCHED = dict(n_requests=512, levels=3, batch=128, flush_after=0.05,
 SCHED_IMPLS = ("auto", "fused", "pallas_coo", "pallas_csr", "pallas_ell")
 SCHED_TRAIN = dict(steps=10, log_every=5)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+# the data-parallel GCN path (phase_mesh): 2 ranks on this one card over
+# gloo, the Tox21 serving wave (and an odd 127) for the sharded ops, the
+# impls held bitwise to their single-device calls, the trainer's steps
+# (Tox21 5 x 50 + 49, Reaction100 3 x 100) and the scheduler's traffic
+MESH = dict(world=2, batch=128, odd_batch=127,
+            spmm_impls=("pallas_ell", "pallas_csr", "pallas_coo",
+                        "pallas_hybrid", "pallas_gemm"),
+            gspmm_impls=("pallas_ell", "pallas_csr", "pallas_coo"),
+            tox21_samples=299, tox21_batch=50, r100_samples=300,
+            r100_batch=100, loss_tol=1e-5, r100_fused_loss_tol=3e-3,
+            sched_requests=128, sched_impl="pallas_csr")
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
 # Llama-3-8B at full width, bf16, seed-0 random weights. Prefill: 2 x 4096
 # prompt tokens (train_4k's length; prefill_32k's 32 x 32768 is cut to fit
 # the time limit). Serving: waves of 4 slots, 8 requests.
@@ -5410,6 +5450,472 @@ def phase_sampled(device):
     return launches
 
 
+# -- the data-parallel GCN path on a device mesh (phase_mesh) -----------
+
+
+def _mesh_vjp(f, leaves, g):
+    """(out, *grads) of ``sum(f(*leaves) * g)`` for fresh leaf copies."""
+    import torch
+
+    live = [t.detach().clone().requires_grad_() for t in leaves]
+    out = f(*live)
+    grads = torch.autograd.grad((out * g).sum(), live)
+    return (out.detach(), *grads)
+
+
+def _mesh_same(what, got, want):
+    import torch
+
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs "
+                                   f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    check(torch.equal(got, want), f"{what}: not the single-device bits "
+          f"(max diff {float((got - want).abs().max()):.3e})")
+
+
+def _mesh_expect(impls, times=1, backward=False):
+    """Launches on one rank of ``times`` runs of a mesh call whose layers
+    (or calls) run ``impls``: one per shard, so one of each layer's
+    forward kernel (KERNEL_OF) and, with ``backward``, one of its dB / dU
+    kernel (``bwd_impl_for``) a run."""
+    from repro_torch.kernels.ops import bwd_impl_for
+
+    out = {}
+    for impl in impls:
+        for role in (impl, bwd_impl_for(impl))[:1 + backward]:
+            k = KERNEL_OF[role]
+            out[k] = out.get(k, 0) + times
+    return out
+
+
+class _MeshRank:
+    """One rank of ``phase_mesh``: runs every part on the mesh and on its
+    own card without the mesh, checks, times (wall between syncs) and
+    counts the mesh runs' kernel launches."""
+
+    def __init__(self, rank, mesh, backend, device):
+        self.rank, self.mesh, self.backend = rank, mesh, backend
+        self.device = device
+        self.parts = {}
+
+    def counted(self, part, fn, expect):
+        """``fn()`` with its kernel launches added to ``part``'s count;
+        fails unless they are ``expect`` ({kernel: launches}) exactly."""
+        wrappers = _reset_counters()
+        out = fn()
+        got = {k: w.launches for k, w in wrappers.items() if w.launches}
+        want = {k: n for k, n in expect.items() if n}
+        check(got == want, f"mesh {part} rank {self.rank}: launches {got}, "
+                           f"expected {want}")
+        rec = self.parts.setdefault(part, {"launches": {}, "lines": []})
+        for k, n in got.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + n
+        return out
+
+    def line(self, part, msg):
+        self.parts.setdefault(part, {"launches": {}, "lines": []})[
+            "lines"].append(msg)
+
+    @staticmethod
+    def wall(fn):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+
+def _mesh_kernels(r):
+    """(a): the sharded SpMM, g-SpMM and fused layer at the Tox21 serving
+    shape, forward and every gradient, against the single-device call."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.core.graph_conv import flatten_channels, stack_channels
+    from repro_torch.data.graphs import GraphDatasetSpec
+    from repro_torch.distributed.spmm import sharded_fused_graph_conv
+    from repro_torch.kernels.fused_graph_conv import fused_graph_conv
+    from repro_torch.kernels.ops import batched_gspmm, batched_spmm
+    from repro_torch.serving.engine import GraphServeEngine
+
+    dev, mesh = r.device, r.mesh
+    cfg = GCNConfig.tox21(impl="fused")
+    params = _params(cfg, 0, dev)
+    eng = GraphServeEngine(params, cfg, device=dev, **TOX21)
+    wave = eng.assemble(_requests(GraphDatasetSpec.tox21_like(
+        MESH["batch"], seed=0)))
+    gen = torch.Generator().manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    flat = flatten_channels(wave.adj)
+    flat = flat.with_values(torch.where(flat.values != 0,
+                                        randn(*flat.values.shape), 0.0))
+    n_out = cfg.conv_widths[0]
+    for n in (flat.batch, MESH["odd_batch"]):
+        a = dataclasses.replace(flat, **{f.name: getattr(flat, f.name)[:n]
+                                         for f in dataclasses.fields(flat)})
+        b, g = randn(n, TOX21["m_pad"], n_out), randn(n, TOX21["m_pad"],
+                                                       n_out)
+        # a g-SpMM corner's backward is plain: its forward kernel alone
+        calls = [(impl, "sum", lambda v, bb, m, impl=impl: batched_spmm(
+            a.with_values(v), bb, impl=impl, k_pad=cfg.k_pad, mesh=m),
+            _mesh_expect([impl], backward=True))
+            for impl in MESH["spmm_impls"]]
+        calls += [(impl, f"{op}-{red}",
+                   lambda v, bb, m, impl=impl, op=op, red=red:
+                   batched_gspmm(a.with_values(v), bb, op=op, reduce=red,
+                                 impl=impl, k_pad=cfg.k_pad, mesh=m),
+                   _mesh_expect([impl]))
+                  for impl in MESH["gspmm_impls"]
+                  for op, red in (("copy_lhs", "mean"), ("mul", "max"))]
+        for impl, corner, f, expect in calls:
+            def alone(f=f):
+                return _mesh_vjp(lambda v, bb: f(v, bb, None), (a.values, b),
+                                 g)
+
+            def meshed(f=f):
+                return _mesh_vjp(lambda v, bb: f(v, bb, mesh), (a.values, b),
+                                 g)
+            alone()                             # first-call costs
+            want, t1 = r.wall(alone)
+            got, t2 = r.wall(lambda: r.counted("kernels", meshed, expect))
+            # a g-SpMM corner's backward is the plain gather / scatter,
+            # which adds by atomics on the card: its entries' forward is
+            # held bitwise, its gradients within F32_TOL
+            errs = []
+            for name, x, y in zip(("C", "dValues", "dB"), got, want):
+                what = f"mesh {impl} {corner} batch {n} {name}"
+                if corner == "sum" or name == "C":
+                    _mesh_same(what, x, y)
+                else:
+                    errs.append(f"{name} {max_err(x, y, what):.2e}")
+            r.line("kernels", f"{impl} ({corner}) batch {n}: forward + "
+                   f"backward {t2:.3f} ms on the mesh, {t1:.3f} ms alone; "
+                   + ("bitwise" if not errs else "C bitwise, max abs err "
+                      + ", ".join(errs)))
+    rids, cids, vals, nnz = stack_channels(wave.adj)
+    conv = params["convs"][0]
+    for n in (MESH["batch"], MESH["odd_batch"]):
+        ids = (rids[:n], cids[:n])
+        leaves = (vals[:n], wave.x[:n], conv["w"], conv["b"])
+        g = randn(n, TOX21["m_pad"], n_out)
+        for impl in ("fused", "fused_hybrid"):
+            def alone(impl=impl):
+                return _mesh_vjp(lambda v, x, w, bb: fused_graph_conv(
+                    *ids, v, nnz[:n], x, w, bb, impl=impl), leaves, g)
+
+            def meshed(impl=impl):
+                return _mesh_vjp(lambda v, x, w, bb: sharded_fused_graph_conv(
+                    *ids, v, nnz[:n], x, w, bb, mesh=mesh, impl=impl),
+                    leaves, g)
+            alone()                             # first-call costs
+            want, t1 = r.wall(alone)
+            got, t2 = r.wall(lambda: r.counted(
+                "kernels", meshed, _mesh_expect([impl], backward=True)))
+            errs = [max_err(x, y, f"mesh {impl} batch {n} {name}")
+                    for name, x, y in zip(("Y", "dValues", "dX", "dW",
+                                           "dbias"), got, want)]
+            r.line("kernels", f"{impl} batch {n}: forward + backward "
+                   f"{t2:.3f} ms on the mesh, {t1:.3f} ms alone; max abs "
+                   f"err Y/dValues/dX/dW/dbias "
+                   + "/".join(f"{e:.2e}" for e in errs))
+
+
+def _mesh_serve(r):
+    """(b): GraphServeEngine(mesh=) against the single-device engine."""
+    import numpy as np
+    import torch
+    from repro_torch.core.gcn import GCNConfig, resolve_conv_impls
+    from repro_torch.data.graphs import GraphDatasetSpec
+    from repro_torch.serving.engine import GraphServeEngine
+
+    for tag, cfg_fn, spec, impls in (
+            ("tox21", GCNConfig.tox21, GraphDatasetSpec.tox21_like, ("fused",
+                                                                    "auto")),
+            ("reaction100", GCNConfig.reaction100,
+             GraphDatasetSpec.reaction100_like, ("fused",))):
+        data = spec(N_REQUESTS, seed=0)
+        for impl in impls:
+            cfg = cfg_fn(impl=impl)
+            params = _params(cfg, 0, r.device)
+            out = {}
+            for m in (None, r.mesh):
+                eng = GraphServeEngine(params, cfg, mesh=m, device=(
+                    r.device if m is None else None), **TOX21)
+                eng.run_wave([])                        # first-call costs
+                requests = _requests(data)
+
+                def run():
+                    return eng.run(requests)
+                if m is None:
+                    _, ms = r.wall(run)
+                else:
+                    # auto: each layer's per-shard decision
+                    layers = [d.impl for d in resolve_conv_impls(
+                        cfg, eng.batch, eng.m_pad, eng.nnz_pad,
+                        device=eng.device, mesh=m)]
+                    _, ms = r.wall(lambda: r.counted(
+                        "serve", run, _mesh_expect(
+                            layers, -(-len(requests) // eng.batch))))
+                check(all(q.done for q in requests),
+                      f"mesh serve {tag} {impl}: a request not done")
+                out[m is None] = (np.stack([q.logits for q in requests]),
+                                  ms / (len(requests) / eng.batch))
+            (single, t1), (meshed, t2) = out[True], out[False]
+            err = max_err(torch.from_numpy(meshed), torch.from_numpy(single),
+                          f"mesh serve {tag} {impl} logits")
+            r.line("serve", f"{tag} impl={impl}: {N_REQUESTS} requests in "
+                   f"waves of {TOX21['batch']}: {t2:.3f} ms a wave on the "
+                   f"mesh, {t1:.3f} ms alone; logits max abs err {err:.2e}")
+
+
+def _mesh_train(r):
+    """(c): GCNTrainer(mesh=) steps against the single-device trainer's."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.data.graphs import GraphDatasetSpec, batches, generate
+    from repro_torch.launch.mesh import all_gather_cat
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.training.trainer import GCNTrainer, TrainerConfig
+
+    for tag, cfg_fn, spec_fn, n, bs, impl in (
+            ("tox21", GCNConfig.tox21, GraphDatasetSpec.tox21_like,
+             MESH["tox21_samples"], MESH["tox21_batch"], "fused"),
+            ("reaction100", GCNConfig.reaction100,
+             GraphDatasetSpec.reaction100_like, MESH["r100_samples"],
+             MESH["r100_batch"], "pallas_hybrid"),
+            ("reaction100", GCNConfig.reaction100,
+             GraphDatasetSpec.reaction100_like, MESH["r100_samples"],
+             MESH["r100_batch"], "fused")):
+        spec = spec_fn(n, seed=0)
+        data = list(batches(generate(spec), spec, bs, drop_remainder=False))
+        cfg = cfg_fn(impl=impl)
+        expect = _mesh_expect([impl] * len(cfg.conv_widths), backward=True)
+        runs = {}
+        # the single-device trainer twice: the gap between its runs is the
+        # noise floor the mesh run's gap stands beside
+        for run, m in (("alone", None), ("again", None), ("mesh", r.mesh)):
+            tr = GCNTrainer(cfg, AdamConfig(lr=3e-3), TrainerConfig(
+                str(MESH_DIR / f"ckpt{r.rank}")), mesh=m,
+                device=r.device if m is None else None, telemetry=False)
+            params, state = tr.init_state()
+            losses, ms = [], []
+            for b in data:
+                def step():
+                    return tr.train_step(params, state, tr.place_batch(b))
+                if m is None:
+                    (params, state, met), t = r.wall(step)
+                else:
+                    (params, state, met), t = r.wall(
+                        lambda: r.counted("train", step, expect))
+                losses.append(float(met["loss"]))
+                ms.append(t)
+            runs[run] = (losses, ms, params)
+        (l1, ms1, _), (l2, ms2, p2) = runs["alone"], runs["mesh"]
+        gap = max(abs(x - y) for x, y in zip(l1, l2))
+        floor = max(abs(x - y) for x, y in zip(l1, runs["again"][0]))
+        # the fused kernel's small branch adds a row in integer-atomic
+        # order, a run-dependent rounding that Adam's steps carry: at
+        # Reaction100 the mesh run's losses have come within 8.2e-4 of
+        # the single-device run's (H100 80GB HBM3, 700 W), so it is held
+        # to 3e-3
+        atol = MESH["r100_fused_loss_tol" if (tag, impl) == (
+            "reaction100", "fused") else "loss_tol"]
+        check(gap <= atol, f"mesh train {tag} {impl}: losses {l2} vs "
+              f"single-device {l1} (gap {gap:.3e}, atol {atol})")
+        flat = torch.cat([t.reshape(-1) for t in tree.leaves(p2)])[None]
+        every = all_gather_cat(flat, r.mesh)
+        check(bool((every == every[:1]).all()),
+              f"mesh train {tag}: parameters differ across ranks")
+        r.line("train", f"{tag} impl={impl}: {len(data)} steps (batches "
+               f"{[b['x'].shape[0] for b in data]}): median "
+               f"{statistics.median(ms2):.3f} ms a step on the mesh, "
+               f"{statistics.median(ms1):.3f} ms alone; losses "
+               f"{[round(x, 6) for x in l2]}, max gap {gap:.2e} (atol "
+               f"{atol}; two single-device runs differ by {floor:.2e}); "
+               "parameters bitwise equal across ranks")
+
+
+def _mesh_scheduler(r):
+    """(d): Scheduler(mesh=) on a VirtualClock (Poisson arrivals, 1 ms
+    apart on average, seed 0) against the single-device scheduler: the
+    same waves, the same logits."""
+    import numpy as np
+    import torch
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.data.graphs import GraphDatasetSpec, generate
+    from repro_torch.scheduler import Scheduler, TierPolicy, VirtualClock
+
+    spec = GraphDatasetSpec.tox21_like(MESH["sched_requests"],
+                                       size_dist="skewed", seed=0)
+    data = generate(spec)
+    policy = TierPolicy.from_requests(
+        [(s.n_nodes, max(len(x) for x in s.rows)) for s in data],
+        levels=SCHED["levels"], batch=SCHED["batch"])
+    cfg = GCNConfig.tox21(impl=MESH["sched_impl"])
+    params = _params(cfg, 0, r.device)
+    arrivals = np.cumsum(np.random.default_rng(0).exponential(
+        1e-3, len(data))).tolist()
+    runs = {}
+    for m in (None, r.mesh):
+        sched = Scheduler(params, cfg, tiers=policy, clock=VirtualClock(),
+                          service_model=lambda tier, k: 1e-3 + 1e-5 * k,
+                          mesh=m, device=r.device if m is None else None)
+        reqs = _requests(spec)
+        sched.warmup(reqs)
+
+        def drain():
+            return sched.serve(reqs, arrivals=arrivals)
+        if m is None:
+            _, ms = r.wall(drain)
+            n_waves = len(sched.metrics.waves)
+        else:
+            # the single-device waves (held below): each wave's layers run
+            # sched_impl's kernel once per shard
+            _, ms = r.wall(lambda: r.counted(
+                "scheduler", drain, _mesh_expect(
+                    [cfg.impl] * len(cfg.conv_widths), n_waves)))
+        check(all(q.done for q in reqs), "mesh scheduler: a request not done")
+        waves = sorted((p.seq, p.served_tier.key, p.dispatch)
+                       for p in sched.completed)
+        runs[m is None] = (reqs, waves, ms, len({w[2] for w in waves}))
+    (q1, w1, ms1, n1), (q2, w2, ms2, n2) = runs[True], runs[False]
+    check(w1 == w2, "mesh scheduler: the waves differ from the "
+                    "single-device scheduler's")
+    for i, (a, b) in enumerate(zip(q2, q1)):
+        _mesh_same(f"mesh scheduler request {i} logits",
+                   torch.from_numpy(a.logits), torch.from_numpy(b.logits))
+    r.line("scheduler", f"{len(q2)} skewed Tox21 requests over "
+           f"{[t.key for t in policy.tiers]}, impl={MESH['sched_impl']}: "
+           f"{n2} waves, {ms2 / n2:.3f} ms a wave on the mesh, "
+           f"{ms1 / n1:.3f} ms alone; the single-device waves and logits "
+           "bits")
+
+
+def _mesh_gnn(r):
+    """(e): GAT and R-GCN serve one Tox21 wave under the mesh."""
+    import numpy as np
+    import torch
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.data.graphs import GraphDatasetSpec
+    from repro_torch.serving.engine import GraphServeEngine
+
+    spec = GraphDatasetSpec.tox21_like(TOX21["batch"], seed=0)
+    for layer, impl in (("gat", "pallas_csr"), ("rgcn", "pallas_coo")):
+        cfg = GCNConfig.tox21(layer=layer, impl=impl)
+        params = _params(cfg, 0, r.device)
+        out = {}
+        for m in (None, r.mesh):
+            eng = GraphServeEngine(params, cfg, mesh=m, device=(
+                r.device if m is None else None), **TOX21)
+            eng.run_wave([])
+            reqs = _requests(spec)
+            # a layer: its g-SpMM kernel once per shard (and R-GCN's
+            # grouped matmul, local and replicated, once)
+            layers = len(cfg.conv_widths)
+            expect = _mesh_expect([impl] * layers)
+            if layer == "rgcn":
+                expect["grouped_matmul"] = layers
+            if m is None:
+                _, ms = r.wall(lambda: eng.run_wave(reqs))
+            else:
+                _, ms = r.wall(lambda: r.counted(
+                    "gnn", lambda: eng.run_wave(reqs), expect))
+            out[m is None] = (torch.from_numpy(np.stack(
+                [q.logits for q in reqs])), ms)
+        (single, t1), (meshed, t2) = out[True], out[False]
+        if layer == "rgcn":
+            _mesh_same("mesh rgcn logits", meshed, single)
+            how = "bitwise"
+        else:       # segment_softmax adds by atomics on the card
+            how = f"max abs err {max_err(meshed, single, 'mesh gat'):.2e}"
+        r.line("gnn", f"{layer} impl={impl}: one wave of {TOX21['batch']}: "
+               f"{t2:.3f} ms on the mesh, {t1:.3f} ms alone; logits {how}")
+
+
+def _mesh_rank(rank: int, world: int, store: str) -> None:
+    """A spawned rank of ``phase_mesh``: joins the group, builds the mesh,
+    runs parts (a)-(e) and writes what it measured for the parent."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks, make_mesh, mesh_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = init_ranks(rank, world, f"file://{store}/store")
+    mesh = make_mesh((world,), ("data",))
+    r = _MeshRank(rank, mesh, backend, mesh_device(mesh))
+    t0 = time.perf_counter()
+    for part in (_mesh_kernels, _mesh_serve, _mesh_train, _mesh_scheduler,
+                 _mesh_gnn):
+        part(r)
+    dist.destroy_process_group()
+    (Path(store) / f"rank{rank}.json").write_text(json.dumps(
+        {"backend": backend, "device": str(r.device), "parts": r.parts,
+         "seconds": time.perf_counter() - t0}))
+
+
+def phase_mesh(device):
+    """The data-parallel GCN path (``repro_torch.distributed.spmm``) on a
+    2-rank mesh on this one card (gloo: NCCL refuses two ranks on one GPU),
+    full width, seed 0, ranks spawned: (a) the sharded SpMM (pallas_ell,
+    pallas_csr, pallas_coo, pallas_hybrid, pallas_gemm), the g-SpMM entries
+    ((copy_lhs, mean), (mul, max)) at the stacked Tox21 serving call (4 x
+    128 matrices of 56 rows, n_b 64) and at 127 matrices, and the fused
+    and fused_hybrid layers (62 -> 64, 4 channels) at 128 and 127 graphs,
+    forward and every gradient against the single-device call: bitwise,
+    but the fused layers and the g-SpMM gradients (a plain gather /
+    scatter that adds by atomics on the card) within F32_TOL; (b)
+    ``GraphServeEngine(mesh=)``
+    serving 512 Tox21 requests (fused, auto) and Reaction100 (fused); (c)
+    ``GCNTrainer(mesh=)`` steps (Tox21 5 x 50 + 49 with fused,
+    Reaction100 3 x 100 with pallas_hybrid and fused): losses within
+    MESH["loss_tol"] of the single-device trainer's (Reaction100's fused
+    within 3e-3: its atomic order is run-dependent), the parameters
+    bitwise equal across ranks; (d) ``Scheduler(mesh=)`` drains
+    128 skewed Tox21 requests on a VirtualClock: the single-device waves
+    and logits; (e) GAT and R-GCN serve one Tox21 wave. Returns each part's
+    launches, summed over the ranks."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    world = MESH["world"]
+    mp.start_processes(_mesh_rank, args=(world, str(MESH_DIR)),
+                       nprocs=world, join=True, start_method="spawn")
+    ranks = [json.loads((MESH_DIR / f"rank{k}.json").read_text())
+             for k in range(world)]
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    paths = {}
+    for part in ("kernels", "serve", "train", "scheduler", "gnn"):
+        total = {}
+        for k, rk in enumerate(ranks):
+            rec = rk["parts"][part]
+            for msg in rec["lines"] if k == 0 else ():
+                log(f"[mesh {part}] {msg}")
+            log(f"[mesh {part}] rank {k} ({rk['device']}, {rk['backend']}) "
+                f"launches {rec['launches']}")
+            for kname, n in rec["launches"].items():
+                total[kname] = total.get(kname, 0) + n
+        check(bool(total), f"mesh {part}: no kernel launched")
+        paths[f"mesh {part}"] = total
+    log(f"[mesh] {world} ranks over {ranks[0]['backend']} on one card, "
+        f"ranks {[round(rk['seconds'], 1) for rk in ranks]} s, phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -5477,6 +5983,7 @@ def main() -> int:
     paths.update(phase_precision_paths(device))
     paths.update(phase_autotune(device))
     paths.update(phase_scheduler(device, card, errs))
+    paths.update(phase_mesh(device))
     paths.update(phase_sampled(device))
     paths.update(phase_lm_zoo(device, rows, errs))
     paths.update(lm_paths)

@@ -11,9 +11,15 @@ from __future__ import annotations
 import torch
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, mesh=None) -> torch.device:
     """The device an entry point runs on: ``None`` means the current CUDA
-    device, and raises when there is none; anything else is taken as asked."""
+    device, and raises when there is none; anything else is taken as asked.
+    Under a ``DeviceMesh``, this rank's device on the mesh
+    (``repro_torch.launch.mesh.check_device``)."""
+    if mesh is not None:
+        from repro_torch.launch.mesh import check_device
+
+        return check_device(mesh, device)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -234,6 +234,15 @@ class Workload:
         return (self.op != "mul" or self.reduce != "sum"
                 or self.d_e is not None)
 
+    def shard(self, n_shards: int) -> "Workload":
+        """The per-shard view of this workload on an ``n_shards``-way mesh:
+        batch ``ceil(batch / n_shards)`` (the batch is padded to a multiple
+        before it is split), every other field unchanged. It is the workload
+        each rank runs under ``repro_torch.distributed.spmm``, so
+        ``impl="auto"`` resolves against it and the tuning cache keys on
+        it."""
+        return dataclasses.replace(self, batch=-(-self.batch // n_shards))
+
 
 @functools.lru_cache(maxsize=4096)
 def spmm_plan(w: Workload, impl: str | None = None) -> BatchPlan:

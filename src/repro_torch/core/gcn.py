@@ -126,7 +126,7 @@ def init_gcn(cfg: GCNConfig, *, generator: torch.Generator | None = None,
 
 
 def resolve_conv_impls(cfg: GCNConfig, batch: int, m_pad: int, nnz_pad: int,
-                       *, itemsize: int = 4, device=None):
+                       *, itemsize: int = 4, device=None, mesh=None):
     """The resolved impl of EVERY conv layer of the stack, one
     ``repro_torch.autotune.Decision`` per ``cfg.conv_widths`` entry, as
     :func:`apply_gcn` resolves them on ``device`` (kernel impls are ranked
@@ -137,10 +137,17 @@ def resolve_conv_impls(cfg: GCNConfig, batch: int, m_pad: int, nnz_pad: int,
     picks the workload: the graph-conv LAYER (``"gcn"``), the attention's
     vector-edge (mul, sum) g-SpMM over the head-flattened batch
     (``"gat"``), or the (copy_lhs, mean) g-SpMM over the relation-
-    flattened batch (``"rgcn"``). Host work alone."""
+    flattened batch (``"rgcn"``). With ``mesh=``, each layer's per-shard
+    workload, the shapes each rank runs (on the mesh's device unless the
+    caller names one). Host work alone."""
     from repro_torch import autotune
 
-    allow_pallas = resolve_device(device).type == "cuda"
+    n_shards = 1
+    if mesh is not None:
+        from repro_torch.distributed.spmm import shard_count
+
+        n_shards = shard_count(mesh, "data")
+    allow_pallas = resolve_device(device, mesh).type == "cuda"
     decisions = []
     n_in = cfg.n_features
     dtype = (autotune.precision_of(cfg.impl)[1] if cfg.impl != "auto"
@@ -162,6 +169,7 @@ def resolve_conv_impls(cfg: GCNConfig, batch: int, m_pad: int, nnz_pad: int,
                 batch=batch, m_pad=m_pad, nnz_pad=nnz_pad, k_pad=cfg.k_pad,
                 n_b=n_out, itemsize=itemsize, channels=cfg.channels,
                 n_in=n_in, dtype=dtype)
+        w = w.shard(n_shards)
         if cfg.impl != "auto":
             decisions.append(autotune.forced_decision(w, cfg.impl))
         elif cfg.layer == "gcn":
@@ -196,9 +204,13 @@ def _batch_norm(p, x, mask, mode: str = "batch"):
 
 
 def apply_gcn(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
-              x: torch.Tensor, n_nodes: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor, n_nodes: torch.Tensor, *,
+              mesh=None) -> torch.Tensor:
     """Logits (batch, n_tasks) for x (batch, m_pad, n_features) and per-channel
-    adjacencies; runs on the device the tensors lie on."""
+    adjacencies; runs on the device the tensors lie on. ``mesh=`` shards
+    every conv layer's batch over the mesh's ``"data"`` axis
+    (``repro_torch.distributed.spmm``); the batch-norm, readout and head
+    run on the global tensors every rank holds."""
     check_config(cfg)
     if cfg.layer != "gcn" and not cfg.batched:
         # GAT and R-GCN exist only on the batched g-SpMM stack: there is no
@@ -209,12 +221,15 @@ def apply_gcn(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
     h = x
     for conv_p, bn_p in zip(params["convs"], params["bns"]):
         if cfg.layer == "gat":
-            h = gat_layer(conv_p, adj[0], h, impl=cfg.impl, k_pad=cfg.k_pad)
+            h = gat_layer(conv_p, adj[0], h, impl=cfg.impl, k_pad=cfg.k_pad,
+                          mesh=mesh)
         elif cfg.layer == "rgcn":
-            h = rgcn_layer(conv_p, adj, h, impl=cfg.impl, k_pad=cfg.k_pad)
+            h = rgcn_layer(conv_p, adj, h, impl=cfg.impl, k_pad=cfg.k_pad,
+                           mesh=mesh)
         elif cfg.batched:
             h = graph_conv_batched(conv_p, adj, h, impl=cfg.impl,
-                                   k_pad=cfg.k_pad, precision=cfg.precision)
+                                   k_pad=cfg.k_pad, mesh=mesh,
+                                   precision=cfg.precision)
         else:
             h = graph_conv_nonbatched(conv_p, adj, h)
         h = _batch_norm(bn_p, h * mask, mask, cfg.bn_mode)
@@ -287,13 +302,14 @@ def gcn_node_loss(params, cfg: GCNConfig, adjs: Sequence[BatchedCOO],
 
 
 def gcn_loss(params, cfg: GCNConfig, adj: Sequence[BatchedCOO],
-             x: torch.Tensor, n_nodes: torch.Tensor,
-             labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+             x: torch.Tensor, n_nodes: torch.Tensor, labels: torch.Tensor, *,
+             mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(loss, accuracy) as 0-d tensors, with the reference's expressions:
     the stable sigmoid cross-entropy over 12 binary tasks (labels
     (batch, n_tasks) in {0, 1}), or softmax cross-entropy over classes
-    (labels (batch,) class ids)."""
-    logits = apply_gcn(params, cfg, adj, x, n_nodes)
+    (labels (batch,) class ids). ``mesh=`` as :func:`apply_gcn`: the mean
+    runs over the global batch on every rank."""
+    logits = apply_gcn(params, cfg, adj, x, n_nodes, mesh=mesh)
     if cfg.task == "multitask_binary":
         z = logits
         loss = (torch.clamp(z, min=0) - z * labels

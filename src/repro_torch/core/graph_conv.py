@@ -72,13 +72,15 @@ def flatten_channels(adj: Sequence[BatchedCOO]) -> BatchedCOO:
 
 def resolve_graph_conv_impl(adj: Sequence[BatchedCOO], x: torch.Tensor,
                             n_out: int, *, impl: str = "auto",
-                            k_pad: int | None = None,
+                            k_pad: int | None = None, mesh=None,
+                            mesh_axis: str = "data",
                             precision: str = "f32"):
     """Resolve ``impl`` against the LAYER workload of one graph-conv call:
     a ``repro_torch.autotune.Decision`` whose candidates are the fused
     kernels beside every SpMM impl priced as the stacked layer, and under a
     reduced ``precision`` their variants. Kernel impls are ranked only on
-    CUDA tensors. Host work alone: no PyTorch op, no sync."""
+    CUDA tensors. With ``mesh=``, against the per-shard workload each rank
+    runs. Host work alone: no PyTorch op, no sync."""
     from repro_torch import autotune
 
     batch, m_pad, n_in = x.shape
@@ -87,6 +89,10 @@ def resolve_graph_conv_impl(adj: Sequence[BatchedCOO], x: torch.Tensor,
         batch=batch, m_pad=m_pad, nnz_pad=max(a.nnz_pad for a in adj),
         k_pad=k_pad, n_b=n_out, itemsize=x.element_size(),
         channels=len(adj), n_in=n_in, dtype=dtype)
+    if mesh is not None:
+        from repro_torch.distributed.spmm import shard_count
+
+        w = w.shard(shard_count(mesh, mesh_axis))
     if impl != "auto":
         return autotune.forced_decision(w, impl)
     return autotune.select_graph_conv_impl(
@@ -96,7 +102,7 @@ def resolve_graph_conv_impl(adj: Sequence[BatchedCOO], x: torch.Tensor,
 
 def graph_conv_batched(params, adj: Sequence[BatchedCOO], x: torch.Tensor,
                        *, impl: str = "auto", k_pad: int | None = None,
-                       epilogue: str = "none",
+                       mesh=None, epilogue: str = "none",
                        precision: str = "f32") -> torch.Tensor:
     """Paper Fig. 7 and beyond: the whole mini-batch's layer in O(1) ops.
 
@@ -114,12 +120,20 @@ def graph_conv_batched(params, adj: Sequence[BatchedCOO], x: torch.Tensor,
 
     ``impl="auto"`` resolves per layer workload with ``precision``
     ("f32"|"bf16"|"i8") as its storage policy; a pinned variant applies
-    its own."""
+    its own.
+
+    ``mesh=`` (a ``DeviceMesh``) shards the batch over its ``"data"`` axis:
+    the fused layer runs once per rank's slice
+    (``distributed.spmm.sharded_fused_graph_conv``), the stacked form's
+    SpMM through ``sharded_batched_spmm`` with the einsum and channel sum
+    on the global tensors of every rank."""
     check_impl(impl)
+    concrete = impl
     if impl == "auto":
-        impl = resolve_graph_conv_impl(adj, x, params["w"].shape[-1],
-                                       k_pad=k_pad, precision=precision).impl
-    base, policy = precision_of(impl)
+        concrete = resolve_graph_conv_impl(
+            adj, x, params["w"].shape[-1], k_pad=k_pad, mesh=mesh,
+            precision=precision).impl
+    base, policy = precision_of(concrete)
     if base.startswith("fused"):
         rids, cids, vals, nnz = stack_channels(adj)
         xx, ww, bb = x, params["w"], params["b"]
@@ -129,17 +143,28 @@ def graph_conv_batched(params, adj: Sequence[BatchedCOO], x: torch.Tensor,
             cids = narrow_col_ids(cids, m_pad)
             vals, xx, ww, bb = (t.to(torch.bfloat16)
                                 for t in (vals, xx, ww, bb))
-        y = fused_graph_conv(rids, cids, vals, nnz, xx, ww, bb,
-                             epilogue=epilogue, impl=impl)
+        if mesh is not None:
+            from repro_torch.distributed.spmm import sharded_fused_graph_conv
+
+            y = sharded_fused_graph_conv(rids, cids, vals, nnz, xx, ww, bb,
+                                         mesh=mesh, epilogue=epilogue,
+                                         impl=concrete)
+        else:
+            y = fused_graph_conv(rids, cids, vals, nnz, xx, ww, bb,
+                                 epilogue=epilogue, impl=concrete)
         return y.to(x.dtype) if policy != "f32" else y
     channels = len(adj)
     batch, m_pad = x.shape[0], x.shape[1]
     n_out = params["w"].shape[-1]
     u = (torch.einsum("bmn,cnf->cbmf", x, params["w"])
          + params["b"][:, None, None, :])
+    # on a mesh under "auto" the sharded SpMM re-resolves against the
+    # per-shard stacked workload it runs; otherwise the layer's pick
+    spmm_impl = "auto" if impl == "auto" and mesh is not None else concrete
     c = batched_spmm(flatten_channels(adj),
                      u.reshape(channels * batch, m_pad, n_out),
-                     impl=impl, k_pad=k_pad)
+                     impl=spmm_impl, k_pad=k_pad, mesh=mesh,
+                     precision=precision)
     y = c.reshape(channels, batch, m_pad, n_out).sum(dim=0)
     return torch.relu(y) if epilogue == "relu" else y
 

@@ -1,5 +1,7 @@
-"""Distribution on one device: the train step builder (``steps``) and int8
-error-feedback gradient compression (``compression``). The mesh half of
-the reference's package (sharding rules, pipeline, the sharded SpMM, the
-prefill and decode step builders) is not ported yet (ROADMAP.md queue 1:
-sharding and the distributed stack)."""
+"""Distribution: the train step builder (``steps``, one device), int8
+error-feedback gradient compression (``compression``), and the
+data-parallel GCN half of the reference's package: the mesh-sharded batched
+SpMM, g-SpMM and fused layer (``spmm``) and the batch sharding rule
+(``sharding.batch_specs``). The LM half (the parameter, cache and ZeRO
+rules, ``pipeline``, the prefill and decode step builders) is not ported
+yet (ROADMAP.md queue 1: sharding and the distributed stack)."""

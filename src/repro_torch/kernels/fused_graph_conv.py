@@ -320,23 +320,57 @@ def fused_bwd(rids, cids, values, x, w, bias, y, dy, *, epilogue: str,
     return dvals, dx, dw, db, (dz if need_res else None)
 
 
+def plan_fused_layer(impl: str, row_ids: torch.Tensor, x: torch.Tensor,
+                     w: torch.Tensor, *, batch: int | None = None):
+    """(plan, hplan) of one fused launch of ``impl`` over ``batch`` samples
+    (``row_ids.shape[0]`` unless given: a mesh shard passes its slice's
+    batch) of ``row_ids`` / ``x`` / ``w``'s geometry; ``hplan`` is None but
+    for ``fused_hybrid``. Raises for an unknown impl and at planner case 3,
+    which the fused kernel does not batch."""
+    if impl not in FUSED_IMPLS:
+        raise ValueError(f"impl={impl!r}; expected one of {FUSED_IMPLS}")
+    _, channels, nnz_pad = row_ids.shape
+    batch = row_ids.shape[0] if batch is None else batch
+    plan = plan_fused_graph_conv(batch=batch, m_pad=x.shape[1],
+                                 n_in=x.shape[2], n_out=w.shape[-1],
+                                 itemsize=x.element_size())
+    if plan.case == 3:
+        raise ValueError(
+            f"m_pad={plan.m_pad} is planner case 3 (> LARGE_M): the fused "
+            "kernel does not batch matrices this large — use the stacked "
+            "graph_conv_batched fallback")
+    hplan = None
+    if impl == "fused_hybrid":
+        hplan = plan_hybrid(batch=batch, m_pad=x.shape[1], n_b=w.shape[-1],
+                            nnz_pad=channels * nnz_pad)
+    return plan, hplan
+
+
+def fused_layer_forward(rids, cids, values, nnz, x, w, bias, residual=None,
+                        *, plan: BatchPlan, hplan: HybridPlan | None,
+                        epilogue: str, impl: str) -> torch.Tensor:
+    """One fused launch of ``impl`` with :func:`plan_fused_layer`'s plans:
+    the bf16 entry, the plain fused kernel, or the hybrid split."""
+    if impl == "fused_bf16":
+        return fused_forward_bf16(rids, cids, values, runtime_chunks(nnz), x,
+                                  w, bias, residual, plan=plan,
+                                  epilogue=epilogue)
+    if hplan is None:
+        return fused_forward(rids, cids, values, runtime_chunks(nnz), x, w,
+                             bias, residual, plan=plan, epilogue=epilogue)
+    return fused_hybrid_forward(rids, cids, values, nnz, x, w, bias, residual,
+                                plan=plan, hplan=hplan, epilogue=epilogue)
+
+
 class _FusedGraphConv(torch.autograd.Function):
     """The fused layer with the reference's VJP (:func:`fused_bwd`)."""
 
     @staticmethod
     def forward(ctx, values, x, w, bias, residual, rids, cids, nnz, plan,
                 hplan, epilogue, impl):
-        if impl == "fused_bf16":
-            y = fused_forward_bf16(rids, cids, values, runtime_chunks(nnz), x,
-                                   w, bias, residual, plan=plan,
-                                   epilogue=epilogue)
-        elif hplan is None:
-            y = fused_forward(rids, cids, values, runtime_chunks(nnz), x, w,
-                              bias, residual, plan=plan, epilogue=epilogue)
-        else:
-            y = fused_hybrid_forward(rids, cids, values, nnz, x, w, bias,
-                                     residual, plan=plan, hplan=hplan,
-                                     epilogue=epilogue)
+        y = fused_layer_forward(rids, cids, values, nnz, x, w, bias, residual,
+                                plan=plan, hplan=hplan, epilogue=epilogue,
+                                impl=impl)
         ctx.save_for_backward(rids, cids, values, x, w, bias, y)
         ctx.epilogue = epilogue
         ctx.impl = impl
@@ -367,20 +401,6 @@ def fused_graph_conv(row_ids: torch.Tensor, col_ids: torch.Tensor,
     Differentiable in ``values``, ``x``, ``w``, ``bias`` and ``residual``;
     on CUDA tensors the backward's dU runs the COO kernel (its bf16 entry
     for ``fused_bf16``)."""
-    if impl not in FUSED_IMPLS:
-        raise ValueError(f"impl={impl!r}; expected one of {FUSED_IMPLS}")
-    batch, channels, nnz_pad = row_ids.shape
-    plan = plan_fused_graph_conv(batch=batch, m_pad=x.shape[1],
-                                 n_in=x.shape[2], n_out=w.shape[-1],
-                                 itemsize=x.element_size())
-    if plan.case == 3:
-        raise ValueError(
-            f"m_pad={plan.m_pad} is planner case 3 (> LARGE_M): the fused "
-            "kernel does not batch matrices this large — use the stacked "
-            "graph_conv_batched fallback")
-    hplan = None
-    if impl == "fused_hybrid":
-        hplan = plan_hybrid(batch=batch, m_pad=x.shape[1], n_b=w.shape[-1],
-                            nnz_pad=channels * nnz_pad)
+    plan, hplan = plan_fused_layer(impl, row_ids, x, w)
     return _FusedGraphConv.apply(values, x, w, bias, residual, row_ids,
                                  col_ids, nnz, plan, hplan, epilogue, impl)

@@ -487,26 +487,7 @@ class _SpMM(torch.autograd.Function):
         return dval, db, None, None, None, None, None
 
 
-def batched_spmm(a: BatchedCOO, b: torch.Tensor, *, impl: str = "auto",
-                 k_pad: int | None = None,
-                 precision: str = "f32") -> torch.Tensor:
-    """C[s] = A[s] @ B[s] for every sample s of the batch.
-
-    a: BatchedCOO over square (m_pad, m_pad) adjacencies with scalar edge
-    values; b: (batch, m_pad, n_b). Differentiable in ``a.values`` and
-    ``b``; on CUDA tensors a kernel impl's backward runs kernels too.
-    ``impl="auto"`` resolves from the call's shapes (:func:`resolve_impl`)
-    with ``precision`` as its storage policy; a concrete impl carries its
-    own policy and ignores ``precision``."""
-    check_impl(impl)
-    tele = obs_trace.enabled()
-    decision = None
-    if impl == "auto" or tele:
-        # telemetry also resolves a CONCRETE impl (a forced Decision), so
-        # the span carries the same workload, plan and case provenance
-        decision = resolve_impl(a, b, impl=impl, k_pad=k_pad,
-                                precision=precision)
-        impl = decision.impl
+def _check_spmm_operands(impl: str, a: BatchedCOO) -> None:
     if precision_of(impl)[0].startswith("fused"):
         raise ValueError(
             f"impl={impl!r} is the graph-conv LAYER kernel (it needs W and "
@@ -515,6 +496,41 @@ def batched_spmm(a: BatchedCOO, b: torch.Tensor, *, impl: str = "auto",
     if a.values.dim() != 2:
         raise ValueError("vector edge values are g-SpMM: call "
                          "batched_gspmm(op='mul', reduce='sum')")
+
+
+def batched_spmm(a: BatchedCOO, b: torch.Tensor, *, impl: str = "auto",
+                 k_pad: int | None = None, precision: str = "f32",
+                 mesh=None, mesh_axis: str = "data") -> torch.Tensor:
+    """C[s] = A[s] @ B[s] for every sample s of the batch.
+
+    a: BatchedCOO over square (m_pad, m_pad) adjacencies with scalar edge
+    values; b: (batch, m_pad, n_b). Differentiable in ``a.values`` and
+    ``b``; on CUDA tensors a kernel impl's backward runs kernels too.
+    ``impl="auto"`` resolves from the call's shapes (:func:`resolve_impl`)
+    with ``precision`` as its storage policy; a concrete impl carries its
+    own policy and ignores ``precision``.
+
+    ``mesh=`` (a ``DeviceMesh``) routes the call through
+    :func:`repro_torch.distributed.spmm.sharded_batched_spmm`: the batch
+    split over ``mesh_axis``, ``auto`` resolved against the per-shard
+    workload, the global result on every rank."""
+    check_impl(impl)
+    if mesh is not None:
+        from repro_torch.distributed.spmm import sharded_batched_spmm
+
+        _check_spmm_operands(impl, a)
+        return sharded_batched_spmm(a, b, mesh=mesh, axis=mesh_axis,
+                                    impl=impl, k_pad=k_pad,
+                                    precision=precision)
+    tele = obs_trace.enabled()
+    decision = None
+    if impl == "auto" or tele:
+        # telemetry also resolves a CONCRETE impl (a forced Decision), so
+        # the span carries the same workload, plan and case provenance
+        decision = resolve_impl(a, b, impl=impl, k_pad=k_pad,
+                                precision=precision)
+        impl = decision.impl
+    _check_spmm_operands(impl, a)
     if tele:
         return _traced_dispatch(
             lambda values, b: _SpMM.apply(values, b, a.row_ids, a.col_ids,
@@ -676,7 +692,8 @@ class _GSpMM(torch.autograd.Function):
 
 def batched_gspmm(a: BatchedCOO, b: torch.Tensor, *, op: str = "mul",
                   reduce: str = "sum", impl: str = "auto",
-                  k_pad: int | None = None) -> torch.Tensor:
+                  k_pad: int | None = None, mesh=None,
+                  mesh_axis: str = "data") -> torch.Tensor:
     """Generalized SpMM / message passing: per sample s,
     ``C[s][r] = reduce_{edges (r, c)} op(B[s][c], e)`` with ``e =
     a.values``, scalars (batch, nnz_pad) or vectors (batch, nnz_pad, d_e)
@@ -685,15 +702,23 @@ def batched_gspmm(a: BatchedCOO, b: torch.Tensor, *, op: str = "mul",
 
     (mul, sum) with scalar edges IS :func:`batched_spmm`, over its whole
     registry; every other corner runs :data:`GSPMM_IMPLS`, ``auto``
-    resolving over them (:func:`resolve_gspmm_impl`)."""
+    resolving over them (:func:`resolve_gspmm_impl`). ``mesh=`` routes the
+    call through :func:`repro_torch.distributed.spmm.sharded_batched_gspmm`
+    (the batch split over ``mesh_axis``)."""
     if op not in GSPMM_OPS:
         raise ValueError(f"unknown g-SpMM op {op!r}; expected {GSPMM_OPS}")
     if reduce not in GSPMM_REDUCES:
         raise ValueError(
             f"unknown g-SpMM reduce {reduce!r}; expected {GSPMM_REDUCES}")
     if (op, reduce) == ("mul", "sum") and a.values.dim() == 2:
-        return batched_spmm(a, b, impl=impl, k_pad=k_pad)
+        return batched_spmm(a, b, impl=impl, k_pad=k_pad, mesh=mesh,
+                            mesh_axis=mesh_axis)
     check_impl(impl)
+    if mesh is not None:
+        from repro_torch.distributed.spmm import sharded_batched_gspmm
+
+        return sharded_batched_gspmm(a, b, op=op, reduce=reduce, mesh=mesh,
+                                     axis=mesh_axis, impl=impl, k_pad=k_pad)
     tele = obs_trace.enabled()
     decision = None
     if impl == "auto" or tele:

@@ -59,7 +59,7 @@ def init_gat_layer(n_in: int, n_out: int, heads: int, *,
 
 def gat_layer(params, adj: BatchedCOO, x: torch.Tensor, *,
               impl: str = "auto",
-              k_pad: int | None = None,
+              k_pad: int | None = None, mesh=None,
               negative_slope: float = 0.2) -> torch.Tensor:
     """One multi-head graph-attention layer over x (batch, m_pad, n_in) →
     (batch, m_pad, n_out), the heads' outputs concatenated.
@@ -70,7 +70,9 @@ def gat_layer(params, adj: BatchedCOO, x: torch.Tensor, *,
     repeated over the head width as vector edges. The edge values of
     ``adj`` are ignored. The reference's gathers clamp an out-of-range id
     (the padding row id ``m_pad`` reads row ``m_pad - 1``); so do these,
-    and ``segment_softmax`` masks those slots."""
+    and ``segment_softmax`` masks those slots. ``mesh=`` shards the
+    aggregation's head-flattened batch over the mesh's ``"data"`` axis; the
+    transform, scores and softmax run on every rank's global tensors."""
     heads, _, d_head = params["w"].shape
     batch, m_pad, _ = x.shape
     nnz_pad = adj.row_ids.shape[1]
@@ -98,7 +100,8 @@ def gat_layer(params, adj: BatchedCOO, x: torch.Tensor, *,
                         values=e_vec, nnz=flat(adj.nnz),
                         n_rows=flat(adj.n_rows))
     out = message_passing(a_flat, h.reshape(heads * batch, m_pad, d_head),
-                          op="mul", reduce="sum", impl=impl, k_pad=k_pad)
+                          op="mul", reduce="sum", impl=impl, k_pad=k_pad,
+                          mesh=mesh)
     out = out.reshape(heads, batch, m_pad, d_head)
     return (out.permute(1, 2, 0, 3).reshape(batch, m_pad, heads * d_head)
             + params["b"])
@@ -119,7 +122,7 @@ def init_rgcn_layer(n_in: int, n_out: int, relations: int, *,
 
 def rgcn_layer(params, adj: Sequence[BatchedCOO], x: torch.Tensor, *,
                impl: str = "auto",
-               k_pad: int | None = None) -> torch.Tensor:
+               k_pad: int | None = None, mesh=None) -> torch.Tensor:
     """One R-GCN layer: ``out[i] = Σ_r mean_{j ∈ N_r(i)} x[j]·W_r
     + x[i]·W_self + b``.
 
@@ -127,7 +130,10 @@ def rgcn_layer(params, adj: Sequence[BatchedCOO], x: torch.Tensor, *,
     tokens (every graph's node block repeated per relation: equal groups of
     ``batch·m_pad`` rows, the reference's layout), the mean aggregation of
     every relation ONE (copy_lhs, mean) g-SpMM over the relation-flattened
-    batch. ``x @ w_self`` is a plain product, outside the kernels."""
+    batch. ``x @ w_self`` is a plain product, outside the kernels.
+    ``mesh=`` shards the aggregation's relation-flattened batch over the
+    mesh's ``"data"`` axis; the grouped matmul stays local and replicated,
+    as in the reference."""
     relations = len(adj)
     batch, m_pad, n_in = x.shape
     n_out = params["w_rel"].shape[-1]
@@ -140,6 +146,6 @@ def rgcn_layer(params, adj: Sequence[BatchedCOO], x: torch.Tensor, *,
     h = grouped_matmul(xt, params["w_rel"], sizes)
     h = h.reshape(relations * batch, m_pad, n_out)
     agg = message_passing(flatten_channels(adj), h, op="copy_lhs",
-                          reduce="mean", impl=impl, k_pad=k_pad)
+                          reduce="mean", impl=impl, k_pad=k_pad, mesh=mesh)
     y = agg.reshape(relations, batch, m_pad, n_out).sum(dim=0)
     return y + x @ params["w_self"] + params["b"]

@@ -22,17 +22,26 @@ scoring it alone through a ``GraphServeEngine`` of the same tier geometry:
 bitwise on the CPU, and to the kernels' f32 tolerance on the GPU (the
 fused kernel's small branch adds a row's slots in integer-atomic order).
 
-The reference's ``mesh=`` is ``device=`` here: the default engine factory
-builds every tier's engine on that device (the current CUDA device unless
-the caller asks for another; without a GPU the constructor raises).
+``device=``: the default engine factory builds every tier's engine on that
+device (the current CUDA device unless the caller asks for another; without
+a GPU the constructor raises). ``mesh=`` (a ``DeviceMesh``) flows to every
+tier engine, so each wave spans the mesh as ``GraphServeEngine(mesh=)``
+waves do. Every rank serves the same stream; rank 0 of the mesh owns the
+clock and the dispatcher and broadcasts each wave (its clock time and the
+plan's takes) before the wave runs, so every rank admits the same requests
+and pops the same ones into the same wave. Under a ``VirtualClock`` the
+waves equal the single-device scheduler's.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Callable, Sequence
+
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.gcn import GCNConfig
@@ -106,8 +115,8 @@ class Scheduler:
         ...
         sched.drain()                          # event loop until empty
 
-    ``device=`` flows to every tier engine the default factory builds (the
-    reference's ``mesh=``, which the port does not have yet).
+    ``device=`` and ``mesh=`` flow to every tier engine the default factory
+    builds; under a mesh rank 0 leads the event loop (module docstring).
 
     Telemetry: the request lifecycle —
     arrival → admit → dispatch → finish — lands in the span tracer as
@@ -126,6 +135,7 @@ class Scheduler:
         *,
         tiers: TierPolicy | None = None,
         config: SchedulerConfig | None = None,
+        mesh=None,
         device=None,
         clock=None,
         service_model: Callable[[GeometryTier, int], float] | None = None,
@@ -136,7 +146,8 @@ class Scheduler:
         instance: str = "default",
     ):
         from repro_torch.observability import TRACER
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device, mesh)
         self.config = config or SchedulerConfig()
         if self.config.bn_mode != cfg.bn_mode:
             cfg = dataclasses.replace(cfg, bn_mode=self.config.bn_mode)
@@ -169,7 +180,7 @@ class Scheduler:
         self.programs = ProgramCache(
             engine_factory or (lambda tier: GraphServeEngine(
                 params, self.cfg, batch=tier.batch, m_pad=tier.m_pad,
-                nnz_pad=tier.nnz_pad, device=self.device)))
+                nnz_pad=tier.nnz_pad, mesh=mesh, device=self.device)))
         self.completed: list[PendingRequest] = []
 
     # -- intake -------------------------------------------------------------
@@ -314,17 +325,56 @@ class Scheduler:
             w.key() if w is not None else tier.key, d.impl,
             predicted_s=predicted, measured_s=measured)
 
+    def _sync_wave(self, now: float, plan: WavePlan | None):
+        """Under a mesh: rank 0's (clock time, plan) on every rank, or None
+        once rank 0's loop is done. One broadcast of a fixed-size float64
+        message: [wave?, now, (tier, count) per take, in the plan's order]."""
+        from repro_torch.launch.mesh import broadcast
+
+        tiers = self.policy.tiers
+        msg = torch.full((2 + 2 * len(tiers),), -1.0, dtype=torch.float64)
+        msg[0] = 0.0
+        if plan is not None:
+            msg[0], msg[1] = 1.0, now
+            for i, (src, count) in enumerate(plan.takes):
+                msg[2 + 2 * i] = tiers.index(src)
+                msg[3 + 2 * i] = count
+        msg = broadcast(msg.to(self.device), self.mesh).cpu().tolist()
+        if msg[0] == 0.0:
+            return None
+        takes = tuple((tiers[int(t)], int(c))
+                      for t, c in zip(msg[2::2], msg[3::2]) if t >= 0)
+        return msg[1], WavePlan(tier=takes[0][0], takes=takes)
+
+    def _follow(self) -> None:
+        """A non-leading rank's event loop: admit and execute exactly the
+        waves rank 0 broadcasts, at rank 0's clock times."""
+        while (synced := self._sync_wave(math.nan, None)) is not None:
+            now, plan = synced
+            self.clock.sleep_until(now)
+            self._admit(now)
+            self._execute(plan)
+        self._admit(math.inf)       # rank 0 rejected the rest: so do we
+
     def drain(self) -> list[PendingRequest]:
         """Event loop: admit arrivals, dispatch ready waves, wait (sleep or
         simulated jump) when batching longer is the better trade. Returns
-        every request completed during this drain, completion order."""
+        every request completed during this drain, completion order.
+        Under a mesh, rank 0 runs this loop and every other rank follows
+        it (:meth:`_follow`)."""
         start = len(self.completed)
+        lead = self.mesh is None or self.mesh.get_rank() == 0
+        if not lead:
+            self._follow()
+            return self.completed[start:]
         while True:
             now = self.clock.now()
             self._admit(now)
             plan = self.dispatcher.next_wave(
                 self.buckets, now, draining=len(self.queue) == 0)
             if isinstance(plan, WavePlan):
+                if self.mesh is not None:
+                    self._sync_wave(now, plan)
                 self._execute(plan)
                 continue
             nxt = self.queue.next_arrival()
@@ -335,6 +385,8 @@ class Scheduler:
             else:                       # fully drained
                 break
             self.clock.sleep_until(max(target, now))
+        if self.mesh is not None:
+            self._sync_wave(math.nan, None)     # the followers stop
         return self.completed[start:]
 
     def serve(self, requests: Sequence[GraphRequest], *,

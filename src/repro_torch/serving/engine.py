@@ -21,7 +21,13 @@ g-SpMM, and for R-GCN one grouped matmul). Empty and
 failed slots carry zero-nnz adjacencies and contribute nothing.
 
 A wave is assembled on the host in numpy, moved with one copy per operand,
-and run under ``torch.inference_mode()``. With ``bn_mode="sample"`` a
+and run under ``torch.inference_mode()``. With ``mesh=`` (a ``DeviceMesh``)
+every rank serves the same wave and each conv layer's batch is split over
+the mesh's ``"data"`` axis (``repro_torch.distributed.spmm``); every rank
+gets the global logits. Before its forward, a meshed wave's slot count and
+a checksum of its operands are all-gathered: a wave whose composition
+differs between ranks raises on every rank instead of hanging a
+collective. With ``bn_mode="sample"`` a
 request's logits do not depend on which requests share its wave: bitwise on
 the CPU, to the kernels' f32 tolerance on the GPU (their shared-memory
 atomics add in a run-dependent order).
@@ -29,6 +35,7 @@ atomics add in a run-dependent order).
 from __future__ import annotations
 
 import dataclasses
+import zlib
 
 import numpy as np
 import torch
@@ -112,6 +119,7 @@ class Wave:
     n_nodes: torch.Tensor
     served: list[tuple[int, GraphRequest]]
     report: GraphWaveReport
+    digest: int = 0                 # crc32 of the host operands (mesh only)
 
 
 def _tree_to(tree, device):
@@ -209,10 +217,15 @@ class GraphServeEngine:
     :func:`repro_torch.convert.params_from_jax`); it is moved to ``device``,
     the current CUDA device unless the caller asks for another.
     ``cfg.impl="auto"`` resolves each conv layer from the wave geometry's
-    workload, the same decision every wave (:meth:`layer_decision`)."""
+    workload, the same decision every wave (:meth:`layer_decision`).
+
+    ``mesh=`` spans each wave across the ranks of a ``DeviceMesh``: every
+    rank runs the engine on the same requests, and the device defaults to
+    the mesh's (``launch.mesh.mesh_device``: card ``rank % device_count``);
+    a ``device=`` that conflicts with it raises."""
 
     def __init__(self, params, cfg: GCNConfig, *, batch: int = 32,
-                 m_pad: int = 56, nnz_pad: int = 256,
+                 m_pad: int = 56, nnz_pad: int = 256, mesh=None,
                  precision: str | None = None, device=None):
         if precision is not None:
             # serving's storage-policy override, as in the reference: the
@@ -223,7 +236,8 @@ class GraphServeEngine:
         check_impl(cfg.impl)
         self.cfg = cfg
         self.batch, self.m_pad, self.nnz_pad = batch, m_pad, nnz_pad
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device, mesh)
         self.params = _tree_to(params, self.device)
         # only an ELL-class impl silently drops > k_pad nnz per row, so the
         # guard asks what this geometry runs: EVERY conv layer, each
@@ -233,7 +247,7 @@ class GraphServeEngine:
         impls = {cfg.impl}
         if cfg.impl == "auto" and cfg.k_pad is not None:
             impls = {d.impl for d in resolve_conv_impls(
-                cfg, batch, m_pad, nnz_pad, device=self.device)}
+                cfg, batch, m_pad, nnz_pad, device=self.device, mesh=mesh)}
         self._ell_degree_guard = (
             cfg.k_pad is not None
             and any(precision_of(i)[0] in ("ell", "pallas_ell")
@@ -243,9 +257,11 @@ class GraphServeEngine:
         """The first conv layer's ``repro_torch.autotune.Decision`` at this
         engine's wave geometry on its device: fused kernel against stacked
         SpMM for ``layer="gcn"``, the g-SpMM workload for ``"gat"`` and
-        ``"rgcn"``; every wave's forward resolves the same."""
+        ``"rgcn"``; every wave's forward resolves the same. Under a mesh,
+        the per-shard decision."""
         return resolve_conv_impls(self.cfg, self.batch, self.m_pad,
-                                  self.nnz_pad, device=self.device)[0]
+                                  self.nnz_pad, device=self.device,
+                                  mesh=self.mesh)[0]
 
     def compiled_programs(self) -> None:
         """Entries in this engine's jit cache, where the reference counts
@@ -324,19 +340,45 @@ class GraphServeEngine:
         adj = [coo_from_lists(t, n_rows=list(n_nodes),
                               nnz_pad=self.nnz_pad).to(self.device)
                for t in triples_by_ch]
+        digest = 0
+        if self.mesh is not None:
+            digest = zlib.crc32(x.tobytes(), zlib.crc32(n_nodes.tobytes()))
+            for t in triples_by_ch:
+                for triple in t:
+                    for part in triple:  # rows, cols, values
+                        digest = zlib.crc32(part.tobytes(), digest)
         report = GraphWaveReport(
             slots=self.batch, n_requests=n, n_failed=n_failed,
             real_nodes=real_nodes, real_nnz=real_nnz,
             node_capacity=self.batch * self.m_pad,
             nnz_capacity=self.batch * channels * self.nnz_pad)
         return Wave(adj, torch.from_numpy(x).to(self.device),
-                    torch.from_numpy(n_nodes).to(self.device), served, report)
+                    torch.from_numpy(n_nodes).to(self.device), served, report,
+                    digest)
+
+    def _check_wave_agrees(self, w: Wave) -> None:
+        """Under a mesh: raise on every rank unless every rank assembled
+        the same wave (slot count and operand checksum, one all-gather)."""
+        from repro_torch.launch.mesh import all_gather_cat
+
+        mine = torch.tensor([[w.report.n_requests, w.digest]],
+                            dtype=torch.int64, device=self.device)
+        every = all_gather_cat(mine, self.mesh).cpu()
+        if not bool((every == every[0]).all()):
+            raise ValueError(
+                "the ranks of the mesh assembled different waves "
+                f"((requests, checksum) by rank: {every.tolist()}); every "
+                "rank must serve the same requests in the same order")
 
     def forward(self, w: Wave) -> torch.Tensor:
         """The wave's batched forward on the device: logits (batch, n_tasks)
-        (the second half of :meth:`run_wave`)."""
+        (the second half of :meth:`run_wave`); under a mesh, the global
+        logits on every rank."""
+        if self.mesh is not None:
+            self._check_wave_agrees(w)
         with torch.inference_mode():
-            return apply_gcn(self.params, self.cfg, w.adj, w.x, w.n_nodes)
+            return apply_gcn(self.params, self.cfg, w.adj, w.x, w.n_nodes,
+                             mesh=self.mesh)
 
     def run_wave(self, wave: list[GraphRequest], *,
                  on_phase=None) -> GraphWaveReport:

@@ -38,8 +38,16 @@ moved to the device on the trainer's thread, the step of ``train_step`` on
 :func:`~repro_torch.core.gcn.gcn_node_loss`, under a
 ``train/sampled_step`` span, with the ``train_sampled_programs`` gauge.
 
-Not ported here: the reference trainers' ``mesh=`` (batch-axis sharding);
-``ROADMAP.md`` queue 1 holds it (sharding and the distributed stack).
+``GCNTrainer(mesh=)`` trains data-parallel over a ``DeviceMesh``: every rank
+runs ``fit`` on the same batches, each conv layer's batch is split over the
+mesh's ``"data"`` axis (``repro_torch.distributed.spmm``, whose backward
+all-gathers the sharded gradients and all-reduces the fused layer's dW and
+dbias), and everything else runs on global tensors, so every rank holds the
+same parameters with no gradient all-reduce of its own. Rank 0 writes the
+checkpoints; every rank waits for the write, then restores. ``fit_sampled``
+raises on a mesh, as the reference's does. The LM ``Trainer``'s ``mesh=``
+waits for the LM slice of the distributed stack (``ROADMAP.md`` queue 1:
+sharding and the distributed stack).
 """
 from __future__ import annotations
 
@@ -186,11 +194,12 @@ _ELL_IMPLS = tuple(i for i in IMPLS
 class GCNTrainer:
     """Trains ChemGCN with ``cfg.impl`` (``"auto"`` resolved per conv
     layer and batch shape) on ``device`` (the current CUDA device unless
-    the caller asks for another)."""
+    the caller asks for another; under ``mesh=``, the mesh's device, and a
+    conflicting ``device=`` raises)."""
 
     def __init__(self, cfg: GCNConfig, opt: AdamConfig | None = None,
-                 tcfg: TrainerConfig | None = None, *, device=None,
-                 registry=None, telemetry: bool = True):
+                 tcfg: TrainerConfig | None = None, *, mesh=None,
+                 device=None, registry=None, telemetry: bool = True):
         if tcfg is None:
             raise ValueError("GCNTrainer needs a TrainerConfig with a "
                              "checkpoint_dir")
@@ -199,7 +208,8 @@ class GCNTrainer:
         self.cfg = cfg
         self.opt = opt or AdamConfig(lr=3e-3)
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device, mesh)
         self.manager = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep)
         # batch shape → whether any conv layer runs an ELL-class impl there
         self._ell_by_shape: dict[tuple, bool] = {}
@@ -233,21 +243,22 @@ class GCNTrainer:
                 cfg.impl in _ELL_IMPLS
                 or any(d.impl in _ELL_IMPLS for d in resolve_conv_impls(
                     cfg, *key, itemsize=x.element_size(),
-                    device=self.device)))
+                    device=self.device, mesh=self.mesh)))
         return self._ell_by_shape[key]
 
     def layer_decision(self, batch: dict):
         """The first conv layer's ``repro_torch.autotune.Decision`` for one
         training batch, as the step resolves it on the trainer's device:
         fused kernel against stacked SpMM for ``layer="gcn"``, the g-SpMM
-        workload for ``"gat"`` and ``"rgcn"``. The batch may lie on the
-        host: only its shapes are read."""
+        workload for ``"gat"`` and ``"rgcn"``; under a mesh, the per-shard
+        decision. The batch may lie on the host: only its shapes are
+        read."""
         adj, x = batch["adj"], batch["x"]
         nnz_pad = (max(a.nnz_pad for a in adj) if self.cfg.layer == "gcn"
                    else adj[0].row_ids.shape[1])
         return resolve_conv_impls(self.cfg, x.shape[0], x.shape[1], nnz_pad,
                                   itemsize=x.element_size(),
-                                  device=self.device)[0]
+                                  device=self.device, mesh=self.mesh)[0]
 
     def init_state(self):
         """Fresh parameters from ``tcfg.seed`` (a ``torch.Generator``: not
@@ -267,6 +278,18 @@ class GCNTrainer:
             return params, state, latest
         return params, state, 0
 
+    def save(self, step: int, params, state) -> None:
+        """Checkpoint ``(params, state)`` at ``step``; under a mesh rank 0
+        writes and every rank returns once the write is done."""
+        if self.mesh is None:
+            self.manager.save(step, (params, state))
+            return
+        from repro_torch.launch.mesh import barrier
+
+        if self.mesh.get_rank() == 0:
+            self.manager.save(step, (params, state))
+        barrier(self.mesh)
+
     def place_batch(self, batch: dict) -> dict:
         """The batch's tensors on the trainer's device."""
         return {"adj": [a.to(self.device) for a in batch["adj"]],
@@ -283,7 +306,7 @@ class GCNTrainer:
         live = [p.detach().requires_grad_() for p in tree.leaves(params)]
         loss, acc = gcn_loss(tree.unflatten(params, live), self.cfg,
                              batch["adj"], batch["x"], batch["n_nodes"],
-                             batch["labels"])
+                             batch["labels"], mesh=self.mesh)
         if on_phase is not None:
             on_phase("forward")
         grads = torch.autograd.grad(loss, live)
@@ -370,7 +393,7 @@ class GCNTrainer:
                         params, state, placed, on_phase=on_phase)
                 step = seen
                 if step % max(self.tcfg.checkpoint_every, 1) == 0:
-                    self.manager.save(step, (params, state))
+                    self.save(step, params, state)
             if step > start:
                 last = {k: float(v) for k, v in metrics.items()}
                 if self.telemetry:
@@ -379,7 +402,7 @@ class GCNTrainer:
                     on_metrics(epoch + 1, {"epoch": epoch + 1, **last,
                                            "time": time.time()})
         if step > start:
-            self.manager.save(step, (params, state))
+            self.save(step, params, state)
         return params, state, last
 
     # -- the giant-graph tier (DESIGN.md §14) --------------------------
@@ -492,6 +515,10 @@ class GCNTrainer:
         ``"batch"`` once it is on the device, then by
         :meth:`sampled_step`. Returns (params, state, the last step's loss,
         acc and grad_norm as floats, and ``programs``)."""
+        if self.mesh is not None:
+            raise ValueError("fit_sampled is single-host for now: sampled "
+                             "blocks have batch=1, so there is no batch "
+                             "axis to shard over a mesh")
         from repro_torch.sampling import Prefetcher
 
         params, state, start = self.restore_or_init()

@@ -2192,3 +2192,20 @@ def test_block_decisions_auto_at_the_tier_blocks(dev, tier_batch, tmp_path):
     assert (small.impl, small.source) == (want.impl, want.source)
     assert small.workload.m_pad == 3_072 and small.workload.k_pad is None
     assert "ell" not in small.impl
+
+
+def test_sharded_kernels_on_the_card_match_single_device(dev, tmp_path):
+    """A 2-rank gloo group on the card (ranks sharing one card cannot take
+    NCCL): the sharded forward and backward of pallas_coo, pallas_csr,
+    pallas_ell, fused and fused_hybrid at batch 16 and 13 against the
+    single-device kernels, bitwise for the row-owned SpMM kernels and
+    within the f32 tolerance for the fused layers (their small branch
+    adds a row in integer-atomic order; dW and dbias are all-reduced)."""
+    import torch_mesh_ranks as ranks
+
+    seed = int(torch.randint(0, 2**31 - 1, ()).item())
+    out = ranks.run_ranks(ranks.card, 2, tmp_path, {
+        "seed": seed, "impls": ("pallas_coo", "pallas_csr", "pallas_ell",
+                                "fused", "fused_hybrid")},
+        device_type="cuda")
+    assert out[0]["launched"] == out[1]["launched"]
