@@ -153,7 +153,23 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on failure:
    *]`` lines: each part's wall ms a wave or step on the mesh beside
    alone, the backend, each rank's launches (summed into the kernels'
    launch counts), each mesh call's launches held on every rank to one
-   per shard of every kernel its impls run;
+   per shard of every kernel its impls run; then the LM on a (data x
+   model) mesh (``phase_lm_mesh``, LM_MESH): Llama-3-8B at full width, 2
+   of its 32 blocks, bf16, seed 0, on the same 2 ranks as 1x2 and 2x1
+   meshes, each rank held to the same work done alone on the card first:
+   ``build_prefill`` of 2 x 4096 tokens under pallas (the flash kernel
+   launched on each rank at its local heads, 16 q / 4 KV on 1x2, and held
+   to its plain version within FLASH_TP_ATOL; the logits within
+   NOISE_MULT of the noise floor of the other attention orders), 8 greedy
+   ``build_decode_step`` steps at batch 4 on 1x2 (the caches' sequence
+   split over "model"; tokens by ``_argmax_check`` against alone's, the
+   floor decode's distance from ``forward``), 5 ``Trainer(mesh=)`` steps
+   of 4 x 1024 tokens (grad_clip 1.0) on 2x1 (zero1) and 1x2 (losses
+   within NOISE_MULT of the floor of 2 and 4 microbatches alone, the
+   parameters gathered bitwise equal over "data"); ``[lm mesh]`` lines:
+   ms beside alone, each rank's launches and peak GB, the phase's
+   seconds; the flash kernel at the TP-local shape is a row of its own
+   (``flash_attention[llama3-8b TP-local]``);
 14. the giant-graph tier (``examples/node_classification.py``'s settings,
    TIER): a 100k-node ``reddit_like`` graph, a static 4,096-row hot-node
    cache, batches of 512 seeds with fanouts (10, 5); ``auto``'s block
@@ -352,6 +368,21 @@ MESH = dict(world=2, batch=128, odd_batch=127,
             r100_batch=100, loss_tol=1e-5, r100_fused_loss_tol=3e-3,
             sched_requests=128, sched_impl="pallas_csr")
 MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+# the LM on a (data x model) mesh (phase_lm_mesh): Llama-3-8B at full width
+# (bf16, seed-0 weights), 2 of its 32 blocks, on 2 ranks sharing this card
+# over gloo: prefill of 2 x 4096 tokens on (1, 2) and (2, 1), 8 greedy
+# decode steps at batch 4 (max_len 256) on (1, 2), 5 Trainer steps of 4 x
+# 1024 tokens (grad_clip 1.0) on both
+LM_MESH = dict(world=2, shapes=((1, 2), (2, 1)), n_layers=2,
+               prefill_batch=2, prefill_seq=4096, prefill_calls=2,
+               decode_mesh=(1, 2), decode_batch=4, max_len=256, prompt=16,
+               new_tokens=8, train_batch=4, train_seq=1024, train_steps=5,
+               lr=1e-3, sample=1 << 16)
+LM_MESH_DIR = ROOT / "build" / "chip_smoke_lm_mesh"
+# the flash kernel at the rank's heads under "model" = 2 (its row): within
+# the largest error the table holds at the full model's shapes
+FLASH_TP_TAG = "llama3-8b TP-local"
+FLASH_TP_ATOL = 7.812e-3
 # Llama-3-8B at full width, bf16, seed-0 random weights. Prefill: 2 x 4096
 # prompt tokens (train_4k's length; prefill_32k's 32 x 32768 is cut to fit
 # the time limit). Serving: waves of 4 slots, 8 requests.
@@ -5840,13 +5871,86 @@ def _mesh_gnn(r):
                f"{t2:.3f} ms on the mesh, {t1:.3f} ms alone; logits {how}")
 
 
+def _mesh_transport(r):
+    """(f): the transport. The ranks must share the card through its
+    windows. The Tox21 fused wave of (b) is run once to count the
+    exchanges a wave makes and their bytes, then timed through the
+    windows and through gloo by the host, alternating, in this one run;
+    then one all-gather of each size through either path."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.data.graphs import GraphDatasetSpec
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.serving.engine import GraphServeEngine
+
+    check(lmesh.transport() == "windows", f"mesh rank {r.rank}: transport "
+                                          f"{lmesh.transport()}, not the "
+                                          "card's windows")
+    windows = list(lmesh._WINDOWS)
+
+    def through(host, fn):
+        # the host path: the collectives stage through gloo while the
+        # windows are set aside
+        if host:
+            lmesh._WINDOWS.clear()
+        try:
+            return fn()
+        finally:
+            lmesh._WINDOWS[:] = windows
+
+    cfg = GCNConfig.tox21(impl="fused")
+    eng = GraphServeEngine(_params(cfg, 0, r.device), cfg, mesh=r.mesh,
+                           **TOX21)
+    eng.run_wave([])
+    data = GraphDatasetSpec.tox21_like(N_REQUESTS, seed=0)
+    sizes, exchange = [], lmesh._exchange
+
+    def counted(flat, group):
+        sizes.append(flat.numel() * flat.element_size())
+        return exchange(flat, group)
+
+    lmesh._exchange = counted
+    try:
+        requests = _requests(data)
+        eng.run(requests)
+    finally:
+        lmesh._exchange = exchange
+    waves = -(-len(requests) // eng.batch)
+    times = {"windows": [], "host": []}
+    for host in (False, True, False, True):
+        requests = _requests(data)
+        _, ms = through(host, lambda: r.wall(lambda: eng.run(requests)))
+        times["host" if host else "windows"].append(ms / waves)
+    r.line("transport", f"Tox21 fused wave of {TOX21['batch']}: "
+           f"{len(sizes) / waves:.0f} exchanges a wave of median "
+           f"{statistics.median(sizes)} B; ms a wave through the windows "
+           f"{[round(t, 3) for t in times['windows']]}, through gloo by "
+           f"the host {[round(t, 3) for t in times['host']]} (alternating)")
+    group = r.mesh.get_group("data")
+    for nbytes in (statistics.median(sizes), 1 << 20, 1 << 26):
+        t = torch.ones(max(1, int(nbytes) // 4), device=r.device)
+        reps = 20 if nbytes <= 1 << 20 else 5
+        got = {}
+        for host in (False, True):
+            walls = [through(host, lambda: r.wall(lambda: lmesh.all_gather_cat(
+                t, r.mesh, "data")))[1] for _ in range(reps + 1)]
+            got[host] = statistics.median(walls[1:])
+        dist.barrier(group=group)
+        r.line("transport", f"all_gather_cat of {t.numel() * 4} B a rank: "
+               f"{got[False]:.3f} ms through the windows, {got[True]:.3f} "
+               f"ms through gloo by the host (median of {reps})")
+
+
 def _mesh_rank(rank: int, world: int, store: str) -> None:
     """A spawned rank of ``phase_mesh``: joins the group, builds the mesh,
     runs parts (a)-(e) and writes what it measured for the parent."""
     sys.path.insert(0, str(SRC))
     import torch
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import init_ranks, make_mesh, mesh_device
+    from repro_torch.launch.mesh import close_ranks, init_ranks, make_mesh, \
+        mesh_device, transport as mesh_transport
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5855,12 +5959,13 @@ def _mesh_rank(rank: int, world: int, store: str) -> None:
     r = _MeshRank(rank, mesh, backend, mesh_device(mesh))
     t0 = time.perf_counter()
     for part in (_mesh_kernels, _mesh_serve, _mesh_train, _mesh_scheduler,
-                 _mesh_gnn):
+                 _mesh_gnn, _mesh_transport):
         part(r)
-    dist.destroy_process_group()
+    transport = mesh_transport()
+    close_ranks()
     (Path(store) / f"rank{rank}.json").write_text(json.dumps(
-        {"backend": backend, "device": str(r.device), "parts": r.parts,
-         "seconds": time.perf_counter() - t0}))
+        {"backend": f"{backend}, {transport}", "device": str(r.device),
+         "parts": r.parts, "seconds": time.perf_counter() - t0}))
 
 
 def phase_mesh(device):
@@ -5882,8 +5987,9 @@ def phase_mesh(device):
     within 3e-3: its atomic order is run-dependent), the parameters
     bitwise equal across ranks; (d) ``Scheduler(mesh=)`` drains
     128 skewed Tox21 requests on a VirtualClock: the single-device waves
-    and logits; (e) GAT and R-GCN serve one Tox21 wave. Returns each part's
-    launches, summed over the ranks."""
+    and logits; (e) GAT and R-GCN serve one Tox21 wave; (f) the ranks
+    exchange through the card's windows, timed against gloo by the host.
+    Returns each part's launches, summed over the ranks."""
     import shutil
 
     import torch.multiprocessing as mp
@@ -5910,10 +6016,472 @@ def phase_mesh(device):
                 total[kname] = total.get(kname, 0) + n
         check(bool(total), f"mesh {part}: no kernel launched")
         paths[f"mesh {part}"] = total
+    for msg in ranks[0]["parts"]["transport"]["lines"]:
+        log(f"[mesh transport] {msg}")
     log(f"[mesh] {world} ranks over {ranks[0]['backend']} on one card, "
         f"ranks {[round(rk['seconds'], 1) for rk in ranks]} s, phase "
         f"{time.perf_counter() - t0:.1f} s")
     return paths
+
+
+# -- the LM on a (data x model) mesh (phase_lm_mesh) ---------------------
+
+
+def _lm_mesh_batches(cfg, device):
+    """The phase's inputs: the prefill prompt, the decode prompt and the
+    training batches (``make_batch``, seed 0, at fixed steps): one batch
+    every step, so that the loss falls and a step that updates nothing
+    shows."""
+    lmm = LM_MESH
+    return (_token_batch(cfg, lmm["prefill_batch"], lmm["prefill_seq"], 0,
+                         device),
+            _token_batch(cfg, lmm["decode_batch"], lmm["prompt"], 1, device),
+            [_token_batch(cfg, lmm["train_batch"], lmm["train_seq"], 2,
+                          device)] * lmm["train_steps"])
+
+
+def _param_sample(params):
+    """LM_MESH["sample"] evenly spaced elements of each leaf (all of a
+    smaller one), in f32 on the host, concatenated in leaf order."""
+    import torch
+    from repro_torch import tree
+
+    out = []
+    for x in tree.leaves(params):
+        flat = x.detach().reshape(-1)
+        idx = torch.linspace(0, flat.numel() - 1, min(
+            flat.numel(), LM_MESH["sample"]), dtype=torch.float64,
+            device=flat.device).long()
+        out.append(flat[idx].float().cpu())
+    return torch.cat(out)
+
+
+def _update_gap(x, ref, init) -> float:
+    """How far sampled parameters ``x`` lie from ``ref``, relative to the
+    update ``ref`` made from ``init``: 1 for parameters that were never
+    updated."""
+    return float((x - ref).norm() / (ref - init).norm())
+
+
+def _lm_mesh_train(cfg, root, data, mesh=None, device=None, mb=1):
+    """``Trainer`` at the phase's settings over ``data`` (a list of token
+    batches): (losses, ms a step from the second on, params, trainer)."""
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    t = Trainer(cfg, AdamConfig(lr=LM_MESH["lr"], grad_clip=1.0),
+                TrainerConfig(checkpoint_dir=str(root), log_every=1,
+                              checkpoint_every=10 ** 6, microbatches=mb,
+                              total_steps=len(data)),
+                mesh=mesh, device=device)
+    stamps, losses = [], []
+
+    def on_metrics(step, rec):
+        stamps.append(time.perf_counter())
+        losses.append(rec["loss"])
+
+    it = iter([{"tokens": x} for x in data])
+    params, _ = t.fit(it, on_metrics=on_metrics if mesh is None or
+                      mesh.get_rank() == 0 else None)
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return losses, ms, params, t
+
+
+def _lm_mesh_alone(device, rows, errs):
+    """What the ranks of ``phase_lm_mesh`` are held to, on this card alone:
+    Llama-3-8B at LM_MESH["n_layers"] blocks (bf16, seed 0). Prefill under
+    pallas, xla_packed and xla_chunked 512 (the other orders give the
+    noise floor); the decode prompt fed through ``build_decode_step`` then
+    greedy steps, beside ``forward`` over the same tokens (the floor);
+    ``Trainer`` at 1 microbatch, one step and every step on one batch,
+    beside 2 and 4 microbatches and chunked attention (the floor); the
+    flash kernel at the rank's local heads against its plain version,
+    timed (row ``flash_attention[llama3-8b TP-local]``). Returns the
+    payload."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch import tuning
+    from repro_torch.distributed.steps import build_decode_step, \
+        build_prefill
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import KV_TILE, flash_attention
+    from repro_torch.models import lm
+
+    lmm = LM_MESH
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _lm_model(LM_ARCH, device, n_layers=lmm["n_layers"])
+    prompt, dprompt, train = _lm_mesh_batches(cfg, device)
+    out = {}
+    last, _ = _prefill_orders(
+        "lm mesh alone", cfg, params, {"tokens": prompt},
+        {"pallas": {}, "xla_packed": {}, "xla_chunked 512": CHUNKED_ORDER})
+    out["prefill"] = {k: v.cpu() for k, v in last.items()}
+    pre = build_prefill(cfg, device=device)
+    with tuning.use_flags(attention_impl="pallas"):
+        _, times = _timed(lambda: pre(params, {"tokens": prompt}), 2)
+    out["prefill_ms"] = times[-1]
+
+    # decode: the prompt, then greedy steps; forward over the same tokens
+    dec = build_decode_step(cfg, device=device)
+    caches = lm.init_decode_state(cfg, lmm["decode_batch"], lmm["max_len"],
+                                  device=device)
+    fed, logits, times = [], [], []
+    tok = dprompt[:, :1]
+    for pos in range(lmm["prompt"] + lmm["new_tokens"] - 1):
+        fed.append(tok)
+        (lg, _), (ms,) = _timed(lambda: dec(params, tok, caches, pos))
+        times.append(ms)
+        logits.append(lg[:, 0].float().cpu())
+        tok = (dprompt[:, pos + 1:pos + 2] if pos + 1 < lmm["prompt"]
+               else lg.argmax(-1))
+    seq = torch.cat(fed, dim=1)
+    with torch.inference_mode():
+        fwd, _ = lm.forward(params, cfg, {"tokens": seq})
+    fwd = fwd.float().cpu()
+    out["decode"] = dict(fed=seq.cpu(), logits=torch.stack(logits, 1),
+                         floor=float((torch.stack(logits, 1) - fwd).abs()
+                                     .max()), ms=statistics.median(times))
+    out["init_sample"] = _param_sample(params)      # the trainer's seed 0
+    del caches, params, fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training at 1 microbatch, and in the other orders: 2 and 4
+    # microbatches (the gradient sums), chunked attention (the forward's);
+    # one step, then every step, the parameters sampled after each
+    out["train"] = {}
+    for order, (mb, flags) in {
+            "mb 1": (1, {}), "mb 2": (2, {}), "mb 4": (4, {}),
+            "xla_chunked 512": (1, dict(attention_impl="xla_chunked",
+                                        **CHUNKED_ORDER))}.items():
+        sample = {}
+        for steps in (1, len(train)):
+            root = LM_MESH_DIR / f"alone-{order.replace(' ', '-')}-{steps}"
+            shutil.rmtree(root, ignore_errors=True)
+            torch.cuda.reset_peak_memory_stats()
+            with tuning.use_flags(**flags):
+                losses, ms, params, _ = _lm_mesh_train(
+                    cfg, root, train[:steps], device=device, mb=mb)
+            check(all(map(_finite, losses)), f"lm mesh alone {order}: "
+                                             f"losses {losses}")
+            sample[steps] = _param_sample(params)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["train"][order] = dict(losses=losses, ms=statistics.median(ms),
+                                   peak=torch.cuda.max_memory_allocated(),
+                                   sample=sample)
+
+    # the flash kernel at the rank's local heads (model = 2), timed
+    gen = torch.Generator(device=device).manual_seed(6)
+    b, t = lmm["prefill_batch"], lmm["prefill_seq"]
+    h, kv, hd = cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.head_dim
+    q = torch.randn((b, t, h, hd), generator=gen, device=device).bfloat16()
+    k, v = (torch.randn((b, t, kv, hd), generator=gen,
+                        device=device).bfloat16() for _ in range(2))
+    flops = 4 * b * h * hd * _attended_pairs(t, t, True, 0)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    key = f"flash_attention[{FLASH_TP_TAG}]"
+    _measure(rows, key, "flash_attention",
+             lambda: flash_attention(q, k, v, causal=True),
+             lambda: ref.flash_attention_plain(q, k, v, causal=True,
+                                               kv_block=KV_TILE),
+             nbytes, flops, f"B {b}, T {t}, H {h}, KV {kv}, hd {hd}, causal, "
+             f"bfloat16, {flops:.3e} FLOP unmasked",
+             lambda: torch.nn.functional.scaled_dot_product_attention(
+                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 is_causal=True, enable_gqa=True).transpose(1, 2),
+             bitwise=True, tol=FLASH_MAIN_TOL["bfloat16"],
+             flop_rate=BF16_FLOP_PER_S, iters=3, replays=2,
+             library_tol=FLASH_TOL["bfloat16"])
+    check(rows[key]["max_abs_err"] <= FLASH_TP_ATOL,
+          f"{key}: max abs error {rows[key]['max_abs_err']:.3e}")
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  rows[key]["max_abs_err"])
+    _log_rows([rows[key]])
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+class _LMMeshRank:
+    """One rank of ``phase_lm_mesh``: lines for the parent, the launches
+    of each part's main-path run."""
+
+    def __init__(self, rank):
+        self.rank, self.lines, self.launches = rank, [], {}
+
+    def line(self, msg):
+        self.lines.append(msg)
+
+
+def _lm_mesh_rank(rank: int, world: int, store: str) -> None:
+    """A spawned rank of ``phase_lm_mesh``: joins the group, builds the
+    (1, 2) and (2, 1) meshes, runs (a) prefill, (b) decode, (c) training
+    on them against the single-device payload, and writes what it
+    measured for the parent."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+
+    import torch
+    from repro_torch import configs, tree, tuning
+    from repro_torch.distributed import lm_mesh
+    from repro_torch.distributed.steps import build_decode_step, \
+        build_prefill, param_placements
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import KV_TILE, flash_attention
+    from repro_torch.launch.mesh import all_gather_cat, close_ranks, \
+        init_ranks, make_mesh, mesh_device, transport
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = init_ranks(rank, world, f"file://{store}/store")
+    check(transport() == "windows", f"lm mesh rank {rank}: transport "
+                                    f"{transport()}, not the card's windows")
+    meshes = {s: make_mesh(s, ("data", "model"))
+              for s in LM_MESH["shapes"]}
+    device = mesh_device(meshes[LM_MESH["shapes"][0]])
+    alone = torch.load(Path(store) / "alone.pt")
+    r = _LMMeshRank(rank)
+    t0 = time.perf_counter()
+    lmm = LM_MESH
+    cfg = dataclasses.replace(configs.get(LM_ARCH),
+                              n_layers=lmm["n_layers"])
+    full = lm.init_params(cfg, generator=torch.Generator(
+        device=device).manual_seed(0), device=device)
+    prompt, dprompt, train = _lm_mesh_batches(cfg, device)
+    peaks = {}
+
+    # (a) prefill on each mesh under pallas: the flash kernel at the
+    # rank's heads, the logits within NOISE_MULT of the floor
+    want = alone["prefill"]["pallas"]
+    floor = max(float((v - want).abs().max())
+                for k, v in alone["prefill"].items() if k != "pallas")
+    for shape, mesh in meshes.items():
+        tag = f"{shape[0]}x{shape[1]}"
+        local = lm_mesh.shard_tree(full, param_placements(cfg, mesh), mesh)
+        pre = build_prefill(cfg, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        wrappers = _reset_counters()
+        with tuning.use_flags(attention_impl="pallas"):
+            logits, times = _timed(lambda: pre(local, {"tokens": prompt}),
+                                   LM_MESH["prefill_calls"])
+        n = flash_attention.launches
+        check(n == lmm["n_layers"] * LM_MESH["prefill_calls"]
+              and all(w.launches == 0 for k, w in wrappers.items()
+                      if k != "flash_attention"),
+              f"lm mesh {tag} prefill rank {rank}: flash launches {n}")
+        r.launches[f"prefill {tag}"] = n
+        peaks[f"prefill {tag}"] = torch.cuda.max_memory_allocated()
+        got = logits[:, 0].float().cpu()
+        gap = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and floor > 0
+              and gap <= NOISE_MULT * floor,
+              f"lm mesh {tag} prefill rank {rank}: logits {gap:.3e} from "
+              f"alone, more than {NOISE_MULT} x the floor {floor:.3e}")
+        heads = (cfg.n_heads // mesh.shape[1], cfg.n_kv_heads // mesh.shape[1])
+        rows_ = prompt.shape[0] // mesh.shape[0]
+        # the kernel at this rank's shape against its plain version
+        gen = torch.Generator(device=device).manual_seed(7 + rank)
+        q = torch.randn((rows_, prompt.shape[1], heads[0], cfg.head_dim),
+                        generator=gen, device=device).bfloat16()
+        k, v = (torch.randn((rows_, prompt.shape[1], heads[1],
+                             cfg.head_dim), generator=gen,
+                            device=device).bfloat16() for _ in range(2))
+        err = max_err(flash_attention(q, k, v, causal=True),
+                      ref.flash_attention_plain(q, k, v, causal=True,
+                                                kv_block=KV_TILE),
+                      f"lm mesh {tag} flash rank {rank}",
+                      FLASH_MAIN_TOL["bfloat16"])
+        check(err <= FLASH_TP_ATOL, f"lm mesh {tag} flash: {err:.3e}")
+        del q, k, v
+        r.line(f"prefill {tag} (B {rows_}, T {prompt.shape[1]}, H "
+               f"{heads[0]}, KV {heads[1]} a rank): flash_attention "
+               f"launches {n} on rank {rank} ({lmm['n_layers']} a call), "
+               f"the kernel at this shape {err:.3e} from its plain version "
+               f"(limit {FLASH_TP_ATOL}); logits {gap:.4e} from alone, "
+               f"floor {floor:.4e} ({gap / (floor or 1e-30):.2f} x, limit "
+               f"{NOISE_MULT}); ms per call {times[0]:.1f} (first), "
+               f"{times[-1]:.1f} (last) vs alone {alone['prefill_ms']:.1f}")
+        del local, pre, logits
+
+    # (b) decode on the sequence-parallel mesh: the alone run's tokens fed,
+    # argmax against alone where the margin exceeds the floor
+    mesh = meshes[lmm["decode_mesh"]]
+    tag = f"{mesh.shape[0]}x{mesh.shape[1]}"
+    local = lm_mesh.shard_tree(full, param_placements(cfg, mesh), mesh)
+    dec = build_decode_step(cfg, mesh, batch=lmm["decode_batch"],
+                            cache_len=lmm["max_len"])
+    caches = lm.init_decode_state(cfg, lmm["decode_batch"], lmm["max_len"],
+                                  mesh=mesh)
+    d = alone["decode"]
+    fed = d["fed"].to(device)
+    times, gaps, decided = [], [], 0
+    torch.cuda.reset_peak_memory_stats()
+    for pos in range(fed.shape[1]):
+        (lg, _), (ms,) = _timed(lambda: dec(local, fed[:, pos:pos + 1],
+                                            caches, pos))
+        times.append(ms)
+        got, want_d = lg[:, 0].float().cpu(), d["logits"][:, pos]
+        gaps.append(float((got - want_d).abs().max()))
+        if pos + 1 >= lmm["prompt"]:
+            _, dec_rows, _ = _argmax_check(
+                f"lm mesh {tag} decode rank {rank} pos {pos}", got, want_d,
+                d["floor"])
+            decided += int(dec_rows.sum())
+    peaks[f"decode {tag}"] = torch.cuda.max_memory_allocated()
+    k_shape = tuple(caches["0"]["k"].shape)
+    r.line(f"decode {tag}: {lmm['new_tokens']} greedy steps after a "
+           f"{lmm['prompt']}-token prompt at batch {lmm['decode_batch']}, "
+           f"max_len {lmm['max_len']}: local KV cache {k_shape} (blocks, "
+           f"B, S, KV, hd; the sequence split over \"model\"), argmax = "
+           f"alone's on {decided} rows decided past the floor "
+           f"{d['floor']:.4e} (largest logits gap {max(gaps):.4e}); ms a "
+           f"step {statistics.median(times):.1f} (median) vs alone "
+           f"{d['ms']:.1f}")
+    del local, dec, caches
+
+    # (c) training: Trainer(mesh=) on each mesh, one step and every step
+    # on one batch. The losses within NOISE_MULT of the floor (1
+    # microbatch against the other orders alone), which the fall of
+    # alone's losses exceeds;
+    # the parameters sampled after the first and the last step within
+    # NOISE_MULT of their floor, relative to alone's update, which stays
+    # below 1 (a step that updates nothing); the parameters gathered
+    # bitwise equal over "data"
+    del full
+    torch.cuda.empty_cache()
+    base = alone["train"].pop("mb 1")
+    want_l = torch.tensor(base["losses"])
+    t_floor = max(float((torch.tensor(v["losses"]) - want_l).abs().max())
+                  for v in alone["train"].values())
+    fall = float((want_l - want_l[0]).abs().max())
+    init = alone["init_sample"]
+    for shape, mesh in meshes.items():
+        tag = f"{shape[0]}x{shape[1]}"
+        gaps, peak = {}, 0
+        for steps in (1, len(train)):
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms, params, t = _lm_mesh_train(
+                cfg, LM_MESH_DIR / f"mesh-{tag}-{steps}", train[:steps],
+                mesh=mesh)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            whole = lm_mesh.gather_tree(params, t.shards.params, mesh)
+            flat = torch.cat([x.reshape(-1).float()
+                              for x in tree.leaves(whole)])
+            every = all_gather_cat(flat[None], mesh, "data")
+            check(all(torch.equal(every[i], every[0])
+                      for i in range(every.shape[0])),
+                  f"lm mesh {tag} train: the gathered parameters differ "
+                  "between data ranks")
+            got_s = _param_sample(whole)
+            del params, t, whole, flat, every
+            torch.cuda.empty_cache()
+            ref_s = base["sample"][steps]
+            p_floor = max(_update_gap(v["sample"][steps], ref_s, init)
+                          for v in alone["train"].values())
+            gaps[steps] = (_update_gap(got_s, ref_s, init), p_floor)
+            check(0 < p_floor and NOISE_MULT * p_floor < 1
+                  and gaps[steps][0] <= NOISE_MULT * p_floor,
+                  f"lm mesh {tag} train rank {rank}: parameters after "
+                  f"{steps} steps {gaps[steps][0]:.3e} of alone's update "
+                  f"from alone's, floor {p_floor:.3e} (limit {NOISE_MULT} "
+                  "x the floor, below 1)")
+        peaks[f"train {tag}"] = peak
+        if rank == 0:
+            got = torch.tensor(losses)
+            gap = float((got - want_l).abs().max())
+            check(all(map(_finite, losses)) and t_floor > 0
+                  and gap <= NOISE_MULT * t_floor
+                  and fall > NOISE_MULT * t_floor,
+                  f"lm mesh {tag} train: losses {losses} vs alone "
+                  f"{want_l.tolist()}: {gap:.3e}, more than {NOISE_MULT} x "
+                  f"the floor {t_floor:.3e}, or alone's fall {fall:.3e} "
+                  "within it")
+            r.line(f"train {tag} (zero1): {len(train)} steps on one batch "
+                   f"of {lmm['train_batch']} x {lmm['train_seq']} tokens, "
+                   f"lr {lmm['lr']}, grad_clip 1.0: losses "
+                   f"{[round(x, 5) for x in losses]} vs alone "
+                   f"{[round(x, 5) for x in want_l.tolist()]}: "
+                   f"{gap:.4e}, floor {t_floor:.4e} "
+                   f"({gap / (t_floor or 1e-30):.2f} x, limit {NOISE_MULT}; "
+                   f"alone's losses fall {fall:.4f}); parameters "
+                   + ", ".join(f"after {k} steps {g:.4f} of alone's update "
+                               f"from alone's, floor {f:.4f} "
+                               f"({g / (f or 1e-30):.2f} x)"
+                               for k, (g, f) in gaps.items())
+                   + f" ({init.numel()} sampled); ms a step "
+                   f"{statistics.median(ms):.1f} (median of steps 2-"
+                   f"{len(train)}) vs alone {base['ms']:.1f}")
+        del losses
+    how = transport()
+    close_ranks()
+    (Path(store) / f"rank{rank}.json").write_text(json.dumps(
+        {"backend": f"{backend}, {how}", "device": str(device),
+         "lines": r.lines,
+         "launches": r.launches, "peaks": peaks,
+         "seconds": time.perf_counter() - t0}))
+
+
+def phase_lm_mesh(device, rows, errs):
+    """The LM on a (data x model) mesh (``distributed.steps``,
+    ``Trainer(mesh=)``): Llama-3-8B at full width, LM_MESH["n_layers"] of
+    its 32 blocks, bf16, seed 0, on 2 ranks sharing this card (gloo),
+    each held to the same work done alone here first
+    (:func:`_lm_mesh_alone`): (a) ``build_prefill`` on 1x2 and 2x1 under
+    pallas, the flash kernel launched on each rank at its local heads and
+    held against its plain version, the logits within NOISE_MULT of the
+    noise floor; (b) ``build_decode_step`` on 1x2 (the caches' sequence
+    over "model"): greedy tokens by ``_argmax_check``; (c) ``Trainer(
+    mesh=)`` steps on 2x1 (zero1) and 1x2 on one batch: losses within
+    NOISE_MULT of the floor, which their fall exceeds; the parameters after
+    the first and the last step within NOISE_MULT of their floor relative
+    to alone's update; parameters gathered bitwise equal over "data". The
+    ranks exchange through the card's windows. Returns the prefill's
+    launches, summed over the ranks."""
+    import gc
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    LM_MESH_DIR.mkdir(parents=True)
+    payload = _lm_mesh_alone(device, rows, errs)
+    alone_peak = max(v["peak"] for v in payload["train"].values())
+    torch.save(payload, LM_MESH_DIR / "alone.pt")
+    del payload
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    world = LM_MESH["world"]
+    mp.start_processes(_lm_mesh_rank, args=(world, str(LM_MESH_DIR)),
+                       nprocs=world, join=True, start_method="spawn")
+    ranks = [json.loads((LM_MESH_DIR / f"rank{k}.json").read_text())
+             for k in range(world)]
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    for msg in ranks[0]["lines"]:
+        log(f"[lm mesh] {msg}")
+    total = {}
+    for k, rk in enumerate(ranks):
+        log(f"[lm mesh] rank {k} ({rk['device']}, {rk['backend']}): "
+            f"flash_attention launches {rk['launches']}; peak GB "
+            + ", ".join(f"{p} {v / 1e9:.2f}" for p, v in rk["peaks"].items()))
+        for n in rk["launches"].values():
+            total["flash_attention"] = total.get("flash_attention", 0) + n
+    worst = max(sum(rk["peaks"][p] for rk in ranks) for p in ranks[0]["peaks"])
+    check(worst < LM_TRAIN_MEM, f"lm mesh: the ranks' peaks sum to "
+                                f"{worst / 1e9:.2f} GB")
+    log(f"[lm mesh] {world} ranks over {ranks[0]['backend']} on one card; "
+        f"largest sum of the ranks' peaks {worst / 1e9:.2f} GB (alone's "
+        f"training peak {alone_peak / 1e9:.2f} GB); alone {t1 - t0:.1f} s, "
+        f"ranks {[round(rk['seconds'], 1) for rk in ranks]} s, phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"lm mesh prefill": total}
 
 
 def main() -> int:
@@ -5984,6 +6552,7 @@ def main() -> int:
     paths.update(phase_autotune(device))
     paths.update(phase_scheduler(device, card, errs))
     paths.update(phase_mesh(device))
+    paths.update(phase_lm_mesh(device, rows, errs))
     paths.update(phase_sampled(device))
     paths.update(phase_lm_zoo(device, rows, errs))
     paths.update(lm_paths)
@@ -6009,7 +6578,7 @@ def main() -> int:
                  **{k: rows[f"flash_attention[{tag}]"][k] for k in (
                      "max_abs_err", "ms", "plain_ms", "bound_ms",
                      "bound_by", "library_ms")}}
-                for tag in FLASH_ZOO_TAGS]
+                for tag in FLASH_ZOO_TAGS + (FLASH_TP_TAG,)]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

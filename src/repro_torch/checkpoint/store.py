@@ -72,11 +72,12 @@ def save_pytree(tree_: object, directory: str) -> None:
     os.rename(tmp, directory)
 
 
-def load_pytree(tree_like, directory: str):
+def load_pytree(tree_like, directory: str, *, device=None):
     """Restore into the structure of ``tree_like``: each leaf a tensor with
-    the stored dtype, on the device of the matching leaf of ``tree_like``.
-    Raises ``IOError`` on a failed integrity check or a leaf count or shape
-    that does not match."""
+    the stored dtype, on ``device`` or else the device of the matching
+    leaf of ``tree_like`` (which may be a meta tensor when ``device`` is
+    given). Raises ``IOError`` on a failed integrity check or a leaf count
+    or shape that does not match."""
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     npz_path = os.path.join(directory, "shard-0.npz")
@@ -95,7 +96,8 @@ def load_pytree(tree_like, directory: str):
                 raise IOError(f"checkpoint {directory}: leaf {i} has shape "
                               f"{a.shape}, expected {tuple(ref.shape)}")
             restored.append(_from_numpy(a, ref, f"checkpoint {directory}: "
-                                        f"leaf {i}").to(ref.device))
+                                        f"leaf {i}").to(
+                device if device is not None else ref.device))
     return tree.unflatten(tree_like, restored)
 
 
@@ -130,8 +132,8 @@ class CheckpointManager:
         save_pytree(tree_, self._dir(step))
         self._gc()
 
-    def restore(self, step: int, tree_like):
-        return load_pytree(tree_like, self._dir(step))
+    def restore(self, step: int, tree_like, *, device=None):
+        return load_pytree(tree_like, self._dir(step), device=device)
 
     def _gc(self) -> None:
         for s in self.steps()[:-self.keep]:

@@ -26,6 +26,16 @@ MoE (``init_moe``, ``moe_apply``) routes each token to its top-k experts
 with a per-expert capacity and runs the experts as one batched product
 over the expert axis, the reference's einsums; it never calls the grouped
 matmul kernel, as the reference never calls ``_gmm``.
+
+On a mesh (``repro_torch.distributed.lm_mesh``'s layout) the same code
+runs on this rank's rows and shards: attention takes its local head
+counts from ``wq`` / ``wk``'s shards and, when they are the Megatron
+pair's, sums its row product over "model"; the dense SwiGLU likewise
+(``ffn_apply(tp=True)``). Decode over caches whose sequence axis "model"
+splits is the reference's sequence-parallel decode (``constrain_decode``):
+each rank scores its cache slots, and the per-rank (max, sum, output)
+combine in rank order. The MoE balance loss takes the global means, and the
+scatter dispatch's slots are token-major over the global batch.
 """
 from __future__ import annotations
 
@@ -35,7 +45,9 @@ import torch.nn.functional as F
 
 from repro_torch import tuning
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import lm_mesh
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch.mesh import all_gather_cat, axis_rank
 
 
 def _normal(shape, dtype, generator, device) -> torch.Tensor:
@@ -235,17 +247,76 @@ def _decode_attention(q, k, v, cfg: ModelConfig, cache_pos: int):
     s_cache = k.shape[1]
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    slots = torch.arange(s_cache, device=q.device)
+    valid = _valid_slots(torch.arange(s_cache, device=q.device), cfg,
+                         cache_pos, s_cache)
+    s = torch.where(valid[None, None, None, :], s, -torch.inf)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+
+
+def _mesh_decode(q, k, v, ck, cv, cfg: ModelConfig, cache_pos: int,
+                 tp: bool):
+    """Decode attention over a mesh's "model" axis of more than one rank:
+    q (B, 1, H, hd) and the step's k, v (B, 1, KV, hd) (this rank's heads
+    under ``tp``, gathered first), the rank's cache ``ck``, ``cv``. The
+    step's k/v are written into the slot's owner. With the cache's
+    sequence split over "model" and ``constrain_decode``, each rank scores
+    its own slots and the (max, sum, output) of every rank combine in rank
+    order (the same sums on every rank); otherwise the cache is gathered
+    at use. Returns (B, 1, H, hd) in f32, all heads."""
+    lay = lm_mesh.layout()
+    mesh = lay.mesh
+    if tp:
+        q, k, v = (all_gather_cat(x, mesh, "model", 2) for x in (q, k, v))
+    s_loc = ck.shape[1]
+    s_glob = s_loc * lay.model if lay.kv_seq else s_loc
+    slot = cache_pos % s_glob if cfg.window else cache_pos
+    slot = max(0, min(slot, s_glob - 1))
+    base = axis_rank(mesh, "model") * s_loc if lay.kv_seq else 0
+    if base <= slot < base + s_loc:
+        ck[:, slot - base] = k[:, 0].to(ck.dtype)
+        cv[:, slot - base] = v[:, 0].to(cv.dtype)
+    groups = cfg.n_heads // cfg.n_kv_heads
+    if not (lay.kv_seq and tuning.flags().constrain_decode):
+        if lay.kv_seq:                          # gathered at use
+            ck, cv = (all_gather_cat(c, mesh, "model", 1) for c in (ck, cv))
+        return _decode_attention(q, _repeat_kv(ck, groups),
+                                 _repeat_kv(cv, groups), cfg, cache_pos)
+    kr, vr = _repeat_kv(ck, groups), _repeat_kv(cv, groups)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) \
+        * q.shape[-1] ** -0.5
+    valid = _valid_slots(base + torch.arange(s_loc, device=q.device), cfg,
+                         cache_pos, s_glob)
+    s = torch.where(valid[None, None, None, :], s, -torch.inf)
+    mx = s.amax(dim=-1)                                   # (B, H, 1)
+    m_safe = torch.where(torch.isneginf(mx), 0.0, mx)
+    p = torch.where(valid[None, None, None, :],
+                    torch.exp(s - m_safe[..., None]), 0.0)
+    stats = all_gather_cat(torch.stack([mx, p.sum(-1)])[None], mesh,
+                           "model", 0)                    # (m, 2, B, H, 1)
+    outs = all_gather_cat(torch.einsum("bhqk,bkhd->bhqd", p,
+                                       vr.float())[None], mesh, "model", 0)
+    top = stats[:, 0].amax(dim=0)
+    total = torch.zeros_like(top)
+    out = torch.zeros_like(outs[0])
+    for r in range(stats.shape[0]):                       # rank order
+        w = torch.exp(torch.where(torch.isneginf(stats[r, 0]), -torch.inf,
+                                  stats[r, 0] - top))
+        total = total + stats[r, 1] * w
+        out = out + outs[r] * w[..., None]
+    return (out / total[..., None]).transpose(1, 2)
+
+
+def _valid_slots(slots, cfg: ModelConfig, cache_pos: int, s_cache: int):
+    """Which cache ``slots`` hold a position the step at ``cache_pos``
+    attends: written yet and, with a window (ring buffer of ``s_cache``
+    slots), inside it."""
     if cfg.window:
         # slot s holds absolute position cache_pos - ((cache_pos - s) mod S)
         age = torch.remainder(cache_pos - slots, s_cache)
         exists = (slots <= cache_pos) | (cache_pos >= s_cache)
-        valid = exists & (age < cfg.window)
-    else:
-        valid = slots <= cache_pos
-    s = torch.where(valid[None, None, None, :], s, -torch.inf)
-    w = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+        return exists & (age < cfg.window)
+    return slots <= cache_pos
 
 
 def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
@@ -257,14 +328,25 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
     hd): written in place at ``cache_pos`` (a ring buffer when
     ``cfg.window``) for self-attention; read whole, unwritten and unmasked,
     with ``cache_mode="read_all"`` (cross-attention over a precomputed
-    cache). ``xa`` (B, Ta, D) is the cross-attention source. Returns (out,
-    the cache)."""
+    cache). ``xa`` (B, Ta, D) is the cross-attention source. The head
+    counts are ``wq`` / ``wk``'s: fewer than the config's when they are a
+    mesh rank's Megatron shards (the output is then summed over "model").
+    Returns (out, the cache)."""
     b, t, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h, kv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    tp = h != cfg.n_heads
+    if tp:                      # the Megatron pair's input
+        x = lm_mesh.copy_to_model(x)
+        xa = None if xa is None else lm_mesh.copy_to_model(xa)
+        p = {**p, **{n: {"scale": lm_mesh.copy_to_model(p[n]["scale"])}
+                     for n in ("q_norm", "k_norm") if n in p}}
     q = (x @ p["wq"]).reshape(b, t, h, hd)
     if kv_cache is not None and cache_mode == "read_all":
         # a static cache: no projection of the source, no write, no mask
         ck, cv = kv_cache["k"], kv_cache["v"]
+        if tp:
+            ck, cv = (lm_mesh.heads_of_rank(c, kv) for c in (ck, cv))
         if cfg.qk_norm:
             q = rms_norm(p["q_norm"], q)
         groups = h // ck.shape[2]
@@ -273,7 +355,8 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
         w = torch.softmax(s, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", w,
                            _repeat_kv(cv, groups).float()).to(x.dtype)
-        return (out.reshape(b, t, h * hd) @ p["wo"]).to(x.dtype), kv_cache
+        return _out_proj(p, out.reshape(b, t, h * hd), x.dtype, tp), \
+            kv_cache
     src = x if xa is None else xa
     k = (src @ p["wk"]).reshape(b, src.shape[1], kv, hd)
     v = (src @ p["wv"]).reshape(b, src.shape[1], kv, hd)
@@ -285,7 +368,15 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
         k = rope(k, positions, cfg.rope_theta)
     causal = causal and xa is None
 
-    if kv_cache is not None and xa is None:
+    lay = lm_mesh.layout()
+    if kv_cache is not None and xa is None and lay is not None \
+            and lay.model > 1:
+        out = _mesh_decode(q, k, v, kv_cache["k"], kv_cache["v"], cfg,
+                           cache_pos, tp)
+        if tp:
+            out = lm_mesh.heads_of_rank(out, h)
+        out = out.to(x.dtype)
+    elif kv_cache is not None and xa is None:
         ck, cv = kv_cache["k"], kv_cache["v"]
         s_cache = ck.shape[1]
         slot = cache_pos % s_cache if cfg.window else cache_pos
@@ -311,8 +402,14 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, *,
             else:
                 out = chunked_attention(q, k, v, causal=causal,
                                         window=cfg.window)
-    out = out.reshape(b, t, h * hd) @ p["wo"]
-    return out.to(x.dtype), kv_cache
+    return _out_proj(p, out.reshape(b, t, h * hd), x.dtype, tp), kv_cache
+
+
+def _out_proj(p, out, dtype, tp: bool):
+    """``out @ wo`` in ``dtype``; under ``tp`` the rank's partial row
+    product, summed over "model"."""
+    out = (out @ p["wo"]).to(dtype)
+    return lm_mesh.reduce_from_model(out) if tp else out
 
 
 # ---------------------------------------------------------------------------
@@ -325,8 +422,15 @@ def init_ffn(d: int, d_ff: int, dtype, *, generator=None, device=None):
             "w_down": _normal((d_ff, d), dtype, generator, device)}
 
 
-def ffn_apply(p, x):
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def ffn_apply(p, x, tp: bool = False):
+    """SwiGLU; under ``tp`` the weights are this rank's Megatron shards
+    (``w_gate`` / ``w_up`` columns, ``w_down`` rows) and the output is
+    summed over "model"."""
+    if not tp:
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    x = lm_mesh.copy_to_model(x)
+    return lm_mesh.reduce_from_model(
+        (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"])
 
 
 def init_moe(cfg: ModelConfig, dtype, *, generator=None, device=None):
@@ -363,25 +467,40 @@ def _route(p, cfg: ModelConfig, x):
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     tokens = tuple(range(probs.dim() - 1))
-    me = probs.mean(dim=tokens)
-    ce = F.one_hot(eids[..., 0], e).float().mean(dim=tokens)
+    onehot = F.one_hot(eids[..., 0], e).float()
+    lay = lm_mesh.layout()
+    if lay is None or not lay.rows:
+        me, ce = probs.mean(dim=tokens), onehot.mean(dim=tokens)
+    else:
+        # a product of GLOBAL means: the per-expert sums and the token count
+        # summed over the ranks that split the rows
+        n = lm_mesh.sum_rows(torch.tensor(float(probs[..., 0].numel()),
+                                          device=probs.device))
+        me = lm_mesh.sum_rows_grad(probs.sum(dim=tokens)) / n
+        ce = lm_mesh.sum_rows(onehot.sum(dim=tokens)) / n
     return gate_vals, eids, e * torch.sum(me * ce)
 
 
-def _dispatch_experts(p, cfg: ModelConfig, x, gate_vals, eids, cap: int):
+def _dispatch_experts(p, cfg: ModelConfig, x, gate_vals, eids, cap: int,
+                      global_rows: bool = False):
     """Capacity dispatch of ``x`` (G, n, D) in G independent groups, ONE
     batched expert product over every (group, expert) buffer, and the
     gated combine. A (token, k) pair takes the next slot of its expert in
     token-major order; past ``cap`` it is dropped (the reference's drop
-    bucket at slot ``cap``, whose sums are discarded). The dispatch is a
-    gather: each slot reads its one source token, and an empty slot or a
-    dropped pair reads a zero row, so no slot is ever summed into and the
-    result does not depend on the order of a scatter. Returns (G, n, D)."""
+    bucket at slot ``cap``, whose sums are discarded). With
+    ``global_rows`` (one group, on a mesh whose ranks split the rows) the
+    order runs over the global batch: the slots start past the pairs of
+    every earlier rank. The dispatch is a gather: each slot reads its one
+    source token, and an empty slot or a dropped pair reads a zero row, so
+    no slot is ever summed into and the result does not depend on the
+    order of a scatter. Returns (G, n, D)."""
     g, n, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     flat_e = eids.reshape(g, n * k)
     onehot = F.one_hot(flat_e, e)                        # (G, n·k, E)
     pos = (onehot.cumsum(dim=1) * onehot).sum(-1) - 1     # slot in expert
+    if global_rows:
+        pos = pos + lm_mesh.row_offset(onehot.sum(dim=(0, 1)))[flat_e]
     keep = pos < cap
     group = torch.arange(g, device=x.device)[:, None]
     trash = g * e * cap                                   # a zero row
@@ -392,6 +511,8 @@ def _dispatch_experts(p, cfg: ModelConfig, x, gate_vals, eids, cap: int):
         0, dest.reshape(-1), token.reshape(-1), "amin")
     rows = F.pad(x.reshape(g * n, d), (0, 0, 0, 1))       # row g·n is 0
     buf = rows[src[:trash]].reshape(g, e, cap, d)
+    # the reference's expert-parallel layout hints have no counterpart:
+    # each rank computes every expert on its rows
     hidden = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"])) \
         * torch.einsum("gecd,edf->gecf", buf, p["w_up"])
     out_buf = torch.einsum("gecf,efd->gecd", hidden, p["w_down"])
@@ -410,7 +531,7 @@ def _moe_grouped(p, cfg: ModelConfig, x, capacity_factor):
                             _capacity(capacity_factor, t, cfg.top_k,
                                       cfg.n_experts))
     if cfg.shared_expert:
-        out = out + ffn_apply(p["shared"], x)
+        out = out + ffn_apply(p["shared"], x, lm_mesh.tp_ffn(cfg))
     return out, aux
 
 
@@ -419,8 +540,9 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *, capacity_factor=None):
     expert product (``torch.einsum`` over the expert axis, as the
     reference's einsums). ``tuning.flags().moe_dispatch``: ``"grouped"``
     (per-sequence capacity) or ``"scatter"`` / ``"sharded_scatter"`` (one
-    group of all B·T tokens; the sharded form's constraints are the
-    identity on one device). ``capacity_factor`` defaults to the flag's.
+    group of all B·T tokens, of the global batch on a mesh; the sharded
+    form's constraints are layout hints only). ``capacity_factor``
+    defaults to the flag's.
     Returns (out (B, T, D), aux)."""
     fl = tuning.flags()
     if capacity_factor is None:
@@ -430,11 +552,16 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor, *, capacity_factor=None):
     b, t, d = x.shape
     n, k = b * t, cfg.top_k
     gate_vals, eids, aux = _route(p, cfg, x.reshape(n, d))
+    lay = lm_mesh.layout()
+    split = lay is not None and bool(lay.rows)
     out = _dispatch_experts(p, cfg, x.reshape(1, n, d),
                             gate_vals.reshape(1, n, k),
                             eids.reshape(1, n, k),
-                            _capacity(capacity_factor, n, k, cfg.n_experts))
+                            _capacity(capacity_factor,
+                                      n * lm_mesh.rows_size(), k,
+                                      cfg.n_experts), global_rows=split)
     out = out.reshape(n, d)
     if cfg.shared_expert:
-        out = out + ffn_apply(p["shared"], x.reshape(n, d))
+        out = out + ffn_apply(p["shared"], x.reshape(n, d),
+                              lm_mesh.tp_ffn(cfg))
     return out.reshape(b, t, d), aux

@@ -60,6 +60,8 @@ from torch.utils.checkpoint import (
 
 from repro_torch import resolve_device, tree, tuning
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import lm_mesh
+from repro_torch.distributed.sharding import cache_specs
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
     attention_apply,
@@ -185,7 +187,7 @@ def _attn_cache(cfg, lead, batch, cache_len, dtype, device):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
-                      enc_len: int = 0, *, device=None) -> dict:
+                      enc_len: int = 0, *, device=None, mesh=None) -> dict:
     """Zero decode caches on ``device``: KV caches sized for ``cache_len``
     past tokens (+8 slots of room), recurrent states in f32. One per
     position of the block pattern (``"0"``, ``"1"`` …), stacked over the
@@ -193,7 +195,19 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     ``groups_attn`` (n_groups, …) and ``tail_mamba``; Whisper's
     ``cross_kv`` of ``enc_len`` slots (rounded up to a multiple of 8, at
     least 8, then to 128 as every KV cache), which nothing fills (the
-    reference's ``prefill`` returns the encoder's output instead)."""
+    reference's ``prefill`` returns the encoder's output instead). Under
+    ``mesh``, this rank's shards of those caches by
+    ``sharding.cache_specs`` (on the mesh's device)."""
+    if mesh is not None:
+        device = resolve_device(device, mesh)
+        full = init_decode_state(cfg, batch, cache_len, enc_len,
+                                 device="meta")
+
+        def local(t, spec):
+            return torch.zeros(lm_mesh.local_shape(t.shape, spec, mesh),
+                               dtype=t.dtype, device=device)
+
+        return lm_mesh.map_specs(local, full, cache_specs(full, mesh))
     device = resolve_device(device)
     dt = _dtype(cfg)
     cache_len = cache_len + 8
@@ -269,7 +283,8 @@ def _apply_sublayer(kind, p, cfg, x, *, positions, cache, cache_pos):
     x = x + a
     h = rms_norm(p["ln2"], x, cfg.norm_eps)
     if kind == "attn_dense":
-        return x + ffn_apply(p["ffn"], h), cache, _zeros(x)
+        return x + ffn_apply(p["ffn"], h, lm_mesh.tp_ffn(cfg)), cache, \
+            _zeros(x)
     mo, aux = moe_apply(p["moe"], cfg, h)
     return x + mo, cache, aux
 
@@ -299,16 +314,19 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _maybe_checkpoint(body, remat: bool):
     """``body`` under the per-block checkpoint of
-    ``tuning.flags().remat_policy`` (the flags of this call: the backward's
-    recompute runs under them too, wherever the backward is called)."""
+    ``tuning.flags().remat_policy`` (the flags and mesh layout of this
+    call: the backward's recompute runs under them too, wherever the
+    backward is called)."""
     if not remat:
         return body
     fl = tuning.flags()
     if fl.remat_policy == "none":
         return body
+    lay = lm_mesh.layout()
 
     def replay(*args):
-        with tuning.use_flags(**dataclasses.asdict(fl)):
+        with tuning.use_flags(**dataclasses.asdict(fl)), \
+                lm_mesh.use_layout(lay):
             return body(*args)
 
     kw = {}
@@ -470,7 +488,10 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, remat: bool = False,
     at the positions past the patches, plus ``aux_weight · aux /
     max(n_layers, 1)``. The logits are taken in ``cfg.dtype``, as the
     reference's, and cast to f32 for the log-sum-exp. Returns (total,
-    {"nll", "aux", "tokens"}), all 0-d f32 tensors."""
+    {"nll", "aux", "tokens"}), all 0-d f32 tensors. On a mesh whose ranks
+    split the rows (``lm_mesh.use_layout``), ``total`` is this rank's
+    share: the shares sum to the global loss, and the metrics are the
+    global ones."""
     logits, aux = forward(params, cfg, batch, remat=remat)
     logits = logits[:, :-1].float()
     targets = batch["tokens"][:, 1:].long()
@@ -486,10 +507,20 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, remat: bool = False,
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets[..., None])[..., 0]
     nll = (logz - gold) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
+    if lm_mesh.rows_size() == 1:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = nll.sum() / denom
+        total = loss + aux_weight * aux / max(cfg.n_layers, 1)
+        return total, {"nll": loss, "aux": aux, "tokens": denom}
+    # the ranks split the rows: this rank's share of the global masked sum
+    # over the GLOBAL token count (the counts differ between shards), and
+    # its share of the balance loss (of the global means)
+    denom = torch.clamp(lm_mesh.sum_rows(mask.sum()), min=1.0)
     loss = nll.sum() / denom
-    total = loss + aux_weight * aux / max(cfg.n_layers, 1)
-    return total, {"nll": loss, "aux": aux, "tokens": denom}
+    total = loss + aux_weight * aux / max(cfg.n_layers, 1) \
+        / lm_mesh.rows_size()
+    return total, {"nll": lm_mesh.sum_rows(loss.detach()), "aux": aux,
+                   "tokens": denom}
 
 
 def prefill(params, cfg: ModelConfig, batch: dict):

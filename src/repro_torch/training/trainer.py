@@ -1,4 +1,5 @@
-"""The trainers: the LM ``Trainer`` (the reference's, on one device) and
+"""The trainers: the LM ``Trainer`` (the reference's, on one device or a
+mesh) and
 ChemGCN training (``GCNTrainer``), the reference's ``GCNTrainer`` over
 batched SpMM (§IV-D, §V-B).
 
@@ -11,8 +12,10 @@ line is appended to ``metrics.jsonl`` in the checkpoint directory;
 checkpoints every ``checkpoint_every`` steps; a SIGTERM during ``fit``
 ends the loop after the current step with one final checkpoint; a restart
 resumes from the newest checkpoint (the caller's iterator starts at that
-step: ``synthetic_data(..., start_step=)``). ``device=`` takes the place of
-the reference's ``mesh``.
+step: ``synthetic_data(..., start_step=)``). ``Trainer(mesh=)`` trains on
+a (data × model) ``DeviceMesh``, each rank holding its shards of the
+state; checkpoints hold the full tensors, written by rank 0, so a restart
+on another mesh shape (or one device) re-shards them.
 
 One ``GCNTrainer`` step is the reference's jitted step run eagerly on the
 trainer's device: value and grad of :func:`repro_torch.core.gcn.gcn_loss`,
@@ -45,9 +48,7 @@ all-gathers the sharded gradients and all-reduces the fused layer's dW and
 dbias), and everything else runs on global tensors, so every rank holds the
 same parameters with no gradient all-reduce of its own. Rank 0 writes the
 checkpoints; every rank waits for the write, then restores. ``fit_sampled``
-raises on a mesh, as the reference's does. The LM ``Trainer``'s ``mesh=``
-waits for the LM slice of the distributed stack (``ROADMAP.md`` queue 1:
-sharding and the distributed stack).
+raises on a mesh, as the reference's does.
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ import time
 from typing import Callable, Iterator
 
 import torch
+from torch.distributed.tensor import Replicate
 
 from repro_torch import resolve_device, tree
 from repro_torch.autotune.cost_model import precision_of
@@ -74,9 +76,10 @@ from repro_torch.core.gcn import (
     resolve_conv_impls,
 )
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.compression import ef_init
-from repro_torch.distributed.steps import build_train_step
+from repro_torch.distributed import lm_mesh
+from repro_torch.distributed.steps import build_train_step, shaped_params
 from repro_torch.kernels.ops import IMPLS, check_impl
+from repro_torch.launch.mesh import all_reduce_max, barrier
 from repro_torch.models import lm
 from repro_torch.observability import TRACER, default_registry
 from repro_torch.optim.adam import (
@@ -102,64 +105,149 @@ class TrainerConfig:
     microbatches: int = 1
     remat: bool = False
     compress_grads: bool = False
-    zero1: bool = True            # read by no step: one device shards nothing
+    zero1: bool = True            # on a mesh: Adam moments split over "data"
 
 
 class Trainer:
     """LM pretraining of ``cfg`` with ``opt`` on ``device`` (the current
-    CUDA device unless the caller asks for another)."""
+    CUDA device unless the caller asks for another), or on every rank of
+    ``mesh`` (a ``DeviceMesh``; the mesh's device, and a conflicting
+    ``device=`` raises). On a mesh every rank runs ``fit`` on the same
+    global batches and holds only its shards of the parameters and the
+    Adam state (``distributed.steps``: ``tcfg.zero1`` splits the moments
+    over "data"); rank 0 writes the metrics and the checkpoints, which hold
+    the full tensors (every rank waits for the write), and a restore
+    re-shards them for the current mesh, so a run saved on one mesh
+    resumes on another or on one device."""
 
     def __init__(self, cfg: ModelConfig, opt: AdamConfig, tcfg: TrainerConfig,
-                 *, device=None):
-        self.cfg, self.opt, self.tcfg = cfg, opt, tcfg
-        self.device = resolve_device(device)
+                 *, mesh=None, device=None):
+        self.cfg, self.opt, self.tcfg, self.mesh = cfg, opt, tcfg, mesh
+        self.device = resolve_device(device, mesh)
         self.manager = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep)
         self._step_fn = build_train_step(
-            cfg, opt, microbatches=tcfg.microbatches, remat=tcfg.remat,
-            compress_grads=tcfg.compress_grads, device=self.device)
+            cfg, opt, mesh=mesh, microbatches=tcfg.microbatches,
+            remat=tcfg.remat, compress_grads=tcfg.compress_grads,
+            zero1=tcfg.zero1, device=self.device)
+        self.shards = self._step_fn.shards
         self._interrupted = False
 
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes metrics and checkpoints."""
+        return self.mesh is None or self.mesh.get_rank() == 0
+
     # -- state ---------------------------------------------------------
+
+    def _state_specs(self) -> dict:
+        """Placements of the Adam state's entries (the moments' and the
+        residuals' by ``shards.moments``, ``step`` replicated)."""
+        m = self.shards.moments
+        specs = {"m": m, "v": m, "step": tuple(
+            Replicate() for _ in self.mesh.mesh_dim_names)}
+        if self.tcfg.compress_grads:
+            specs["ef_err"] = m
+        return specs
 
     def init_state(self):
         """Fresh parameters from ``tcfg.seed`` (a ``torch.Generator`` on the
         device: not the reference's numbers), zero Adam state and, with
-        ``compress_grads``, zero residuals ``ef_err``."""
+        ``compress_grads``, zero residuals ``ef_err``; on a mesh, this
+        rank's shards of them (the parameters are drawn whole, as on one
+        device, then split)."""
         params = lm.init_params(
             self.cfg, generator=torch.Generator(
                 device=self.device).manual_seed(self.tcfg.seed),
             device=self.device)
-        opt_state = adam_init(params)
+        if self.mesh is not None:
+            params = lm_mesh.shard_tree(params, self.shards.params,
+                                        self.mesh)
+        opt_state = adam_init(params, self.shards)
         if self.tcfg.compress_grads:
-            opt_state["ef_err"] = ef_init(params)
+            opt_state["ef_err"] = tree.tree_map(torch.zeros_like,
+                                                opt_state["m"])
         return params, opt_state
 
     def restore_or_init(self):
         """(params, opt_state, step): the newest checkpoint and its step,
         or a fresh state at step 0."""
-        params, opt_state = self.init_state()
         latest = self.manager.latest_step()
-        if latest is not None:
-            params, opt_state = self.manager.restore(
-                latest, (params, opt_state))
+        if latest is None:
+            params, opt_state = self.init_state()
+            return params, opt_state, 0
+        if self.mesh is None:
+            params, opt_state = self.manager.restore(latest,
+                                                     self.init_state())
             return params, opt_state, latest
-        return params, opt_state, 0
+        like = self._full_like()
+        params, opt_state = self.manager.restore(latest, like, device="cpu")
+        params = lm_mesh.map_specs(
+            lambda t, p: lm_mesh.shard(t, p, self.mesh).to(self.device),
+            params, self.shards.params)
+        opt_state = lm_mesh.map_specs(
+            lambda t, p: lm_mesh.shard(t, p, self.mesh).to(self.device),
+            opt_state, self._state_specs())
+        return params, opt_state, latest
+
+    def _full_like(self):
+        """The full (params, opt_state) tree as meta tensors."""
+        params = shaped_params(self.cfg)
+
+        def f32(t):
+            return torch.empty(t.shape, dtype=torch.float32, device="meta")
+
+        state = {"m": tree.tree_map(f32, params),
+                 "v": tree.tree_map(f32, params),
+                 "step": torch.empty((), dtype=torch.int32, device="meta")}
+        if self.tcfg.compress_grads:
+            state["ef_err"] = tree.tree_map(f32, params)
+        return params, state
+
+    def save(self, step: int, params, opt_state) -> None:
+        """Checkpoint ``(params, opt_state)`` at ``step``; on a mesh every
+        rank gathers the full tensors (to the host, leaf by leaf), rank 0
+        writes them, and every rank returns once the write is done."""
+        if self.mesh is None:
+            self.manager.save(step, (params, opt_state))
+            return
+
+        def full(t, p):
+            return lm_mesh.gather(t, p, self.mesh).cpu()
+
+        whole = (lm_mesh.map_specs(full, params, self.shards.params),
+                 lm_mesh.map_specs(full, opt_state, self._state_specs()))
+        if self.is_writer:
+            self.manager.save(step, whole)
+        barrier(self.mesh)
 
     # -- loop ----------------------------------------------------------
 
     def _on_sigterm(self, *_):
         self._interrupted = True
 
+    def _stop(self) -> bool:
+        """Whether to end the loop: this process had a SIGTERM or, on a
+        mesh, any rank had one (every rank stops after the same step)."""
+        if self.mesh is None:
+            return self._interrupted
+        flag = torch.tensor([float(self._interrupted)], device=self.device)
+        for axis in self.mesh.mesh_dim_names:
+            flag = all_reduce_max(flag, self.mesh, axis)
+        return bool(flag.item())
+
     def fit(self, data_iter: Iterator[dict],
             on_metrics: Callable[[int, dict], None] | None = None):
         """Train from the newest checkpoint (or step 0) to
-        ``tcfg.total_steps``, one batch of ``data_iter`` a step. Returns
-        (params, opt_state)."""
+        ``tcfg.total_steps``, one batch of ``data_iter`` a step (the global
+        batch on every rank of a mesh). Returns (params, opt_state), this
+        rank's shards on a mesh. The metrics file and ``on_metrics`` are
+        rank 0's."""
         tcfg = self.tcfg
         params, opt_state, start = self.restore_or_init()
         old_handler = signal.signal(signal.SIGTERM, self._on_sigterm)
         log_path = os.path.join(tcfg.checkpoint_dir, "metrics.jsonl")
         step = start
+        stopped = False
         try:
             for step in range(start, tcfg.total_steps):
                 batch = next(data_iter)
@@ -170,19 +258,21 @@ class Trainer:
                     loss = float(metrics["loss"])   # the sync point
                     rec = {"step": step + 1, "loss": loss,
                            "time": time.time()}
-                    with open(log_path, "a") as f:
-                        f.write(json.dumps(rec) + "\n")
-                    if on_metrics:
-                        on_metrics(step + 1, rec)
+                    if self.is_writer:
+                        with open(log_path, "a") as f:
+                            f.write(json.dumps(rec) + "\n")
+                        if on_metrics:
+                            on_metrics(step + 1, rec)
                 if (step + 1) % tcfg.checkpoint_every == 0:
-                    self.manager.save(step + 1, (params, opt_state))
-                if self._interrupted:
+                    self.save(step + 1, params, opt_state)
+                if self._stop():
+                    stopped = True
                     break
         finally:
             signal.signal(signal.SIGTERM, old_handler)
-        if self._interrupted:
+        if stopped:
             # preemption: one final durable checkpoint before returning
-            self.manager.save(step + 1, (params, opt_state))
+            self.save(step + 1, params, opt_state)
         return params, opt_state
 
 
@@ -284,8 +374,6 @@ class GCNTrainer:
         if self.mesh is None:
             self.manager.save(step, (params, state))
             return
-        from repro_torch.launch.mesh import barrier
-
         if self.mesh.get_rank() == 0:
             self.manager.save(step, (params, state))
         barrier(self.mesh)

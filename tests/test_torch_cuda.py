@@ -2,8 +2,10 @@
 
 Marked ``cuda``: they need an NVIDIA card and ``nvcc`` and skip without
 them. On the card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
-Each test seeds torch's generators with a fresh seed and prints it (shown
-with a failure); ``REPRO_TEST_SEED=<seed>`` replays those inputs.
+Each test seeds torch's generators with a fresh seed, prints it and, when
+it fails, puts it at the head of the failure's message (so a run that
+prints only its summary keeps it); ``REPRO_TEST_SEED=<seed>`` replays
+those inputs.
 The fused kernel's row buckets (integer atomics order a row's slots) add
 in a run-dependent order, so those are held to the f32 tolerance (1e-4,
 1e-5), not bitwise; the COO, CSR, ELL, hybrid and GEMM kernels (their
@@ -11,6 +13,7 @@ large-matrix entries too, which give their batched entries' bits), the
 fused kernel's large-matrix branch and the grouped matmul have no float
 atomics and give identical bits twice.
 """
+import functools
 import os
 
 import numpy as np
@@ -1680,6 +1683,27 @@ def test_flash_attention_kernel_at_the_zoo_shapes(dev, shape, dtype):
     assert torch.equal(got, flash_attention(q, k, v, causal=causal))
 
 
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_flash_attention_kernel_at_the_tp_local_heads(dev, dtype):
+    """The kernel at one rank's heads of Llama-3-8B's prefill under a
+    "model" axis of 2 (H 16 on KV 4: the GQA group of 4 kept) against its
+    plain version, identical bits twice. Tolerance: the reference test's,
+    2e-5 (f32) and 3e-2 (bf16)."""
+    from repro_torch.kernels.flash_attention import KV_TILE, flash_attention
+
+    dt = getattr(torch, dtype)
+    q = torch.randn((2, 4096, 16, 128), device=dev).to(dt)
+    k, v = (torch.randn((2, 4096, 4, 128), device=dev).to(dt)
+            for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_plain(q, k, v, causal=True, kv_block=KV_TILE)
+    tol = 2e-5 if dt == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, flash_attention(q, k, v, causal=True))
+
+
 @pytest.mark.parametrize("arch", ("rwkv6-1.6b", "zamba2-7b", "whisper-small",
                                   "llava-next-34b"))
 def test_zoo_lm_on_the_card_matches_the_cpu(dev, arch):
@@ -2209,3 +2233,23 @@ def test_sharded_kernels_on_the_card_match_single_device(dev, tmp_path):
                                 "fused", "fused_hybrid")},
         device_type="cuda")
     assert out[0]["launched"] == out[1]["launched"]
+
+
+def _with_seed(test):
+    """``test``, its failure re-raised with the replay seed (the one
+    ``_torch_seed`` set) at the head of the message."""
+    @functools.wraps(test)
+    def run(*args, **kwargs):
+        try:
+            return test(*args, **kwargs)
+        except Exception as e:
+            seed = torch.initial_seed()
+            raise AssertionError(f"REPRO_TEST_SEED={seed}: "
+                                 f"{type(e).__name__}: {e}") from e
+
+    return run
+
+
+for _name, _test in list(globals().items()):
+    if _name.startswith("test_") and callable(_test):
+        globals()[_name] = _with_seed(_test)

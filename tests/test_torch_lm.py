@@ -15,6 +15,7 @@ two packages take in other orders; a port's decode against its own forward
 2e-3, the reference test's.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import Shard
 
 from oracle import TOLS
 from repro import configs as jconfigs
@@ -33,6 +35,8 @@ from repro_torch import configs as tconfigs
 from repro_torch import tuning as ttuning
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.data import tokens as ttokens
+from repro_torch.distributed import lm_mesh as tlm_mesh
+from repro_torch.distributed import steps as tsteps
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models import ssm as tssm
@@ -91,12 +95,21 @@ def test_registry_shape_cells_and_tune_flags_match_reference():
     with ttuning.use_flags(attention_impl="pallas", q_block=8) as fl:
         assert fl.attention_impl == ttuning.flags().attention_impl == "pallas"
     assert ttuning.flags() == ttuning.TuneFlags()
-    # a field the port does not read raises rather than doing nothing
-    for pair in ("constrain_decode=false", "fsdp=true"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: "
-                           "sharding and the distributed stack"):
-            with ttuning.use_flags(**ttuning.parse_tune_args([pair])):
-                pass
+    # every field has a reader: none raises. fsdp splits the mesh train
+    # step's parameters over "data" (constrain_decode's reader, the
+    # sequence-parallel decode, runs in tests/test_torch_lm_mesh.py)
+    assert ttuning.UNPORTED == {}
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(2, 2))
+    cfg = tconfigs.get("llama3-8b").reduced()
+    data_split = []
+    for pair in ("constrain_decode=false", "fsdp=true", "fsdp=false"):
+        with ttuning.use_flags(**ttuning.parse_tune_args([pair])) as fl:
+            assert ttuning.flags() == fl
+            specs = tsteps.train_shards(cfg, mesh).params
+            data_split.append(sum(isinstance(p[0], Shard) for p in
+                                  tlm_mesh.spec_leaves(specs)))
+    assert data_split[1] > 0 == data_split[0] == data_split[2], data_split
     assert ttuning.flags() == ttuning.TuneFlags()
     # the Mamba2 mixer reads mamba_chunk: set, it takes the chunked form
     cfg = tconfigs.get("zamba2-7b").reduced()

@@ -17,21 +17,23 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Replicate
 
 F32_TOL = (1e-4, 1e-5)          # tests/oracle.py TOLS["f32"]: (atol, rtol)
 TRAIN_TOL = 1e-5                # the reference's mesh-trainer test
 
 
 def run_ranks(fn, world: int, tmp: Path, payload, *,
-              device_type: str = "cpu") -> list:
+              device_type: str = "cpu", shape=None) -> list:
     """Run ``fn(rank, mesh, payload)`` on ``world`` spawned ranks (on the
-    CPU, or on the card: ranks sharing it take gloo); returns the ranks'
-    results in rank order."""
+    CPU, or on the card: ranks sharing it take gloo), on a ("data",) mesh
+    of ``world`` ranks, or a ("data", "model") mesh of ``shape``; returns
+    the ranks' results in rank order."""
     tmp = Path(tmp)
     with open(tmp / "payload.pkl", "wb") as f:
         pickle.dump(payload, f)
     torch.multiprocessing.spawn(
-        _entry, args=(world, str(tmp), fn.__name__, device_type),
+        _entry, args=(world, str(tmp), fn.__name__, device_type, shape),
         nprocs=world, join=True)
     out = []
     for rank in range(world):
@@ -41,21 +43,22 @@ def run_ranks(fn, world: int, tmp: Path, payload, *,
 
 
 def _entry(rank: int, world: int, tmp: str, name: str,
-           device_type: str) -> None:
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import init_ranks, make_mesh
+           device_type: str, shape) -> None:
+    from repro_torch.launch.mesh import close_ranks, init_ranks, make_mesh
 
     torch.set_num_threads(1)
     backend = init_ranks(rank, world, f"file://{tmp}/store",
                          device_type=device_type)
     if device_type == "cpu" or torch.cuda.device_count() < world:
         assert backend == "gloo", backend
-    mesh = make_mesh((world,), ("data",), device_type=device_type)
+    mesh = (make_mesh((world,), ("data",), device_type=device_type)
+            if shape is None else
+            make_mesh(tuple(shape), ("data", "model"),
+                      device_type=device_type))
     with open(Path(tmp) / "payload.pkl", "rb") as f:
         payload = pickle.load(f)
     result = globals()[name](rank, mesh, payload)
-    dist.destroy_process_group()
+    close_ranks()
     with open(Path(tmp) / f"result{rank}.pkl", "wb") as f:
         pickle.dump(result, f)
 
@@ -461,3 +464,470 @@ def card(rank: int, mesh, p: dict) -> dict:
                 else:
                     same(tag, sh.cpu(), loc.cpu())
     return {"launched": launched}
+
+
+# -- the LM on a (data x model) mesh (tests/test_torch_lm_mesh.py) ---------
+
+
+def _lm_cfg(arch: str, fields: dict):
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get(arch).reduced(), **fields)
+
+
+def _tensors(np_tree):
+    from repro_torch import tree
+
+    return tree.tree_map(lambda a: torch.from_numpy(np.array(a)), np_tree)
+
+
+def _full(t_tree, specs, mesh):
+    from repro_torch.distributed import lm_mesh
+
+    return lm_mesh.gather_tree(t_tree, specs, mesh)
+
+
+def _close_trees(what, got, want, tol) -> float:
+    """Every leaf of ``got`` within ``tol`` (atol, rtol) of ``want``'s;
+    returns the largest difference."""
+    from repro_torch import tree
+
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(tree.leaves(got), tree.leaves(want),
+                                   strict=True)):
+        w = torch.as_tensor(np.asarray(w))
+        assert tuple(g.shape) == tuple(w.shape), (what, i, g.shape, w.shape)
+        close(f"{what} leaf {i}", g.float(), w.float().numpy(), tol)
+        worst = max(worst, float((g.float() - w.float()).abs().max()))
+    return worst
+
+
+def _same_over_data(what, t_tree, mesh) -> None:
+    """Every leaf bitwise equal on every rank of the data axis."""
+    from repro_torch import tree
+    from repro_torch.launch.mesh import all_gather_cat
+
+    for i, t in enumerate(tree.leaves(t_tree)):
+        every = all_gather_cat(t.reshape(1, -1), mesh, "data")
+        for r in range(1, every.shape[0]):
+            same(f"{what} leaf {i} on data rank {r}", every[r], every[0])
+
+
+def _local_bytes(what, local, full, specs, mesh) -> int:
+    """This rank's tensors hold exactly its shards' bytes (fewer than the
+    full tree's where anything is split)."""
+    from repro_torch import tree
+    from repro_torch.distributed import lm_mesh
+
+    want = sum(math.prod(lm_mesh.local_shape(t.shape, p, mesh))
+               * t.element_size()
+               for t, p in zip(tree.leaves(full), lm_mesh.spec_leaves(specs),
+                               strict=True))
+    got = sum(t.numel() * t.element_size() for t in tree.leaves(local))
+    assert got == want, (what, got, want)
+    return got
+
+
+def _rel(a, b) -> float:
+    """The relative L2 distance of tree ``a`` from tree ``b``."""
+    from repro_torch import tree
+
+    num = sum(float(((x - y).double() ** 2).sum())
+              for x, y in zip(tree.leaves(a), tree.leaves(b), strict=True))
+    return (num / sum(float((y.double() ** 2).sum())
+                      for y in tree.leaves(b))) ** 0.5
+
+
+def _train_case(cfg, mesh, full_params, batches, case, opt):
+    """``case``'s steps on the mesh and on one device from the same
+    parameters, two ways.
+
+    Free-running, six steps: the losses within TRAIN_TOL at every step
+    (with the int8 compression, whose rounding turns a last-bit
+    difference of a gradient into a whole quantum, within 2x the
+    single-device noise floor where that is larger: the largest loss
+    difference of the single-device run from the same run in another
+    order of the same sums, the attention blocks doubled or another
+    microbatch count); the gathered parameters bitwise equal on every data
+    rank.
+
+    Step by step: each mesh step starts from the single-device state
+    before it (split as the mesh holds it), and the gathered parameters
+    and moments after it are within TRAIN_TOL of the single-device step's
+    in relative L2 distance (with the compression, or 2x the distance of
+    the other-order runs from the single-device one at that step, where
+    larger). Elementwise, Adam's update divides by the gradient's own
+    scale, so a rounding difference of a gradient near 0 moves its
+    parameter by up to lr, on one device too; a free-running comparison
+    compounds that over the steps. The compression itself is held bit for
+    bit by :func:`_compression_bits`.
+
+    Returns the (mesh, one device) losses and the step-by-step
+    distances."""
+    from repro_torch import tree, tuning
+    from repro_torch.distributed import lm_mesh
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.optim.adam import adam_init
+
+    name = f"train {case}"
+    compress = case["compress"]
+
+    def state0(p, shards=None):
+        s = adam_init(p, shards)
+        if compress:
+            s["ef_err"] = tree.tree_map(torch.zeros_like, s["m"])
+        return s
+
+    def copy(t):
+        return tree.tree_map(torch.clone, t)
+
+    def alone(mb, **flags):
+        step = build_train_step(cfg, opt, device="cpu", microbatches=mb,
+                                compress_grads=compress)
+        p = copy(full_params)
+        s = state0(p)
+        out = [(None, copy(p), copy(s))]
+        with tuning.use_flags(**flags):
+            for b in batches:
+                p, s, m = step(p, s, {k: torch.from_numpy(v)
+                                      for k, v in b.items()})
+                out.append((float(m["loss"]), copy(p), copy(s)))
+        return out
+
+    with tuning.use_flags(fsdp=case["fsdp"]):
+        step_m = build_train_step(cfg, opt, mesh=mesh, zero1=case["zero1"],
+                                  microbatches=case["mb"],
+                                  compress_grads=compress)
+    shards = step_m.shards
+    moments = {"m": shards.moments, "v": shards.moments,
+               "step": tuple(Replicate() for _ in mesh.mesh_dim_names)}
+    if compress:
+        moments["ef_err"] = shards.moments
+    one = alone(case["mb"])
+    if compress:
+        fl = tuning.flags()
+        others = [alone(case["mb"], q_block=2 * fl.q_block,
+                        kv_block=2 * fl.kv_block),
+                  alone(2 if case["mb"] == 1 else 1)]
+    p_m = lm_mesh.shard_tree(copy(full_params), shards.params, mesh)
+    s_m = state0(p_m, shards)
+    losses, dists = [], []
+    for i, b in enumerate(batches):
+        batch = {k: torch.from_numpy(v) for k, v in b.items()}
+        p_m, s_m, m_m = step_m(p_m, s_m, batch)
+        losses.append((float(m_m["loss"]), one[i + 1][0]))
+        tol = TRAIN_TOL
+        if compress:
+            tol = max(tol, 2 * max(abs(o[i + 1][0] - one[i + 1][0])
+                                   for o in others))
+        assert abs(losses[-1][0] - losses[-1][1]) <= tol, (
+            name, "step", i, losses)
+        _same_over_data(f"{name} params after step {i + 1}",
+                        _full(p_m, shards.params, mesh), mesh)
+        # one mesh step from the single-device state before it
+        _, p_prev, s_prev = one[i]
+        p_t = lm_mesh.shard_tree(copy(p_prev), shards.params, mesh)
+        s_t = lm_mesh.map_specs(lambda t, q: lm_mesh.shard(t, q, mesh),
+                                copy(s_prev), moments)
+        p_t, s_t, _ = step_m(p_t, s_t, batch)
+        d = (_rel(_full(p_t, shards.params, mesh), one[i + 1][1]),
+             _rel(_full(s_t["m"], shards.moments, mesh), one[i + 1][2]["m"]))
+        dists.append(d)
+        lim = (TRAIN_TOL, TRAIN_TOL)
+        if compress:
+            lim = tuple(max(TRAIN_TOL, 2 * max(_rel(f(o[i + 1]), f(one[i + 1]))
+                                               for o in others))
+                        for f in (lambda r: r[1], lambda r: r[2]["m"]))
+        assert d[0] <= lim[0] and d[1] <= lim[1], (
+            name, "step", i, "params, m", d, lim)
+    return {"losses": losses, "dists": dists}
+
+
+def _compression_bits(cfg, mesh, grads, shards) -> None:
+    """The sharded int8 compression of the single-device gradients (split
+    as the moments are), gathered, equals the single-device compression bit
+    for bit: the scale is the whole leaf's."""
+    from repro_torch import tree
+    from repro_torch.distributed import lm_mesh
+    from repro_torch.distributed.compression import (
+        ef_init,
+        ef_int8_compress_decompress,
+    )
+
+    want = ef_int8_compress_decompress(grads, ef_init(grads))
+    local = lm_mesh.shard_tree(grads, shards.moments, mesh)
+    got = ef_int8_compress_decompress(
+        local, tree.tree_map(lambda t: torch.zeros_like(t,
+                                                        dtype=torch.float32),
+                             local), shards)
+    for what, g, w in zip(("dequantized", "residual"), got, want):
+        g = lm_mesh.gather_tree(g, shards.moments, mesh)
+        for i, (a, b) in enumerate(zip(tree.leaves(g), tree.leaves(w))):
+            same(f"compression {what} leaf {i}", a, b)
+
+
+def lm_mesh(rank: int, mesh, p: dict) -> dict:
+    """One mesh shape's checks: the first step's loss and gradients
+    (gathered) against the port on one device (TRAIN_TOL) and the
+    reference's JAX ones (3x F32_TOL); 6 train steps of every case of
+    ``p["cases"]`` (zero1 on and off, FSDP, compression, microbatches,
+    active clipping) against one device (:func:`_train_case`); the sharded
+    compression bit for bit; each rank's bytes equal to its shards'; prefill logits within TRAIN_TOL and greedy decode tokens
+    identical (sequence-parallel and gathered caches); with ``p["moe"]``,
+    Mixtral's balance loss and both dispatches, and LLaVA's patch mask."""
+    from repro_torch import tuning
+    from repro_torch.distributed import lm_mesh as lmm
+    from repro_torch.distributed.steps import loss_and_grads, train_shards
+    from repro_torch.optim.adam import AdamConfig, adam_init
+
+    out = {"shape": tuple(mesh.shape)}
+    cfg = _lm_cfg(p["arch"], p["fields"])
+    full = _tensors(p["params"])
+    first = {k: torch.from_numpy(v) for k, v in p["batches"][0].items()}
+    with tuning.use_flags(**p["flags"]):
+        # the first step's loss and gradients
+        shards = train_shards(cfg, mesh)
+        local = lmm.shard_tree(full, shards.params, mesh)
+        loss_m, g_m = loss_and_grads(cfg, local, first, shards=shards)
+        loss_1, g_1 = loss_and_grads(cfg, full, first)
+        assert abs(float(loss_m) - float(loss_1)) <= TRAIN_TOL, (
+            float(loss_m), float(loss_1))
+        g_full = _full(g_m, shards.moments, mesh)
+        out["grad_vs_local"] = _close_trees("grads", g_full, g_1,
+                                            (TRAIN_TOL, 0.0))
+        assert abs(float(loss_m) - p["ref_loss"]) <= 3 * F32_TOL[0]
+        out["grad_vs_ref"] = _close_trees(
+            "grads vs reference", g_full, p["ref_grads"],
+            (3 * F32_TOL[0], 3 * F32_TOL[1]))
+        out["param_bytes"] = _local_bytes("params", local, full,
+                                          shards.params, mesh)
+        state = adam_init(local, shards)
+        out["moment_bytes"] = _local_bytes("moments", state["m"], full,
+                                           shards.moments, mesh)
+        _compression_bits(cfg, mesh, g_1, shards)
+        del local, state
+        # train steps
+        opt = AdamConfig(lr=1e-2, grad_clip=p["clip"])
+        out["losses"] = {str(c): _train_case(cfg, mesh, full, p["batches"],
+                                             c, opt) for c in p["cases"]}
+        # serving: prefill, then greedy decode
+        out["serve"] = _serve_checks(cfg, mesh, full, p)
+    if p.get("moe"):
+        out["moe"] = _moe_checks(mesh, p["moe"])
+    out["zoo"] = {arch: _zoo_checks(mesh, arch, p["flags"])
+                  for arch in p["zoo"]}
+    return out
+
+
+def _zoo_checks(mesh, arch: str, flags: dict) -> dict:
+    """Every family on the mesh against one device, reduced, seed 1: the
+    first step's loss and gathered gradients, the prefill logits and 6
+    decode steps' logits within TRAIN_TOL (Whisper's frames and LLaVA's
+    patches in the batch; Zamba2's and RWKV-6's recurrent states gathered
+    at use and re-split)."""
+    from repro_torch import tuning
+    from repro_torch.distributed import lm_mesh as lmm
+    from repro_torch.distributed.steps import (
+        build_decode_step,
+        build_prefill,
+        loss_and_grads,
+        param_placements,
+        train_shards,
+    )
+    from repro_torch.models import lm
+
+    cfg = _lm_cfg(arch, {})
+    full = lm.init_params(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    b, t, steps = 4, 16, 6
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, t), generator=gen)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn((b, 24, lm.AUDIO_DIM), generator=gen)
+    if cfg.frontend == "vision_tiles":
+        batch["patch_embeds"] = torch.randn((b, 4, lm.VISION_DIM),
+                                            generator=gen)
+    res = {}
+    with tuning.use_flags(**flags):
+        shards = train_shards(cfg, mesh)
+        loss_m, g_m = loss_and_grads(
+            cfg, lmm.shard_tree(full, shards.params, mesh), batch,
+            shards=shards)
+        loss_1, g_1 = loss_and_grads(cfg, full, batch)
+        assert abs(float(loss_m) - float(loss_1)) <= TRAIN_TOL, arch
+        res["grads"] = _close_trees(f"{arch} grads",
+                                    _full(g_m, shards.moments, mesh), g_1,
+                                    (TRAIN_TOL, 0.0))
+        local = lmm.shard_tree(full, param_placements(cfg, mesh), mesh)
+        got = build_prefill(cfg, mesh)(local, batch)
+        want = build_prefill(cfg, device="cpu")(full, batch)
+        close(f"{arch} prefill", got, want.numpy(), (TRAIN_TOL, 0.0))
+        dec_m = build_decode_step(cfg, mesh, batch=b, cache_len=t, enc_len=24)
+        dec_1 = build_decode_step(cfg, device="cpu")
+        c_m = lm.init_decode_state(cfg, b, t, 24, mesh=mesh)
+        c_1 = lm.init_decode_state(cfg, b, t, 24, device="cpu")
+        worst = 0.0
+        for pos in range(steps):
+            tok = batch["tokens"][:, pos:pos + 1]
+            lg_m, _ = dec_m(local, tok, c_m, pos)
+            lg_1, _ = dec_1(full, tok, c_1, pos)
+            close(f"{arch} decode at {pos}", lg_m, lg_1.numpy(),
+                  (TRAIN_TOL, 0.0))
+            worst = max(worst, float((lg_m - lg_1).abs().max()))
+        res["decode"] = worst
+    return res
+
+
+def _serve_checks(cfg, mesh, full, p) -> dict:
+    """Prefill logits within TRAIN_TOL; the prompt fed through decode then
+    ``p["new_tokens"]`` greedy steps: logits within TRAIN_TOL each step and
+    the same tokens, under ``constrain_decode`` on and off; each rank's
+    cache bytes equal to its shards'."""
+    from repro_torch import tuning
+    from repro_torch.distributed import lm_mesh as lmm
+    from repro_torch.distributed.sharding import cache_specs
+    from repro_torch.distributed.steps import (
+        build_decode_step,
+        build_prefill,
+        param_placements,
+    )
+    from repro_torch.models import lm
+
+    prompt = torch.from_numpy(p["prompt"])
+    b, t = prompt.shape
+    local = lmm.shard_tree(full, param_placements(cfg, mesh), mesh)
+    got = build_prefill(cfg, mesh)(local, {"tokens": prompt})
+    want = build_prefill(cfg, device="cpu")(full, {"tokens": prompt})
+    close("prefill logits", got, want.numpy(), (TRAIN_TOL, 0.0))
+    res = {"prefill": float((got - want).abs().max())}
+    cache_len = t + p["new_tokens"]
+    for constrain in (True, False):
+        with tuning.use_flags(constrain_decode=constrain):
+            dec_m = build_decode_step(cfg, mesh, batch=b,
+                                      cache_len=cache_len)
+            dec_1 = build_decode_step(cfg, device="cpu")
+            c_m = lm.init_decode_state(cfg, b, cache_len, mesh=mesh)
+            c_1 = lm.init_decode_state(cfg, b, cache_len, device="cpu")
+            toks, worst = [], 0.0
+            tok_m = tok_1 = prompt[:, :1]
+            for pos in range(t + p["new_tokens"] - 1):
+                lg_m, _ = dec_m(local, tok_m, c_m, pos)
+                lg_1, _ = dec_1(full, tok_1, c_1, pos)
+                close(f"decode logits at {pos}", lg_m, lg_1.numpy(),
+                      (TRAIN_TOL, 0.0))
+                worst = max(worst, float((lg_m - lg_1).abs().max()))
+                if pos + 1 < t:
+                    tok_m = tok_1 = prompt[:, pos + 1:pos + 2]
+                else:
+                    tok_m, tok_1 = lg_m.argmax(-1), lg_1.argmax(-1)
+                    assert torch.equal(tok_m, tok_1), (pos, tok_m, tok_1)
+                    toks.append(tok_m[:, 0].tolist())
+        full_c = lm.init_decode_state(cfg, b, cache_len, device="meta")
+        res[f"constrain_decode={constrain}"] = {
+            "tokens": toks, "worst": worst,
+            "cache_bytes": _local_bytes("caches", c_m, full_c,
+                                        cache_specs(full_c, mesh), mesh),
+            "k_shape": tuple(c_m["0"]["k"].shape)}
+    return res
+
+
+def _moe_checks(mesh, p: dict) -> dict:
+    """Mixtral: the first step's loss (its balance loss over the global
+    means) and gradients, and 2 steps, under the grouped and the scatter
+    dispatch (drops at a small capacity factor); LLaVA with patch
+    embeddings (the loss masked past them): the same."""
+    from repro_torch import tuning
+    from repro_torch.distributed import lm_mesh as lmm
+    from repro_torch.distributed.steps import loss_and_grads, train_shards
+    from repro_torch.optim.adam import AdamConfig
+
+    res = {}
+    for name, case in p.items():
+        cfg = _lm_cfg(case["arch"], case["fields"])
+        full = _tensors(case["params"])
+        batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        with tuning.use_flags(**case["flags"]):
+            shards = train_shards(cfg, mesh)
+            local = lmm.shard_tree(full, shards.params, mesh)
+            loss_m, g_m = loss_and_grads(cfg, local, batch, shards=shards)
+            loss_1, g_1 = loss_and_grads(cfg, full, batch)
+            assert abs(float(loss_m) - float(loss_1)) <= TRAIN_TOL, (
+                name, float(loss_m), float(loss_1))
+            worst = _close_trees(f"{name} grads",
+                                 _full(g_m, shards.moments, mesh), g_1,
+                                 (TRAIN_TOL, 0.0))
+            losses = _train_case(
+                cfg, mesh, full, [case["batch"]] * 2, dict(
+                    mb=1, compress=False, fsdp=False, zero1=True),
+                AdamConfig(lr=1e-2, grad_clip=1.0))
+        res[name] = {"loss": float(loss_m), "grad_diff": worst,
+                     "losses": losses}
+    return res
+
+
+def lm_resume(rank: int, mesh, p: dict) -> dict:
+    """``Trainer(mesh=)``: on the first mesh, train to ``p["stop"]`` with a
+    checkpoint there; on the second mesh (or one device, ``mesh`` None),
+    restore it (the re-sharded state, gathered, equal to the saved one bit
+    for bit) and resume to ``p["steps"]``: the losses of the resumed steps
+    within TRAIN_TOL of an unbroken run on one device."""
+    import shutil
+
+    from repro_torch.checkpoint.store import load_pytree
+    from repro_torch.distributed import lm_mesh as lmm
+    from repro_torch.launch.mesh import barrier
+    from repro_torch.launch.train import synthetic_data
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = _lm_cfg(p["arch"], p["fields"])
+    opt = AdamConfig(lr=1e-2, grad_clip=1.0)
+    root = Path(p["root"])
+
+    def trainer(name, total, mesh_=mesh):
+        return Trainer(cfg, opt, TrainerConfig(
+            checkpoint_dir=str(root / name), total_steps=total,
+            checkpoint_every=p["stop"], log_every=1), mesh=mesh_,
+            device="cpu" if mesh_ is None else None)
+
+    def fit(t, start):
+        losses = {}
+        data = synthetic_data(cfg, p["batch"], p["seq"], start_step=start,
+                              device="cpu")
+        try:
+            t.fit(data, on_metrics=lambda s, rec: losses.update(
+                {s: rec["loss"]}))
+        finally:
+            data.close()
+        return losses
+
+    if p["phase"] == "save":
+        t = trainer("run", p["stop"])
+        fit(t, 0)
+        return {"steps": t.manager.steps()}
+    name = f"resume-{p['tag']}"
+    if rank == 0:
+        shutil.copytree(root / "run", root / name)
+    if mesh is not None:
+        barrier(mesh)
+    t = trainer(name, p["steps"])
+    params, state, start = t.restore_or_init()
+    assert start == p["stop"], start
+    saved = load_pytree(t._full_like(), str(root / name / f"step_{start:010d}"),
+                        device="cpu")
+    if mesh is not None:
+        params = lmm.gather_tree(params, t.shards.params, mesh)
+        state = lmm.gather_tree(state, t._state_specs(), mesh)
+    for what, got, want in (("params", params, saved[0]),
+                            ("state", state, saved[1])):
+        from repro_torch import tree
+        for i, (g, w) in enumerate(zip(tree.leaves(got), tree.leaves(want),
+                                       strict=True)):
+            same(f"restored {what} leaf {i}", g, w)
+    resumed = fit(t, start)
+    whole = fit(trainer(f"whole-{p['tag']}-{rank}", p["steps"], None), 0)
+    if rank == 0:
+        assert sorted(resumed) == list(range(start + 1, p["steps"] + 1))
+        for s_, loss in resumed.items():
+            assert abs(loss - whole[s_]) <= TRAIN_TOL, (s_, resumed, whole)
+    return {"resumed": resumed, "whole": whole}
